@@ -1,0 +1,52 @@
+"""Weight transplant from the JAX package into the port.
+
+``load_jax_leaves(net, leaves)`` takes the ``{str(i): ndarray}`` dict that
+``normflow__tpu.utils.serialization.leaves_of(jax_net)`` produces and copies
+it into the port's parameters, in the JAX package's leaf order.  The
+numpy dict is the only interface: this module imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..models.nets import CircularConv
+
+__all__ = ["jax_leaf_order", "load_jax_leaves"]
+
+
+def jax_leaf_order(module):
+    """``(owner, name, parameter)`` for every parameter of ``module``, in
+    the JAX package's leaf order: a module's parameters, then its children,
+    each in registration order, except where a module names its own order
+    (``leaf_order``)."""
+    names = getattr(module, "leaf_order", None)
+    if names is None:
+        names = [*module._parameters, *module._modules]
+    for name in names:
+        value = getattr(module, name)
+        if isinstance(value, torch.nn.Parameter):
+            yield module, name, value
+        elif isinstance(value, torch.nn.Module):
+            yield from jax_leaf_order(value)
+
+
+@torch.no_grad()
+def load_jax_leaves(net, leaves: dict):
+    """Copy JAX leaves into ``net``.  Conv weights go HWIO -> OIHW (the
+    input-channel order is kept: field first, row parity second).  Raises
+    on a count or shape mismatch."""
+    params = list(jax_leaf_order(net))
+    if len(params) != len(leaves):
+        raise ValueError(f"{len(leaves)} JAX leaves for {len(params)} "
+                         "parameters: architecture mismatch")
+    for i, (owner, name, p) in enumerate(params):
+        a = np.asarray(leaves[str(i)])
+        if isinstance(owner, CircularConv) and name == "weight":
+            a = a.transpose(a.ndim - 1, a.ndim - 2, *range(a.ndim - 2))
+        if tuple(a.shape) != tuple(p.shape):
+            raise ValueError(f"leaf {i} ({type(owner).__name__}.{name}): "
+                             f"shape {a.shape}, parameter {tuple(p.shape)}")
+        p.copy_(torch.tensor(a, dtype=p.dtype))
+    return net

@@ -1,0 +1,68 @@
+"""Model zoo: the 2-D phi^4 flagship (``normflow__tpu/zoo.py:51-107``).
+
+PSD block -> DistConvertor -> RQ-spline coupling of ``n_layers`` packed
+checkerboard conditioners, each ``RowParityFeature(ConvNet)`` with 3x3
+circular convs and tanh, no bias -> DistConvertor, over a standard normal
+prior, with the action ``ScalarPhi4Action(kappa, m_sq, lambd)``.
+
+The weights start as in the JAX build, from the same distributions (the
+random streams differ): Kaiming-uniform conv weights with bound
+``1/sqrt(fan_in)``, zero spline weights, and the FFT flow's ``logy`` from
+its effective-mass initialisation.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .models.actions import ScalarPhi4Action
+from .models.core import FlowList
+from .models.couplings import RQSplineCoupling
+from .models.elementwise import DistConvertor
+from .models.masks import PackedEvenOddMask
+from .models.nets import ConvNet, RowParityFeature
+from .models.priors import NormalPrior
+from .models.spectral import FFTFlow, MeanFieldFlow, PSDBlock
+from .training.model import Model
+from .utils.device import resolve_device
+
+__all__ = ["build_phi4_model"]
+
+
+def build_phi4_model(lat_shape=(32, 32), *, kappa=0.6, m_sq=-2.4, lambd=0.5,
+                     knots=8, hidden=(24, 24), n_layers=4, dc_knots=16,
+                     packed=True, kernel_size=3, seed=0,
+                     dtype=torch.float32, device=None) -> Model:
+    """The flagship on ``device`` (``None`` means ``cuda``, and raises when
+    no GPU is present).  Only the packed checkerboard layout is ported."""
+    if not packed:
+        raise NotImplementedError("only packed=True (PackedEvenOddMask) is "
+                                  "ported")
+    device = resolve_device(device)
+    lat_shape = tuple(lat_shape)
+    gen = torch.Generator().manual_seed(seed)
+    kw = dict(dtype=dtype, device=device)
+
+    def make_net():
+        return RowParityFeature(ConvNet(
+            2, 3 * knots - 2, kernel_size, conv_dim=len(lat_shape),
+            hidden_sizes=tuple(hidden), acts=("tanh",) * len(hidden) + (None,),
+            bias=False, generator=gen, **kw))
+
+    net_ = FlowList([
+        PSDBlock(
+            mfnet=MeanFieldFlow(8, smooth=True, final_scale=True, **kw),
+            fftnet=FFTFlow(lat_shape, knots_len=8, ignore_zeromode=True,
+                           **kw),
+        ),
+        DistConvertor(dc_knots, smooth=True, **kw),
+        RQSplineCoupling(
+            [make_net() for _ in range(n_layers)],
+            mask=PackedEvenOddMask(shape=lat_shape),
+            xlim=(-4.0, 4.0), ylim=(-4.0, 4.0),
+            extrap={"left": "linear", "right": "linear"}),
+        DistConvertor(dc_knots, smooth=True, **kw),
+    ])
+    prior = NormalPrior(shape=lat_shape, **kw)
+    action = ScalarPhi4Action(kappa=kappa, m_sq=m_sq, lambd=lambd)
+    return Model(net_=net_, prior=prior, action=action, seed=seed)

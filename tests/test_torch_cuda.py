@@ -1,0 +1,145 @@
+"""The port's CUDA kernels on the card, against their plain versions.
+
+These tests need a CUDA card and ``nvcc``; without a card they skip.  They
+import nothing of JAX, so they run on a machine without it, from the repo
+root (``--noconftest`` leaves out the JAX test configuration)::
+
+    python -m pytest --noconftest -q -m gpu tests/test_torch_cuda.py
+
+Beyond ``chip_smoke.py`` (the flagship's shapes only) they cover every
+knot count the coupling kernel is built for, one-sided extrapolation, a
+ragged number of sites, the action's lattice ranks and the wrappers'
+refusals.  Tolerances are those of ``chip_smoke.py``: 1e-4 absolute for
+the spline (the JAX Pallas tests' own), 2e-5 relative for the action.
+"""
+
+import copy
+
+import numpy as np
+import pytest
+import torch
+
+from normflow__tpu_torch.models.actions import ScalarPhi4Action
+from normflow__tpu_torch.ops.kernels import phi4, spline_coupling as sc
+from normflow__tpu_torch.zoo import build_phi4_model
+
+pytestmark = pytest.mark.gpu
+
+LIM = (-2.0, 2.0)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    cudnn, matmul = (torch.backends.cudnn.allow_tf32,
+                     torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield torch.device("cuda")
+    finally:
+        torch.backends.cudnn.allow_tf32 = cudnn
+        torch.backends.cuda.matmul.allow_tf32 = matmul
+
+
+@pytest.fixture
+def np_rng():
+    return np.random.default_rng(20261016)
+
+
+def _f32(a, device):
+    return torch.tensor(a, dtype=torch.float32, device=device)
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("m", sc.SUPPORTED_KNOTS)
+def test_rqs_coupling_kernel_matches_plain(cuda, np_rng, m, inverse):
+    b, lat = 3, (5, 7)  # 105 sites: the last block is ragged
+    out = _f32(np_rng.standard_normal((b, 3 * m - 2, *lat)), cuda)
+    for left, right in ((None, None), ("linear", None), (None, "linear"),
+                        ("linear", "linear")):
+        x = np_rng.uniform(-1.9, 1.9, (b, *lat))
+        # reach past the box on the extrapolated sides only
+        x = np.where((x < 0) & bool(left) | (x > 0) & bool(right), 1.6 * x, x)
+        x = _f32(x, cuda)
+        kw = dict(xlim=LIM, ylim=LIM, left=left, right=right,
+                  inverse=inverse)
+        before = sc.rqs_coupling.launches
+        y, g = sc.rqs_coupling(x, out, **kw)
+        assert sc.rqs_coupling.launches == before + 1
+        yp, gp = sc.rqs_coupling_plain(x, out, **kw)
+        torch.cuda.synchronize()
+        for got, want in ((y, yp), (g, gp)):
+            assert bool(torch.isfinite(got).all())
+            torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("lat,hopping", [
+    ((64,), True), ((8, 8), True), ((5, 7), True), ((4, 4, 4), True),
+    ((32, 32), False),
+])
+def test_phi4_action_kernel_matches_plain(cuda, np_rng, lat, hopping):
+    cfgs = _f32(np_rng.standard_normal((33, *lat)), cuda)
+    w0, w2, w4 = ScalarPhi4Action(kappa=0.6, m_sq=-2.4,
+                                  lambd=0.5).get_coef(len(lat))
+    w = (w0 if hopping else 0.0, w2, w4)
+    before = phi4.phi4_action.launches
+    got = phi4.phi4_action(cfgs, *w)
+    assert phi4.phi4_action.launches == before + 1
+    want = phi4.phi4_action_plain(cfgs, *w)
+    torch.cuda.synchronize()
+    rel = (got - want).abs() / want.abs().clamp(min=1.0)
+    assert float(rel.max()) <= 2e-5
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    x = torch.zeros((2, 4, 4), device=cuda)
+    with pytest.raises(TypeError):
+        sc.rqs_coupling(x.double(), torch.zeros((2, 22, 4, 4), device=cuda,
+                                                dtype=torch.float64),
+                        xlim=LIM, ylim=LIM)
+    with pytest.raises(ValueError, match="knots"):  # m = 5 has no instance
+        sc.rqs_coupling(x, torch.zeros((2, 13, 4, 4), device=cuda),
+                        xlim=LIM, ylim=LIM)
+    with pytest.raises(ValueError, match="contiguous"):
+        sc.rqs_coupling(x.transpose(1, 2), torch.zeros((2, 22, 4, 4),
+                                                       device=cuda),
+                        xlim=LIM, ylim=LIM)
+    with pytest.raises(ValueError, match="no kernel"):  # CPU x, CUDA out
+        sc.rqs_coupling(x.cpu(), torch.zeros((2, 22, 4, 4), device=cuda),
+                        xlim=LIM, ylim=LIM)
+    with pytest.raises(NotImplementedError):
+        sc.rqs_coupling(x.requires_grad_(), torch.zeros((2, 22, 4, 4),
+                                                        device=cuda),
+                        xlim=LIM, ylim=LIM)
+    with pytest.raises(TypeError):
+        phi4.phi4_action(torch.zeros((2, 4, 4), device=cuda,
+                                     dtype=torch.float64), 0.6, 0.0, 0.5)
+    with pytest.raises(ValueError, match="1-3 lattice dims"):
+        phi4.phi4_action(torch.zeros((2, 2, 2, 2, 2), device=cuda),
+                         0.6, 0.0, 0.5)
+
+
+def test_small_flagship_gpu_matches_cpu(cuda, np_rng):
+    """The slice at 8x8 on the card against a CPU copy: per-sample logq to
+    1e-5 relative, the same bound as the full-width check."""
+    model = build_phi4_model((8, 8), knots=4, hidden=(4,), n_layers=2,
+                             device=cuda)
+    with torch.no_grad():
+        for p in model.net_.parameters():
+            p.add_(_f32(np_rng.standard_normal(tuple(p.shape)) * 0.1, cuda))
+    net_cpu = copy.deepcopy(model.net_).cpu()
+    prior_cpu = copy.deepcopy(model.prior).cpu()
+    x = _f32(np_rng.standard_normal((16, 8, 8)), "cpu")
+    with torch.no_grad():
+        y, logj = model.net_.forward(x.to(cuda))
+        logq = (model.prior.log_prob(x.to(cuda)) - logj).cpu()
+        y_cpu, logj_cpu = net_cpu.forward(x)
+        logq_cpu = prior_cpu.log_prob(x) - logj_cpu
+        x_back, log0 = model.net_.backward(y, log0=logj)
+    rel = (logq - logq_cpu).abs() / logq_cpu.abs().clamp(min=1.0)
+    assert float(rel.max()) <= 1e-5
+    torch.testing.assert_close(y.cpu(), y_cpu, rtol=0, atol=1e-4)
+    assert float((x_back.cpu() - x).abs().mean()) <= 1e-5
+    assert float(log0.abs().max()) <= 1e-3
