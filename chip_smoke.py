@@ -10,14 +10,23 @@ It needs one CUDA card and ``nvcc`` (the kernels are built from
 use) and imports nothing of JAX.  Phases, each of which raises on failure:
 
 1. the card's name and power limit; TF32 off; build the kernels;
-2. every kernel of the sampling path against its plain PyTorch version on
-   the card, at the flagship's shapes, with the tolerances stated below;
-3. each kernel's time (CUDA events, median), its plain version's time, and
-   the least time the card could take (bytes or operations over the peak);
-4. the main path: the full-width 32x32 phi^4 flagship with seeded perturbed
-   weights, compared GPU vs CPU, then ``logqp_stream`` -> ESS and
-   acceptance, ``mcmc.sample__`` twice, ``backward_sanitychecker``, with
-   every launch counter set to 0 just before the stream and read after it.
+2. every kernel, forward and backward, against its plain PyTorch version
+   on the card, at the flagship's shapes, with the tolerances stated below;
+3. the sampling path: the full-width 32x32 phi^4 flagship with seeded
+   perturbed weights, compared GPU vs CPU, then ``logqp_stream`` -> ESS
+   and acceptance, ``mcmc.sample__`` twice, ``backward_sanitychecker``,
+   with every launch counter set to 0 just before the stream and read
+   after it;
+4. the training path: one path-gradient loss and its gradients, GPU vs a
+   CPU copy; then ``model.fit`` with the bench protocol's settings
+   (``bench.py:278-286``) for ``N_STEPS`` steps on a fresh seeded
+   flagship, counters set to 0 just before and read after; training
+   steps/s;
+5. the zero-dim fit (``examples/scalar_zerodim.py``) on the card;
+6. each kernel's time (profiler device time per call), its plain
+   version's time, and the least time the card could take (bytes or
+   operations over the peak); one profiled sampled batch and one profiled
+   training step.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits non-zero
@@ -42,6 +51,17 @@ RQS_TOL = 1e-4          # max |dy| and max |d log g|, as the Pallas tests use
 PHI4_REL_TOL = 2e-5     # max |dS| / max(1, |S|), as the Pallas tests use
 LOGQ_REL_TOL = 1e-5     # GPU vs CPU per-sample logq, TF32 off
 SANITY_TOL = 1e-5       # mean per-site |x - backward(forward(x))|
+VJP_TOL = 2e-4          # max |d| / max(1, max |plain|), the JAX gradient
+                        # tests' atol (tests/test_kernels.py:148-149)
+FORCE_RTOL, FORCE_ATOL = 2e-4, 2e-5  # tests/test_kernels.py:36-37
+# GPU (float32, TF32 off) vs a float64 CPU copy, one path-gradient step at
+# batch 512: the loss, relative, and |g_gpu - g_cpu| / |g_cpu| per leaf.
+# The float64 copy is the reference because a float32 CPU copy is itself up
+# to 3.4e-3 off it on the mean-field leaves (this check's printout on an
+# H100 80GB HBM3: card vs float64 1.7e-6 / 2.6e-4, CPU float32 vs float64
+# 2.3e-6 / 3.4e-3).
+TRAIN_LOSS_TOL = 1e-5
+TRAIN_GRAD_TOL = 1e-3
 
 # the card's published peaks (NVIDIA data sheets), keyed by a part of the
 # name nvidia-smi reports: memory bytes/s and float32 (non-tensor) FLOP/s
@@ -50,6 +70,7 @@ PEAKS = (("H100 NVL", 3.9e12, 60e12), ("H100 PCIe", 2.0e12, 51e12),
 
 N_BATCHES, BATCH = 32, 1024
 LAT = (32, 32)
+TRAIN_BATCH, N_STEPS = 512, 48  # the bench protocol's batch, a few steps
 
 
 def card_peaks(name):
@@ -290,7 +311,7 @@ def run_main_path(torch, kernels, rng, card):
     if launches != want:
         raise AssertionError(f"launch counts {launches}, want {want}")
     for name, n in launches.items():
-        kernels[name]["launches"] = n
+        kernels[name]["launches_by_path"] = {"sample": n}
 
     if logqp.shape != (N_BATCHES * BATCH,) or not bool(
             torch.isfinite(logqp).all()):
@@ -333,24 +354,279 @@ def run_main_path(torch, kernels, rng, card):
     return model
 
 
-def profile_batch(model):
-    """Where the time of one sampled batch goes on the device."""
-    reps = 4
-    wall, dev = device_profile(
-        lambda: model.posterior.logqp_stream(1, BATCH), reps)
+def check_rqs_bwd(torch, kernels, peaks, rng):
+    """rqs_coupling_bwd vs its plain version (the hand-derived VJP) and vs
+    autograd through the plain forward, at the training shape B=512,
+    K3=22, S=32x16.  Returns the function that times it."""
+    from normflow__tpu_torch.ops.kernels import spline_coupling as sc
+
+    m, b, lat = 8, TRAIN_BATCH, (LAT[0], LAT[1] // 2)
+    out = torch.tensor(rng.standard_normal((b, 3 * m - 2, *lat)),
+                       dtype=torch.float32, device="cuda")
+    ybar, loggbar = (torch.tensor(rng.standard_normal((b, *lat)),
+                                  dtype=torch.float32, device="cuda")
+                     for _ in range(2))
+    worst = 0.0
+    for extrap in (None, "linear"):
+        if extrap is None:  # no extrapolation: stay inside the box
+            x_np = rng.uniform(-3.6, 3.6, (b, *lat))
+        else:
+            x_np = rng.standard_normal((b, *lat))
+        x = torch.tensor(x_np, dtype=torch.float32, device="cuda")
+        for inverse in (False, True):
+            kw = dict(xlim=(-4.0, 4.0), ylim=(-4.0, 4.0), left=extrap,
+                      right=extrap, inverse=inverse)
+            got = sc.rqs_coupling_bwd(x, out, ybar, loggbar, **kw)
+            vjp = sc.rqs_coupling_vjp_plain(x, out, ybar, loggbar, **kw)
+            xa, oa = x.clone().requires_grad_(), out.clone().requires_grad_()
+            y, logg = sc.rqs_coupling_plain(xa, oa, **kw)
+            auto = torch.autograd.grad(
+                (y * ybar).sum() + (logg * loggbar).sum(), (xa, oa))
+            torch.cuda.synchronize()
+            errs = []
+            for want in (vjp, auto):
+                scale = max(1.0, *(float(w.abs().max()) for w in want))
+                errs.append(max(float((g - w).abs().max())
+                                for g, w in zip(got, want)) / scale)
+            print(f"rqs_coupling_bwd extrap={extrap} inverse={inverse}: "
+                  f"max|d|/max(1,max|plain|) vs vjp_plain {errs[0]:.3e}, vs "
+                  f"autograd of plain {errs[1]:.3e} (tol {VJP_TOL})")
+            if not all(bool(torch.isfinite(g).all()) for g in got) \
+                    or not max(errs) <= VJP_TOL:
+                raise AssertionError("rqs_coupling_bwd disagrees with its "
+                                     "plain version")
+            worst = max(worst, max(float((g - w).abs().max())
+                                   for g, w in zip(got, vjp)))
+
+    kernels["rqs_coupling_bwd"] = dict(
+        name="rqs_coupling_bwd", route="cuda",
+        source="normflow__tpu_torch/csrc/rqs_coupling_bwd.cu",
+        replaces="normflow__tpu/ops/kernels/spline_coupling.py:133",
+        max_abs_err=worst, library_ms=None)
+
+    def time_it():
+        """Time a training-path variant: forward, linear extrapolation."""
+        kw = dict(xlim=(-4.0, 4.0), ylim=(-4.0, 4.0), left="linear",
+                  right="linear", inverse=False)
+        t = kernel_times(
+            lambda: sc.rqs_coupling_bwd(x, out, ybar, loggbar, **kw),
+            lambda: sc.rqs_coupling_vjp_plain(x, out, ybar, loggbar, **kw))
+        report("rqs_coupling_bwd", t, nbytes, nops, peaks, kernels)
+
+    sites = b * math.prod(lat)
+    k = m + 2
+    # reads x, ybar, loggbar and 3m-2 channels; writes xbar and 3m-2
+    nbytes = sites * 4 * (4 + 2 * (3 * m - 2))
+    # the forward recomputed (as in check_rqs), about as much again for the
+    # adjoint: ~100 scalar operations, 2 softmax transpositions (~8m), m
+    # sigmoids (~6m) and the adjoint selects (~6m)
+    nops = sites * (22 * m + k + 6 * (k - 1) + 40 + 100 + 20 * m)
+    return time_it
+
+
+def check_phi4_grad(torch, kernels, peaks, rng, action):
+    """phi4_action_grad vs its plain version: the training shape
+    (512, 32, 32), 1-D, 3-D, and the zero-dim fit's one site with w0 = 0.
+    Returns the function that times it."""
+    from normflow__tpu_torch.ops.kernels import phi4
+
+    worst = 0.0
+    zerodim = action.__class__(kappa=0, m_sq=-1.2, lambd=0.5)
+    for shape, act in (((TRAIN_BATCH, *LAT), action), ((BATCH, 64), action),
+                       ((64, 8, 8, 8), action), ((128, 1), zerodim)):
+        cfgs = torch.tensor(rng.standard_normal(shape), dtype=torch.float32,
+                            device="cuda")
+        g = torch.tensor(rng.standard_normal(shape[0]), dtype=torch.float32,
+                         device="cuda")
+        w = act.get_coef(len(shape) - 1)
+        got = phi4.phi4_action_grad(cfgs, g, *w)
+        want = phi4.phi4_action_grad_plain(cfgs, g, *w)
+        torch.cuda.synchronize()
+        diff = (got - want).abs()
+        ok = bool((diff <= FORCE_ATOL + FORCE_RTOL * want.abs()).all())
+        print(f"phi4_action_grad {shape} w0={w[0]}: max abs "
+              f"{float(diff.max()):.3e} (rtol {FORCE_RTOL}, atol "
+              f"{FORCE_ATOL}) {'ok' if ok else 'FAILED'}")
+        if not ok:
+            raise AssertionError("phi4_action_grad disagrees with its plain "
+                                 "version")
+        worst = max(worst, float(diff.max()))
+
+    kernels["phi4_action_grad"] = dict(
+        name="phi4_action_grad", route="cuda",
+        source="normflow__tpu_torch/csrc/phi4_action.cu",
+        replaces="normflow__tpu/ops/kernels/phi4.py:49",
+        max_abs_err=worst, library_ms=None)
+    cfgs = torch.tensor(rng.standard_normal((TRAIN_BATCH, *LAT)),
+                        dtype=torch.float32, device="cuda")
+    g = torch.tensor(rng.standard_normal(TRAIN_BATCH), dtype=torch.float32,
+                     device="cuda")
+    w = action.get_coef(2)
+    sites = cfgs.numel()
+    nbytes = 4 * sites * 2 + 4 * TRAIN_BATCH
+    nops = sites * (5 + 2 * 2 + 3)  # force terms, 4 neighbours, 2 products
+
+    def time_it():
+        """Time the training shape, (512, 32, 32)."""
+        t = kernel_times(lambda: phi4.phi4_action_grad(cfgs, g, *w),
+                         lambda: phi4.phi4_action_grad_plain(cfgs, g, *w))
+        report("phi4_action_grad", t, nbytes, nops, peaks, kernels)
+
+    return time_it
+
+
+def _counters():
+    from normflow__tpu_torch.ops.kernels import phi4, spline_coupling as sc
+
+    return {"rqs_coupling": sc.rqs_coupling,
+            "rqs_coupling_bwd": sc.rqs_coupling_bwd,
+            "phi4_action": phi4.phi4_action,
+            "phi4_action_grad": phi4.phi4_action_grad}
+
+
+def check_train_grads(torch, model, rng):
+    """The full-width path-gradient loss and its gradients on one numpy
+    draw at batch 512: the card (float32, TF32 off) against a float64 CPU
+    copy, with a float32 CPU copy beside them to show the float32 floor."""
+    from normflow__tpu_torch.zoo import build_phi4_model
+
+    x = rng.standard_normal((TRAIN_BATCH, *LAT))
+    res = {}
+    for key, dtype in (("gpu", torch.float32), ("cpu", torch.float32),
+                       ("cpu64", torch.float64)):
+        m = model
+        if key != "gpu":
+            m = build_phi4_model(LAT, seed=0, device="cpu", dtype=dtype)
+            m.net_.load_state_dict({k: v.to(dtype) for k, v in
+                                    model.net_.state_dict().items()})
+        m.fit.grad_estimator = "path"
+        xd = torch.tensor(x, dtype=dtype, device=m.device)
+        loss, _, _ = m.fit.loss_of(xd, m.prior.log_prob(xd))
+        grads = torch.autograd.grad(loss, list(m.net_.parameters()))
+        res[key] = (float(loss.detach()),
+                    [g.detach().cpu().double() for g in grads])
+
+    def rel(a, b):
+        loss = abs(res[a][0] - res[b][0]) / max(1.0, abs(res[b][0]))
+        return loss, [float((p - q).norm()) / max(float(q.norm()), 1e-30)
+                      for p, q in zip(res[a][1], res[b][1])]
+
+    for a, b in (("gpu", "cpu"), ("gpu", "cpu64"), ("cpu", "cpu64")):
+        loss, leaves = rel(a, b)
+        print(f"path-gradient step, batch {TRAIN_BATCH}, {a} vs {b}: loss "
+              f"rel {loss:.3e}; |dg|/|g| per leaf max {max(leaves):.3e}, "
+              f"median {statistics.median(leaves):.3e}")
+    loss, leaves = rel("gpu", "cpu64")
+    print(f"  loss gpu {res['gpu'][0]:.6f}, cpu {res['cpu'][0]:.6f}, cpu64 "
+          f"{res['cpu64'][0]:.6f}; gpu vs cpu64 per leaf: "
+          + " ".join(f"{r:.1e}" for r in leaves))
+    if not (loss <= TRAIN_LOSS_TOL and max(leaves) <= TRAIN_GRAD_TOL):
+        raise AssertionError(f"GPU and CPU training steps disagree (tol "
+                             f"{TRAIN_LOSS_TOL} / {TRAIN_GRAD_TOL})")
+
+
+def run_training_path(torch, kernels, card):
+    """``model.fit`` on a fresh seeded full-width flagship with the bench
+    protocol's settings, then training steps/s."""
+    from normflow__tpu_torch import cosine_decay_schedule
+    from normflow__tpu_torch.zoo import build_phi4_model
+
+    model = build_phi4_model(LAT, seed=0)
+    counters = _counters()
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    hist = model.fit(n_epochs=N_STEPS, batch_size=TRAIN_BATCH,
+                     hyperparam=dict(lr=3e-3, weight_decay=1e-4),
+                     scheduler=cosine_decay_schedule(1.0, decay_steps=N_STEPS,
+                                                     alpha=0.05),
+                     grad_estimator="path", clip_grad_norm=25.0,
+                     steps_per_call=8, checkpoint_dict=dict(print_stride=None))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    n_layers = len(model.net_[2].nets)
+    per_step = {"rqs_coupling": 2 * n_layers, "rqs_coupling_bwd": 2 * n_layers,
+                "phi4_action": 1, "phi4_action_grad": 1}
+    print(f"launches over model.fit({N_STEPS} steps): {launches}, per step "
+          f"{ {k: v / N_STEPS for k, v in launches.items()} }")
+    if launches != {k: v * N_STEPS for k, v in per_step.items()}:
+        raise AssertionError(f"launch counts {launches}, want {per_step} per "
+                             "step")
+    for name, n in launches.items():
+        kernels[name]["launches"] = n
+        kernels[name].setdefault("launches_by_path", {})["train"] = n
+
+    loss = np.asarray(hist["loss"])
+    first, last = float(loss[:10].mean()), float(loss[-10:].mean())
+    print(f"model.fit: {N_STEPS} steps in {seconds:.2f} s (first includes "
+          f"warm-up); loss {loss[0]:.3f} -> {loss[-1]:.3f}, mean of the first "
+          f"10 {first:.3f}, of the last 10 {last:.3f}")
+    if loss.shape != (N_STEPS,) or not np.isfinite(loss).all() \
+            or not last < first:
+        raise AssertionError("training loss not finite or not falling")
+
+    rates = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        for _ in range(10):
+            model.fit.step()
+        torch.cuda.synchronize()
+        rates.append(10 / (time.perf_counter() - t0))
+    rates.sort()
+    print(f"training steps/s at batch {TRAIN_BATCH} (5 segments of 10): "
+          f"median {statistics.median(rates):.3f}, min {rates[0]:.3f}, max "
+          f"{rates[-1]:.3f} on {card}")
+    return model
+
+
+def run_zerodim(torch):
+    """The zero-dim fit (examples/scalar_zerodim.py) on the card, from the
+    port's modules: its action is one site with w0 = 0."""
+    from normflow__tpu_torch import Model
+    from normflow__tpu_torch.models.actions import ScalarPhi4Action
+    from normflow__tpu_torch.models.elementwise import DistConvertor
+    from normflow__tpu_torch.models.priors import NormalPrior
+
+    model = Model(net_=DistConvertor(10, device="cuda"),
+                  prior=NormalPrior(shape=(1,), device="cuda"),
+                  action=ScalarPhi4Action(kappa=0, m_sq=-1.2, lambd=0.5),
+                  seed=5)
+    grad = _counters()["phi4_action_grad"]
+    grad.launches = 0
+    t0 = time.perf_counter()
+    hist = model.fit(n_epochs=500, batch_size=128,
+                     hyperparam=dict(lr=0.01, weight_decay=0.0),
+                     checkpoint_dict=dict(print_stride=250))
+    seconds = time.perf_counter() - t0
+    acc, ess = hist["accept_rate"][-1][0], hist["ess"][-1]
+    print(f"zero-dim fit, 500 epochs in {seconds:.2f} s: loss "
+          f"{hist['loss'][-1]:.4f} (<= -1.0), accept {acc:.4f} (>= 0.9), ESS "
+          f"{ess:.4f} (>= 0.95); phi4_action_grad launches {grad.launches}")
+    if not (hist["loss"][-1] <= -1.0 and acc >= 0.9 and ess >= 0.95
+            and grad.launches == 500):
+        raise AssertionError("the zero-dim fit missed its targets")
+
+
+def profile_step(fn, what, reps=4):
+    """Where the device time of ``fn`` goes: busy, wall, idle share and the
+    top kernels."""
+    wall, dev = device_profile(fn, reps)
     if not dev:
-        raise AssertionError("the profiler saw no device activity in the "
-                             "sampled batch")
+        raise AssertionError(f"the profiler saw no device activity in {what}")
     busy = sum(us for _, us in dev) / 1e6
     by_name: dict = {}
     for kname, us in dev:
         by_name[kname] = by_name.get(kname, 0.0) + us
-    print(f"profile of logqp_stream(1, {BATCH}) x{reps}: wall "
-          f"{wall / reps * 1e3:.4f} ms/batch, device busy "
-          f"{busy / reps * 1e3:.4f} ms/batch, idle share "
+    print(f"profile of {what} x{reps}: wall {wall / reps * 1e3:.4f} ms, "
+          f"device busy {busy / reps * 1e3:.4f} ms, idle share "
           f"{1 - busy / wall:.4f}")
-    for kname, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
-        print(f"  {us / reps / 1e3:9.4f} ms/batch {us / 1e6 / busy:7.2%}  "
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
+    ours = [kv for kv in ranked[10:]
+            if "rqs_coupling" in kv[0] or "phi4_action" in kv[0]]
+    for kname, us in ranked[:10] + ours:
+        print(f"  {us / reps / 1e3:9.4f} ms {us / 1e6 / busy:7.2%}  "
               f"{kname[:90]}")
 
 
@@ -394,17 +670,40 @@ def main() -> int:
     rng = np.random.default_rng(20261016)
     kernels: dict = {}
     action = ScalarPhi4Action(kappa=0.6, m_sq=-2.4, lambd=0.5)
-    timers = [check_rqs(torch, kernels, peaks, rng),
-              check_phi4(torch, kernels, peaks, rng, action)]
-    model = run_main_path(torch, kernels, rng, card)
-    # profiling last: the main path's times are taken with no profiler on
+    phases = []
+
+    def phase(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        phases.append((name, time.perf_counter() - t))
+        return out
+
+    timers = [phase("check rqs_coupling", check_rqs, torch, kernels, peaks,
+                    rng),
+              phase("check phi4_action", check_phi4, torch, kernels, peaks,
+                    rng, action),
+              phase("check rqs_coupling_bwd", check_rqs_bwd, torch, kernels,
+                    peaks, rng),
+              phase("check phi4_action_grad", check_phi4_grad, torch,
+                    kernels, peaks, rng, action)]
+    model = phase("sampling path", run_main_path, torch, kernels, rng, card)
+    phase("GPU vs CPU training step", check_train_grads, torch, model, rng)
+    trained = phase("training path", run_training_path, torch, kernels,
+                    card)
+    phase("zero-dim fit", run_zerodim, torch)
+    # profiling last: the paths' times are taken with no profiler on
     for time_it in timers:
-        time_it()
-    profile_batch(model)
+        phase("kernel times", time_it)
+    phase("profiles", profile_step,
+          lambda: model.posterior.logqp_stream(1, BATCH),
+          f"logqp_stream(1, {BATCH}) (one sampled batch)")
+    phase("profiles", profile_step, trained.fit.step,
+          f"fit.step() at batch {TRAIN_BATCH} (one training step)")
+    print("phase seconds: " + ", ".join(f"{n} {t:.1f}" for n, t in phases))
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "call_ms", "plain_call_ms", "timing")
+            "call_ms", "plain_call_ms", "timing", "launches_by_path")
     print(json.dumps({"kernels": [{k: rec[k] for k in keys}
                                   for rec in kernels.values()]}))
     print(json.dumps({"ok": True, "device": {

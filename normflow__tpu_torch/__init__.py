@@ -13,11 +13,21 @@ other device.
 
 from .mcmc.metropolis import (MCMCSampler, Metropolis, accept_scan_core,
                               estimate_accept_rate)
-from .ops.stats import Resampler, calc_ess
+from .ops.stats import Resampler, calc_ess, estimate_logz, fmt_val_err
+from .training import losses
+from .training.fitter import Fitter
+from .training.losses import (calc_corrcoef, calc_direct_kl_mean,
+                              calc_kl_mean, calc_kl_mean_includelogz,
+                              calc_kl_var, calc_least_squares, calc_minus_ess,
+                              calc_minus_logz)
 from .training.model import Model, Posterior, backward_sanitychecker
+from .training.optim import cosine_decay_schedule
 
 __all__ = [
     "Model", "Posterior", "backward_sanitychecker", "MCMCSampler",
     "Metropolis", "accept_scan_core", "estimate_accept_rate", "Resampler",
-    "calc_ess",
+    "calc_ess", "estimate_logz", "fmt_val_err", "Fitter", "losses",
+    "calc_kl_mean", "calc_kl_var", "calc_corrcoef", "calc_direct_kl_mean",
+    "calc_kl_mean_includelogz", "calc_least_squares", "calc_minus_logz",
+    "calc_minus_ess", "cosine_decay_schedule",
 ]

@@ -26,49 +26,9 @@
 // The division-heavy arithmetic is left in IEEE float32 (no fast math) so
 // the kernel agrees with the plain version to float32 round-off.
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "rqs_common.cuh"
 
 namespace {
-
-constexpr float kLn2 = 0.69314718055994530942f;
-constexpr float kTiny = 1.17549435e-38f;  // FLT_MIN == finfo(float32).tiny
-
-__device__ __forceinline__ float softplus_log2(float w) {
-  // logaddexp(w ln2, 0) / ln2, exact for every w
-  const float z = w * kLn2;
-  return (fmaxf(z, 0.0f) + log1pf(expf(-fabsf(z)))) / kLn2;
-}
-
-// Softmax + cumsum knot coordinates of M-1 weights at stride `stride`:
-// writes M values lo + width * c_j, c_0 = 0, into k[0..M-1].
-template <int M>
-__device__ __forceinline__ void coords(const float* __restrict__ w,
-                                       long long stride, float lo,
-                                       float width, float* k) {
-  float e[M - 1];
-  float mx = __ldg(w);
-  e[0] = mx;
-#pragma unroll
-  for (int j = 1; j < M - 1; ++j) {
-    e[j] = __ldg(w + j * stride);
-    mx = fmaxf(mx, e[j]);
-  }
-  float tot = 0.0f;
-#pragma unroll
-  for (int j = 0; j < M - 1; ++j) {
-    e[j] = expf(e[j] - mx);
-    tot += e[j];
-  }
-  const float inv = 1.0f / tot;
-  float cum = 0.0f;
-  k[0] = lo + width * 0.0f;
-#pragma unroll
-  for (int j = 0; j < M - 1; ++j) {
-    cum += e[j];
-    k[j + 1] = lo + width * (cum * inv);
-  }
-}
 
 template <int M, bool LEFT, bool RIGHT, bool INVERSE>
 __global__ void __launch_bounds__(256)
@@ -87,40 +47,11 @@ rqs_coupling_kernel(const float* __restrict__ x, const float* __restrict__ out,
   const float* o = out + b * (long long)K3 * S + s;
 
   float kx[K], ky[K], kd[K];
-  coords<M>(o, S, xlo, xw, kx + L);
-  coords<M>(o + (long long)(M - 1) * S, S, ylo, yw, ky + L);
-#pragma unroll
-  for (int j = 0; j < M; ++j)
-    kd[L + j] = softplus_log2(__ldg(o + (long long)(2 * (M - 1) + j) * S));
-
-  // linear boundary knots (ops.spline.augment_knots, 'linear')
-  if (LEFT) {
-    kx[0] = kx[1] - 1.0f;
-    ky[0] = ky[1] - kd[1];
-    kd[0] = kd[1];
-  }
-  if (RIGHT) {
-    kx[K - 1] = kx[K - 2] + 1.0f;
-    ky[K - 1] = ky[K - 2] + kd[K - 2];
-    kd[K - 1] = kd[K - 2];
-  }
-
+  knots<M, LEFT, RIGHT>(o, S, xlo, xw, ylo, yw, kx, ky, kd);
   const float xv = __ldg(x + i);
-  // segment: clip(#{knots < x}, 1, K-1) - 1
-  int idx = 0;
-#pragma unroll
-  for (int j = 0; j < K; ++j) idx += (xv > (INVERSE ? ky[j] : kx[j])) ? 1 : 0;
-  idx = min(max(idx, 1), K - 1) - 1;
-
-  float x0 = 0.0f, x1 = 0.0f, y0 = 0.0f, y1 = 0.0f, d0 = 0.0f, d1 = 0.0f;
-#pragma unroll
-  for (int j = 0; j < K - 1; ++j) {
-    if (idx == j) {
-      x0 = kx[j]; x1 = kx[j + 1];
-      y0 = ky[j]; y1 = ky[j + 1];
-      d0 = kd[j]; d1 = kd[j + 1];
-    }
-  }
+  const Segment sg = segment<K, INVERSE>(xv, kx, ky, kd);
+  const float x0 = sg.x0, x1 = sg.x1, y0 = sg.y0, y1 = sg.y1, d0 = sg.d0,
+              d1 = sg.d1;
 
   const float dx = x1 - x0;
   const float dy = y1 - y0;
@@ -133,20 +64,7 @@ rqs_coupling_kernel(const float* __restrict__ x, const float* __restrict__ out,
     const float denom = mm + spread * theta * (1.0f - theta);
     y[i] = y0 + dy * theta * (mm * theta + d0 * (1.0f - theta)) / denom;
   } else {
-    const float eta = (xv - y0) / dy;
-    const float a2 = -spread * eta + d0 - mm;
-    const float a1 = -a2 - mm;
-    const float a0 = mm * eta;
-    const float delta = sqrtf(fmaxf(a1 * a1 - 4.0f * a0 * a2, 0.0f));
-    if (a1 <= 0.0f) {
-      float q = 0.5f * (-a1 + delta);
-      if (fabsf(q) < kTiny) q = 1.0f;
-      theta = a0 / q;
-    } else {
-      const float q = -0.5f * (a1 + delta);
-      const float a = fabsf(a2) < kTiny ? 1.0f : a2;
-      theta = q / a;
-    }
+    theta = inverse_theta(xv, y0, dy, mm, spread, d0);
     y[i] = x0 + dx * theta;
   }
   const float denom = mm + spread * theta * (1.0f - theta);

@@ -44,8 +44,15 @@ _SIGNATURES = {
     # right_linear, inverse, stream
     "rqs_coupling_f32": (_P, _P, _P, _P, _L, _L, _I, _F, _F, _F, _F, _I,
                          _I, _I, _P),
+    # x, out, ybar, loggbar, xbar, outbar, B, S, m, xlo, xw, ylo, yw,
+    # left_linear, right_linear, inverse, stream
+    "rqs_coupling_bwd_f32": (_P, _P, _P, _P, _P, _P, _L, _L, _I, _F, _F,
+                             _F, _F, _I, _I, _I, _P),
     # cfgs, act, B, nd, L0, L1, L2, w0, w2, w4, stream
     "phi4_action_f32": (_P, _P, _L, _I, _I, _I, _I, _F, _F, _F, _P),
+    # cfgs, g, grad, B, nd, L0, L1, L2, w0, w2, w4, stream
+    "phi4_action_grad_f32": (_P, _P, _P, _L, _I, _I, _I, _I, _F, _F, _F,
+                             _P),
 }
 
 

@@ -1,24 +1,29 @@
 r"""Fused phi^4 action: stencil + elementwise + reduction in one pass.
 
 Counterpart of ``normflow__tpu/ops/kernels/phi4.py`` (``phi4_action_pallas``,
-Pallas kernel ``_phi4_kernel``): the per-sample action
+Pallas kernels ``_phi4_kernel`` and ``_phi4_grad_kernel``): the per-sample
+action
 
 .. math::
     S = \sum_x (w_2 \phi_x^2 + w_4 \phi_x^4)
         - w_0 \sum_{x,\mu} \phi_x \phi_{x-\hat\mu}
 
-on a periodic lattice of 1-3 dims, ``cfgs`` ``(B, *lat)`` -> ``(B,)``.
-:func:`phi4_action` is the wrapper: the plain PyTorch version for a CPU
-tensor, the CUDA kernel (``csrc/phi4_action.cu``) for a CUDA tensor.
+on a periodic lattice of 1-3 dims, ``cfgs`` ``(B, *lat)`` -> ``(B,)``, and
+its gradient, the analytic force times the per-sample cotangent.
+:func:`phi4_action` is differentiable; it and :func:`phi4_action_grad` run
+the plain PyTorch version for a CPU tensor and the CUDA kernel
+(``csrc/phi4_action.cu``) for a CUDA tensor.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from . import _lib
 
-__all__ = ["phi4_action", "phi4_action_plain"]
+__all__ = ["phi4_action", "phi4_action_plain", "phi4_action_grad",
+           "phi4_action_grad_plain"]
 
 
 def phi4_action_plain(cfgs, w0, w2, w4):
@@ -33,41 +38,107 @@ def phi4_action_plain(cfgs, w0, w2, w4):
     return act
 
 
-def phi4_action(cfgs, w0, w2, w4):
-    """Per-sample phi^4 action.  CPU tensors take
-    :func:`phi4_action_plain`; CUDA tensors (float32, contiguous, 1-3
-    lattice dims) launch the kernel or raise.  The kernel has no backward
-    yet, so a CUDA call that needs a gradient raises."""
-    if cfgs.device.type == "cpu":
-        return phi4_action_plain(cfgs, w0, w2, w4)
+def phi4_action_grad_plain(cfgs, g, w0, w2, w4):
+    r"""Plain PyTorch version of the gradient: the force
+    :math:`2 w_2 \phi + 4 w_4 \phi^3 - w_0 \sum_\mu (\phi_{x-\hat\mu} +
+    \phi_{x+\hat\mu})` times the per-sample cotangent ``g`` ``(B,)``, in
+    the order of operations of the Pallas kernel ``_phi4_grad_kernel``."""
+    dv = (2.0 * w2) * cfgs + (4.0 * w4) * (cfgs * cfgs) * cfgs
+    if w0 != 0.0:
+        neigh = 0.0
+        for mu in range(1, cfgs.dim()):
+            neigh = (neigh + torch.roll(cfgs, 1, mu)
+                     + torch.roll(cfgs, -1, mu))
+        dv = dv - w0 * neigh
+    return dv * g.reshape((-1,) + (1,) * (cfgs.dim() - 1))
+
+
+def _check_cuda(name, cfgs):
     if cfgs.device.type != "cuda":
-        raise ValueError(f"phi4_action: no kernel for tensors on "
-                         f"{cfgs.device}")
+        raise ValueError(f"{name}: no kernel for tensors on {cfgs.device}")
     nd = cfgs.dim() - 1
     if not 1 <= nd <= 3:
-        raise ValueError(f"phi4_action: the kernel takes 1-3 lattice dims, "
-                         f"got shape {tuple(cfgs.shape)}")
+        raise ValueError(f"{name}: the kernel takes 1-3 lattice dims, got "
+                         f"shape {tuple(cfgs.shape)}")
     if cfgs.dtype != torch.float32:
-        raise TypeError("phi4_action: the CUDA kernel takes float32")
+        raise TypeError(f"{name}: the CUDA kernel takes float32")
     if not cfgs.is_contiguous():
-        raise ValueError("phi4_action: cfgs must be contiguous")
-    if torch.is_grad_enabled() and cfgs.requires_grad:
-        raise NotImplementedError(
-            "phi4_action: the backward kernel is not ported yet")
+        raise ValueError(f"{name}: cfgs must be contiguous")
+    return list(cfgs.shape[1:]) + [1] * (3 - nd)
+
+
+def _action(cfgs, w0, w2, w4):
+    if cfgs.device.type == "cpu":
+        return phi4_action_plain(cfgs, w0, w2, w4)
+    lat = _check_cuda("phi4_action", cfgs)
     b = cfgs.shape[0]
     if not cfgs.numel():  # no sites: the empty sum
         return cfgs.new_zeros(b)
     act = torch.empty(b, dtype=cfgs.dtype, device=cfgs.device)
-    lat = list(cfgs.shape[1:]) + [1] * (3 - nd)
     lib = _lib.library()
     with torch.cuda.device(cfgs.device):
         stream = torch.cuda.current_stream(cfgs.device).cuda_stream
         err = lib.phi4_action_f32(
-            cfgs.data_ptr(), act.data_ptr(), b, nd, *lat, float(w0),
-            float(w2), float(w4), stream)
+            cfgs.data_ptr(), act.data_ptr(), b, cfgs.dim() - 1, *lat,
+            float(w0), float(w2), float(w4), stream)
     _lib.check(err, "phi4_action")
     phi4_action.launches += 1
     return act
 
 
+def phi4_action_grad(cfgs, g, w0, w2, w4):
+    """``g[b] * dS_b/dcfgs``: :func:`phi4_action_grad_plain` for CPU
+    tensors; CUDA tensors (float32, contiguous, 1-3 lattice dims, ``g`` of
+    shape ``(B,)``) launch the kernel or raise."""
+    if g.shape != cfgs.shape[:1]:
+        raise ValueError(f"phi4_action_grad: cotangent {tuple(g.shape)} for "
+                         f"configurations {tuple(cfgs.shape)}")
+    if cfgs.device.type == "cpu" and g.device.type == "cpu":
+        return phi4_action_grad_plain(cfgs, g, w0, w2, w4)
+    lat = _check_cuda("phi4_action_grad", cfgs)
+    if g.device != cfgs.device or g.dtype != torch.float32 \
+            or not g.is_contiguous():
+        raise ValueError("phi4_action_grad: the cotangent must be a "
+                         "contiguous float32 tensor on the field's device")
+    grad = torch.empty_like(cfgs)
+    if cfgs.numel():
+        lib = _lib.library()
+        with torch.cuda.device(cfgs.device):
+            stream = torch.cuda.current_stream(cfgs.device).cuda_stream
+            err = lib.phi4_action_grad_f32(
+                cfgs.data_ptr(), g.data_ptr(), grad.data_ptr(),
+                cfgs.shape[0], cfgs.dim() - 1, *lat, float(w0), float(w2),
+                float(w4), stream)
+        _lib.check(err, "phi4_action_grad")
+        phi4_action_grad.launches += 1
+    return grad
+
+
+class _Phi4Action(torch.autograd.Function):
+    """The action with the force as its backward; the input is the only
+    residual, as in the JAX package's ``_phi4_fwd``."""
+
+    @staticmethod
+    def forward(ctx, cfgs, w0, w2, w4):
+        ctx.save_for_backward(cfgs)
+        ctx.coef = (w0, w2, w4)
+        return _action(cfgs, w0, w2, w4)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        (cfgs,) = ctx.saved_tensors
+        return (phi4_action_grad(cfgs, g.contiguous(), *ctx.coef), None,
+                None, None)
+
+
+def phi4_action(cfgs, w0, w2, w4):
+    """Per-sample phi^4 action, differentiable in ``cfgs``.  CPU tensors
+    take :func:`phi4_action_plain`; CUDA tensors (float32, contiguous, 1-3
+    lattice dims) launch the kernel or raise.  The gradient goes through
+    :func:`phi4_action_grad` on the same device."""
+    return _Phi4Action.apply(cfgs, w0, w2, w4)
+
+
 phi4_action.launches = 0
+phi4_action_grad.launches = 0

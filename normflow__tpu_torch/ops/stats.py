@@ -1,8 +1,9 @@
-"""Statistics: resampling and the effective sample size.
+"""Statistics: resampling, log(z), the effective sample size, formatting.
 
-``Resampler`` is the numpy code of ``normflow__tpu/ops/stats.py:21-70``,
-copied as it is so that the same seed gives the same numbers; ``calc_ess``
-(l.95-106) is computed with PyTorch on the tensor's device.
+``Resampler``, ``estimate_logz`` and ``fmt_val_err`` are the numpy code of
+``normflow__tpu/ops/stats.py:21-113``, copied as it is so that the same
+seed gives the same numbers; ``calc_ess`` (l.95-106) is computed with
+PyTorch on the tensor's device.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-__all__ = ["Resampler", "calc_ess"]
+__all__ = ["Resampler", "estimate_logz", "calc_ess", "fmt_val_err"]
 
 
 class Resampler:
@@ -63,6 +64,28 @@ class Resampler:
         return std
 
 
+def estimate_logz(logqp, n_resamples: int = 10, method: str = "bootstrap",
+                  seed=None):
+    """Estimate ``log z`` from ``logqp = log q - log(p z)``:
+    ``logsumexp(-logqp) - log N`` with a resampled error bar.  Returns
+    ``(mean, std)``."""
+    if isinstance(logqp, torch.Tensor):
+        logqp = logqp.detach().cpu().numpy()
+    logqp = np.asarray(logqp).ravel()
+    n = logqp.shape[0]
+
+    def calc_logz(x):
+        x = np.asarray(x).ravel()
+        m = np.max(x)
+        return float(m + np.log(np.sum(np.exp(x - m))) - np.log(n))
+
+    mean = calc_logz(-logqp)
+    resampler = Resampler(method, seed=seed)
+    std = resampler._std(
+        [calc_logz(x) for x in resampler(-logqp, n_resamples)])
+    return mean, std
+
+
 def calc_ess(logq, logp=0.0):
     """Normalized effective sample size ``(sum w)^2 / (N sum w^2)`` of the
     importance weights ``w = p/q``, as a 0-d tensor."""
@@ -70,3 +93,11 @@ def calc_ess(logq, logp=0.0):
     log_ess = (2 * torch.logsumexp(-logqp, dim=0)
                - torch.logsumexp(-2 * logqp, dim=0))
     return torch.exp(log_ess) / logqp.shape[0]
+
+
+def fmt_val_err(value, error, err_digits: int = 1) -> str:
+    """Format as ``value(err)``, e.g. ``0.914(9)``."""
+    if not np.isfinite(error) or error <= 0 or not np.isfinite(value):
+        return f"{value}+-{error}"
+    digits = max(-int(np.floor(np.log10(error))) + err_digits - 1, 0)
+    return "{0:.{2}f}({1:.0f})".format(value, error * 10**digits, digits)

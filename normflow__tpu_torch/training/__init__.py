@@ -1,1 +1,1 @@
-"""The ``Model`` wrapper and its posterior sampler."""
+"""The ``Model`` wrapper, its posterior sampler and its fitter."""

@@ -1,14 +1,17 @@
 """The central ``Model`` class: prior + invertible net + action.
 
-Counterpart of ``normflow__tpu/training/model.py:22-183`` for sampling:
-``Model`` owns the net, the prior, the action and a ``torch.Generator`` on
-the model's device (the JAX package's stateful key), and wires up the
-``posterior`` and ``mcmc`` services.  Sampling runs without autograd.
+Counterpart of ``normflow__tpu/training/model.py:22-183``: ``Model`` owns
+the net, the prior, the action and a ``torch.Generator`` on the model's
+device (the JAX package's stateful key), and wires up the ``posterior``,
+``mcmc`` and ``fit`` services.  Sampling runs without autograd; training
+(``fit``, a ``training.fitter.Fitter``) draws from the same generator.
 """
 
 from __future__ import annotations
 
 import torch
+
+from .fitter import Fitter
 
 __all__ = ["Model", "Posterior", "backward_sanitychecker"]
 
@@ -30,6 +33,7 @@ class Model:
         self.seed(seed)
         self.posterior = Posterior(self)
         self.mcmc = MCMCSampler(self)
+        self.fit = Fitter(self)
 
     def seed(self, seed: int):
         self.generator.manual_seed(seed)

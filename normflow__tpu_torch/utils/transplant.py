@@ -1,9 +1,11 @@
-"""Weight transplant from the JAX package into the port.
+"""Weight transplant between the JAX package and the port.
 
 ``load_jax_leaves(net, leaves)`` takes the ``{str(i): ndarray}`` dict that
 ``normflow__tpu.utils.serialization.leaves_of(jax_net)`` produces and copies
-it into the port's parameters, in the JAX package's leaf order.  The
-numpy dict is the only interface: this module imports nothing of JAX.
+it into the port's parameters, in the JAX package's leaf order;
+``jax_leaf_grads(net)`` goes the other way for the gradients, so that they
+compare leaf by leaf with ``leaves_of(jax_grads)``.  The numpy dict is the
+only interface: this module imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ import torch
 
 from ..models.nets import CircularConv
 
-__all__ = ["jax_leaf_order", "load_jax_leaves"]
+__all__ = ["jax_leaf_order", "load_jax_leaves", "jax_leaf_grads"]
 
 
 def jax_leaf_order(module):
@@ -43,10 +45,28 @@ def load_jax_leaves(net, leaves: dict):
                          "parameters: architecture mismatch")
     for i, (owner, name, p) in enumerate(params):
         a = np.asarray(leaves[str(i)])
-        if isinstance(owner, CircularConv) and name == "weight":
+        if _is_conv_weight(owner, name):
             a = a.transpose(a.ndim - 1, a.ndim - 2, *range(a.ndim - 2))
         if tuple(a.shape) != tuple(p.shape):
             raise ValueError(f"leaf {i} ({type(owner).__name__}.{name}): "
                              f"shape {a.shape}, parameter {tuple(p.shape)}")
         p.copy_(torch.tensor(a, dtype=p.dtype))
     return net
+
+
+def _is_conv_weight(owner, name):
+    return isinstance(owner, CircularConv) and name == "weight"
+
+
+def jax_leaf_grads(net) -> dict:
+    """``{str(i): ndarray}`` of every parameter's ``.grad`` in the JAX
+    package's leaf order, conv gradients transposed back OIHW -> HWIO (a
+    parameter without a gradient gives zeros)."""
+    out = {}
+    for i, (owner, name, p) in enumerate(jax_leaf_order(net)):
+        g = p.grad if p.grad is not None else torch.zeros_like(p)
+        a = g.detach().cpu().numpy()
+        if _is_conv_weight(owner, name):
+            a = a.transpose(*range(2, a.ndim), 1, 0)
+        out[str(i)] = a
+    return out

@@ -9,7 +9,8 @@ root (``--noconftest`` leaves out the JAX test configuration)::
 Beyond ``chip_smoke.py`` (the flagship's shapes only) they cover every
 knot count the coupling kernel is built for, one-sided extrapolation, a
 ragged number of sites, the action's lattice ranks and the wrappers'
-refusals.  Tolerances are those of ``chip_smoke.py``: 1e-4 absolute for
+refusals (the backward kernels: ``tests/test_torch_cuda_grad.py``).
+Tolerances are those of ``chip_smoke.py``: 1e-4 absolute for
 the spline (the JAX Pallas tests' own), 2e-5 relative for the action.
 """
 
@@ -109,9 +110,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="no kernel"):  # CPU x, CUDA out
         sc.rqs_coupling(x.cpu(), torch.zeros((2, 22, 4, 4), device=cuda),
                         xlim=LIM, ylim=LIM)
-    with pytest.raises(NotImplementedError):
-        sc.rqs_coupling(x.requires_grad_(), torch.zeros((2, 22, 4, 4),
-                                                        device=cuda),
+    with pytest.raises(ValueError, match="knots"):  # with a gradient too
+        sc.rqs_coupling(x.clone().requires_grad_(),
+                        torch.zeros((2, 13, 4, 4), device=cuda),
                         xlim=LIM, ylim=LIM)
     with pytest.raises(TypeError):
         phi4.phi4_action(torch.zeros((2, 4, 4), device=cuda,
