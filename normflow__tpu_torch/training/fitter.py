@@ -290,8 +290,10 @@ class Fitter:
         return self.train_history
 
     def _segment(self, n_steps):
-        """``n_steps`` guarded steps; their losses as a numpy array."""
-        return np.array([float(self.step()[0]) for _ in range(n_steps)])
+        """``n_steps`` guarded steps; their losses as a numpy array, read
+        from the device once for the segment."""
+        return torch.stack([self.step()[0] for _ in range(n_steps)]) \
+            .cpu().numpy()
 
     def _state_copy(self):
         return ([p.detach().clone() for p in self.params],
