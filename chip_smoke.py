@@ -23,10 +23,18 @@ use) and imports nothing of JAX.  Phases, each of which raises on failure:
    flagship, counters set to 0 just before and read after; training
    steps/s;
 5. the zero-dim fit (``examples/scalar_zerodim.py``) on the card;
-6. each kernel's time (profiler device time per call), its plain
-   version's time, and the least time the card could take (bytes or
-   operations over the peak); one profiled sampled batch and one profiled
-   training step.
+6. each kernel's time at the path's shapes (``rqs_coupling_bwd`` in both
+   training variants, forward and inverse): the median device time of its
+   launches from the profiler, warm (the same tensors again and again) and
+   cold (L2 flushed before each launch), its plain version's time, and the
+   least time the card could take (bytes or operations over the peak),
+   with ``normflow__tpu_torch/tools/kernel_times.py``'s helpers; one
+   profiled sampled batch and one profiled training step.
+
+Kernels 1 and 2 are read cold (the training backward finds ``out`` cold:
+it was written during the forward, and the other conditioners' outputs
+came after it), kernels 3 and 4 warm (their input is the flow output just
+written); ``headline`` in the kernels' record says which.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits non-zero
@@ -74,21 +82,9 @@ FORCE_RTOL, FORCE_ATOL = 2e-4, 2e-5  # tests/test_kernels.py:36-37
 TRAIN_LOSS_TOL = 1e-5
 TRAIN_GRAD_TOL = 1e-3
 
-# the card's published peaks (NVIDIA data sheets), keyed by a part of the
-# name nvidia-smi reports: memory bytes/s and float32 (non-tensor) FLOP/s
-PEAKS = (("H100 NVL", 3.9e12, 60e12), ("H100 PCIe", 2.0e12, 51e12),
-         ("H200", 4.8e12, 67e12), ("H100", 3.35e12, 67e12))
-
 N_BATCHES, BATCH = 32, 1024
 LAT = (32, 32)
 TRAIN_BATCH, N_STEPS = 512, 48  # the bench protocol's batch, a few steps
-
-
-def card_peaks(name):
-    for key, bw, flops in PEAKS:
-        if key in name:
-            return bw, flops
-    raise RuntimeError(f"no published peaks recorded for the card {name!r}")
 
 
 def time_ms(fn, reps=50, warmup=5):
@@ -128,39 +124,44 @@ def device_profile(fn, reps):
                   if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
-def kernel_times(fn, plain_fn):
-    """Per-call times of a kernel's wrapper and of its plain version:
-    device time from the profiler (``ms``, ``plain_ms``), and the CUDA-event
-    median of one call, host overhead included (``call_ms``,
-    ``plain_call_ms``).  Where the profiler sees no device activity, the
-    event times stand in for the device times and ``timing`` says so."""
-    out = dict(call_ms=time_ms(fn), plain_call_ms=time_ms(plain_fn, reps=20))
+def kernel_times(name, fn, plain_fn):
+    """Per-call times of a kernel's wrapper and of its plain version: the
+    median device time of the kernel's launches, warm (``ms``) and with L2
+    flushed before each (``ms_cold``); the plain version's device time per
+    call (``plain_ms``); the CUDA-event median of one call, host overhead
+    included (``call_ms``, ``plain_call_ms``)."""
+    from normflow__tpu_torch.tools.kernel_times import cold_ms, warm_ms
+
     reps = 20
-    dev = [device_profile(f, reps)[1] for f in (fn, plain_fn)]
-    if all(dev):
-        out.update(ms=sum(us for _, us in dev[0]) / reps / 1e3,
-                   plain_ms=sum(us for _, us in dev[1]) / reps / 1e3,
-                   timing="torch.profiler device time per call")
-    else:
-        out.update(ms=out["call_ms"], plain_ms=out["plain_call_ms"],
-                   timing="CUDA events per call (profiler saw no device "
-                          "time)")
-    return out
+    dev = device_profile(plain_fn, reps)[1]
+    if not dev:
+        raise AssertionError(f"the profiler saw no device time in {name}'s "
+                             "plain version")
+    return dict(ms=warm_ms(fn, name), ms_cold=cold_ms(fn, name),
+                plain_ms=sum(us for _, us in dev) / reps / 1e3,
+                call_ms=time_ms(fn), plain_call_ms=time_ms(plain_fn, reps=20))
 
 
-def bound_ms(nbytes, nops, peaks):
-    bw, flops = peaks
-    t_bytes, t_ops = nbytes / bw * 1e3, nops / flops * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def report(name, t, shape, peaks, kernels, headline):
+    """Record a kernel's times and bound; ``headline`` ("warm" or "cold")
+    names the reading that stands for the path."""
+    from normflow__tpu_torch.tools.kernel_times import (FLUSH_BYTES,
+                                                         bound_ms, work)
 
-
-def report(name, t, nbytes, nops, peaks, kernels):
+    nbytes, nops = work(name, shape)
     bms, by = bound_ms(nbytes, nops, peaks)
-    kernels[name].update(bound_ms=bms, bound_by=by, **t)
-    print(f"{name} {t['timing']}: {t['ms']:.5f} ms, plain "
-          f"{t['plain_ms']:.5f} ms; one call with host overhead "
-          f"{t['call_ms']:.5f} ms, plain {t['plain_call_ms']:.5f} ms; bound "
-          f"{bms:.5f} ms ({by}: {nbytes / 1e6:.2f} MB); library n/a")
+    kernels[name].update(
+        bound_ms=bms, bound_by=by, bound_share=bms / t["ms"],
+        bound_share_cold=bms / t["ms_cold"], headline=headline, **t,
+        timing="torch.profiler device time of the kernel's launches, median;"
+               " warm: the same tensors again and again; cold: "
+               f"{FLUSH_BYTES >> 20} MB written before each launch")
+    print(f"{name} at {shape}: warm {t['ms']:.5f} ms ({bms / t['ms']:.3f} of "
+          f"bound), cold {t['ms_cold']:.5f} ms ({bms / t['ms_cold']:.3f}), "
+          f"headline {headline}; plain {t['plain_ms']:.5f} ms; one call with "
+          f"host overhead {t['call_ms']:.5f} ms, plain "
+          f"{t['plain_call_ms']:.5f} ms; bound {bms:.5f} ms ({by}: "
+          f"{nbytes / 1e6:.2f} MB); library n/a")
 
 
 def check_rqs(torch, kernels, peaks, rng):
@@ -200,19 +201,15 @@ def check_rqs(torch, kernels, peaks, rng):
         max_abs_err=worst, library_ms=None)
 
     def time_it():
-        """Time the main path's variant: forward, linear extrapolation."""
+        """Time the main path's variant: forward, linear extrapolation;
+        read cold."""
         kw = dict(xlim=(-4.0, 4.0), ylim=(-4.0, 4.0), left="linear",
                   right="linear", inverse=False)
-        t = kernel_times(lambda: sc.rqs_coupling(x, out, **kw),
+        t = kernel_times("rqs_coupling",
+                         lambda: sc.rqs_coupling(x, out, **kw),
                          lambda: sc.rqs_coupling_plain(x, out, **kw))
-        report("rqs_coupling", t, nbytes, nops, peaks, kernels)
+        report("rqs_coupling", t, tuple(out.shape), peaks, kernels, "cold")
 
-    sites = b * math.prod(lat)
-    k = m + 2
-    nbytes = sites * 4 * (1 + (3 * m - 2) + 2)
-    # per site: 2 softmax-cumsum coordinate sets (~7m), m softplus (~8m),
-    # K comparisons, 6(K-1) selects, ~40 for the rational map and its log
-    nops = sites * (22 * m + k + 6 * (k - 1) + 40)
     return time_it
 
 
@@ -222,17 +219,19 @@ def check_phi4(torch, kernels, peaks, rng, action):
     from normflow__tpu_torch.ops.kernels import phi4
 
     worst_abs = 0.0
-    for shape in ((BATCH, 64), (BATCH, *LAT), (64, 8, 8, 8)):
+    for shape in ((BATCH, 64), (BATCH, *LAT), (64, 8, 8, 8), (128, 1),
+                  (BATCH, 16, 30)):
         cfgs = torch.tensor(rng.standard_normal(shape), dtype=torch.float32,
                             device="cuda")
         w = action.get_coef(len(shape) - 1)
+        variant = phi4.action_variant(shape[1:], cfgs.data_ptr())
         got = phi4.phi4_action(cfgs, *w)
         want = phi4.phi4_action_plain(cfgs, *w)
         torch.cuda.synchronize()
         diff = (got - want).abs()
         rel = float((diff / want.abs().clamp(min=1.0)).max())
-        print(f"phi4_action {shape}: max rel {rel:.3e} (tol {PHI4_REL_TOL}),"
-              f" max abs {float(diff.max()):.3e}")
+        print(f"phi4_action {shape}, {variant} kernel: max rel {rel:.3e} "
+              f"(tol {PHI4_REL_TOL}), max abs {float(diff.max()):.3e}")
         if not rel <= PHI4_REL_TOL:
             raise AssertionError("phi4_action disagrees with its plain "
                                  "version")
@@ -246,15 +245,15 @@ def check_phi4(torch, kernels, peaks, rng, action):
     cfgs = torch.tensor(rng.standard_normal((BATCH, *LAT)),
                         dtype=torch.float32, device="cuda")
     w = action.get_coef(2)
-    sites = cfgs.numel()
-    nbytes = 4 * sites + 4 * BATCH
-    nops = sites * (6 + 3 * 2)  # phi^2, phi^4 terms, 2 neighbour products
+    if phi4.action_variant(LAT, cfgs.data_ptr()) != "tiled":
+        raise AssertionError("the flagship's field does not take the tiled "
+                             "phi4_action kernel")
 
     def time_it():
-        """Time the flagship's shape, (1024, 32, 32)."""
-        t = kernel_times(lambda: phi4.phi4_action(cfgs, *w),
+        """Time the flagship's shape, (1024, 32, 32); read warm."""
+        t = kernel_times("phi4_action", lambda: phi4.phi4_action(cfgs, *w),
                          lambda: phi4.phi4_action_plain(cfgs, *w))
-        report("phi4_action", t, nbytes, nops, peaks, kernels)
+        report("phi4_action", t, tuple(cfgs.shape), peaks, kernels, "warm")
 
     return time_it
 
@@ -470,23 +469,31 @@ def check_rqs_bwd(torch, kernels, peaks, rng):
         replaces="normflow__tpu/ops/kernels/spline_coupling.py:133",
         max_abs_err=worst, library_ms=None)
 
-    def time_it():
-        """Time a training-path variant: forward, linear extrapolation."""
-        kw = dict(xlim=(-4.0, 4.0), ylim=(-4.0, 4.0), left="linear",
-                  right="linear", inverse=False)
-        t = kernel_times(
-            lambda: sc.rqs_coupling_bwd(x, out, ybar, loggbar, **kw),
-            lambda: sc.rqs_coupling_vjp_plain(x, out, ybar, loggbar, **kw))
-        report("rqs_coupling_bwd", t, nbytes, nops, peaks, kernels)
+    ptrs = [t.data_ptr() for t in (x, out, ybar, loggbar)]
+    print("rqs_coupling_bwd at the training shape takes the "
+          f"{sc.bwd_variant(math.prod(lat), ptrs)} kernel")
 
-    sites = b * math.prod(lat)
-    k = m + 2
-    # reads x, ybar, loggbar and 3m-2 channels; writes xbar and 3m-2
-    nbytes = sites * 4 * (4 + 2 * (3 * m - 2))
-    # the forward recomputed (as in check_rqs), about as much again for the
-    # adjoint: ~100 scalar operations, 2 softmax transpositions (~8m), m
-    # sigmoids (~6m) and the adjoint selects (~6m)
-    nops = sites * (22 * m + k + 6 * (k - 1) + 40 + 100 + 20 * m)
+    def time_it():
+        """Time both training-path variants, forward and inverse, with
+        linear extrapolation; each is launched 4 times per step, so the
+        record's times are their means.  Read cold."""
+        times = {}
+        for what, inverse in (("forward", False), ("inverse", True)):
+            kw = dict(xlim=(-4.0, 4.0), ylim=(-4.0, 4.0), left="linear",
+                      right="linear", inverse=inverse)
+            times[what] = kernel_times(
+                "rqs_coupling_bwd",
+                lambda: sc.rqs_coupling_bwd(x, out, ybar, loggbar, **kw),
+                lambda: sc.rqs_coupling_vjp_plain(x, out, ybar, loggbar,
+                                                  **kw))
+            print(f"rqs_coupling_bwd {what}: warm {times[what]['ms']:.5f} "
+                  f"ms, cold {times[what]['ms_cold']:.5f} ms")
+        t = {k: (times["forward"][k] + times["inverse"][k]) / 2
+             for k in times["forward"]}
+        report("rqs_coupling_bwd", t, tuple(out.shape), peaks, kernels,
+               "cold")
+        kernels["rqs_coupling_bwd"]["variants"] = times
+
     return time_it
 
 
@@ -528,15 +535,14 @@ def check_phi4_grad(torch, kernels, peaks, rng, action):
     g = torch.tensor(rng.standard_normal(TRAIN_BATCH), dtype=torch.float32,
                      device="cuda")
     w = action.get_coef(2)
-    sites = cfgs.numel()
-    nbytes = 4 * sites * 2 + 4 * TRAIN_BATCH
-    nops = sites * (5 + 2 * 2 + 3)  # force terms, 4 neighbours, 2 products
 
     def time_it():
-        """Time the training shape, (512, 32, 32)."""
-        t = kernel_times(lambda: phi4.phi4_action_grad(cfgs, g, *w),
+        """Time the training shape, (512, 32, 32); read warm."""
+        t = kernel_times("phi4_action_grad",
+                         lambda: phi4.phi4_action_grad(cfgs, g, *w),
                          lambda: phi4.phi4_action_grad_plain(cfgs, g, *w))
-        report("phi4_action_grad", t, nbytes, nops, peaks, kernels)
+        report("phi4_action_grad", t, tuple(cfgs.shape), peaks, kernels,
+               "warm")
 
     return time_it
 
@@ -675,6 +681,54 @@ def run_zerodim(torch):
         raise AssertionError("the zero-dim fit missed its targets")
 
 
+# each kernel's device functions, the path's first, as ptxas and the
+# profiler name them; the flagship's template instance (m = 8, linear
+# tails, as mangled: the inverse flag follows)
+DEVICE_FUNCTIONS = {
+    "rqs_coupling": ("rqs_coupling_kernel",),
+    "rqs_coupling_bwd": ("rqs_coupling_bwd_tiled_kernel",
+                         "rqs_coupling_bwd_kernel"),
+    "phi4_action": ("phi4_action_tiled_kernel", "phi4_action_kernel"),
+    "phi4_action_grad": ("phi4_action_grad_kernel",),
+}
+FLAGSHIP_INSTANCE = "ILi8ELb1ELb1E"
+
+
+def ptxas_by_kernel(log):
+    """``{device function: [(mangled instance, registers, spill store
+    bytes)]}`` from ``nvcc -Xptxas -v``'s log; prints one line per device
+    function."""
+    names = sorted({f for fns in DEVICE_FUNCTIONS.values() for f in fns},
+                   key=len, reverse=True)
+    found = {n: [] for n in names}
+    inst = spill = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            inst, spill = m.group(1), 0
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and inst:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and inst:
+            fn = next((n for n in names if f"{len(n)}{n}" in inst), None)
+            if fn is not None:
+                found[fn].append((inst, int(m.group(1)), spill))
+            inst = None
+    for fn, rows in found.items():
+        if not rows:
+            raise AssertionError(f"ptxas built no instance of {fn}")
+        regs = [r for _, r, _ in rows]
+        flag = [("inverse " if i.split(FLAGSHIP_INSTANCE)[1].startswith("Lb1")
+                 else "forward ") + str(r)
+                for i, r, _ in rows if FLAGSHIP_INSTANCE in i]
+        print(f"ptxas {fn}: {len(rows)} instances, {min(regs)}-{max(regs)} "
+              f"registers" + (f" (flagship m=8 linear: {', '.join(flag)})"
+                              if flag else "")
+              + f", {sum(s for _, _, s in rows)} bytes of spill stores")
+    return found
+
+
 def profile_step(fn, what, reps=4):
     """Where the device time of ``fn`` goes: busy, wall, idle share and the
     top kernels."""
@@ -704,6 +758,7 @@ def main() -> int:
         return 2
     from normflow__tpu_torch.models.actions import ScalarPhi4Action
     from normflow__tpu_torch.ops.kernels import _lib
+    from normflow__tpu_torch.tools.kernel_times import card_peaks
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -728,10 +783,7 @@ def main() -> int:
         log = f.read()
     release = re.search(r"release ([\d.]+)", log)
     print(f"nvcc {release.group(1) if release else 'version not in the log'}")
-    regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
-    spills = [int(s) for s in re.findall(r"(\d+) bytes spill stores", log)]
-    print(f"ptxas: {len(regs)} kernels, at most {max(regs)} registers, "
-          f"{sum(spills)} bytes of spill stores in all")
+    ptxas = ptxas_by_kernel(log)
 
     rng = np.random.default_rng(20261016)
     kernels: dict = {}
@@ -767,11 +819,23 @@ def main() -> int:
           f"fit.step() at batch {TRAIN_BATCH} (one training step)")
     print("phase seconds: " + ", ".join(f"{n} {t:.1f}" for n, t in phases))
 
+    for kname, rec in kernels.items():
+        fns = DEVICE_FUNCTIONS[kname]
+        rows = ptxas[fns[0]]  # the path's device function
+        rec["registers"] = max(
+            [r for inst, r, _ in rows if FLAGSHIP_INSTANCE in inst]
+            or [r for _, r, _ in rows])
+        rec["spill_bytes"] = sum(sp for fn in fns for _, _, sp in ptxas[fn])
+        rec["device_functions"] = fns
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "call_ms", "plain_call_ms", "timing", "launches_by_path")
-    print(json.dumps({"kernels": [{k: rec[k] for k in keys}
-                                  for rec in kernels.values()]}))
+            "ms", "ms_cold", "plain_ms", "bound_ms", "bound_by",
+            "bound_share", "bound_share_cold", "headline", "library_ms",
+            "registers", "spill_bytes", "device_functions", "call_ms",
+            "plain_call_ms", "timing", "launches_by_path")
+    print(json.dumps({"kernels": [
+        {**{k: rec[k] for k in keys},
+         **{k: rec[k] for k in ("variants",) if k in rec}}
+        for rec in kernels.values()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -10,17 +10,21 @@
 // on a periodic lattice of 1-3 dims; phi_{x-mu} is the site whose mu-th
 // coordinate is (c_mu - 1 mod L_mu), which is jnp.roll(phi, 1, mu).
 //
-// What bounds it on an H100: memory, and at the flagship's size launch
-// latency.  It reads each field value once (4 MB at (1024, 32, 32), about
-// 1.25 us at 3.35 TB/s) and writes 4 B per sample, with ~10 operations per
-// site.  The design:
-// - one block per sample, threads stride over its sites, so consecutive
-//   threads read consecutive addresses; the neighbour read hits the same
-//   sample's lines again, in L1;
-// - the sum is taken per thread, then across the warp with shuffles, then
-//   across warps in shared memory, and written once per sample: a fixed
-//   order with no atomics, so the result is deterministic.
-//
+// What bounds it on an H100: memory, and at the flagship's size latency.
+// It reads each field value once (4 MB at (1024, 32, 32), about 1.25 us at
+// 3.35 TB/s) and writes 4 B per sample, with ~10 operations per site.  Two
+// variants, chosen by the wrapper by shape and alignment:
+// - the tiled kernel (phi4_action_tiled_f32, the flagship's) for 2-D
+//   lattices whose rows split into float4s: one 16-byte load per thread
+//   into shared memory, the neighbours from there and from the thread's own
+//   registers, no division per site (notes at the kernel);
+// - the general kernel (phi4_action_f32) for every other lattice of 1-3
+//   dims: one block per sample, threads stride over its sites, the
+//   neighbour's index from a division and a modulo per dimension.
+// Both sum per thread, then across the warp with shuffles, then across
+// warps in shared memory, and write once per sample: a fixed order with no
+// atomics, so the result is deterministic.
+
 // The gradient is the analytic force times the per-sample cotangent g,
 //   dS/dphi_x = 2 w2 phi_x + 4 w4 phi_x^3 - w0 sum_mu (phi_{x-mu} + phi_{x+mu}),
 // in the Pallas kernel's order of operations.  It is elementwise and bound
@@ -30,6 +34,9 @@
 // reads hit lines that neighbouring threads of the same sample read too.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "bulk_copy.cuh"
 
 namespace {
 
@@ -114,6 +121,80 @@ phi4_action_grad_kernel(const float* __restrict__ cfgs,
   grad[i] = dv * __ldg(g + b);
 }
 
+
+// The tiled action for 2-D lattices with L1 % 4 == 0 and L0 * L1 / 4 a
+// multiple of 32, at most 1024: a block of (L0 L1 / 4, P) threads takes P
+// samples; thread (g, p) loads sites 4g..4g+3 of sample p as one float4
+// (row r = g / (L1/4), columns c..c+3) into shared memory, then takes the
+// up neighbours (row r-1) as one float4 and the left neighbour of column c
+// as one float from there, the other three left neighbours from its own
+// registers.  Per site the terms are those of phi4_action_kernel in its
+// order; the thread's four sites are summed in order, then the warp's by
+// shuffles, then each sample's warps by its first warp.
+__global__ void __launch_bounds__(1024)
+phi4_action_tiled_kernel(const float* __restrict__ cfgs,
+                         float* __restrict__ act, long long B, int L0,
+                         int L1, float w0, float w2, float w4) {
+  const int G = blockDim.x;  // float4 groups per sample
+  const int g = threadIdx.x;
+  const int p = threadIdx.y;
+  const long long b = (long long)blockIdx.x * blockDim.y + p;
+  float4* field = reinterpret_cast<float4*>(dynamic_smem()) + p * G;
+  const float* f = reinterpret_cast<const float*>(field);
+
+  float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (b < B) v = __ldg(reinterpret_cast<const float4*>(cfgs) + b * G + g);
+  field[g] = v;
+  __syncthreads();
+
+  const int q = L1 >> 2;
+  const int r = g / q;
+  const int c = (g - r * q) << 2;
+  const float sites[4] = {v.x, v.y, v.z, v.w};
+  float ups[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  float lefts[4] = {0.0f, v.x, v.y, v.z};
+  if (w0 != 0.0f) {
+    const float4 u = reinterpret_cast<const float4*>(
+        f + (r == 0 ? L0 - 1 : r - 1) * L1)[c >> 2];
+    ups[0] = u.x;
+    ups[1] = u.y;
+    ups[2] = u.z;
+    ups[3] = u.w;
+    lefts[0] = f[r * L1 + (c == 0 ? L1 - 1 : c - 1)];
+  }
+  float acc = 0.0f;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float ph = sites[k];
+    const float p2 = ph * ph;
+    float a = w2 * p2 + w4 * p2 * p2;
+    if (w0 != 0.0f) {
+      float neigh = 0.0f;
+      neigh += ups[k];
+      neigh += lefts[k];
+      a -= w0 * ph * neigh;
+    }
+    acc += a;
+  }
+
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    acc += __shfl_down_sync(0xffffffffu, acc, off);
+  __shared__ float warp_sums[32];
+  const int warps = G >> 5;  // per sample
+  const int lane = g & 31;
+  const int warp = g >> 5;
+  if (lane == 0) warp_sums[p * warps + warp] = acc;
+  __syncthreads();
+  if (warp == 0) {
+    acc = lane < warps ? warp_sums[p * warps + lane] : 0.0f;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      acc += __shfl_down_sync(0xffffffffu, acc, off);
+    if (lane == 0 && b < B) act[b] = acc;
+  }
+}
+
 }  // namespace
 
 // cfgs (B, L0, L1, L2) float32 contiguous with nd lattice dims, the unused
@@ -147,5 +228,29 @@ extern "C" int phi4_action_grad_f32(const void* cfgs, const void* g,
                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(cfgs), static_cast<const float*>(g),
       static_cast<float*>(grad), n, (int)V, nd, L0, L1, L2, w0, w2, w4);
+  return (int)cudaGetLastError();
+}
+
+// The tiled action: cfgs (B, L0, L1) float32 contiguous and 16-byte
+// aligned, L1 % 4 == 0, G = L0 L1 / 4 a multiple of 32 and at most 1024,
+// `samples` per block with G * samples <= 1024 (the wrapper sends other
+// shapes to phi4_action_f32).  Returns cudaErrorInvalidValue for what it
+// does not take, else cudaGetLastError() after the launch.
+extern "C" int phi4_action_tiled_f32(const void* cfgs, void* act, long long B,
+                                     int L0, int L1, int samples, float w0,
+                                     float w2, float w4, void* stream) {
+  const long long G = (long long)L0 * L1 / 4;
+  if (B < 1 || L0 < 1 || L1 < 4 || L1 % 4 || G % 32 || G > 1024 ||
+      samples < 1 || G * samples > 1024 ||
+      reinterpret_cast<uintptr_t>(cfgs) % 16)
+    return (int)cudaErrorInvalidValue;
+  const long long blocks = (B + samples - 1) / samples;
+  if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
+  const dim3 block((unsigned int)G, (unsigned int)samples);
+  phi4_action_tiled_kernel<<<(unsigned int)blocks, block,
+                             (size_t)samples * G * sizeof(float4),
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(cfgs), static_cast<float*>(act), B, L0, L1,
+      w0, w2, w4);
   return (int)cudaGetLastError();
 }

@@ -22,18 +22,30 @@
 //   F(theta; p) = x, so dtheta = (dx - dF/dp dp) / (dF/dtheta), with
 //   dF/dtheta = g * (x1 - x0); log g's adjoint enters with a minus sign.
 //
-// What bounds it on an H100: memory.  A site reads x, ybar, loggbar and the
-// 3m-2 channels of out and writes xbar and 3m-2 channels of outbar: at
-// m = 8, 4 (3 + 22 + 1 + 22) = 192 B, against a few hundred float32
-// operations.  The design follows the forward kernel: one thread per
-// (sample, site), per-channel reads and writes coalesced across
-// neighbouring threads, m a template parameter with unrolled loops so the
-// knot arrays and the adjoint selects use static indices and stay in
-// registers, no shared memory, no atomics (each site owns its outbar).  The
-// knot arrays live only until the segment is gathered; the coordinate
-// weights are read again for the transposition rather than held, to keep
-// the live registers near the forward kernel's.
+// What bounds it on an H100: memory, then instructions.  A site reads x,
+// ybar, loggbar and the 3m-2 channels of out and writes xbar and 3m-2
+// channels of outbar: at m = 8, 4 (3 + 22 + 1 + 22) = 192 B, 50.3 MB at the
+// training batch (B = 512, 512 sites), against about a thousand float32
+// instructions (IEEE divisions, expf, log1pf: --fmad=false).  Two variants,
+// chosen by the wrapper by shape and alignment:
+// - the tiled kernel (rqs_coupling_bwd_tiled_f32, the path's): persistent
+//   blocks stage tiles through a ring of shared memory with bulk copies
+//   (no tensor map, so nothing beyond the runtime is linked), the next
+//   tiles arriving while this one computes, and the adjoints leave by bulk
+//   stores; registers are capped by __launch_bounds__ so that 8 blocks of
+//   128 threads fit on an SM at m <= 8 (design notes at the kernel);
+// - the per-site kernel (rqs_coupling_bwd_f32) for S % 4 != 0 or an
+//   address off 16 bytes, which the bulk copies cannot take: one thread per
+//   (sample, site), per-channel reads and writes coalesced across
+//   neighbouring threads, no shared memory.  Its knot arrays live only
+//   until the segment is gathered; the coordinate weights are read again
+//   for the transposition rather than held.
+// In both, m is a template parameter with unrolled loops so the knot arrays
+// and the adjoint selects use static indices and stay in registers, and
+// each site owns its outbar (no atomics).  The two compute the same
+// float32 operations in the same order and return the same bits.
 
+#include "bulk_copy.cuh"
 #include "rqs_common.cuh"
 
 namespace {
@@ -257,6 +269,314 @@ void dispatch(const float* x, const float* out, const float* ybar,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The tiled kernel.  A tile is TS consecutive sites of one sample; each of
+// its R = 3m+1 rows (the 3m-2 channels of `out`, then x, ybar, loggbar) is
+// TS contiguous floats of global memory.  A ring of `stages` shared-memory
+// stages holds R x TS floats each.  Warp 0 fills a stage with one bulk copy
+// per row (a row per lane), completing on the stage's mbarrier, `stages`
+// tiles ahead of the tile being computed; each thread takes one site,
+// reads its column of the stage, and writes its adjoints over the same
+// column (x's row takes xbar); the 3m-2 outbar rows and the xbar row leave
+// by bulk stores, and the stage is refilled once the stores have read it.  The arithmetic is that of
+// the per-site kernel above, operation for operation, except that the
+// softmax's e_j of the first pass stay in the column (over w_j) and 1/sum e
+// in a register, so the transposition reads them instead of recomputing the
+// same values.
+
+constexpr int kMaxTileSites = 128;
+constexpr int kMaxStages = 4;
+
+// Blocks of kMaxTileSites threads per SM that __launch_bounds__ asks the
+// register allocator to fit: 8 (at most 64 registers) up to m = 8; at
+// m = 12 (34 channels) 4, since 64 would spill.
+constexpr int min_blocks(int m) { return m <= 8 ? 8 : 4; }
+
+template <int M, bool LEFT, bool RIGHT, bool INVERSE>
+struct Inst {};
+
+// coords() of rqs_common.cuh on a shared-memory column: also leaves e_j in
+// place of w_j and returns 1 / sum_j e_j in `inv`.
+template <int M>
+__device__ __forceinline__ void coords_smem(float* w, int stride, float lo,
+                                            float width, float* k,
+                                            float& inv) {
+  float e[M - 1];
+  float mx = w[0];
+  e[0] = mx;
+#pragma unroll
+  for (int j = 1; j < M - 1; ++j) {
+    e[j] = w[j * stride];
+    mx = fmaxf(mx, e[j]);
+  }
+  float tot = 0.0f;
+#pragma unroll
+  for (int j = 0; j < M - 1; ++j) {
+    e[j] = expf(e[j] - mx);
+    tot += e[j];
+    w[j * stride] = e[j];
+  }
+  inv = 1.0f / tot;
+  float cum = 0.0f;
+  k[0] = lo + width * 0.0f;
+#pragma unroll
+  for (int j = 0; j < M - 1; ++j) {
+    cum += e[j];
+    k[j + 1] = lo + width * (cum * inv);
+  }
+}
+
+// coords_adjoint() on the e_j that coords_smem left in the column; writes
+// the weights' adjoints over them.
+template <int M, bool LEFT, bool RIGHT>
+__device__ __forceinline__ void coords_adjoint_smem(float* w, int stride,
+                                                   float inv, float width,
+                                                   int idx, float b0,
+                                                   float b1) {
+  float cb[M - 1];
+  float cum = 0.0f, A = 0.0f;
+#pragma unroll
+  for (int j = 0; j < M - 1; ++j) {
+    cum += w[j * stride];
+    cb[j] = width * knot_adj<M, LEFT, RIGHT>(j + 1, idx, b0, b1);
+    A += cb[j] * (cum * inv);
+  }
+  float suffix = 0.0f;
+#pragma unroll
+  for (int i = M - 2; i >= 0; --i) {
+    suffix += cb[i];
+    w[i * stride] = (w[i * stride] * inv) * (suffix - A);
+  }
+}
+
+// One site's VJP on its column `o` of a stage (rows `ts` floats apart):
+// rows 0..3m-3 hold out and receive outbar, row 3m-2 holds x and receives
+// xbar, rows 3m-1 and 3m hold ybar and loggbar.
+template <int M, bool LEFT, bool RIGHT, bool INVERSE>
+__device__ __forceinline__ void site_vjp_smem(float* o, int ts, float xlo,
+                                              float xw, float ylo,
+                                              float yw) {
+  constexpr int K3 = 3 * M - 2;
+  constexpr int L = LEFT ? 1 : 0;
+  constexpr int K = M + L + (RIGHT ? 1 : 0);
+  float* xr = o + K3 * ts;
+
+  const float xv = xr[0];
+  float invx, invy;
+  Segment sg;
+  {
+    float kx[K], ky[K], kd[K];
+    coords_smem<M>(o, ts, xlo, xw, kx + L, invx);
+    coords_smem<M>(o + (M - 1) * ts, ts, ylo, yw, ky + L, invy);
+#pragma unroll
+    for (int j = 0; j < M; ++j)
+      kd[L + j] = softplus_log2(o[(2 * (M - 1) + j) * ts]);
+    if (LEFT) {
+      kx[0] = kx[1] - 1.0f;
+      ky[0] = ky[1] - kd[1];
+      kd[0] = kd[1];
+    }
+    if (RIGHT) {
+      kx[K - 1] = kx[K - 2] + 1.0f;
+      ky[K - 1] = ky[K - 2] + kd[K - 2];
+      kd[K - 1] = kd[K - 2];
+    }
+    sg = segment<K, INVERSE>(xv, kx, ky, kd);
+  }
+  const int idx = sg.idx;
+  const float dx = sg.x1 - sg.x0;
+  const float dy = sg.y1 - sg.y0;
+  const float mm = dy / dx;
+  const float spread = sg.d1 + sg.d0 - 2.0f * mm;
+  const float theta = INVERSE
+      ? inverse_theta(xv, sg.y0, dy, mm, spread, sg.d0)
+      : (xv - sg.x0) / dx;
+
+  const float gy = xr[ts];
+  const float gl = xr[2 * ts];
+  Adj a = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  float xb, x0b, dxb;
+  if (!INVERSE) {
+    lg_adjoint(theta, mm, spread, sg.d0, gl, a);
+    f_adjoint(theta, mm, spread, sg.d0, dy, gy, a);
+    xb = a.th / dx;
+    x0b = -xb;
+    dxb = -xb * theta;
+  } else {
+    lg_adjoint(theta, mm, spread, sg.d0, -gl, a);
+    const float thb = a.th + gy * dx;
+    x0b = gy;
+    dxb = gy * theta;
+    const float omt = 1.0f - theta;
+    const float denom = mm + spread * theta * omt;
+    const float num = sg.d0 + 2.0f * (mm - sg.d0) * theta +
+                      spread * theta * theta;
+    const float c = thb / (mm * mm * num / (denom * denom) * dx);
+    xb = c;
+    f_adjoint(theta, mm, spread, sg.d0, dy, -c, a);
+  }
+  xr[0] = xb;
+
+  const float d1b = a.sp;
+  const float d0b = a.d0 + a.sp;
+  const float mmb = a.mm - 2.0f * a.sp;
+  const float dyb = a.dy + mmb / dx;
+  dxb += -mmb * mm / dx;
+  const float x1b = dxb;
+  x0b += -dxb;
+  const float y1b = dyb;
+  const float y0b = a.y0 - dyb;
+
+  coords_adjoint_smem<M, LEFT, RIGHT>(o, ts, invx, xw, idx, x0b, x1b);
+  coords_adjoint_smem<M, LEFT, RIGHT>(o + (M - 1) * ts, ts, invy, yw, idx,
+                                      y0b, y1b);
+#pragma unroll
+  for (int j = 0; j < M; ++j) {
+    float kdb = knot_adj<M, LEFT, RIGHT>(j, idx, d0b, d1b);
+    if (LEFT && j == 0) kdb += idx == 0 ? -y0b : 0.0f;
+    if (RIGHT && j == M - 1) kdb += idx == K - 2 ? y1b : 0.0f;
+    float* w = o + (2 * (M - 1) + j) * ts;
+    const float z = w[0] * kLn2;
+    w[0] = kdb * (1.0f / (1.0f + expf(-z)));
+  }
+}
+
+// Persistent: block k takes tiles k, k + gridDim.x, ...; tile -> (sample
+// tile / tiles_per_sample, first site (tile % tiles_per_sample) * TS).
+template <int M, bool LEFT, bool RIGHT, bool INVERSE>
+__global__ void __launch_bounds__(kMaxTileSites, min_blocks(M))
+rqs_coupling_bwd_tiled_kernel(const float* __restrict__ x,
+                              const float* __restrict__ out,
+                              const float* __restrict__ ybar,
+                              const float* __restrict__ loggbar,
+                              float* __restrict__ xbar,
+                              float* __restrict__ outbar, long long S,
+                              long long tiles_per_sample, long long n_tiles,
+                              int stages, float xlo, float xw, float ylo,
+                              float yw) {
+  constexpr int K3 = 3 * M - 2;
+  constexpr int R = K3 + 3;
+  const int ts = blockDim.x;
+  const int t = threadIdx.x;
+  float* smem = reinterpret_cast<float*>(dynamic_smem());
+  __shared__ uint64_t full[kMaxStages];
+
+  if (t == 0) {
+    for (int st = 0; st < stages; ++st) mbar_init(&full[st], 1);
+    fence_mbarrier_init();
+  }
+  __syncthreads();
+
+  // sample, first site and number of sites of a tile
+  auto locate = [&](long long tile, long long& b, long long& s0, int& n) {
+    b = tile / tiles_per_sample;
+    s0 = (tile - b * tiles_per_sample) * ts;
+    n = (int)(S - s0 < ts ? S - s0 : ts);
+  };
+  // warp 0 fills a stage: lane 0 arms the barrier, lane l copies rows
+  // l, l + 32, ...
+  const int lane = t & 31;
+  auto load = [&](long long tile, int st) {
+    long long b, s0;
+    int n;
+    locate(tile, b, s0, n);
+    float* stage = smem + (long long)st * R * ts;
+    const uint32_t bytes = (uint32_t)n * sizeof(float);
+    if (lane == 0) mbar_arrive_expect_tx(&full[st], bytes * R);
+    __syncwarp();
+    for (int c = lane; c < R; c += 32) {
+      const float* src = c < K3 ? out + (b * K3 + c) * S
+                       : (c == K3 ? x : c == K3 + 1 ? ybar : loggbar) + b * S;
+      bulk_load(stage + c * ts, src + s0, bytes, &full[st]);
+    }
+  };
+
+  if (t < 32) {
+    for (int st = 0; st < stages; ++st) {
+      const long long tile = blockIdx.x + (long long)st * gridDim.x;
+      if (tile < n_tiles) load(tile, st);
+    }
+  }
+  int st = 0;
+  uint32_t parity = 0;
+  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    long long b, s0;
+    int n;
+    locate(tile, b, s0, n);
+    float* stage = smem + (long long)st * R * ts;
+    mbar_wait(&full[st], parity);
+    if (t < n)
+      site_vjp_smem<M, LEFT, RIGHT, INVERSE>(stage + t, ts, xlo, xw, ylo, yw);
+    fence_proxy_async();
+    __syncthreads();
+    if (t < 32) {  // lane l stores rows l, l + 32, ... (xbar's is K3)
+      const uint32_t bytes = (uint32_t)n * sizeof(float);
+      for (int c = lane; c <= K3; c += 32)
+        bulk_store((c < K3 ? outbar + (b * K3 + c) * S : xbar + b * S) + s0,
+                   stage + c * ts, bytes);
+      bulk_commit();
+      const long long next = tile + (long long)stages * gridDim.x;
+      if (next < n_tiles) {
+        bulk_wait_read();
+        __syncwarp();
+        load(next, st);
+      }
+    }
+    if (++st == stages) {
+      st = 0;
+      parity ^= 1u;
+    }
+  }
+  if (t < 32) bulk_wait_all();
+}
+
+constexpr size_t tiled_smem_bytes(int m, int ts, int stages) {
+  return (size_t)stages * (3 * m + 1) * ts * sizeof(float);
+}
+
+// Calls f(Inst<M, LEFT, RIGHT, INVERSE>{}) for the instance of these flags;
+// cudaErrorInvalidValue for a knot count without one.
+template <typename F>
+int visit(int m, int left, int right, int inverse, F&& f) {
+  const int key = (left ? 4 : 0) | (right ? 2 : 0) | (inverse ? 1 : 0);
+#define NF_KEYS(MM)                                  \
+  case MM:                                           \
+    switch (key) {                                   \
+      case 0: return f(Inst<MM, false, false, false>{}); \
+      case 1: return f(Inst<MM, false, false, true>{});  \
+      case 2: return f(Inst<MM, false, true, false>{});  \
+      case 3: return f(Inst<MM, false, true, true>{});   \
+      case 4: return f(Inst<MM, true, false, false>{});  \
+      case 5: return f(Inst<MM, true, false, true>{});   \
+      case 6: return f(Inst<MM, true, true, false>{});   \
+      default: return f(Inst<MM, true, true, true>{});   \
+    }
+  switch (m) {
+    NF_KEYS(4)
+    NF_KEYS(6)
+    NF_KEYS(8)
+    NF_KEYS(12)
+#undef NF_KEYS
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <int M, bool LEFT, bool RIGHT, bool INVERSE>
+auto tiled_kernel(Inst<M, LEFT, RIGHT, INVERSE>) {
+  return rqs_coupling_bwd_tiled_kernel<M, LEFT, RIGHT, INVERSE>;
+}
+
+template <int M, bool LEFT, bool RIGHT, bool INVERSE>
+constexpr int knots_of(Inst<M, LEFT, RIGHT, INVERSE>) {
+  return M;
+}
+
+bool tiled_shape_ok(int ts, int stages) {
+  return ts >= 32 && ts <= kMaxTileSites && ts % 32 == 0 && stages >= 1 &&
+         stages <= kMaxStages;
+}
+
 }  // namespace
 
 // x, ybar, loggbar, xbar (B, S); out, outbar (B, 3m-2, S); all float32,
@@ -292,4 +612,57 @@ extern "C" int rqs_coupling_bwd_f32(const void* x, const void* out,
       return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+// The tiled kernel on the same arguments, for S % 4 == 0 and every pointer
+// 16-byte aligned (the bulk copies' rule; the wrapper sends other shapes to
+// rqs_coupling_bwd_f32): tiles of `tile_sites` sites (a multiple of 32,
+// at most 128; one thread per site), a ring of `stages` (1-4), `grid`
+// persistent blocks.  Returns cudaErrorInvalidValue for arguments it does
+// not take, else cudaGetLastError() after the launch.
+extern "C" int rqs_coupling_bwd_tiled_f32(
+    const void* x, const void* out, const void* ybar, const void* loggbar,
+    void* xbar, void* outbar, long long B, long long S, int m, float xlo,
+    float xw, float ylo, float yw, int left_linear, int right_linear,
+    int inverse, int tile_sites, int stages, int grid, void* stream) {
+  const void* ptrs[6] = {x, out, ybar, loggbar, xbar, outbar};
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16) return (int)cudaErrorInvalidValue;
+  if (!tiled_shape_ok(tile_sites, stages) || S % 4 || B < 1 || S < 1 ||
+      grid < 1)
+    return (int)cudaErrorInvalidValue;
+  const long long tps = (S + tile_sites - 1) / tile_sites;
+  return visit(m, left_linear, right_linear, inverse, [&](auto inst) {
+    auto kern = tiled_kernel(inst);
+    const size_t smem = tiled_smem_bytes(knots_of(inst), tile_sites, stages);
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    kern<<<(unsigned int)grid, tile_sites, smem,
+           static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(x), static_cast<const float*>(out),
+        static_cast<const float*>(ybar), static_cast<const float*>(loggbar),
+        static_cast<float*>(xbar), static_cast<float*>(outbar), S, tps,
+        B * tps, stages, xlo, xw, ylo, yw);
+    return (int)cudaGetLastError();
+  });
+}
+
+// Blocks of the tiled kernel's instance that fit on one SM at this tile
+// size and ring depth (registers and shared memory), into *blocks.
+extern "C" int rqs_coupling_bwd_tiled_occupancy(int m, int left_linear,
+                                                int right_linear, int inverse,
+                                                int tile_sites, int stages,
+                                                int* blocks) {
+  if (!tiled_shape_ok(tile_sites, stages)) return (int)cudaErrorInvalidValue;
+  return visit(m, left_linear, right_linear, inverse, [&](auto inst) {
+    auto kern = tiled_kernel(inst);
+    const size_t smem = tiled_smem_bytes(knots_of(inst), tile_sites, stages);
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kern,
+                                                          tile_sites, smem);
+    return (int)err;
+  });
 }

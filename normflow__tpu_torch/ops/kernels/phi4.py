@@ -12,7 +12,10 @@ on a periodic lattice of 1-3 dims, ``cfgs`` ``(B, *lat)`` -> ``(B,)``, and
 its gradient, the analytic force times the per-sample cotangent.
 :func:`phi4_action` is differentiable; it and :func:`phi4_action_grad` run
 the plain PyTorch version for a CPU tensor and the CUDA kernel
-(``csrc/phi4_action.cu``) for a CUDA tensor.
+(``csrc/phi4_action.cu``) for a CUDA tensor.  The action has two
+hand-written variants, chosen by shape and alignment
+(:func:`action_variant`): the tiled kernel for 2-D lattices that suit its
+float4 tile (the flagship's), the general kernel for every other lattice.
 """
 
 from __future__ import annotations
@@ -23,7 +26,32 @@ from torch.autograd.function import once_differentiable
 from . import _lib
 
 __all__ = ["phi4_action", "phi4_action_plain", "phi4_action_grad",
-           "phi4_action_grad_plain"]
+           "phi4_action_grad_plain", "action_plan", "action_variant"]
+
+# threads per block of the tiled action kernel, filled with whole samples
+# (one sample where a sample alone has more)
+THREADS_PER_BLOCK = 256
+
+
+def action_plan(lat):
+    """``(groups, samples)`` of the tiled action kernel for a lattice
+    ``lat``: float4 groups per sample (one thread each) and samples per
+    block; ``None`` where the lattice does not suit the tile (not 2-D, the
+    second extent not a multiple of 4, or the groups not a whole number of
+    warps up to 1024)."""
+    if len(lat) != 2 or lat[1] % 4:
+        return None
+    groups = lat[0] * lat[1] // 4
+    if groups % 32 or groups > 1024:
+        return None
+    return groups, max(1, THREADS_PER_BLOCK // groups)
+
+
+def action_variant(lat, ptr):
+    """``"tiled"`` where :func:`action_plan` has a tile for ``lat`` and the
+    field's address ``ptr`` suits float4 loads, ``"general"`` otherwise."""
+    return ("tiled" if action_plan(lat) is not None and ptr % 16 == 0
+            else "general")
 
 
 def phi4_action_plain(cfgs, w0, w2, w4):
@@ -76,11 +104,17 @@ def _action(cfgs, w0, w2, w4):
         return cfgs.new_zeros(b)
     act = torch.empty(b, dtype=cfgs.dtype, device=cfgs.device)
     lib = _lib.library()
+    w = (float(w0), float(w2), float(w4))
     with torch.cuda.device(cfgs.device):
         stream = torch.cuda.current_stream(cfgs.device).cuda_stream
-        err = lib.phi4_action_f32(
-            cfgs.data_ptr(), act.data_ptr(), b, cfgs.dim() - 1, *lat,
-            float(w0), float(w2), float(w4), stream)
+        if action_variant(cfgs.shape[1:], cfgs.data_ptr()) == "tiled":
+            _, samples = action_plan(cfgs.shape[1:])
+            err = lib.phi4_action_tiled_f32(
+                cfgs.data_ptr(), act.data_ptr(), b, *lat[:2], samples, *w,
+                stream)
+        else:
+            err = lib.phi4_action_f32(cfgs.data_ptr(), act.data_ptr(), b,
+                                      cfgs.dim() - 1, *lat, *w, stream)
     _lib.check(err, "phi4_action")
     phi4_action.launches += 1
     return act

@@ -1,0 +1,241 @@
+#!/usr/bin/env python3
+"""Device times and outputs of the port's four kernels in one checkout::
+
+    python3 normflow__tpu_torch/tools/kernel_times.py CHECKOUT LABEL OUT.pt
+    python3 normflow__tpu_torch/tools/kernel_times.py --compare A.pt B.pt
+
+``CHECKOUT`` is the root of a checkout (it holds ``normflow__tpu_torch/``);
+the port is imported from there, so two commits compare on one card by
+running the first form on each in turn (parent, change, change, parent).
+For each kernel at the main path's shapes (``rqs_coupling`` at B = 1024,
+``rqs_coupling_bwd`` at B = 512 forward and inverse, both with linear
+tails on the flagship's 32x16 sites and m = 8; ``phi4_action`` at (1024,
+32, 32); ``phi4_action_grad`` at (512, 32, 32)) it prints, each line
+starting with ``LABEL``, the median device time per launch from
+``torch.profiler`` (the kernel's own events, by name) with the inputs warm
+in L2 and with L2 flushed before every launch (a 256 MB buffer written
+between launches), the least time the card could take (:func:`bound_ms`)
+and the share of it each time reaches.  It saves every kernel's outputs on
+the seeded inputs to ``OUT.pt`` (about 30 MB).
+
+``--compare`` holds two such files against each other: ``rqs_coupling``,
+``rqs_coupling_bwd`` and ``phi4_action_grad`` bit for bit,
+``phi4_action`` to max |dS| / max(1, |S|) <= 2e-5; it exits 1 if one
+differs.  :func:`warm_ms`, :func:`cold_ms`, :func:`bound_ms`,
+:func:`work` and :func:`card_peaks` serve ``chip_smoke.py`` too.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+import re
+import statistics
+import subprocess
+import sys
+
+PHI4_REL_TOL = 2e-5
+FLUSH_BYTES = 256 * 2 ** 20  # > 2 x the H100's 50 MB L2
+# the card's published peaks (NVIDIA data sheets), keyed by a part of the
+# name nvidia-smi reports: memory bytes/s and float32 (non-tensor) FLOP/s
+PEAKS = (("H100 NVL", 3.9e12, 60e12), ("H100 PCIe", 2.0e12, 51e12),
+         ("H200", 4.8e12, 67e12), ("H100", 3.35e12, 67e12))
+# each kernel's device function, as the profiler names its launches
+KERNEL_RE = {
+    "rqs_coupling": r"\brqs_coupling_kernel\b",
+    "rqs_coupling_bwd": r"\brqs_coupling_bwd(_tiled)?_kernel\b",
+    "phi4_action": r"\bphi4_action(_tiled)?_kernel\b",
+    "phi4_action_grad": r"\bphi4_action_grad_kernel\b",
+}
+M, LAT, BATCH, TRAIN_BATCH = 8, (32, 32), 1024, 512
+LIM = dict(xlim=(-4.0, 4.0), ylim=(-4.0, 4.0), left="linear", right="linear")
+
+
+def card_peaks(name):
+    for key, bw, flops in PEAKS:
+        if key in name:
+            return bw, flops
+    raise RuntimeError(f"no published peaks recorded for the card {name!r}")
+
+
+def bound_ms(nbytes, nops, peaks):
+    """``(ms, "bytes" | "operations")``: the larger of the bytes over the
+    memory rate and the operations over the float32 rate."""
+    bw, flops = peaks
+    t_bytes, t_ops = nbytes / bw * 1e3, nops / flops * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _kernel_us(fn, name, reps, between=None, tries=3):
+    """Device microseconds of each launch of kernel ``name`` over ``reps``
+    calls of ``fn()``, ``between()`` before each.  The profiler may drop
+    events of a window, one at its start or, rarely, all: a window that
+    shows fewer than half the launches is profiled again, up to ``tries``
+    times, and then it raises."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    pat = re.compile(KERNEL_RE[name])
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                if between is not None:
+                    between()
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and pat.search(e.name)]
+        if reps // 2 <= len(us) <= reps:
+            return us
+    raise RuntimeError(f"the profiler saw {len(us)} launches of {name} in "
+                       f"{reps} calls, {tries} times")
+
+
+def warm_ms(fn, name, reps=50):
+    """Median device ms of one launch of ``name`` when ``fn()`` runs again
+    and again on the same tensors (they stay in L2 where they fit)."""
+    for _ in range(5):
+        fn()
+    return statistics.median(_kernel_us(fn, name, reps)) / 1e3
+
+
+def cold_ms(fn, name, reps=30):
+    """Median device ms of one launch of ``name`` with L2 flushed before
+    it: a 256 MB buffer is written between launches."""
+    import torch
+
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32,
+                        device="cuda")
+    fn()
+    return statistics.median(
+        _kernel_us(fn, name, reps, between=lambda: flush.fill_(1.0))) / 1e3
+
+
+def work(name, shape):
+    """``(bytes, operations)`` one launch must move and do: each input read
+    once and each output written once; the per-site operation counts of
+    ``chip_smoke.py``'s notes."""
+    if name in ("rqs_coupling", "rqs_coupling_bwd"):
+        b, k3, *lat = shape
+        m, sites, k = (k3 + 2) // 3, b * math.prod(lat), (k3 + 2) // 3 + 2
+        # 2 softmax-cumsum coordinate sets (~7m), m softplus (~8m), K
+        # comparisons, 6(K-1) selects, ~40 for the rational map and its log
+        fwd = 22 * m + k + 6 * (k - 1) + 40
+        if name == "rqs_coupling":
+            return sites * 4 * (1 + k3 + 2), sites * fwd
+        # reads x, ybar, loggbar and 3m-2 channels, writes xbar and 3m-2;
+        # the forward again, ~100 scalar operations, 2 softmax
+        # transpositions (~8m), m sigmoids (~6m) and the selects (~6m)
+        return sites * 4 * (4 + 2 * k3), sites * (fwd + 100 + 20 * m)
+    b, sites = shape[0], math.prod(shape)
+    if name == "phi4_action":  # phi^2, phi^4 terms, 2 neighbour products
+        return 4 * sites + 4 * b, sites * (6 + 3 * 2)
+    # force terms, 4 neighbours, 2 products; reads cfgs and g, writes grad
+    return 4 * sites * 2 + 4 * b, sites * (5 + 2 * 2 + 3)
+
+
+def inputs(torch, rng, w):
+    """Seeded inputs at the path's shapes: ``{case: (kernel, shape, call)}``
+    where ``call(mod_sc, mod_phi4)`` launches the kernel's wrapper; ``w``
+    are the action's coefficients ``(w0, w2, w4)``."""
+    def f32(shape):
+        return torch.tensor(rng.standard_normal(shape), dtype=torch.float32,
+                            device="cuda")
+
+    lat = (LAT[0], LAT[1] // 2)
+    k3 = 3 * M - 2
+    x1, out1 = f32((BATCH, *lat)), f32((BATCH, k3, *lat))
+    x2, out2 = f32((TRAIN_BATCH, *lat)), f32((TRAIN_BATCH, k3, *lat))
+    ybar, loggbar = f32((TRAIN_BATCH, *lat)), f32((TRAIN_BATCH, *lat))
+    cfgs3, cfgs4 = f32((BATCH, *LAT)), f32((TRAIN_BATCH, *LAT))
+    g4 = f32((TRAIN_BATCH,))
+    return {
+        "rqs_coupling": ("rqs_coupling", tuple(out1.shape), lambda sc, ph:
+                         sc.rqs_coupling(x1, out1, **LIM)),
+        "rqs_coupling_bwd forward": (
+            "rqs_coupling_bwd", tuple(out2.shape), lambda sc, ph:
+            sc.rqs_coupling_bwd(x2, out2, ybar, loggbar, inverse=False,
+                                **LIM)),
+        "rqs_coupling_bwd inverse": (
+            "rqs_coupling_bwd", tuple(out2.shape), lambda sc, ph:
+            sc.rqs_coupling_bwd(x2, out2, ybar, loggbar, inverse=True,
+                                **LIM)),
+        "phi4_action": ("phi4_action", tuple(cfgs3.shape), lambda sc, ph:
+                        ph.phi4_action(cfgs3, *w)),
+        "phi4_action_grad": ("phi4_action_grad", tuple(cfgs4.shape),
+                             lambda sc, ph: ph.phi4_action_grad(cfgs4, g4,
+                                                                *w)),
+    }
+
+
+def measure(src, label, path):
+    src = os.path.abspath(src)
+    sys.path.insert(0, src)
+    import numpy as np
+    import torch
+
+    import normflow__tpu_torch as nt
+    from normflow__tpu_torch.models.actions import ScalarPhi4Action
+    from normflow__tpu_torch.ops.kernels import phi4, spline_coupling as sc
+
+    if not nt.__file__.startswith(src):
+        raise RuntimeError(f"imported {nt.__file__}, not the port in {src}")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.splitlines()[0].strip()
+    peaks = card_peaks(torch.cuda.get_device_name(0))
+    saved = {"card": card}
+    with torch.no_grad():
+        w = ScalarPhi4Action(kappa=0.6, m_sq=-2.4, lambd=0.5).get_coef(2)
+        for case, (name, shape, call) in inputs(
+                torch, np.random.default_rng(20261016), w).items():
+            fn = lambda: call(sc, phi4)  # noqa: E731
+            got = fn()
+            torch.cuda.synchronize()
+            saved[case] = [t.cpu() for t in
+                           (got if isinstance(got, tuple) else (got,))]
+            warm, cold = warm_ms(fn, name), cold_ms(fn, name)
+            bms, by = bound_ms(*work(name, shape), peaks)
+            print(f"{label}: {case} warm {warm:.5f} ms ({bms / warm:.3f} of "
+                  f"bound), cold {cold:.5f} ms ({bms / cold:.3f}); bound "
+                  f"{bms:.5f} ms ({by}) on {card}", flush=True)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    torch.save(saved, path)
+    print(f"{label}: outputs saved to {path}")
+
+
+def compare(path_a, path_b):
+    """Hold the outputs of two runs against each other; 0 if they agree."""
+    import torch
+
+    a, b = torch.load(path_a), torch.load(path_b)
+    ok = True
+    for case in a:
+        if case == "card":
+            continue
+        if case == "phi4_action":
+            want, got = a[case][0].double(), b[case][0].double()
+            rel = float(((got - want).abs() / want.abs().clamp(min=1.0))
+                        .max())
+            same = rel <= PHI4_REL_TOL
+            what = f"max |dS|/max(1,|S|) {rel:.3e} (tol {PHI4_REL_TOL})"
+        else:
+            pairs = list(zip(a[case], b[case]))
+            same = all(torch.equal(p.view(torch.int32), q.view(torch.int32))
+                       for p, q in pairs)
+            diff = max(float((p - q).abs().max()) for p, q in pairs)
+            what = ("bit for bit" if same
+                    else f"not bit-identical: max |d| {diff:.3e}")
+        print(f"{case}: {what}{'' if same else ' FAILED'}")
+        ok &= same
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    if sys.argv[1] == "--compare":
+        sys.exit(compare(sys.argv[2], sys.argv[3]))
+    measure(*sys.argv[1:4])

@@ -8,8 +8,12 @@ root (``--noconftest`` leaves out the JAX test configuration)::
 
 Beyond ``chip_smoke.py`` (the flagship's shapes only) they cover every
 knot count the coupling kernel is built for, one-sided extrapolation, a
-ragged number of sites, the action's lattice ranks and the wrappers'
-refusals (the backward kernels: ``tests/test_torch_cuda_grad.py``).
+ragged number of sites, the action's lattice ranks and both of its
+variants (the tiled kernel for 2-D lattices that suit its float4 tile,
+the flagship's included, with a ragged last block and B = 1; the general
+kernel for 1-D, 3-D, V = 1, L1 % 4 != 0 and a field off 16 bytes), and
+the wrappers' refusals (the backward kernels:
+``tests/test_torch_cuda_grad.py``).
 Tolerances are those of ``chip_smoke.py``: 1e-4 absolute for
 the spline (the JAX Pallas tests' own), 2e-5 relative for the action.
 """
@@ -92,6 +96,56 @@ def test_phi4_action_kernel_matches_plain(cuda, np_rng, lat, hopping):
     torch.cuda.synchronize()
     rel = (got - want).abs() / want.abs().clamp(min=1.0)
     assert float(rel.max()) <= 2e-5
+
+
+@pytest.mark.parametrize("b,lat,variant", [
+    (1, (32, 32), "tiled"), (33, (32, 32), "tiled"), (9, (16, 16), "tiled"),
+    (5, (8, 16), "tiled"), (7, (1, 128), "tiled"), (3, (1,), "general"),
+    (4, (6, 30), "general"), (4, (6, 6, 6), "general"),
+    (4, (8, 8), "general"),
+])
+def test_phi4_action_variants_match_plain(cuda, np_rng, b, lat, variant):
+    """Each lattice takes the variant :func:`phi4.action_variant` names
+    and agrees with the plain version, with and without the hopping term;
+    the tiled lattices, 4 bytes off alignment, take the general kernel and
+    agree too."""
+    cfgs = _f32(np_rng.standard_normal((b, *lat)), cuda)
+    fields = [(cfgs, variant)]
+    if variant == "tiled":
+        buf = torch.empty(cfgs.numel() + 1, device=cuda)
+        shifted = buf[1:].view(cfgs.shape)
+        shifted.copy_(cfgs)
+        fields.append((shifted, "general"))
+    for field, want_variant in fields:
+        assert phi4.action_variant(lat, field.data_ptr()) == want_variant
+        w0, w2, w4 = ScalarPhi4Action(kappa=0.6, m_sq=-2.4,
+                                      lambd=0.5).get_coef(len(lat))
+        for w in ((w0, w2, w4), (0.0, w2, w4)):
+            got = phi4.phi4_action(field, *w)
+            want = phi4.phi4_action_plain(field.double(), *w)
+            torch.cuda.synchronize()
+            rel = (got.double() - want).abs() / want.abs().clamp(min=1.0)
+            assert float(rel.max()) <= 2e-5
+
+
+def test_flagship_action_launches_the_tiled_kernel(cuda, np_rng):
+    """At the flagship's (1024, 32, 32) the wrapper launches the tiled
+    kernel, as the profiler names it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfgs = _f32(np_rng.standard_normal((1024, 32, 32)), cuda)
+    assert phi4.action_variant((32, 32), cfgs.data_ptr()) == "tiled"
+    assert phi4.action_plan((32, 32)) == (256, 1)
+    phi4.phi4_action(cfgs, 0.6, 0.4, 0.5)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            phi4.phi4_action(cfgs, 0.6, 0.4, 0.5)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert any("phi4_action_tiled_kernel" in n for n in names), names
+    assert not any("phi4_action_kernel" in n for n in names), names
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):

@@ -6,7 +6,10 @@ skip without a card, and import nothing of JAX::
     python -m pytest --noconftest -q -m gpu tests/test_torch_cuda_grad.py
 
 They cover every knot count the backward kernel is built for, one-sided
-extrapolation, a ragged number of sites, the force kernel's lattice ranks,
+extrapolation, a ragged number of sites, both backward variants (the
+tiled kernel with a ragged last tile, B = 1, and the per-site kernel for
+S % 4 != 0 or an input off 16 bytes) bit for bit against each other, the
+force kernel's lattice ranks,
 the wrappers' refusals, autograd through the CUDA wrappers, and one
 training step of an 8x8 flagship on the card against a CPU copy.
 Tolerances: element by element, ``|d| <= 2e-4 + 2e-4 |plain|`` for the
@@ -94,6 +97,54 @@ def test_rqs_coupling_bwd_kernel_matches_plain(cuda, np_rng, m, inverse):
         assert got[1].shape == out.shape and got[1].is_contiguous()
         assert _excess(got, want) <= 1.0
         assert _excess(_planted(got, want), want) > 1.0
+
+
+def _offset(t, floats=1):
+    """A contiguous copy of ``t`` whose data starts ``floats`` floats into
+    its storage, so off 16 bytes for ``floats`` = 1."""
+    buf = torch.empty(t.numel() + floats, dtype=t.dtype, device=t.device)
+    view = buf[floats:].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4 * floats
+    return view
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("m", sc.SUPPORTED_KNOTS)
+def test_rqs_coupling_bwd_variants_agree_bit_for_bit(cuda, np_rng, m,
+                                                      inverse):
+    """The tiled kernel (16-byte aligned, S % 4 == 0) on 12x20 = 240 sites,
+    two tiles of which the last is ragged, at B = 3 and B = 1, against the
+    per-site kernel on the same values 4 bytes off alignment: the same
+    bits, and both within the bar of the plain VJP."""
+    lat = (12, 20)
+    s = lat[0] * lat[1]
+    for b, (left, right) in zip((3, 1, 3, 1), ((None, None), ("linear", None),
+                                               (None, "linear"),
+                                               ("linear", "linear"))):
+        out = _f32(np_rng.standard_normal((b, 3 * m - 2, *lat)), cuda)
+        x = np_rng.uniform(-1.9, 1.9, (b, *lat))
+        x = np.where((x < 0) & bool(left) | (x > 0) & bool(right), 1.6 * x, x)
+        x = _f32(x, cuda)
+        ybar, loggbar = (_f32(np_rng.standard_normal((b, *lat)), cuda)
+                         for _ in range(2))
+        kw = dict(xlim=LIM, ylim=LIM, left=left, right=right,
+                  inverse=inverse)
+        args = (x, out, ybar, loggbar)
+        shifted = tuple(_offset(t) for t in args)
+        assert sc.bwd_variant(s, [t.data_ptr() for t in args]) == "tiled"
+        assert sc.bwd_variant(s, [t.data_ptr() for t in shifted]) == "sites"
+        before = sc.rqs_coupling_bwd.launches
+        tiled = sc.rqs_coupling_bwd(*args, **kw)
+        sites = sc.rqs_coupling_bwd(*shifted, **kw)
+        assert sc.rqs_coupling_bwd.launches == before + 2
+        want = sc.rqs_coupling_vjp_plain(*args, **kw)
+        torch.cuda.synchronize()
+        for p, q in zip(tiled, sites):
+            assert torch.equal(p.view(torch.int32), q.view(torch.int32))
+        assert all(bool(torch.isfinite(g).all()) for g in tiled)
+        assert _excess(tiled, want) <= 1.0
+        assert _excess(_planted(tiled, want), want) > 1.0
 
 
 @pytest.mark.parametrize("lat,hopping", [
