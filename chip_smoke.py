@@ -21,7 +21,9 @@ use) and imports nothing of JAX.  Phases, each of which raises on failure:
    CPU copy; then ``model.fit`` with the bench protocol's settings
    (``bench.py:278-286``) for ``N_STEPS`` steps on a fresh seeded
    flagship, counters set to 0 just before and read after; training
-   steps/s;
+   steps/s.  On both paths every launch of ``rqs_coupling_bwd`` and
+   ``phi4_action`` must have gone to the tiled kernel, the variant that
+   phase 6 times;
 5. the zero-dim fit (``examples/scalar_zerodim.py``) on the card;
 6. each kernel's time at the path's shapes (``rqs_coupling_bwd`` in both
    training variants, forward and inverse): the median device time of its
@@ -280,7 +282,6 @@ def run_main_path(torch, kernels, rng, card):
     """The flagship sampling path, through the port's entry points."""
     from normflow__tpu_torch import (backward_sanitychecker, calc_ess,
                                      estimate_accept_rate)
-    from normflow__tpu_torch.ops.kernels import phi4, spline_coupling
     from normflow__tpu_torch.zoo import build_phi4_model
 
     model = build_phi4_model(LAT, seed=0)
@@ -306,20 +307,21 @@ def run_main_path(torch, kernels, rng, card):
         raise AssertionError("GPU and CPU flagship disagree")
 
     model.posterior.logqp_stream(2, BATCH)  # warm-up (cuDNN, allocator)
+    counters = {k: c for k, c in _counters().items()
+                if k in ("rqs_coupling", "phi4_action")}
     torch.cuda.synchronize()
-    spline_coupling.rqs_coupling.launches = 0
-    phi4.phi4_action.launches = 0
+    reset_counts(counters)
     t0 = time.perf_counter()
     logqp = model.posterior.logqp_stream(N_BATCHES, BATCH)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {"rqs_coupling": spline_coupling.rqs_coupling.launches,
-                "phi4_action": phi4.phi4_action.launches}
+    launches = {k: c.launches for k, c in counters.items()}
     print(f"launches over logqp_stream({N_BATCHES}, {BATCH}): {launches}")
     n_layers = len(model.net_[2].nets)
     want = {"rqs_coupling": n_layers * N_BATCHES, "phi4_action": N_BATCHES}
     if launches != want:
         raise AssertionError(f"launch counts {launches}, want {want}")
+    check_tiled(counters, kernels, "sample")
     for name, n in launches.items():
         kernels[name]["launches_by_path"] = {"sample": n}
 
@@ -470,8 +472,12 @@ def check_rqs_bwd(torch, kernels, peaks, rng):
         max_abs_err=worst, library_ms=None)
 
     ptrs = [t.data_ptr() for t in (x, out, ybar, loggbar)]
-    print("rqs_coupling_bwd at the training shape takes the "
-          f"{sc.bwd_variant(math.prod(lat), ptrs)} kernel")
+    variant = sc.bwd_variant(math.prod(lat), ptrs)
+    print(f"rqs_coupling_bwd at the training shape takes the {variant} "
+          "kernel")
+    if variant != "tiled":
+        raise AssertionError("the training shape does not take the tiled "
+                             "rqs_coupling_bwd kernel")
 
     def time_it():
         """Time both training-path variants, forward and inverse, with
@@ -556,6 +562,31 @@ def _counters():
             "phi4_action_grad": phi4.phi4_action_grad}
 
 
+def reset_counts(counters):
+    """Set every launch count of ``counters`` to 0, the tiled kernels'
+    shares too."""
+    for c in counters.values():
+        c.launches = 0
+        if hasattr(c, "tiled_launches"):
+            c.tiled_launches = 0
+
+
+def check_tiled(counters, kernels, path):
+    """Raise unless every launch on ``path`` of a kernel with a tiled
+    variant went to the tiled kernel, whose times the record reports."""
+    for name, c in counters.items():
+        if not hasattr(c, "tiled_launches"):
+            continue
+        print(f"{name} over the {path} path: {c.tiled_launches} of "
+              f"{c.launches} launches to the tiled kernel")
+        kernels[name].setdefault("tiled_launches_by_path", {})[path] = \
+            c.tiled_launches
+        if c.tiled_launches != c.launches:
+            raise AssertionError(f"{name}: {c.launches - c.tiled_launches} "
+                                 f"launches on the {path} path missed the "
+                                 "tiled kernel")
+
+
 def check_train_grads(torch, model, rng):
     """The full-width path-gradient loss and its gradients on one numpy
     draw at batch 512: the card (float32, TF32 off) against a float64 CPU
@@ -606,8 +637,7 @@ def run_training_path(torch, kernels, card):
     model = build_phi4_model(LAT, seed=0)
     counters = _counters()
     torch.cuda.synchronize()
-    for c in counters.values():
-        c.launches = 0
+    reset_counts(counters)
     t0 = time.perf_counter()
     hist = model.fit(n_epochs=N_STEPS, batch_size=TRAIN_BATCH,
                      hyperparam=dict(lr=3e-3, weight_decay=1e-4),
@@ -626,6 +656,7 @@ def run_training_path(torch, kernels, card):
     if launches != {k: v * N_STEPS for k, v in per_step.items()}:
         raise AssertionError(f"launch counts {launches}, want {per_step} per "
                              "step")
+    check_tiled(counters, kernels, "train")
     for name, n in launches.items():
         kernels[name]["launches"] = n
         kernels[name].setdefault("launches_by_path", {})["train"] = n
@@ -834,7 +865,8 @@ def main() -> int:
             "plain_call_ms", "timing", "launches_by_path")
     print(json.dumps({"kernels": [
         {**{k: rec[k] for k in keys},
-         **{k: rec[k] for k in ("variants",) if k in rec}}
+         **{k: rec[k] for k in ("variants", "tiled_launches_by_path")
+            if k in rec}}
         for rec in kernels.values()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

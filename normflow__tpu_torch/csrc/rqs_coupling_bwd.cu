@@ -32,7 +32,7 @@
 //   blocks stage tiles through a ring of shared memory with bulk copies
 //   (no tensor map, so nothing beyond the runtime is linked), the next
 //   tiles arriving while this one computes, and the adjoints leave by bulk
-//   stores; registers are capped by __launch_bounds__ so that 8 blocks of
+//   stores; registers are capped by __launch_bounds__ so that 7 blocks of
 //   128 threads fit on an SM at m <= 8 (design notes at the kernel);
 // - the per-site kernel (rqs_coupling_bwd_f32) for S % 4 != 0 or an
 //   address off 16 bytes, which the bulk copies cannot take: one thread per
@@ -233,67 +233,83 @@ rqs_coupling_bwd_kernel(const float* __restrict__ x,
   }
 }
 
-template <int M, bool LEFT, bool RIGHT, bool INVERSE>
-void launch(const float* x, const float* out, const float* ybar,
-            const float* loggbar, float* xbar, float* outbar, long long n,
-            long long S, float xlo, float xw, float ylo, float yw,
-            cudaStream_t stream) {
-  const int threads = 256;
-  const long long blocks = (n + threads - 1) / threads;
-  rqs_coupling_bwd_kernel<M, LEFT, RIGHT, INVERSE>
-      <<<(unsigned int)blocks, threads, 0, stream>>>(
-          x, out, ybar, loggbar, xbar, outbar, n, S, xlo, xw, ylo, yw);
-}
-
-template <int M>
-void dispatch(const float* x, const float* out, const float* ybar,
-              const float* loggbar, float* xbar, float* outbar, long long n,
-              long long S, float xlo, float xw, float ylo, float yw, int left,
-              int right, int inverse, cudaStream_t stream) {
-  const int key = (left ? 4 : 0) | (right ? 2 : 0) | (inverse ? 1 : 0);
-  switch (key) {
-#define NF_CASE(K, LL, RR, II)                                             \
-  case K:                                                                  \
-    launch<M, LL, RR, II>(x, out, ybar, loggbar, xbar, outbar, n, S, xlo,  \
-                          xw, ylo, yw, stream);                            \
-    break;
-    NF_CASE(0, false, false, false)
-    NF_CASE(1, false, false, true)
-    NF_CASE(2, false, true, false)
-    NF_CASE(3, false, true, true)
-    NF_CASE(4, true, false, false)
-    NF_CASE(5, true, false, true)
-    NF_CASE(6, true, true, false)
-    NF_CASE(7, true, true, true)
-#undef NF_CASE
-  }
-}
-
-// ---------------------------------------------------------------------------
-// The tiled kernel.  A tile is TS consecutive sites of one sample; each of
-// its R = 3m+1 rows (the 3m-2 channels of `out`, then x, ybar, loggbar) is
-// TS contiguous floats of global memory.  A ring of `stages` shared-memory
-// stages holds R x TS floats each.  Warp 0 fills a stage with one bulk copy
-// per row (a row per lane), completing on the stage's mbarrier, `stages`
-// tiles ahead of the tile being computed; each thread takes one site,
-// reads its column of the stage, and writes its adjoints over the same
-// column (x's row takes xbar); the 3m-2 outbar rows and the xbar row leave
-// by bulk stores, and the stage is refilled once the stores have read it.  The arithmetic is that of
-// the per-site kernel above, operation for operation, except that the
-// softmax's e_j of the first pass stay in the column (over w_j) and 1/sum e
-// in a register, so the transposition reads them instead of recomputing the
-// same values.
-
-constexpr int kMaxTileSites = 128;
-constexpr int kMaxStages = 4;
-
-// Blocks of kMaxTileSites threads per SM that __launch_bounds__ asks the
-// register allocator to fit: 8 (at most 64 registers) up to m = 8; at
-// m = 12 (34 channels) 4, since 64 would spill.
-constexpr int min_blocks(int m) { return m <= 8 ? 8 : 4; }
+// The arguments of both C entry points.
+struct Args {
+  const float *x, *out, *ybar, *loggbar;
+  float *xbar, *outbar;
+  long long B, S;
+  float xlo, xw, ylo, yw;
+  cudaStream_t stream;
+};
 
 template <int M, bool LEFT, bool RIGHT, bool INVERSE>
 struct Inst {};
+
+// Calls f(Inst<M, LEFT, RIGHT, INVERSE>{}) for the instance of these flags;
+// cudaErrorInvalidValue for a knot count without one.
+template <typename F>
+int visit(int m, int left, int right, int inverse, F&& f) {
+  const int key = (left ? 4 : 0) | (right ? 2 : 0) | (inverse ? 1 : 0);
+#define NF_KEYS(MM)                                  \
+  case MM:                                           \
+    switch (key) {                                   \
+      case 0: return f(Inst<MM, false, false, false>{}); \
+      case 1: return f(Inst<MM, false, false, true>{});  \
+      case 2: return f(Inst<MM, false, true, false>{});  \
+      case 3: return f(Inst<MM, false, true, true>{});   \
+      case 4: return f(Inst<MM, true, false, false>{});  \
+      case 5: return f(Inst<MM, true, false, true>{});   \
+      case 6: return f(Inst<MM, true, true, false>{});   \
+      default: return f(Inst<MM, true, true, true>{});   \
+    }
+  switch (m) {
+    NF_KEYS(4)
+    NF_KEYS(6)
+    NF_KEYS(8)
+    NF_KEYS(12)
+#undef NF_KEYS
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <int M, bool LEFT, bool RIGHT, bool INVERSE>
+int launch_sites(Inst<M, LEFT, RIGHT, INVERSE>, const Args& a) {
+  const int threads = 256;
+  const long long n = a.B * a.S;
+  const long long blocks = (n + threads - 1) / threads;
+  rqs_coupling_bwd_kernel<M, LEFT, RIGHT, INVERSE>
+      <<<(unsigned int)blocks, threads, 0, a.stream>>>(
+          a.x, a.out, a.ybar, a.loggbar, a.xbar, a.outbar, n, a.S, a.xlo,
+          a.xw, a.ylo, a.yw);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The tiled kernel.  A tile is kTileSites consecutive sites of one sample;
+// each of its R = 3m+1 rows (the 3m-2 channels of `out`, then x, ybar,
+// loggbar) is kTileSites contiguous floats of global memory.  A ring of
+// kStages shared-memory stages holds R x kTileSites floats each.  Warp 0
+// fills a stage with one bulk copy per row (a row per lane), completing on
+// the stage's mbarrier, kStages tiles ahead of the tile being computed;
+// each thread takes one site, reads its column of the stage, and writes
+// its adjoints over the same column (x's row takes xbar); the 3m-2 outbar
+// rows and the xbar row leave by bulk stores, and the stage is refilled
+// once the stores have read it.  The arithmetic is that of the per-site
+// kernel above, operation for operation, except that the softmax's e_j of
+// the first pass stay in the column (over w_j) and 1/sum e in a register,
+// so the transposition reads them instead of recomputing the same values.
+
+constexpr int kTileSites = 128;  // sites per tile, one thread each
+constexpr int kStages = 2;       // tiles in flight per block
+
+// Blocks of kTileSites threads per SM that __launch_bounds__ asks the
+// register allocator to fit: 7 (at most 72 registers) up to m = 8; at
+// m = 12 (34 channels) 4.  With the tile and ring sizes fixed at compile
+// time the allocator uses every register it is given: at m = 8 on an H100,
+// 8 blocks (64 registers, 80 bytes spilled) ran 10% slower than 7 (72, 48
+// bytes spilled), and 6 (80, 20 bytes) 1-2% slower.
+constexpr int min_blocks(int m) { return m <= 8 ? 7 : 4; }
 
 // coords() of rqs_common.cuh on a shared-memory column: also leaves e_j in
 // place of w_j and returns 1 / sum_j e_j in `inv`.
@@ -442,9 +458,9 @@ __device__ __forceinline__ void site_vjp_smem(float* o, int ts, float xlo,
 }
 
 // Persistent: block k takes tiles k, k + gridDim.x, ...; tile -> (sample
-// tile / tiles_per_sample, first site (tile % tiles_per_sample) * TS).
+// tile / tiles_per_sample, first site (tile % tiles_per_sample) * ts).
 template <int M, bool LEFT, bool RIGHT, bool INVERSE>
-__global__ void __launch_bounds__(kMaxTileSites, min_blocks(M))
+__global__ void __launch_bounds__(kTileSites, min_blocks(M))
 rqs_coupling_bwd_tiled_kernel(const float* __restrict__ x,
                               const float* __restrict__ out,
                               const float* __restrict__ ybar,
@@ -452,17 +468,18 @@ rqs_coupling_bwd_tiled_kernel(const float* __restrict__ x,
                               float* __restrict__ xbar,
                               float* __restrict__ outbar, long long S,
                               long long tiles_per_sample, long long n_tiles,
-                              int stages, float xlo, float xw, float ylo,
-                              float yw) {
+                              float xlo, float xw, float ylo, float yw) {
   constexpr int K3 = 3 * M - 2;
   constexpr int R = K3 + 3;
-  const int ts = blockDim.x;
+  constexpr int ts = kTileSites;
+  static_assert(kStages * R * ts * sizeof(float) <= 48 * 1024,
+                "the ring must fit in a block's static shared memory");
+  __shared__ __align__(128) float smem[kStages * R * ts];
+  __shared__ uint64_t full[kStages];
   const int t = threadIdx.x;
-  float* smem = reinterpret_cast<float*>(dynamic_smem());
-  __shared__ uint64_t full[kMaxStages];
 
   if (t == 0) {
-    for (int st = 0; st < stages; ++st) mbar_init(&full[st], 1);
+    for (int st = 0; st < kStages; ++st) mbar_init(&full[st], 1);
     fence_mbarrier_init();
   }
   __syncthreads();
@@ -492,7 +509,7 @@ rqs_coupling_bwd_tiled_kernel(const float* __restrict__ x,
   };
 
   if (t < 32) {
-    for (int st = 0; st < stages; ++st) {
+    for (int st = 0; st < kStages; ++st) {
       const long long tile = blockIdx.x + (long long)st * gridDim.x;
       if (tile < n_tiles) load(tile, st);
     }
@@ -515,14 +532,14 @@ rqs_coupling_bwd_tiled_kernel(const float* __restrict__ x,
         bulk_store((c < K3 ? outbar + (b * K3 + c) * S : xbar + b * S) + s0,
                    stage + c * ts, bytes);
       bulk_commit();
-      const long long next = tile + (long long)stages * gridDim.x;
+      const long long next = tile + (long long)kStages * gridDim.x;
       if (next < n_tiles) {
         bulk_wait_read();
         __syncwarp();
         load(next, st);
       }
     }
-    if (++st == stages) {
+    if (++st == kStages) {
       st = 0;
       parity ^= 1u;
     }
@@ -530,51 +547,41 @@ rqs_coupling_bwd_tiled_kernel(const float* __restrict__ x,
   if (t < 32) bulk_wait_all();
 }
 
-constexpr size_t tiled_smem_bytes(int m, int ts, int stages) {
-  return (size_t)stages * (3 * m + 1) * ts * sizeof(float);
-}
-
-// Calls f(Inst<M, LEFT, RIGHT, INVERSE>{}) for the instance of these flags;
-// cudaErrorInvalidValue for a knot count without one.
-template <typename F>
-int visit(int m, int left, int right, int inverse, F&& f) {
-  const int key = (left ? 4 : 0) | (right ? 2 : 0) | (inverse ? 1 : 0);
-#define NF_KEYS(MM)                                  \
-  case MM:                                           \
-    switch (key) {                                   \
-      case 0: return f(Inst<MM, false, false, false>{}); \
-      case 1: return f(Inst<MM, false, false, true>{});  \
-      case 2: return f(Inst<MM, false, true, false>{});  \
-      case 3: return f(Inst<MM, false, true, true>{});   \
-      case 4: return f(Inst<MM, true, false, false>{});  \
-      case 5: return f(Inst<MM, true, false, true>{});   \
-      case 6: return f(Inst<MM, true, true, false>{});   \
-      default: return f(Inst<MM, true, true, true>{});   \
-    }
-  switch (m) {
-    NF_KEYS(4)
-    NF_KEYS(6)
-    NF_KEYS(8)
-    NF_KEYS(12)
-#undef NF_KEYS
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-}
-
+// Persistent blocks: as many as stay resident on the card at once, at most
+// one per tile.  The blocks per SM are asked once per instance: every sm_90
+// card has the same registers and shared memory per SM.
 template <int M, bool LEFT, bool RIGHT, bool INVERSE>
-auto tiled_kernel(Inst<M, LEFT, RIGHT, INVERSE>) {
-  return rqs_coupling_bwd_tiled_kernel<M, LEFT, RIGHT, INVERSE>;
+int launch_tiled(Inst<M, LEFT, RIGHT, INVERSE>, const Args& a) {
+  auto kern = rqs_coupling_bwd_tiled_kernel<M, LEFT, RIGHT, INVERSE>;
+  static int per_sm = 0;
+  cudaError_t err = cudaSuccess;
+  if (per_sm == 0)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
+                                                        kTileSites, 0);
+  int dev = 0, n_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm == 0) return (int)cudaErrorInvalidConfiguration;
+  const long long tps = (a.S + kTileSites - 1) / kTileSites;
+  const long long tiles = a.B * tps;
+  const long long resident = (long long)n_sm * per_sm;
+  const long long grid = tiles < resident ? tiles : resident;
+  kern<<<(unsigned int)grid, kTileSites, 0, a.stream>>>(
+      a.x, a.out, a.ybar, a.loggbar, a.xbar, a.outbar, a.S, tps, tiles,
+      a.xlo, a.xw, a.ylo, a.yw);
+  return (int)cudaGetLastError();
 }
 
-template <int M, bool LEFT, bool RIGHT, bool INVERSE>
-constexpr int knots_of(Inst<M, LEFT, RIGHT, INVERSE>) {
-  return M;
-}
-
-bool tiled_shape_ok(int ts, int stages) {
-  return ts >= 32 && ts <= kMaxTileSites && ts % 32 == 0 && stages >= 1 &&
-         stages <= kMaxStages;
+Args args_of(const void* x, const void* out, const void* ybar,
+             const void* loggbar, void* xbar, void* outbar, long long B,
+             long long S, float xlo, float xw, float ylo, float yw,
+             void* stream) {
+  return {static_cast<const float*>(x), static_cast<const float*>(out),
+          static_cast<const float*>(ybar), static_cast<const float*>(loggbar),
+          static_cast<float*>(xbar), static_cast<float*>(outbar), B, S, xlo,
+          xw, ylo, yw, static_cast<cudaStream_t>(stream)};
 }
 
 }  // namespace
@@ -589,80 +596,27 @@ extern "C" int rqs_coupling_bwd_f32(const void* x, const void* out,
                                     float ylo, float yw, int left_linear,
                                     int right_linear, int inverse,
                                     void* stream) {
-  const float* xp = static_cast<const float*>(x);
-  const float* op = static_cast<const float*>(out);
-  const float* yb = static_cast<const float*>(ybar);
-  const float* gb = static_cast<const float*>(loggbar);
-  float* xbp = static_cast<float*>(xbar);
-  float* obp = static_cast<float*>(outbar);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long n = B * S;
-  switch (m) {
-#define NF_M(MM)                                                            \
-  case MM:                                                                  \
-    dispatch<MM>(xp, op, yb, gb, xbp, obp, n, S, xlo, xw, ylo, yw,          \
-                 left_linear, right_linear, inverse, st);                   \
-    break;
-    NF_M(4)
-    NF_M(6)
-    NF_M(8)
-    NF_M(12)
-#undef NF_M
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  const Args a = args_of(x, out, ybar, loggbar, xbar, outbar, B, S, xlo, xw,
+                         ylo, yw, stream);
+  return visit(m, left_linear, right_linear, inverse,
+               [&](auto inst) { return launch_sites(inst, a); });
 }
 
 // The tiled kernel on the same arguments, for S % 4 == 0 and every pointer
 // 16-byte aligned (the bulk copies' rule; the wrapper sends other shapes to
-// rqs_coupling_bwd_f32): tiles of `tile_sites` sites (a multiple of 32,
-// at most 128; one thread per site), a ring of `stages` (1-4), `grid`
-// persistent blocks.  Returns cudaErrorInvalidValue for arguments it does
-// not take, else cudaGetLastError() after the launch.
+// rqs_coupling_bwd_f32).  Returns cudaErrorInvalidValue for arguments it
+// does not take, else cudaGetLastError() after the launch.
 extern "C" int rqs_coupling_bwd_tiled_f32(
     const void* x, const void* out, const void* ybar, const void* loggbar,
     void* xbar, void* outbar, long long B, long long S, int m, float xlo,
     float xw, float ylo, float yw, int left_linear, int right_linear,
-    int inverse, int tile_sites, int stages, int grid, void* stream) {
+    int inverse, void* stream) {
   const void* ptrs[6] = {x, out, ybar, loggbar, xbar, outbar};
   for (const void* p : ptrs)
     if (reinterpret_cast<uintptr_t>(p) % 16) return (int)cudaErrorInvalidValue;
-  if (!tiled_shape_ok(tile_sites, stages) || S % 4 || B < 1 || S < 1 ||
-      grid < 1)
-    return (int)cudaErrorInvalidValue;
-  const long long tps = (S + tile_sites - 1) / tile_sites;
-  return visit(m, left_linear, right_linear, inverse, [&](auto inst) {
-    auto kern = tiled_kernel(inst);
-    const size_t smem = tiled_smem_bytes(knots_of(inst), tile_sites, stages);
-    cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    kern<<<(unsigned int)grid, tile_sites, smem,
-           static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(x), static_cast<const float*>(out),
-        static_cast<const float*>(ybar), static_cast<const float*>(loggbar),
-        static_cast<float*>(xbar), static_cast<float*>(outbar), S, tps,
-        B * tps, stages, xlo, xw, ylo, yw);
-    return (int)cudaGetLastError();
-  });
-}
-
-// Blocks of the tiled kernel's instance that fit on one SM at this tile
-// size and ring depth (registers and shared memory), into *blocks.
-extern "C" int rqs_coupling_bwd_tiled_occupancy(int m, int left_linear,
-                                                int right_linear, int inverse,
-                                                int tile_sites, int stages,
-                                                int* blocks) {
-  if (!tiled_shape_ok(tile_sites, stages)) return (int)cudaErrorInvalidValue;
-  return visit(m, left_linear, right_linear, inverse, [&](auto inst) {
-    auto kern = tiled_kernel(inst);
-    const size_t smem = tiled_smem_bytes(knots_of(inst), tile_sites, stages);
-    cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kern,
-                                                          tile_sites, smem);
-    return (int)err;
-  });
+  if (S % 4 || B < 1 || S < 1) return (int)cudaErrorInvalidValue;
+  const Args a = args_of(x, out, ybar, loggbar, xbar, outbar, B, S, xlo, xw,
+                         ylo, yw, stream);
+  return visit(m, left_linear, right_linear, inverse,
+               [&](auto inst) { return launch_tiled(inst, a); });
 }

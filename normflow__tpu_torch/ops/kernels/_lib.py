@@ -45,14 +45,11 @@ _SIGNATURES = {
     "rqs_coupling_f32": (_P, _P, _P, _P, _L, _L, _I, _F, _F, _F, _F, _I,
                          _I, _I, _P),
     # x, out, ybar, loggbar, xbar, outbar, B, S, m, xlo, xw, ylo, yw,
-    # left_linear, right_linear, inverse, stream
+    # left_linear, right_linear, inverse, stream (both variants)
     "rqs_coupling_bwd_f32": (_P, _P, _P, _P, _P, _P, _L, _L, _I, _F, _F,
                              _F, _F, _I, _I, _I, _P),
-    # ... as rqs_coupling_bwd_f32, then tile_sites, stages, grid, stream
     "rqs_coupling_bwd_tiled_f32": (_P, _P, _P, _P, _P, _P, _L, _L, _I, _F,
-                                   _F, _F, _F, _I, _I, _I, _I, _I, _I, _P),
-    # m, left_linear, right_linear, inverse, tile_sites, stages, *blocks
-    "rqs_coupling_bwd_tiled_occupancy": (_I, _I, _I, _I, _I, _I, _P),
+                                   _F, _F, _F, _I, _I, _I, _P),
     # cfgs, act, B, nd, L0, L1, L2, w0, w2, w4, stream
     "phi4_action_f32": (_P, _P, _L, _I, _I, _I, _I, _F, _F, _F, _P),
     # cfgs, act, B, L0, L1, samples, w0, w2, w4, stream

@@ -16,6 +16,8 @@ the plain PyTorch version for a CPU tensor and the CUDA kernel
 hand-written variants, chosen by shape and alignment
 (:func:`action_variant`): the tiled kernel for 2-D lattices that suit its
 float4 tile (the flagship's), the general kernel for every other lattice.
+``phi4_action.tiled_launches`` counts the tiled kernel's share of
+``phi4_action.launches``.
 """
 
 from __future__ import annotations
@@ -107,7 +109,8 @@ def _action(cfgs, w0, w2, w4):
     w = (float(w0), float(w2), float(w4))
     with torch.cuda.device(cfgs.device):
         stream = torch.cuda.current_stream(cfgs.device).cuda_stream
-        if action_variant(cfgs.shape[1:], cfgs.data_ptr()) == "tiled":
+        tiled = action_variant(cfgs.shape[1:], cfgs.data_ptr()) == "tiled"
+        if tiled:
             _, samples = action_plan(cfgs.shape[1:])
             err = lib.phi4_action_tiled_f32(
                 cfgs.data_ptr(), act.data_ptr(), b, *lat[:2], samples, *w,
@@ -117,6 +120,7 @@ def _action(cfgs, w0, w2, w4):
                                       cfgs.dim() - 1, *lat, *w, stream)
     _lib.check(err, "phi4_action")
     phi4_action.launches += 1
+    phi4_action.tiled_launches += tiled
     return act
 
 
@@ -175,4 +179,5 @@ def phi4_action(cfgs, w0, w2, w4):
 
 
 phi4_action.launches = 0
+phi4_action.tiled_launches = 0
 phi4_action_grad.launches = 0

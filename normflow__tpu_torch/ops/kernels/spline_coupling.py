@@ -17,14 +17,14 @@ backward, :func:`rqs_coupling_bwd`, is the counterpart of the Pallas kernel
 site (``csrc/rqs_coupling_bwd.cu``, plain version
 :func:`rqs_coupling_vjp_plain`).  The backward has two hand-written
 variants, chosen by shape and alignment (:func:`bwd_variant`): the tiled
-kernel, which stages tiles of :data:`TILE_SITES` sites through shared
-memory with bulk copies and runs on :func:`persistent_grid` blocks, and
-the per-site kernel for the shapes the bulk copies cannot take.
+kernel, whose persistent blocks stage tiles of 128 sites through shared
+memory with bulk copies, and the per-site kernel for the shapes the bulk
+copies cannot take.  ``rqs_coupling_bwd.tiled_launches`` counts the tiled
+kernel's share of ``rqs_coupling_bwd.launches``.
 """
 
 from __future__ import annotations
 
-import ctypes
 import math
 
 import torch
@@ -34,14 +34,9 @@ from ...models.elementwise import softplus_log2
 from . import _lib
 
 __all__ = ["rqs_coupling", "rqs_coupling_plain", "rqs_coupling_bwd",
-           "rqs_coupling_vjp_plain", "SUPPORTED_KNOTS", "bwd_variant",
-           "tiled_smem_bytes", "n_tiles", "persistent_grid"]
+           "rqs_coupling_vjp_plain", "SUPPORTED_KNOTS", "bwd_variant"]
 
 SUPPORTED_KNOTS = (4, 6, 8, 12)  # template instances of the CUDA kernel
-# the tiled backward kernel: sites per tile (one thread each; a multiple of
-# 32, at most 128) and shared-memory stages in its ring (1-4)
-TILE_SITES = 128
-STAGES = 2
 _EXTRAP = (None, "linear")
 _LN2 = math.log(2.0)
 
@@ -361,47 +356,6 @@ def bwd_variant(s, ptrs):
             else "sites")
 
 
-def tiled_smem_bytes(m, tile_sites=None, stages=None):
-    """Shared memory of one block of the tiled backward kernel: ``stages``
-    stages of ``3m + 1`` rows (the ``3m - 2`` channels, x, ybar, loggbar)
-    of ``tile_sites`` floats."""
-    tile_sites = TILE_SITES if tile_sites is None else tile_sites
-    stages = STAGES if stages is None else stages
-    return stages * (3 * m + 1) * tile_sites * 4
-
-
-def n_tiles(b, s, tile_sites=None):
-    """Tiles of ``b`` samples of ``s`` sites; a sample's last tile may be
-    ragged."""
-    tile_sites = TILE_SITES if tile_sites is None else tile_sites
-    return b * -(-s // tile_sites)
-
-
-def persistent_grid(tiles, n_sm, blocks_per_sm):
-    """Blocks of the persistent kernel: as many as stay resident on the
-    card at once, and no more than there are tiles."""
-    if blocks_per_sm < 1:
-        raise RuntimeError("rqs_coupling_bwd: the tiled kernel does not fit "
-                           "on an SM")
-    return max(1, min(tiles, n_sm * blocks_per_sm))
-
-
-_resident: dict = {}
-
-
-def _resident_blocks(lib, device, m, flags, tile_sites, stages):
-    """``(SMs, blocks per SM)`` of the tiled instance on ``device``."""
-    key = (device.index, m, flags, tile_sites, stages)
-    if key not in _resident:
-        blocks = ctypes.c_int(0)
-        _lib.check(lib.rqs_coupling_bwd_tiled_occupancy(
-            m, *flags, tile_sites, stages, ctypes.byref(blocks)),
-            "rqs_coupling_bwd occupancy")
-        n_sm = torch.cuda.get_device_properties(device).multi_processor_count
-        _resident[key] = (n_sm, blocks.value)
-    return _resident[key]
-
-
 def rqs_coupling_bwd(x, out, ybar, loggbar, *, xlim, ylim, left=None,
                      right=None, inverse=False):
     """``(xbar, outbar)``, the VJP of :func:`rqs_coupling` at ``(x, out)``
@@ -424,20 +378,15 @@ def rqs_coupling_bwd(x, out, ybar, loggbar, *, xlim, ylim, left=None,
     if b * s:
         lib = _lib.library()
         ptrs = [t.data_ptr() for t in (x, out, ybar, loggbar, xbar, outbar)]
-        limits = _limits(**cfg)
+        tiled = bwd_variant(s, ptrs) == "tiled"
+        launch = (lib.rqs_coupling_bwd_tiled_f32 if tiled
+                  else lib.rqs_coupling_bwd_f32)
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
-            if bwd_variant(s, ptrs) == "tiled":
-                ts, stages = TILE_SITES, STAGES
-                grid = persistent_grid(n_tiles(b, s, ts), *_resident_blocks(
-                    lib, x.device, m, limits[4:], ts, stages))
-                err = lib.rqs_coupling_bwd_tiled_f32(
-                    *ptrs, b, s, m, *limits, ts, stages, grid, stream)
-            else:
-                err = lib.rqs_coupling_bwd_f32(*ptrs, b, s, m, *limits,
-                                               stream)
+            err = launch(*ptrs, b, s, m, *_limits(**cfg), stream)
         _lib.check(err, "rqs_coupling_bwd")
         rqs_coupling_bwd.launches += 1
+        rqs_coupling_bwd.tiled_launches += tiled
     return xbar, outbar
 
 
@@ -480,3 +429,4 @@ def rqs_coupling(x, out, *, xlim, ylim, left=None, right=None,
 
 rqs_coupling.launches = 0
 rqs_coupling_bwd.launches = 0
+rqs_coupling_bwd.tiled_launches = 0

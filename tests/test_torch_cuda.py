@@ -121,7 +121,10 @@ def test_phi4_action_variants_match_plain(cuda, np_rng, b, lat, variant):
         w0, w2, w4 = ScalarPhi4Action(kappa=0.6, m_sq=-2.4,
                                       lambd=0.5).get_coef(len(lat))
         for w in ((w0, w2, w4), (0.0, w2, w4)):
+            before = phi4.phi4_action.tiled_launches
             got = phi4.phi4_action(field, *w)
+            assert phi4.phi4_action.tiled_launches \
+                == before + (want_variant == "tiled")
             want = phi4.phi4_action_plain(field.double(), *w)
             torch.cuda.synchronize()
             rel = (got.double() - want).abs() / want.abs().clamp(min=1.0)
@@ -130,7 +133,7 @@ def test_phi4_action_variants_match_plain(cuda, np_rng, b, lat, variant):
 
 def test_flagship_action_launches_the_tiled_kernel(cuda, np_rng):
     """At the flagship's (1024, 32, 32) the wrapper launches the tiled
-    kernel, as the profiler names it."""
+    kernel, as its count and the profiler name it."""
     from torch.profiler import ProfilerActivity, profile
 
     cfgs = _f32(np_rng.standard_normal((1024, 32, 32)), cuda)
@@ -138,10 +141,12 @@ def test_flagship_action_launches_the_tiled_kernel(cuda, np_rng):
     assert phi4.action_plan((32, 32)) == (256, 1)
     phi4.phi4_action(cfgs, 0.6, 0.4, 0.5)
     torch.cuda.synchronize()
+    before = phi4.phi4_action.tiled_launches
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(3):
             phi4.phi4_action(cfgs, 0.6, 0.4, 0.5)
         torch.cuda.synchronize()
+    assert phi4.phi4_action.tiled_launches == before + 3
     names = [e.name for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA]
     assert any("phi4_action_tiled_kernel" in n for n in names), names

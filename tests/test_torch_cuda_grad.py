@@ -134,10 +134,14 @@ def test_rqs_coupling_bwd_variants_agree_bit_for_bit(cuda, np_rng, m,
         shifted = tuple(_offset(t) for t in args)
         assert sc.bwd_variant(s, [t.data_ptr() for t in args]) == "tiled"
         assert sc.bwd_variant(s, [t.data_ptr() for t in shifted]) == "sites"
-        before = sc.rqs_coupling_bwd.launches
+        before = (sc.rqs_coupling_bwd.launches,
+                  sc.rqs_coupling_bwd.tiled_launches)
         tiled = sc.rqs_coupling_bwd(*args, **kw)
+        assert sc.rqs_coupling_bwd.tiled_launches == before[1] + 1
         sites = sc.rqs_coupling_bwd(*shifted, **kw)
-        assert sc.rqs_coupling_bwd.launches == before + 2
+        assert (sc.rqs_coupling_bwd.launches,
+                sc.rqs_coupling_bwd.tiled_launches) \
+            == (before[0] + 2, before[1] + 1)
         want = sc.rqs_coupling_vjp_plain(*args, **kw)
         torch.cuda.synchronize()
         for p, q in zip(tiled, sites):

@@ -1,9 +1,9 @@
 """Host-side plans of the port's tiled kernels, and the kernel timing tool.
 
 The tiled CUDA kernels run only on the card (``tests/test_torch_cuda*.py``,
-marker ``gpu``), but the wrappers choose between variants and size the
-launches on the host, by shape and alignment alone: these tests hold that
-logic, and the bytes, bounds and output comparison of
+marker ``gpu``), but the wrappers choose between variants, and plan the
+tiled action's blocks, on the host by shape and alignment alone: these
+tests hold that logic, and the bytes, bounds and output comparison of
 ``normflow__tpu_torch/tools/kernel_times.py``, on the CPU.
 """
 
@@ -13,8 +13,6 @@ import torch
 from normflow__tpu_torch.ops.kernels import phi4, spline_coupling as sc
 from normflow__tpu_torch.tools import kernel_times as kt
 
-SMEM_PER_SM = 232448  # an H100 block's most shared memory (227 KB)
-
 
 @pytest.mark.parametrize("s,offsets,variant", [
     (512, (0, 0, 0, 0, 0, 0), "tiled"),     # the flagship's 32x16 sites
@@ -23,42 +21,19 @@ SMEM_PER_SM = 232448  # an H100 block's most shared memory (227 KB)
     (35, (0, 0, 0, 0, 0, 0), "sites"),      # S % 4 != 0: rows off 16 bytes
     (512, (0, 4, 0, 0, 0, 0), "sites"),     # out at a storage offset
     (512, (0, 0, 0, 0, 8, 0), "sites"),     # an output off 16 bytes
+    (512, (0, 0, 0, 0, 0, 12), "sites"),    # outbar off 16 bytes
+    (512, (16, 32, 48, 64, 80, 96), "tiled"),  # offsets of whole 16 bytes
+    (1, (0, 0, 0, 0, 0, 0), "sites"),       # one site per sample
+    (2, (0, 0, 0, 0, 0, 0), "sites"),
+    (6, (0, 0, 0, 0, 0, 0), "sites"),
+    (8, (0, 0, 0, 0, 0, 0), "tiled"),
+    (128, (0, 0, 0, 0, 0, 0), "tiled"),     # one whole tile
+    (132, (0, 0, 0, 0, 0, 0), "tiled"),     # a last tile of 4 sites
+    (1024, (0, 0, 4, 4, 0, 0), "sites"),    # the cotangents off 16 bytes
 ])
 def test_bwd_variant_by_shape_and_alignment(s, offsets, variant):
     ptrs = [(1 << 20) + 512 * k + o for k, o in enumerate(offsets)]
     assert sc.bwd_variant(s, ptrs) == variant
-
-
-@pytest.mark.parametrize("m", sc.SUPPORTED_KNOTS)
-def test_tiled_smem_per_knot_count(m):
-    """Two stages of 3m+1 rows of 128 floats; at m <= 8 the 8 blocks that
-    the launch bounds ask for fit in an SM's shared memory, at m = 12 the
-    4."""
-    nbytes = sc.tiled_smem_bytes(m)
-    assert nbytes == 2 * (3 * m + 1) * 128 * 4
-    assert nbytes % 16 == 0
-    assert (8 if m <= 8 else 4) * nbytes <= SMEM_PER_SM
-    assert sc.tiled_smem_bytes(m, tile_sites=64, stages=3) \
-        == 3 * (3 * m + 1) * 64 * 4
-
-
-@pytest.mark.parametrize("b,s,tiles", [
-    (512, 512, 2048), (3, 240, 6), (1, 35, 1), (1024, 512, 4096),
-])
-def test_n_tiles(b, s, tiles):
-    assert sc.n_tiles(b, s) == tiles
-
-
-@pytest.mark.parametrize("tiles,n_sm,per_sm,grid", [
-    (2048, 132, 8, 1056), (6, 132, 8, 6), (4096, 132, 6, 792), (1, 1, 1, 1),
-])
-def test_persistent_grid(tiles, n_sm, per_sm, grid):
-    assert sc.persistent_grid(tiles, n_sm, per_sm) == grid
-
-
-def test_persistent_grid_refuses_a_kernel_that_does_not_fit():
-    with pytest.raises(RuntimeError, match="does not fit"):
-        sc.persistent_grid(2048, 132, 0)
 
 
 @pytest.mark.parametrize("lat,plan", [
@@ -79,6 +54,8 @@ def test_action_plan(lat, plan):
     ((32, 32), 1 << 20, "tiled"), ((32, 32), (1 << 20) + 4, "general"),
     ((32, 32), (1 << 20) + 16, "tiled"), ((5, 7), 1 << 20, "general"),
     ((1,), 1 << 20, "general"), ((4, 4, 4), 1 << 20, "general"),
+    ((16, 16), (1 << 20) + 8, "general"), ((16, 16), (1 << 20) + 32, "tiled"),
+    ((64,), 1 << 20, "general"), ((6, 30), 1 << 20, "general"),
 ])
 def test_action_variant(lat, ptr, variant):
     assert phi4.action_variant(lat, ptr) == variant
