@@ -21,17 +21,18 @@ use) and imports nothing of JAX.  Phases, each of which raises on failure:
    CPU copy; then ``model.fit`` with the bench protocol's settings
    (``bench.py:278-286``) for ``N_STEPS`` steps on a fresh seeded
    flagship, counters set to 0 just before and read after; training
-   steps/s.  On both paths every launch of ``rqs_coupling_bwd`` and
-   ``phi4_action`` must have gone to the tiled kernel, the variant that
-   phase 6 times;
-5. the zero-dim fit (``examples/scalar_zerodim.py``) on the card;
-6. each kernel's time at the path's shapes (``rqs_coupling_bwd`` in both
-   training variants, forward and inverse): the median device time of its
-   launches from the profiler, warm (the same tensors again and again) and
-   cold (L2 flushed before each launch), its plain version's time, and the
-   least time the card could take (bytes or operations over the peak),
-   with ``normflow__tpu_torch/tools/kernel_times.py``'s helpers; one
-   profiled sampled batch and one profiled training step.
+   steps/s.  On both paths every launch of each of the four kernels must
+   have gone to its tiled kernel, the variant that phase 6 times;
+5. the zero-dim fit (``examples/scalar_zerodim.py``) on the card, whose
+   one-site lattice takes the general gradient kernel;
+6. each kernel's time at the path's shapes (``rqs_coupling`` forward and
+   inverse at the sampling and the training batch, ``rqs_coupling_bwd``
+   in both training variants, forward and inverse): the median device time
+   of its launches from the profiler, warm (the same tensors again and
+   again) and cold (L2 flushed before each launch), its plain version's
+   time, and the least time the card could take (bytes or operations over
+   the peak), with ``normflow__tpu_torch/tools/kernel_times.py``'s
+   helpers; one profiled sampled batch and one profiled training step.
 
 Kernels 1 and 2 are read cold (the training backward finds ``out`` cold:
 it was written during the forward, and the other conditioners' outputs
@@ -166,8 +167,24 @@ def report(name, t, shape, peaks, kernels, headline):
           f"{nbytes / 1e6:.2f} MB); library n/a")
 
 
+def offset_copy(torch, t):
+    """A contiguous copy of ``t`` 4 bytes off 16-byte alignment, which the
+    wrappers send to their per-site or general kernel."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def same_bits(torch, a, b):
+    """Whether the float32 tensors of ``a`` and ``b`` agree bit for bit."""
+    return all(torch.equal(p.view(torch.int32), q.view(torch.int32))
+               for p, q in zip(a, b))
+
+
 def check_rqs(torch, kernels, peaks, rng):
-    """rqs_coupling vs its plain version at B=1024, K3=22, S=32x16.
+    """rqs_coupling vs its plain version at B=1024, K3=22, S=32x16, and
+    its tiled kernel (the path's) vs the per-site kernel, bit for bit.
     Returns the function that times it."""
     from normflow__tpu_torch.ops.kernels import spline_coupling as sc
 
@@ -186,14 +203,18 @@ def check_rqs(torch, kernels, peaks, rng):
                       right=extrap, inverse=inverse)
             y, g = sc.rqs_coupling(x, out, **kw)
             yp, gp = sc.rqs_coupling_plain(x, out, **kw)
+            sites = sc.rqs_coupling(offset_copy(torch, x), out, **kw)
             torch.cuda.synchronize()
             dy = float((y - yp).abs().max())
             dg = float((g - gp).abs().max())
+            same = same_bits(torch, (y, g), sites)
             print(f"rqs_coupling extrap={extrap} inverse={inverse}: "
-                  f"max|dy| {dy:.3e}  max|dlogg| {dg:.3e}  (tol {RQS_TOL})")
-            if not (dy <= RQS_TOL and dg <= RQS_TOL):
+                  f"max|dy| {dy:.3e}  max|dlogg| {dg:.3e}  (tol {RQS_TOL});"
+                  f" tiled vs per-site kernel "
+                  f"{'bit for bit' if same else 'NOT bit-identical'}")
+            if not (dy <= RQS_TOL and dg <= RQS_TOL and same):
                 raise AssertionError("rqs_coupling disagrees with its plain "
-                                     "version")
+                                     "version or its per-site kernel")
             worst = max(worst, dy, dg)
 
     kernels["rqs_coupling"] = dict(
@@ -202,15 +223,34 @@ def check_rqs(torch, kernels, peaks, rng):
         replaces="normflow__tpu/ops/kernels/spline_coupling.py:121",
         max_abs_err=worst, library_ms=None)
 
+    ptrs = [t.data_ptr() for t in (x, out)]
+    variant = sc.coupling_variant(math.prod(lat), ptrs)
+    print(f"rqs_coupling at the flagship's shape takes the {variant} kernel")
+    if variant != "tiled":
+        raise AssertionError("the flagship's shape does not take the tiled "
+                             "rqs_coupling kernel")
+
     def time_it():
-        """Time the main path's variant: forward, linear extrapolation;
-        read cold."""
-        kw = dict(xlim=(-4.0, 4.0), ylim=(-4.0, 4.0), left="linear",
-                  right="linear", inverse=False)
-        t = kernel_times("rqs_coupling",
-                         lambda: sc.rqs_coupling(x, out, **kw),
-                         lambda: sc.rqs_coupling_plain(x, out, **kw))
-        report("rqs_coupling", t, tuple(out.shape), peaks, kernels, "cold")
+        """Time the tiled kernel forward and inverse, with linear
+        extrapolation, at the sampling batch (the record's times: forward,
+        read cold) and at the training batch (the first 512 samples of the
+        same tensors); all four under ``variants``."""
+        times = {}
+        for what, inverse, b_ in (("forward", False, BATCH),
+                                  ("inverse", True, BATCH),
+                                  ("forward B=512", False, TRAIN_BATCH),
+                                  ("inverse B=512", True, TRAIN_BATCH)):
+            kw = dict(xlim=(-4.0, 4.0), ylim=(-4.0, 4.0), left="linear",
+                      right="linear", inverse=inverse)
+            xb, ob = x[:b_], out[:b_]
+            times[what] = kernel_times(
+                "rqs_coupling", lambda: sc.rqs_coupling(xb, ob, **kw),
+                lambda: sc.rqs_coupling_plain(xb, ob, **kw))
+            print(f"rqs_coupling {what}: warm {times[what]['ms']:.5f} ms, "
+                  f"cold {times[what]['ms_cold']:.5f} ms")
+        report("rqs_coupling", times["forward"], tuple(out.shape), peaks,
+               kernels, "cold")
+        kernels["rqs_coupling"]["variants"] = times
 
     return time_it
 
@@ -472,7 +512,7 @@ def check_rqs_bwd(torch, kernels, peaks, rng):
         max_abs_err=worst, library_ms=None)
 
     ptrs = [t.data_ptr() for t in (x, out, ybar, loggbar)]
-    variant = sc.bwd_variant(math.prod(lat), ptrs)
+    variant = sc.coupling_variant(math.prod(lat), ptrs)
     print(f"rqs_coupling_bwd at the training shape takes the {variant} "
           "kernel")
     if variant != "tiled":
@@ -505,8 +545,9 @@ def check_rqs_bwd(torch, kernels, peaks, rng):
 
 def check_phi4_grad(torch, kernels, peaks, rng, action):
     """phi4_action_grad vs its plain version: the training shape
-    (512, 32, 32), 1-D, 3-D, and the zero-dim fit's one site with w0 = 0.
-    Returns the function that times it."""
+    (512, 32, 32), 1-D, 3-D, and the zero-dim fit's one site with w0 = 0;
+    at the training shape its tiled kernel (the path's) vs the general
+    kernel, bit for bit.  Returns the function that times it."""
     from normflow__tpu_torch.ops.kernels import phi4
 
     worst = 0.0
@@ -518,17 +559,21 @@ def check_phi4_grad(torch, kernels, peaks, rng, action):
         g = torch.tensor(rng.standard_normal(shape[0]), dtype=torch.float32,
                          device="cuda")
         w = act.get_coef(len(shape) - 1)
+        variant = phi4.action_variant(shape[1:], cfgs.data_ptr())
         got = phi4.phi4_action_grad(cfgs, g, *w)
         want = phi4.phi4_action_grad_plain(cfgs, g, *w)
+        general = phi4.phi4_action_grad(offset_copy(torch, cfgs), g, *w)
         torch.cuda.synchronize()
         diff = (got - want).abs()
         ok = bool((diff <= FORCE_ATOL + FORCE_RTOL * want.abs()).all())
-        print(f"phi4_action_grad {shape} w0={w[0]}: max abs "
-              f"{float(diff.max()):.3e} (rtol {FORCE_RTOL}, atol "
-              f"{FORCE_ATOL}) {'ok' if ok else 'FAILED'}")
-        if not ok:
+        same = same_bits(torch, (got,), (general,))
+        print(f"phi4_action_grad {shape} w0={w[0]}, {variant} kernel: max "
+              f"abs {float(diff.max()):.3e} (rtol {FORCE_RTOL}, atol "
+              f"{FORCE_ATOL}) {'ok' if ok else 'FAILED'}; vs the general "
+              f"kernel {'bit for bit' if same else 'NOT bit-identical'}")
+        if not (ok and same):
             raise AssertionError("phi4_action_grad disagrees with its plain "
-                                 "version")
+                                 "version or its general kernel")
         worst = max(worst, float(diff.max()))
 
     kernels["phi4_action_grad"] = dict(
@@ -541,6 +586,9 @@ def check_phi4_grad(torch, kernels, peaks, rng, action):
     g = torch.tensor(rng.standard_normal(TRAIN_BATCH), dtype=torch.float32,
                      device="cuda")
     w = action.get_coef(2)
+    if phi4.action_variant(LAT, cfgs.data_ptr()) != "tiled":
+        raise AssertionError("the training shape does not take the tiled "
+                             "phi4_action_grad kernel")
 
     def time_it():
         """Time the training shape, (512, 32, 32); read warm."""
@@ -697,7 +745,7 @@ def run_zerodim(torch):
                   action=ScalarPhi4Action(kappa=0, m_sq=-1.2, lambd=0.5),
                   seed=5)
     grad = _counters()["phi4_action_grad"]
-    grad.launches = 0
+    reset_counts({"phi4_action_grad": grad})
     t0 = time.perf_counter()
     hist = model.fit(n_epochs=500, batch_size=128,
                      hyperparam=dict(lr=0.01, weight_decay=0.0),
@@ -706,21 +754,25 @@ def run_zerodim(torch):
     acc, ess = hist["accept_rate"][-1][0], hist["ess"][-1]
     print(f"zero-dim fit, 500 epochs in {seconds:.2f} s: loss "
           f"{hist['loss'][-1]:.4f} (<= -1.0), accept {acc:.4f} (>= 0.9), ESS "
-          f"{ess:.4f} (>= 0.95); phi4_action_grad launches {grad.launches}")
+          f"{ess:.4f} (>= 0.95); phi4_action_grad launches {grad.launches},"
+          f" {grad.tiled_launches} of them tiled (the one-site lattice takes "
+          "the general kernel)")
     if not (hist["loss"][-1] <= -1.0 and acc >= 0.9 and ess >= 0.95
-            and grad.launches == 500):
-        raise AssertionError("the zero-dim fit missed its targets")
+            and grad.launches == 500 and grad.tiled_launches == 0):
+        raise AssertionError("the zero-dim fit missed its targets or its "
+                             "launch counts")
 
 
 # each kernel's device functions, the path's first, as ptxas and the
 # profiler name them; the flagship's template instance (m = 8, linear
 # tails, as mangled: the inverse flag follows)
 DEVICE_FUNCTIONS = {
-    "rqs_coupling": ("rqs_coupling_kernel",),
+    "rqs_coupling": ("rqs_coupling_tiled_kernel", "rqs_coupling_kernel"),
     "rqs_coupling_bwd": ("rqs_coupling_bwd_tiled_kernel",
                          "rqs_coupling_bwd_kernel"),
     "phi4_action": ("phi4_action_tiled_kernel", "phi4_action_kernel"),
-    "phi4_action_grad": ("phi4_action_grad_kernel",),
+    "phi4_action_grad": ("phi4_action_grad_tiled_kernel",
+                         "phi4_action_grad_kernel"),
 }
 FLAGSHIP_INSTANCE = "ILi8ELb1ELb1E"
 

@@ -1,7 +1,8 @@
 // Hopper's asynchronous bulk copies between global and shared memory, and
 // the mbarrier that a load completes on (PTX ISA 8.0, sm_90), and the
 // kernels' dynamic shared memory.  Used by the tiled kernels
-// (rqs_coupling_bwd.cu, phi4_action.cu); the copies need no tensor map, so
+// (rqs_coupling.cu, rqs_coupling_bwd.cu, phi4_action.cu); the copies need
+// no tensor map, so
 // the library links nothing beyond the CUDA runtime.
 //
 // - A load `bulk_load` moves `bytes` (a multiple of 16, both addresses

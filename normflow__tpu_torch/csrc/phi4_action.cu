@@ -29,9 +29,17 @@
 //   dS/dphi_x = 2 w2 phi_x + 4 w4 phi_x^3 - w0 sum_mu (phi_{x-mu} + phi_{x+mu}),
 // in the Pallas kernel's order of operations.  It is elementwise and bound
 // by bytes: it reads the field and g and writes the force, 8 B per site
-// (4.2 MB at (512, 32, 32), about 1.25 us at 3.35 TB/s).  One thread per
-// (sample, site), so reads and writes are coalesced; the neighbour
-// reads hit lines that neighbouring threads of the same sample read too.
+// (4.2 MB at (512, 32, 32), about 1.25 us at 3.35 TB/s).  Two variants,
+// chosen by the wrapper by the action's rule, applied to the field and the
+// force:
+// - the tiled kernel (phi4_action_grad_tiled_f32, the flagship's): the
+//   tiled action's blocks and float4 staging, each thread's four forces
+//   leaving as one 16-byte store, no division per site;
+// - the general kernel (phi4_action_grad_f32): one thread per (sample,
+//   site), reads and writes coalesced, the neighbours' indices from a
+//   division and a modulo per dimension.
+// The two sum each site's neighbours in the same order and return the
+// same bits.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -195,6 +203,68 @@ phi4_action_tiled_kernel(const float* __restrict__ cfgs,
   }
 }
 
+// The tiled force, on the tiled action's lattices and blocks: thread
+// (g, p) loads sites 4g..4g+3 of sample p (row r, columns c..c+3) as one
+// float4 into shared memory, then takes the rows above and below as
+// float4s and the left neighbour of column c and the right neighbour of
+// column c+3 as one float each from there, the other six neighbours from
+// its own registers; it reads g[b] once and stores its four forces as one
+// float4.  Per site the terms are those of phi4_action_grad_kernel in its
+// order: 0 + phi[x-e0] + phi[x+e0] + phi[x-e1] + phi[x+e1].
+__global__ void __launch_bounds__(1024)
+phi4_action_grad_tiled_kernel(const float* __restrict__ cfgs,
+                              const float* __restrict__ g,
+                              float* __restrict__ grad, long long B, int L0,
+                              int L1, float w0, float w2, float w4) {
+  const int G = blockDim.x;  // float4 groups per sample
+  const int gr = threadIdx.x;
+  const int p = threadIdx.y;
+  const long long b = (long long)blockIdx.x * blockDim.y + p;
+  float4* field = reinterpret_cast<float4*>(dynamic_smem()) + p * G;
+  const float* f = reinterpret_cast<const float*>(field);
+
+  float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (b < B) v = __ldg(reinterpret_cast<const float4*>(cfgs) + b * G + gr);
+  field[gr] = v;
+  __syncthreads();
+  if (b >= B) return;
+
+  const int q = L1 >> 2;
+  const int r = gr / q;
+  const int c = (gr - r * q) << 2;
+  const float sites[4] = {v.x, v.y, v.z, v.w};
+  float force[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float ph = sites[k];
+    force[k] = (2.0f * w2) * ph + (4.0f * w4) * (ph * ph) * ph;
+  }
+  if (w0 != 0.0f) {
+    const float4 u = reinterpret_cast<const float4*>(
+        f + (r == 0 ? L0 - 1 : r - 1) * L1)[c >> 2];
+    const float4 d = reinterpret_cast<const float4*>(
+        f + (r == L0 - 1 ? 0 : r + 1) * L1)[c >> 2];
+    const float ups[4] = {u.x, u.y, u.z, u.w};
+    const float downs[4] = {d.x, d.y, d.z, d.w};
+    const float lefts[4] = {f[r * L1 + (c == 0 ? L1 - 1 : c - 1)], v.x, v.y,
+                            v.z};
+    const float rights[4] = {v.y, v.z, v.w,
+                             f[r * L1 + (c + 4 == L1 ? 0 : c + 4)]};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      float neigh = 0.0f;
+      neigh = neigh + ups[k];     // roll(phi, 1, 0)
+      neigh = neigh + downs[k];   // roll(phi, -1, 0)
+      neigh = neigh + lefts[k];   // roll(phi, 1, 1)
+      neigh = neigh + rights[k];  // roll(phi, -1, 1)
+      force[k] = force[k] - w0 * neigh;
+    }
+  }
+  const float gb = __ldg(g + b);
+  reinterpret_cast<float4*>(grad)[b * G + gr] =
+      make_float4(force[0] * gb, force[1] * gb, force[2] * gb, force[3] * gb);
+}
+
 }  // namespace
 
 // cfgs (B, L0, L1, L2) float32 contiguous with nd lattice dims, the unused
@@ -252,5 +322,31 @@ extern "C" int phi4_action_tiled_f32(const void* cfgs, void* act, long long B,
                              static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(cfgs), static_cast<float*>(act), B, L0, L1,
       w0, w2, w4);
+  return (int)cudaGetLastError();
+}
+
+// The tiled force: cfgs and grad (B, L0, L1) float32 contiguous and 16-byte
+// aligned, g (B,), on the lattices and blocks phi4_action_tiled_f32 takes
+// (the wrapper sends other shapes to phi4_action_grad_f32).  Returns
+// cudaErrorInvalidValue for what it does not take, else cudaGetLastError()
+// after the launch.
+extern "C" int phi4_action_grad_tiled_f32(const void* cfgs, const void* g,
+                                          void* grad, long long B, int L0,
+                                          int L1, int samples, float w0,
+                                          float w2, float w4, void* stream) {
+  const long long G = (long long)L0 * L1 / 4;
+  if (B < 1 || L0 < 1 || L1 < 4 || L1 % 4 || G % 32 || G > 1024 ||
+      samples < 1 || G * samples > 1024 ||
+      reinterpret_cast<uintptr_t>(cfgs) % 16 ||
+      reinterpret_cast<uintptr_t>(grad) % 16)
+    return (int)cudaErrorInvalidValue;
+  const long long blocks = (B + samples - 1) / samples;
+  if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
+  const dim3 block((unsigned int)G, (unsigned int)samples);
+  phi4_action_grad_tiled_kernel<<<(unsigned int)blocks, block,
+                                  (size_t)samples * G * sizeof(float4),
+                                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(cfgs), static_cast<const float*>(g),
+      static_cast<float*>(grad), B, L0, L1, w0, w2, w4);
   return (int)cudaGetLastError();
 }

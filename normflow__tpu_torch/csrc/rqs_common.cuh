@@ -4,7 +4,9 @@
 // gather, and the closed-form inverse.  The forward order of operations is
 // that of the Pallas body `_rqs_core` (normflow__tpu/ops/kernels/
 // spline_coupling.py:37-118), repeated by the plain PyTorch versions in
-// normflow__tpu_torch/ops/kernels/spline_coupling.py.
+// normflow__tpu_torch/ops/kernels/spline_coupling.py.  On the host side,
+// the template dispatch of both files' C entry points and the grid of
+// their persistent (tiled) kernels.
 
 #pragma once
 
@@ -22,18 +24,30 @@ __device__ __forceinline__ float softplus_log2(float w) {
   return (fmaxf(z, 0.0f) + log1pf(expf(-fabsf(z)))) / kLn2;
 }
 
+// Where a kernel reads the conditioner's values: global memory through the
+// read-only cache (the per-site kernels), or a shared-memory stage (the
+// tiled kernels).
+struct FromGlobal {
+  static __device__ __forceinline__ float at(const float* p) {
+    return __ldg(p);
+  }
+};
+struct FromShared {
+  static __device__ __forceinline__ float at(const float* p) { return *p; }
+};
+
 // Softmax + cumsum knot coordinates of M-1 weights at stride `stride`:
 // writes M values lo + width * c_j, c_0 = 0, into k[0..M-1].
-template <int M>
+template <int M, typename From = FromGlobal, typename Stride>
 __device__ __forceinline__ void coords(const float* __restrict__ w,
-                                       long long stride, float lo,
-                                       float width, float* k) {
+                                       Stride stride, float lo, float width,
+                                       float* k) {
   float e[M - 1];
-  float mx = __ldg(w);
+  float mx = From::at(w);
   e[0] = mx;
 #pragma unroll
   for (int j = 1; j < M - 1; ++j) {
-    e[j] = __ldg(w + j * stride);
+    e[j] = From::at(w + j * stride);
     mx = fmaxf(mx, e[j]);
   }
   float tot = 0.0f;
@@ -127,6 +141,54 @@ __device__ __forceinline__ float inverse_theta(float xv, float y0, float dy,
   const float q = -0.5f * (a1 + delta);
   const float a = fabsf(a2) < kTiny ? 1.0f : a2;
   return q / a;
+}
+
+template <int M, bool LEFT, bool RIGHT, bool INVERSE>
+struct Inst {};
+
+// Calls f(Inst<M, LEFT, RIGHT, INVERSE>{}) for the template instance of
+// these flags; cudaErrorInvalidValue for a knot count without one.
+template <typename F>
+int visit(int m, int left, int right, int inverse, F&& f) {
+  const int key = (left ? 4 : 0) | (right ? 2 : 0) | (inverse ? 1 : 0);
+#define NF_KEYS(MM)                                  \
+  case MM:                                           \
+    switch (key) {                                   \
+      case 0: return f(Inst<MM, false, false, false>{}); \
+      case 1: return f(Inst<MM, false, false, true>{});  \
+      case 2: return f(Inst<MM, false, true, false>{});  \
+      case 3: return f(Inst<MM, false, true, true>{});   \
+      case 4: return f(Inst<MM, true, false, false>{});  \
+      case 5: return f(Inst<MM, true, false, true>{});   \
+      case 6: return f(Inst<MM, true, true, false>{});   \
+      default: return f(Inst<MM, true, true, true>{});   \
+    }
+  switch (m) {
+    NF_KEYS(4)
+    NF_KEYS(6)
+    NF_KEYS(8)
+    NF_KEYS(12)
+#undef NF_KEYS
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Blocks of a persistent kernel that takes `tiles` tiles with `per_sm`
+// blocks resident per SM: as many as stay resident on the card at once,
+// at most one per tile.  A tiled kernel asks its `per_sm` once per
+// instance (every sm_90 card has the same registers and shared memory per
+// SM) and passes it here.
+inline cudaError_t persistent_grid(int per_sm, long long tiles,
+                                   unsigned int& grid) {
+  if (per_sm == 0) return cudaErrorInvalidConfiguration;
+  int dev = 0, n_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  const long long resident = (long long)n_sm * per_sm;
+  grid = (unsigned int)(tiles < resident ? tiles : resident);
+  return err;
 }
 
 }  // namespace

@@ -11,24 +11,62 @@
 // linear boundary knots, segment by comparison count, then the
 // rational-quadratic map or its "citardauq" inverse -> (y, log dy/dx).
 //
-// What bounds it on an H100: memory.  A site reads 4 B of x and 4(3m-2) B of
-// conditioner output and writes 8 B; at m = 8 that is 100 B per site, about
-// 52 MB per launch at B = 1024 and 512 packed sites, against roughly 300
-// floating-point operations per site, far below the card's 67 TFLOP/s of
-// float32 per 3.35 TB/s.  The design serves that bound:
-// - one thread per (sample, site); for channel k, neighbouring threads read
-//   neighbouring addresses of out[b, k, :], so every load is coalesced and
-//   each input byte is read exactly once;
-// - m is a template parameter and the knot loops are unrolled, so the knot
-//   arrays live in registers and the segment "gather" is a chain of selects
-//   with static indices (as the Pallas kernel unrolled the knot axis);
-// - no shared memory, no padding to a tile: the ragged tail is masked.
-// The division-heavy arithmetic is left in IEEE float32 (no fast math) so
-// the kernel agrees with the plain version to float32 round-off.
+// What bounds it on an H100: bytes and instructions about equally.  A site
+// reads 4 B of x and 4(3m-2) B of conditioner output and writes 8 B; at
+// m = 8 that is 100 B per site, 52 MB per launch at B = 1024 and 512
+// packed sites, 0.0157 ms at 3.35 TB/s.  Its arithmetic is IEEE float32
+// with no contraction (--fmad=false: the same bits as the plain version's
+// order of operations): 14 expf for the two softmaxes, a softplus_log2 per
+// derivative used (an expf, a log1pf and a division), half a dozen
+// divisions and a logf, on the order of a thousand instructions per site,
+// whose issue takes about as long as the bytes.  Two variants, chosen by
+// the wrapper by shape and alignment:
+// - the tiled kernel (rqs_coupling_tiled_f32, the path's): persistent
+//   blocks stage tiles of kTileSites sites through a ring of shared-memory
+//   stages with bulk copies (bulk_copy.cuh), the next tiles arriving while
+//   this one computes, so every warp's arithmetic overlaps the bytes; and
+//   it evaluates softplus_log2 only on the derivatives the site uses (2 in
+//   the forward, up to 4 in the inverse, of m), which saves about a quarter
+//   of the instructions and changes no bit (design notes at the kernel);
+// - the per-site kernel (rqs_coupling_f32) for S % 4 != 0 or an address
+//   off 16 bytes, which the bulk copies cannot take: one thread per
+//   (sample, site), per-channel loads coalesced across neighbouring
+//   threads, no shared memory.
+// In both, m is a template parameter and the knot loops are unrolled, so
+// the knot arrays live in registers and the segment "gather" is a chain of
+// selects with static indices (as the Pallas kernel unrolled the knot
+// axis).  The two return the same bits.
 
+#include "bulk_copy.cuh"
 #include "rqs_common.cuh"
 
 namespace {
+
+// The rational-quadratic map of xv on the segment sg, or its inverse: y,
+// and lg = log dy/dx (-log of the forward's for the inverse).
+template <bool INVERSE>
+__device__ __forceinline__ void rq_map(float xv, const Segment& sg, float& y,
+                                       float& lg) {
+  const float dx = sg.x1 - sg.x0;
+  const float dy = sg.y1 - sg.y0;
+  const float mm = dy / dx;
+  const float spread = sg.d1 + sg.d0 - 2.0f * mm;
+
+  float theta;
+  if (!INVERSE) {
+    theta = (xv - sg.x0) / dx;
+    const float denom = mm + spread * theta * (1.0f - theta);
+    y = sg.y0 + dy * theta * (mm * theta + sg.d0 * (1.0f - theta)) / denom;
+  } else {
+    theta = inverse_theta(xv, sg.y0, dy, mm, spread, sg.d0);
+    y = sg.x0 + dx * theta;
+  }
+  const float denom = mm + spread * theta * (1.0f - theta);
+  const float num = sg.d0 + 2.0f * (mm - sg.d0) * theta +
+                    spread * theta * theta;
+  const float l = logf(mm * mm * num / (denom * denom));
+  lg = INVERSE ? -l : l;
+}
 
 template <int M, bool LEFT, bool RIGHT, bool INVERSE>
 __global__ void __launch_bounds__(256)
@@ -49,62 +87,241 @@ rqs_coupling_kernel(const float* __restrict__ x, const float* __restrict__ out,
   float kx[K], ky[K], kd[K];
   knots<M, LEFT, RIGHT>(o, S, xlo, xw, ylo, yw, kx, ky, kd);
   const float xv = __ldg(x + i);
-  const Segment sg = segment<K, INVERSE>(xv, kx, ky, kd);
-  const float x0 = sg.x0, x1 = sg.x1, y0 = sg.y0, y1 = sg.y1, d0 = sg.d0,
-              d1 = sg.d1;
+  rq_map<INVERSE>(xv, segment<K, INVERSE>(xv, kx, ky, kd), y[i], logg[i]);
+}
 
-  const float dx = x1 - x0;
-  const float dy = y1 - y0;
-  const float mm = dy / dx;
-  const float spread = d1 + d0 - 2.0f * mm;
+// The arguments of both C entry points.
+struct Args {
+  const float *x, *out;
+  float *y, *logg;
+  long long B, S;
+  float xlo, xw, ylo, yw;
+  cudaStream_t stream;
+};
 
-  float theta;
-  if (!INVERSE) {
-    theta = (xv - x0) / dx;
-    const float denom = mm + spread * theta * (1.0f - theta);
-    y[i] = y0 + dy * theta * (mm * theta + d0 * (1.0f - theta)) / denom;
-  } else {
-    theta = inverse_theta(xv, y0, dy, mm, spread, d0);
-    y[i] = x0 + dx * theta;
+template <int M, bool LEFT, bool RIGHT, bool INVERSE>
+int launch_sites(Inst<M, LEFT, RIGHT, INVERSE>, const Args& a) {
+  const int threads = 256;
+  const long long n = a.B * a.S;
+  const long long blocks = (n + threads - 1) / threads;
+  rqs_coupling_kernel<M, LEFT, RIGHT, INVERSE>
+      <<<(unsigned int)blocks, threads, 0, a.stream>>>(
+          a.x, a.out, a.y, a.logg, n, a.S, a.xlo, a.xw, a.ylo, a.yw);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The tiled kernel.  A tile is kTileSites consecutive sites of one sample;
+// each of its R = 3m-1 rows (the 3m-2 channels of `out`, then x) is
+// kTileSites contiguous floats of global memory.  A ring of stages(m)
+// shared-memory stages holds R x kTileSites floats each.  Warp 0 fills a
+// stage with one bulk copy per row (a row per lane), completing on the
+// stage's mbarrier, a whole ring ahead of the tile being computed; each
+// thread takes one site, reads its column of the stage, and stores y and
+// log g straight to global memory (coalesced across the warp); once every
+// thread has read the stage, warp 0 refills it.  The arithmetic is that of
+// the per-site kernel, operation for operation, except that softplus_log2
+// runs only on the raw derivative weights the site uses (segment_smem).
+
+constexpr int kTileSites = 128;  // sites per tile, one thread each
+constexpr int kStages = 2;       // tiles in flight per block
+constexpr int kMinBlocks = 9;    // blocks per SM asked of ptxas, m <= 8
+// y and log g leave by bulk stores from the stage (written over the rows
+// of x and channel 0) instead of coalesced stores from registers
+constexpr bool kStoreFromStage = false;
+
+// Stages of the ring at m knots: kStages, or as many as the 48 KB of
+// static shared memory hold (the mbarriers beside them).
+__host__ __device__ constexpr int stages(int m) {
+  const int fit = (48 * 1024 - 256) / ((3 * m - 1) * kTileSites * 4);
+  return fit < kStages ? fit : kStages;
+}
+
+// Blocks of kTileSites threads per SM that __launch_bounds__ asks the
+// register allocator to fit.  At m = 8 the two-stage ring (23.5 KB) lets 9
+// blocks share an SM's 228 KB, so 9 costs no block its place; m = 12
+// (34 channels) asks for 4, as the VJP does.
+constexpr int min_blocks(int m) { return m <= 8 ? kMinBlocks : 4; }
+
+// knots() + segment() of rqs_common.cuh for a site whose conditioner values
+// sit in a stage column `o` (rows `ts` floats apart), with softplus_log2
+// evaluated only on the raw derivative weights the site uses: the
+// segment's two and, for the inverse's search over the y knots, the first
+// and last where a linear boundary knot needs them.  The forward's
+// boundary y knot is read only on the boundary segment, whose own
+// derivative is the one it needs.  softplus_log2 is a pure function of one
+// float, so the segment has the bits of knots() + segment().
+template <int M, bool LEFT, bool RIGHT, bool INVERSE>
+__device__ __forceinline__ Segment segment_smem(float xv, const float* o,
+                                                int ts, float xlo, float xw,
+                                                float ylo, float yw) {
+  constexpr int L = LEFT ? 1 : 0;
+  constexpr int K = M + L + (RIGHT ? 1 : 0);
+  const float* wd = o + 2 * (M - 1) * ts;  // the raw derivative weights
+
+  float kx[K], ky[K];
+  coords<M, FromShared>(o, ts, xlo, xw, kx + L);
+  coords<M, FromShared>(o + (M - 1) * ts, ts, ylo, yw, ky + L);
+  if (LEFT) kx[0] = kx[1] - 1.0f;
+  if (RIGHT) kx[K - 1] = kx[K - 2] + 1.0f;
+  if (INVERSE) {
+    if (LEFT) ky[0] = ky[1] - softplus_log2(wd[0]);
+    if (RIGHT) ky[K - 1] = ky[K - 2] + softplus_log2(wd[(M - 1) * ts]);
   }
-  const float denom = mm + spread * theta * (1.0f - theta);
-  const float num = d0 + 2.0f * (mm - d0) * theta + spread * theta * theta;
-  const float lg = logf(mm * mm * num / (denom * denom));
-  logg[i] = INVERSE ? -lg : lg;
+
+  int idx = 0;
+#pragma unroll
+  for (int j = 0; j < K; ++j) idx += (xv > (INVERSE ? ky[j] : kx[j])) ? 1 : 0;
+  idx = min(max(idx, 1), K - 1) - 1;
+
+  // knot j's derivative is softplus_log2 of raw weight clamp(j - L, 0, M-1)
+  float w0 = 0.0f, w1 = 0.0f;
+#pragma unroll
+  for (int j = 0; j < K - 1; ++j) {
+    if (idx == j) {
+      w0 = wd[min(max(j - L, 0), M - 1) * ts];
+      w1 = wd[min(max(j + 1 - L, 0), M - 1) * ts];
+    }
+  }
+  Segment sg = {idx, 0.0f, 0.0f, 0.0f, 0.0f, softplus_log2(w0),
+                softplus_log2(w1)};
+  if (!INVERSE) {  // on the boundary segments kd[1] is d1, kd[K-2] is d0
+    if (LEFT) ky[0] = ky[1] - sg.d1;
+    if (RIGHT) ky[K - 1] = ky[K - 2] + sg.d0;
+  }
+#pragma unroll
+  for (int j = 0; j < K - 1; ++j) {
+    if (idx == j) {
+      sg.x0 = kx[j]; sg.x1 = kx[j + 1];
+      sg.y0 = ky[j]; sg.y1 = ky[j + 1];
+    }
+  }
+  return sg;
+}
+
+// Persistent: block k takes tiles k, k + gridDim.x, ...; tile -> (sample
+// tile / tiles_per_sample, first site (tile % tiles_per_sample) * ts).
+template <int M, bool LEFT, bool RIGHT, bool INVERSE>
+__global__ void __launch_bounds__(kTileSites, min_blocks(M))
+rqs_coupling_tiled_kernel(const float* __restrict__ x,
+                          const float* __restrict__ out,
+                          float* __restrict__ y, float* __restrict__ logg,
+                          long long S, long long tiles_per_sample,
+                          long long n_tiles, float xlo, float xw, float ylo,
+                          float yw) {
+  constexpr int K3 = 3 * M - 2;
+  constexpr int R = K3 + 1;
+  constexpr int ts = kTileSites;
+  constexpr int NS = stages(M);
+  static_assert(NS >= 1, "a stage must fit in static shared memory");
+  __shared__ __align__(128) float smem[NS * R * ts];
+  __shared__ uint64_t full[NS];
+  const int t = threadIdx.x;
+
+  if (t == 0) {
+    for (int st = 0; st < NS; ++st) mbar_init(&full[st], 1);
+    fence_mbarrier_init();
+  }
+  __syncthreads();
+
+  // sample, first site and number of sites of a tile
+  auto locate = [&](long long tile, long long& b, long long& s0, int& n) {
+    b = tile / tiles_per_sample;
+    s0 = (tile - b * tiles_per_sample) * ts;
+    n = (int)(S - s0 < ts ? S - s0 : ts);
+  };
+  // warp 0 fills a stage: lane 0 arms the barrier, lane l copies rows
+  // l, l + 32, ...
+  const int lane = t & 31;
+  auto load = [&](long long tile, int st) {
+    long long b, s0;
+    int n;
+    locate(tile, b, s0, n);
+    float* stage = smem + st * R * ts;
+    const uint32_t bytes = (uint32_t)n * sizeof(float);
+    if (lane == 0) mbar_arrive_expect_tx(&full[st], bytes * R);
+    __syncwarp();
+    for (int c = lane; c < R; c += 32) {
+      const float* src = c < K3 ? out + (b * K3 + c) * S : x + b * S;
+      bulk_load(stage + c * ts, src + s0, bytes, &full[st]);
+    }
+  };
+
+  if (t < 32) {
+    for (int st = 0; st < NS; ++st) {
+      const long long tile = blockIdx.x + (long long)st * gridDim.x;
+      if (tile < n_tiles) load(tile, st);
+    }
+  }
+  int st = 0;
+  uint32_t parity = 0;
+  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    long long b, s0;
+    int n;
+    locate(tile, b, s0, n);
+    float* stage = smem + st * R * ts;
+    float* o = stage + t;
+    mbar_wait(&full[st], parity);
+    if (t < n) {
+      const float xv = o[K3 * ts];
+      float yv, lg;
+      rq_map<INVERSE>(xv,
+                      segment_smem<M, LEFT, RIGHT, INVERSE>(xv, o, ts, xlo,
+                                                            xw, ylo, yw),
+                      yv, lg);
+      if (kStoreFromStage) {
+        o[K3 * ts] = yv;
+        o[0] = lg;
+      } else {
+        y[b * S + s0 + t] = yv;
+        logg[b * S + s0 + t] = lg;
+      }
+    }
+    if (kStoreFromStage) fence_proxy_async();
+    __syncthreads();  // every thread has read (and written) the stage
+    if (t < 32) {
+      const long long next = tile + (long long)NS * gridDim.x;
+      if (kStoreFromStage) {
+        if (lane < 2)
+          bulk_store((lane ? y : logg) + b * S + s0,
+                     stage + (lane ? K3 : 0) * ts, (uint32_t)n * 4);
+        bulk_commit();
+        if (next < n_tiles) bulk_wait_read();
+      }
+      if (next < n_tiles) load(next, st);
+    }
+    if (++st == NS) {
+      st = 0;
+      parity ^= 1u;
+    }
+  }
+  if (kStoreFromStage && t < 32) bulk_wait_all();
 }
 
 template <int M, bool LEFT, bool RIGHT, bool INVERSE>
-void launch(const float* x, const float* out, float* y, float* logg,
-            long long n, long long S, float xlo, float xw, float ylo,
-            float yw, cudaStream_t stream) {
-  const int threads = 256;
-  const long long blocks = (n + threads - 1) / threads;
-  rqs_coupling_kernel<M, LEFT, RIGHT, INVERSE>
-      <<<(unsigned int)blocks, threads, 0, stream>>>(x, out, y, logg, n, S,
-                                                     xlo, xw, ylo, yw);
+int launch_tiled(Inst<M, LEFT, RIGHT, INVERSE>, const Args& a) {
+  auto kern = rqs_coupling_tiled_kernel<M, LEFT, RIGHT, INVERSE>;
+  static int per_sm = 0;
+  cudaError_t err = cudaSuccess;
+  if (per_sm == 0)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
+                                                        kTileSites, 0);
+  const long long tps = (a.S + kTileSites - 1) / kTileSites;
+  const long long tiles = a.B * tps;
+  unsigned int grid = 0;
+  if (err == cudaSuccess) err = persistent_grid(per_sm, tiles, grid);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<grid, kTileSites, 0, a.stream>>>(a.x, a.out, a.y, a.logg, a.S, tps,
+                                          tiles, a.xlo, a.xw, a.ylo, a.yw);
+  return (int)cudaGetLastError();
 }
 
-template <int M>
-void dispatch(const float* x, const float* out, float* y, float* logg,
-              long long n, long long S, float xlo, float xw, float ylo,
-              float yw, int left, int right, int inverse,
-              cudaStream_t stream) {
-  const int key = (left ? 4 : 0) | (right ? 2 : 0) | (inverse ? 1 : 0);
-  switch (key) {
-#define NF_CASE(K, LL, RR, II)                                            \
-  case K:                                                                 \
-    launch<M, LL, RR, II>(x, out, y, logg, n, S, xlo, xw, ylo, yw, stream); \
-    break;
-    NF_CASE(0, false, false, false)
-    NF_CASE(1, false, false, true)
-    NF_CASE(2, false, true, false)
-    NF_CASE(3, false, true, true)
-    NF_CASE(4, true, false, false)
-    NF_CASE(5, true, false, true)
-    NF_CASE(6, true, true, false)
-    NF_CASE(7, true, true, true)
-#undef NF_CASE
-  }
+Args args_of(const void* x, const void* out, void* y, void* logg,
+             long long B, long long S, float xlo, float xw, float ylo,
+             float yw, void* stream) {
+  return {static_cast<const float*>(x), static_cast<const float*>(out),
+          static_cast<float*>(y), static_cast<float*>(logg), B, S, xlo, xw,
+          ylo, yw, static_cast<cudaStream_t>(stream)};
 }
 
 }  // namespace
@@ -117,31 +334,26 @@ extern "C" int rqs_coupling_f32(const void* x, const void* out, void* y,
                                 float xlo, float xw, float ylo, float yw,
                                 int left_linear, int right_linear,
                                 int inverse, void* stream) {
-  const float* xp = static_cast<const float*>(x);
-  const float* op = static_cast<const float*>(out);
-  float* yp = static_cast<float*>(y);
-  float* gp = static_cast<float*>(logg);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const long long n = B * S;
-  switch (m) {
-    case 4:
-      dispatch<4>(xp, op, yp, gp, n, S, xlo, xw, ylo, yw, left_linear,
-                  right_linear, inverse, st);
-      break;
-    case 6:
-      dispatch<6>(xp, op, yp, gp, n, S, xlo, xw, ylo, yw, left_linear,
-                  right_linear, inverse, st);
-      break;
-    case 8:
-      dispatch<8>(xp, op, yp, gp, n, S, xlo, xw, ylo, yw, left_linear,
-                  right_linear, inverse, st);
-      break;
-    case 12:
-      dispatch<12>(xp, op, yp, gp, n, S, xlo, xw, ylo, yw, left_linear,
-                   right_linear, inverse, st);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  const Args a = args_of(x, out, y, logg, B, S, xlo, xw, ylo, yw, stream);
+  return visit(m, left_linear, right_linear, inverse,
+               [&](auto inst) { return launch_sites(inst, a); });
+}
+
+// The tiled kernel on the same arguments, for S % 4 == 0 and every pointer
+// 16-byte aligned (the bulk copies' rule; the wrapper sends other shapes to
+// rqs_coupling_f32).  Returns cudaErrorInvalidValue for arguments it does
+// not take, else cudaGetLastError() after the launch.
+extern "C" int rqs_coupling_tiled_f32(const void* x, const void* out, void* y,
+                                      void* logg, long long B, long long S,
+                                      int m, float xlo, float xw, float ylo,
+                                      float yw, int left_linear,
+                                      int right_linear, int inverse,
+                                      void* stream) {
+  const void* ptrs[4] = {x, out, y, logg};
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16) return (int)cudaErrorInvalidValue;
+  if (S % 4 || B < 1 || S < 1) return (int)cudaErrorInvalidValue;
+  const Args a = args_of(x, out, y, logg, B, S, xlo, xw, ylo, yw, stream);
+  return visit(m, left_linear, right_linear, inverse,
+               [&](auto inst) { return launch_tiled(inst, a); });
 }

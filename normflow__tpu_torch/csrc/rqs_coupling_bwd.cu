@@ -243,37 +243,6 @@ struct Args {
 };
 
 template <int M, bool LEFT, bool RIGHT, bool INVERSE>
-struct Inst {};
-
-// Calls f(Inst<M, LEFT, RIGHT, INVERSE>{}) for the instance of these flags;
-// cudaErrorInvalidValue for a knot count without one.
-template <typename F>
-int visit(int m, int left, int right, int inverse, F&& f) {
-  const int key = (left ? 4 : 0) | (right ? 2 : 0) | (inverse ? 1 : 0);
-#define NF_KEYS(MM)                                  \
-  case MM:                                           \
-    switch (key) {                                   \
-      case 0: return f(Inst<MM, false, false, false>{}); \
-      case 1: return f(Inst<MM, false, false, true>{});  \
-      case 2: return f(Inst<MM, false, true, false>{});  \
-      case 3: return f(Inst<MM, false, true, true>{});   \
-      case 4: return f(Inst<MM, true, false, false>{});  \
-      case 5: return f(Inst<MM, true, false, true>{});   \
-      case 6: return f(Inst<MM, true, true, false>{});   \
-      default: return f(Inst<MM, true, true, true>{});   \
-    }
-  switch (m) {
-    NF_KEYS(4)
-    NF_KEYS(6)
-    NF_KEYS(8)
-    NF_KEYS(12)
-#undef NF_KEYS
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-}
-
-template <int M, bool LEFT, bool RIGHT, bool INVERSE>
 int launch_sites(Inst<M, LEFT, RIGHT, INVERSE>, const Args& a) {
   const int threads = 256;
   const long long n = a.B * a.S;
@@ -547,9 +516,6 @@ rqs_coupling_bwd_tiled_kernel(const float* __restrict__ x,
   if (t < 32) bulk_wait_all();
 }
 
-// Persistent blocks: as many as stay resident on the card at once, at most
-// one per tile.  The blocks per SM are asked once per instance: every sm_90
-// card has the same registers and shared memory per SM.
 template <int M, bool LEFT, bool RIGHT, bool INVERSE>
 int launch_tiled(Inst<M, LEFT, RIGHT, INVERSE>, const Args& a) {
   auto kern = rqs_coupling_bwd_tiled_kernel<M, LEFT, RIGHT, INVERSE>;
@@ -558,17 +524,12 @@ int launch_tiled(Inst<M, LEFT, RIGHT, INVERSE>, const Args& a) {
   if (per_sm == 0)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
                                                         kTileSites, 0);
-  int dev = 0, n_sm = 0;
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
-  if (per_sm == 0) return (int)cudaErrorInvalidConfiguration;
   const long long tps = (a.S + kTileSites - 1) / kTileSites;
   const long long tiles = a.B * tps;
-  const long long resident = (long long)n_sm * per_sm;
-  const long long grid = tiles < resident ? tiles : resident;
-  kern<<<(unsigned int)grid, kTileSites, 0, a.stream>>>(
+  unsigned int grid = 0;
+  if (err == cudaSuccess) err = persistent_grid(per_sm, tiles, grid);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<grid, kTileSites, 0, a.stream>>>(
       a.x, a.out, a.ybar, a.loggbar, a.xbar, a.outbar, a.S, tps, tiles,
       a.xlo, a.xw, a.ylo, a.yw);
   return (int)cudaGetLastError();

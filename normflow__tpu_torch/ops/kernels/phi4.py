@@ -12,12 +12,13 @@ on a periodic lattice of 1-3 dims, ``cfgs`` ``(B, *lat)`` -> ``(B,)``, and
 its gradient, the analytic force times the per-sample cotangent.
 :func:`phi4_action` is differentiable; it and :func:`phi4_action_grad` run
 the plain PyTorch version for a CPU tensor and the CUDA kernel
-(``csrc/phi4_action.cu``) for a CUDA tensor.  The action has two
-hand-written variants, chosen by shape and alignment
-(:func:`action_variant`): the tiled kernel for 2-D lattices that suit its
-float4 tile (the flagship's), the general kernel for every other lattice.
-``phi4_action.tiled_launches`` counts the tiled kernel's share of
-``phi4_action.launches``.
+(``csrc/phi4_action.cu``) for a CUDA tensor.  The action and its
+gradient each have two hand-written variants, chosen by shape and
+alignment (:func:`action_variant`): the tiled kernel for 2-D lattices that
+suit its float4 tile (the flagship's), the general kernel for every other
+lattice.  ``phi4_action.tiled_launches`` and
+``phi4_action_grad.tiled_launches`` count the tiled kernels' share of each
+wrapper's ``launches``.
 """
 
 from __future__ import annotations
@@ -49,11 +50,12 @@ def action_plan(lat):
     return groups, max(1, THREADS_PER_BLOCK // groups)
 
 
-def action_variant(lat, ptr):
-    """``"tiled"`` where :func:`action_plan` has a tile for ``lat`` and the
-    field's address ``ptr`` suits float4 loads, ``"general"`` otherwise."""
-    return ("tiled" if action_plan(lat) is not None and ptr % 16 == 0
-            else "general")
+def action_variant(lat, *ptrs):
+    """``"tiled"`` where :func:`action_plan` has a tile for ``lat`` and every
+    address in ``ptrs`` suits float4 accesses (the field's; for the
+    gradient, the force's too), ``"general"`` otherwise."""
+    return ("tiled" if action_plan(lat) is not None
+            and all(p % 16 == 0 for p in ptrs) else "general")
 
 
 def phi4_action_plain(cfgs, w0, w2, w4):
@@ -141,14 +143,21 @@ def phi4_action_grad(cfgs, g, w0, w2, w4):
     grad = torch.empty_like(cfgs)
     if cfgs.numel():
         lib = _lib.library()
+        ptrs = (cfgs.data_ptr(), g.data_ptr(), grad.data_ptr())
+        b, w = cfgs.shape[0], (float(w0), float(w2), float(w4))
+        tiled = action_variant(cfgs.shape[1:], ptrs[0], ptrs[2]) == "tiled"
         with torch.cuda.device(cfgs.device):
             stream = torch.cuda.current_stream(cfgs.device).cuda_stream
-            err = lib.phi4_action_grad_f32(
-                cfgs.data_ptr(), g.data_ptr(), grad.data_ptr(),
-                cfgs.shape[0], cfgs.dim() - 1, *lat, float(w0), float(w2),
-                float(w4), stream)
+            if tiled:
+                _, samples = action_plan(cfgs.shape[1:])
+                err = lib.phi4_action_grad_tiled_f32(*ptrs, b, *lat[:2],
+                                                     samples, *w, stream)
+            else:
+                err = lib.phi4_action_grad_f32(*ptrs, b, cfgs.dim() - 1,
+                                               *lat, *w, stream)
         _lib.check(err, "phi4_action_grad")
         phi4_action_grad.launches += 1
+        phi4_action_grad.tiled_launches += tiled
     return grad
 
 
@@ -181,3 +190,4 @@ def phi4_action(cfgs, w0, w2, w4):
 phi4_action.launches = 0
 phi4_action.tiled_launches = 0
 phi4_action_grad.launches = 0
+phi4_action_grad.tiled_launches = 0

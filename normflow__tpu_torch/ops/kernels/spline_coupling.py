@@ -15,12 +15,13 @@ inverse, and return ``(y, log|dy/dx|)`` shaped like ``x``.
 backward, :func:`rqs_coupling_bwd`, is the counterpart of the Pallas kernel
 ``_rqs_bwd_kernel``, a hand-derived VJP that recomputes the forward per
 site (``csrc/rqs_coupling_bwd.cu``, plain version
-:func:`rqs_coupling_vjp_plain`).  The backward has two hand-written
-variants, chosen by shape and alignment (:func:`bwd_variant`): the tiled
-kernel, whose persistent blocks stage tiles of 128 sites through shared
-memory with bulk copies, and the per-site kernel for the shapes the bulk
-copies cannot take.  ``rqs_coupling_bwd.tiled_launches`` counts the tiled
-kernel's share of ``rqs_coupling_bwd.launches``.
+:func:`rqs_coupling_vjp_plain`).  Each direction has two hand-written
+variants, chosen by shape and alignment (:func:`coupling_variant`): the
+tiled kernel, whose persistent blocks stage tiles of 128 sites through
+shared memory with bulk copies, and the per-site kernel for the shapes the
+bulk copies cannot take; the two return the same bits.
+``rqs_coupling.tiled_launches`` and ``rqs_coupling_bwd.tiled_launches``
+count the tiled kernels' share of each wrapper's ``launches``.
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ from ...models.elementwise import softplus_log2
 from . import _lib
 
 __all__ = ["rqs_coupling", "rqs_coupling_plain", "rqs_coupling_bwd",
-           "rqs_coupling_vjp_plain", "SUPPORTED_KNOTS", "bwd_variant"]
+           "rqs_coupling_vjp_plain", "SUPPORTED_KNOTS", "coupling_variant"]
 
 SUPPORTED_KNOTS = (4, 6, 8, 12)  # template instances of the CUDA kernel
 _EXTRAP = (None, "linear")
@@ -337,21 +338,24 @@ def _forward(x, out, cfg):
     logg = torch.empty_like(x)
     if b * s:
         lib = _lib.library()
+        ptrs = [t.data_ptr() for t in (x, out, y, logg)]
+        tiled = coupling_variant(s, ptrs) == "tiled"
+        launch = lib.rqs_coupling_tiled_f32 if tiled else lib.rqs_coupling_f32
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
-            err = lib.rqs_coupling_f32(
-                x.data_ptr(), out.data_ptr(), y.data_ptr(), logg.data_ptr(),
-                b, s, m, *_limits(**cfg), stream)
+            err = launch(*ptrs, b, s, m, *_limits(**cfg), stream)
         _lib.check(err, "rqs_coupling")
         rqs_coupling.launches += 1
+        rqs_coupling.tiled_launches += tiled
     return y, logg
 
 
-def bwd_variant(s, ptrs):
-    """Which backward kernel takes ``s`` sites per sample with tensors at
-    the addresses ``ptrs``: ``"tiled"`` where the bulk copies can move every
-    tile row (16-byte aligned, a multiple of 16 bytes long: ``s % 4 == 0``
-    and every address a multiple of 16), ``"sites"`` otherwise."""
+def coupling_variant(s, ptrs):
+    """Which kernel of either direction takes ``s`` sites per sample with
+    tensors at the addresses ``ptrs``: ``"tiled"`` where the bulk copies
+    can move every tile row (16-byte aligned, a multiple of 16 bytes long:
+    ``s % 4 == 0`` and every address a multiple of 16), ``"sites"``
+    otherwise."""
     return ("tiled" if s % 4 == 0 and all(p % 16 == 0 for p in ptrs)
             else "sites")
 
@@ -378,7 +382,7 @@ def rqs_coupling_bwd(x, out, ybar, loggbar, *, xlim, ylim, left=None,
     if b * s:
         lib = _lib.library()
         ptrs = [t.data_ptr() for t in (x, out, ybar, loggbar, xbar, outbar)]
-        tiled = bwd_variant(s, ptrs) == "tiled"
+        tiled = coupling_variant(s, ptrs) == "tiled"
         launch = (lib.rqs_coupling_bwd_tiled_f32 if tiled
                   else lib.rqs_coupling_bwd_f32)
         with torch.cuda.device(x.device):
@@ -428,5 +432,6 @@ def rqs_coupling(x, out, *, xlim, ylim, left=None, right=None,
 
 
 rqs_coupling.launches = 0
+rqs_coupling.tiled_launches = 0
 rqs_coupling_bwd.launches = 0
 rqs_coupling_bwd.tiled_launches = 0

@@ -1,22 +1,27 @@
 #!/usr/bin/env python3
 """Device times and outputs of the port's four kernels in one checkout::
 
-    python3 normflow__tpu_torch/tools/kernel_times.py CHECKOUT LABEL OUT.pt
+    python3 normflow__tpu_torch/tools/kernel_times.py CHECKOUT LABEL OUT.pt [CASES]
     python3 normflow__tpu_torch/tools/kernel_times.py --compare A.pt B.pt
 
 ``CHECKOUT`` is the root of a checkout (it holds ``normflow__tpu_torch/``);
 the port is imported from there, so two commits compare on one card by
 running the first form on each in turn (parent, change, change, parent).
-For each kernel at the main path's shapes (``rqs_coupling`` at B = 1024,
-``rqs_coupling_bwd`` at B = 512 forward and inverse, both with linear
-tails on the flagship's 32x16 sites and m = 8; ``phi4_action`` at (1024,
-32, 32); ``phi4_action_grad`` at (512, 32, 32)) it prints, each line
-starting with ``LABEL``, the median device time per launch from
+For each kernel at the main path's shapes (``rqs_coupling`` forward and
+inverse at B = 1024, the sampling batch, and at B = 512, the training
+batch; ``rqs_coupling_bwd`` at B = 512 forward and inverse; all with
+linear tails on the flagship's 32x16 sites and m = 8; ``phi4_action`` at
+(1024, 32, 32); ``phi4_action_grad`` at (512, 32, 32)) it prints, each
+line starting with ``LABEL``, the median device time per launch from
 ``torch.profiler`` (the kernel's own events, by name) with the inputs warm
 in L2 and with L2 flushed before every launch (a 256 MB buffer written
 between launches), the least time the card could take (:func:`bound_ms`)
 and the share of it each time reaches.  It saves every kernel's outputs on
-the seeded inputs to ``OUT.pt`` (about 30 MB).
+the seeded inputs to ``OUT.pt`` (about 50 MB).  ``CASES``, a regular
+expression, keeps the cases whose name it matches.  It also prints the SASS
+instructions of each device function's flagship instance in the built
+library (``cuobjdump -sass``, :func:`sass_counts`) and the time their issue
+alone needs at the path's shapes (:func:`issue_ms`).
 
 ``--compare`` holds two such files against each other: ``rqs_coupling``,
 ``rqs_coupling_bwd`` and ``phi4_action_grad`` bit for bit,
@@ -30,6 +35,7 @@ from __future__ import annotations
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -42,10 +48,10 @@ PEAKS = (("H100 NVL", 3.9e12, 60e12), ("H100 PCIe", 2.0e12, 51e12),
          ("H200", 4.8e12, 67e12), ("H100", 3.35e12, 67e12))
 # each kernel's device function, as the profiler names its launches
 KERNEL_RE = {
-    "rqs_coupling": r"\brqs_coupling_kernel\b",
+    "rqs_coupling": r"\brqs_coupling(_tiled)?_kernel\b",
     "rqs_coupling_bwd": r"\brqs_coupling_bwd(_tiled)?_kernel\b",
     "phi4_action": r"\bphi4_action(_tiled)?_kernel\b",
-    "phi4_action_grad": r"\bphi4_action_grad_kernel\b",
+    "phi4_action_grad": r"\bphi4_action_grad(_tiled)?_kernel\b",
 }
 M, LAT, BATCH, TRAIN_BATCH = 8, (32, 32), 1024, 512
 LIM = dict(xlim=(-4.0, 4.0), ylim=(-4.0, 4.0), left="linear", right="linear")
@@ -137,6 +143,51 @@ def work(name, shape):
     return 4 * sites * 2 + 4 * b, sites * (5 + 2 * 2 + 3)
 
 
+def sass_counts(lib_path):
+    """:func:`parse_sass` of ``cuobjdump -sass`` of a built kernel
+    library."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        CUDA_HOME or "/usr/local/cuda", "bin", "cuobjdump")
+    return parse_sass(subprocess.run([tool, "-sass", lib_path],
+                                     capture_output=True, text=True,
+                                     check=True).stdout)
+
+
+def parse_sass(text):
+    """``{mangled device function: (instructions, site instructions)}`` of
+    ``cuobjdump -sass``'s listing.  ``instructions`` counts the whole
+    function once (the padding NOPs and the closing branch to itself left
+    out), the slow paths of the IEEE divisions and a tiled kernel's ring
+    code included; ``site instructions`` are those from the first load of
+    an input (``LDG`` or ``LDS``) to the last store of a result (``STG``)
+    in address order: the code one thread runs for one site, or for one
+    float4 of sites in the tiled force, where the division slow paths,
+    placed after the function's last ``EXIT``, are not taken."""
+    counts = {}
+    for block in re.split(r"\n\s*Function : ", "\n" + text)[1:]:
+        ops = [(int(a, 16), op) for a, op in re.findall(
+            r"/\*([0-9a-f]{4,})\*/\s+([^;]*?)\s*;", block)]
+        ops = [(a, op) for a, op in ops if not op.startswith("NOP") and
+               op != f"BRA {a:#x}"]
+        kinds = [re.sub(r"^@!?U?P\w+\s+", "", op).split()[0]
+                 for _, op in ops]
+        loads = [i for i, k in enumerate(kinds) if k in ("LDG.E.CONSTANT",
+                 "LDG.E", "LDS", "LDG.E.128.CONSTANT", "LDS.128")]
+        stores = [i for i, k in enumerate(kinds) if k.startswith("STG")]
+        site = stores[-1] - loads[0] + 1 if loads and stores else 0
+        counts[block.split()[0]] = (len(ops), site)
+    return counts
+
+
+def issue_ms(threads, instructions, n_sm, clock_mhz):
+    """Milliseconds the card needs to issue ``instructions`` SASS
+    instructions on each of ``threads`` threads: one warp instruction per
+    clock on each of an SM's 4 schedulers."""
+    return threads / 32 * instructions / (n_sm * 4 * clock_mhz * 1e3)
+
+
 def inputs(torch, rng, w):
     """Seeded inputs at the path's shapes: ``{case: (kernel, shape, call)}``
     where ``call(mod_sc, mod_phi4)`` launches the kernel's wrapper; ``w``
@@ -152,9 +203,16 @@ def inputs(torch, rng, w):
     ybar, loggbar = f32((TRAIN_BATCH, *lat)), f32((TRAIN_BATCH, *lat))
     cfgs3, cfgs4 = f32((BATCH, *LAT)), f32((TRAIN_BATCH, *LAT))
     g4 = f32((TRAIN_BATCH,))
+
+    def coupling(x, out, inverse):
+        return ("rqs_coupling", tuple(out.shape), lambda sc, ph:
+                sc.rqs_coupling(x, out, inverse=inverse, **LIM))
+
     return {
-        "rqs_coupling": ("rqs_coupling", tuple(out1.shape), lambda sc, ph:
-                         sc.rqs_coupling(x1, out1, **LIM)),
+        "rqs_coupling forward": coupling(x1, out1, False),
+        "rqs_coupling inverse": coupling(x1, out1, True),
+        "rqs_coupling forward B=512": coupling(x2, out2, False),
+        "rqs_coupling inverse B=512": coupling(x2, out2, True),
         "rqs_coupling_bwd forward": (
             "rqs_coupling_bwd", tuple(out2.shape), lambda sc, ph:
             sc.rqs_coupling_bwd(x2, out2, ybar, loggbar, inverse=False,
@@ -171,7 +229,7 @@ def inputs(torch, rng, w):
     }
 
 
-def measure(src, label, path):
+def measure(src, label, path, cases=""):
     src = os.path.abspath(src)
     sys.path.insert(0, src)
     import numpy as np
@@ -193,6 +251,8 @@ def measure(src, label, path):
         w = ScalarPhi4Action(kappa=0.6, m_sq=-2.4, lambd=0.5).get_coef(2)
         for case, (name, shape, call) in inputs(
                 torch, np.random.default_rng(20261016), w).items():
+            if not re.search(cases, case):
+                continue
             fn = lambda: call(sc, phi4)  # noqa: E731
             got = fn()
             torch.cuda.synchronize()
@@ -206,6 +266,44 @@ def measure(src, label, path):
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     torch.save(saved, path)
     print(f"{label}: outputs saved to {path}")
+    print_sass(label, torch, card)
+
+
+# the device functions whose SASS measure() counts, and the threads (one
+# per site) the path gives each launch
+SASS_FUNCTIONS = (("rqs_coupling_kernel", BATCH * LAT[0] * LAT[1] // 2),
+                  ("rqs_coupling_tiled_kernel", BATCH * LAT[0] * LAT[1] // 2),
+                  ("phi4_action_grad_kernel", TRAIN_BATCH * LAT[0] * LAT[1]),
+                  ("phi4_action_grad_tiled_kernel",
+                   TRAIN_BATCH * LAT[0] * LAT[1] // 4))
+FLAGSHIP_INSTANCE = "ILi8ELb1ELb1E"  # m = 8, linear tails, as mangled
+
+
+def print_sass(label, torch, card):
+    """The SASS instructions of the flagship's instance (forward and
+    inverse) of each of :data:`SASS_FUNCTIONS` that the library built, and
+    the time the issue of the site instructions alone needs at the path's
+    shapes at the card's highest SM clock."""
+    from normflow__tpu_torch.ops.kernels import _lib
+
+    clock = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.splitlines()[0])
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    counts = sass_counts(_lib.build_info["path"])
+    for fn, threads in SASS_FUNCTIONS:
+        for inst, (n, site) in sorted(counts.items()):
+            if f"{len(fn)}{fn}" not in inst or (
+                    "rqs" in fn and FLAGSHIP_INSTANCE not in inst):
+                continue
+            what = ("" if "rqs" not in fn else " inverse" if inst.split(
+                FLAGSHIP_INSTANCE)[1].startswith("Lb1") else " forward")
+            ms = issue_ms(threads, site, n_sm, clock)
+            print(f"{label}: SASS {fn}{what}: {n} instructions, {site} from "
+                  f"the first load to the last store; their issue for "
+                  f"{threads} threads {ms:.5f} ms ({n_sm} SMs at {clock:.0f} "
+                  f"MHz) on {card}")
 
 
 def compare(path_a, path_b):
@@ -238,4 +336,4 @@ def compare(path_a, path_b):
 if __name__ == "__main__":
     if sys.argv[1] == "--compare":
         sys.exit(compare(sys.argv[2], sys.argv[3]))
-    measure(*sys.argv[1:4])
+    measure(*sys.argv[1:5])

@@ -8,11 +8,13 @@ root (``--noconftest`` leaves out the JAX test configuration)::
 
 Beyond ``chip_smoke.py`` (the flagship's shapes only) they cover every
 knot count the coupling kernel is built for, one-sided extrapolation, a
-ragged number of sites, the action's lattice ranks and both of its
-variants (the tiled kernel for 2-D lattices that suit its float4 tile,
-the flagship's included, with a ragged last block and B = 1; the general
-kernel for 1-D, 3-D, V = 1, L1 % 4 != 0 and a field off 16 bytes), and
-the wrappers' refusals (the backward kernels:
+ragged number of sites, both coupling variants (the tiled kernel with a
+ragged last tile and B = 1, bit for bit against the per-site kernel, which
+takes S % 4 != 0 and an ``out`` off 16 bytes), the action's lattice ranks
+and both of its variants (the tiled kernel for 2-D lattices that suit its
+float4 tile, the flagship's included, with a ragged last block and B = 1;
+the general kernel for 1-D, 3-D, V = 1, L1 % 4 != 0 and a field off 16
+bytes), and the wrappers' refusals (the backward kernels:
 ``tests/test_torch_cuda_grad.py``).
 Tolerances are those of ``chip_smoke.py``: 1e-4 absolute for
 the spline (the JAX Pallas tests' own), 2e-5 relative for the action.
@@ -78,6 +80,79 @@ def test_rqs_coupling_kernel_matches_plain(cuda, np_rng, m, inverse):
         for got, want in ((y, yp), (g, gp)):
             assert bool(torch.isfinite(got).all())
             torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+
+
+def _offset(t):
+    """A contiguous copy of ``t`` whose data starts one float into its
+    storage, so 4 bytes off 16-byte alignment."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4
+    return view
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("m", sc.SUPPORTED_KNOTS)
+def test_rqs_coupling_variants_agree_bit_for_bit(cuda, np_rng, m, inverse):
+    """The tiled kernel (16-byte aligned, S % 4 == 0) on 12x11 = 132 sites,
+    two tiles of which the last holds 4 sites, at B = 3 and B = 1 for each
+    extrapolation flag, against the per-site kernel on the same values
+    with ``out`` 4 bytes off alignment: the same bits, and within 1e-4 of
+    the plain version."""
+    lat = (12, 11)
+    s = lat[0] * lat[1]
+    for b, (left, right) in zip((3, 1, 3, 1), ((None, None), ("linear", None),
+                                               (None, "linear"),
+                                               ("linear", "linear"))):
+        out = _f32(np_rng.standard_normal((b, 3 * m - 2, *lat)), cuda)
+        x = np_rng.uniform(-1.9, 1.9, (b, *lat))
+        x = np.where((x < 0) & bool(left) | (x > 0) & bool(right), 1.6 * x, x)
+        x = _f32(x, cuda)
+        shifted = _offset(out)
+        kw = dict(xlim=LIM, ylim=LIM, left=left, right=right,
+                  inverse=inverse)
+        assert sc.coupling_variant(s, [x.data_ptr(), out.data_ptr()]) \
+            == "tiled"
+        assert sc.coupling_variant(s, [x.data_ptr(), shifted.data_ptr()]) \
+            == "sites"
+        before = (sc.rqs_coupling.launches, sc.rqs_coupling.tiled_launches)
+        tiled = sc.rqs_coupling(x, out, **kw)
+        assert sc.rqs_coupling.tiled_launches == before[1] + 1
+        sites = sc.rqs_coupling(x, shifted, **kw)
+        assert (sc.rqs_coupling.launches, sc.rqs_coupling.tiled_launches) \
+            == (before[0] + 2, before[1] + 1)
+        want = sc.rqs_coupling_plain(x, out, **kw)
+        torch.cuda.synchronize()
+        for p, q, w in zip(tiled, sites, want):
+            assert torch.equal(p.view(torch.int32), q.view(torch.int32))
+            assert bool(torch.isfinite(p).all())
+            torch.testing.assert_close(p, w, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+def test_flagship_coupling_launches_the_tiled_kernel(cuda, np_rng, inverse):
+    """At the flagship's (1024, 22, 32, 16) the wrapper launches the tiled
+    coupling kernel in both directions, as its count and the profiler name
+    it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    out = _f32(np_rng.standard_normal((1024, 22, 32, 16)), cuda)
+    x = _f32(np_rng.standard_normal((1024, 32, 16)), cuda)
+    kw = dict(xlim=(-4.0, 4.0), ylim=(-4.0, 4.0), left="linear",
+              right="linear", inverse=inverse)
+    sc.rqs_coupling(x, out, **kw)
+    torch.cuda.synchronize()
+    before = sc.rqs_coupling.tiled_launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            sc.rqs_coupling(x, out, **kw)
+        torch.cuda.synchronize()
+    assert sc.rqs_coupling.tiled_launches == before + 3
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert any("rqs_coupling_tiled_kernel" in n for n in names), names
+    assert not any("rqs_coupling_kernel" in n for n in names), names
 
 
 @pytest.mark.parametrize("lat,hopping", [

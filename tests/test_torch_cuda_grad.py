@@ -9,7 +9,9 @@ They cover every knot count the backward kernel is built for, one-sided
 extrapolation, a ragged number of sites, both backward variants (the
 tiled kernel with a ragged last tile, B = 1, and the per-site kernel for
 S % 4 != 0 or an input off 16 bytes) bit for bit against each other, the
-force kernel's lattice ranks,
+force kernel's lattice ranks and both of its variants (the tiled kernel
+at the training shape and at B = 3, bit for bit against the general
+kernel),
 the wrappers' refusals, autograd through the CUDA wrappers, and one
 training step of an 8x8 flagship on the card against a CPU copy.
 Tolerances: element by element, ``|d| <= 2e-4 + 2e-4 |plain|`` for the
@@ -132,8 +134,8 @@ def test_rqs_coupling_bwd_variants_agree_bit_for_bit(cuda, np_rng, m,
                   inverse=inverse)
         args = (x, out, ybar, loggbar)
         shifted = tuple(_offset(t) for t in args)
-        assert sc.bwd_variant(s, [t.data_ptr() for t in args]) == "tiled"
-        assert sc.bwd_variant(s, [t.data_ptr() for t in shifted]) == "sites"
+        assert sc.coupling_variant(s, [t.data_ptr() for t in args]) == "tiled"
+        assert sc.coupling_variant(s, [t.data_ptr() for t in shifted]) == "sites"
         before = (sc.rqs_coupling_bwd.launches,
                   sc.rqs_coupling_bwd.tiled_launches)
         tiled = sc.rqs_coupling_bwd(*args, **kw)
@@ -166,6 +168,34 @@ def test_phi4_action_grad_kernel_matches_plain(cuda, np_rng, lat, hopping):
     want = phi4.phi4_action_grad_plain(cfgs, g, w0, w2, w4)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("b", [512, 3])
+def test_phi4_action_grad_variants_agree_bit_for_bit(cuda, np_rng, b):
+    """The tiled force at (b, 32, 32) (the training shape at b = 512)
+    against the general kernel on the same field 4 bytes off alignment,
+    with and without the hopping term: the same bits, within the plain
+    version's bar, and each tiled launch counted."""
+    cfgs = _f32(np_rng.standard_normal((b, 32, 32)), cuda)
+    g = _f32(np_rng.standard_normal(b), cuda)
+    shifted = _offset(cfgs)
+    assert phi4.action_variant((32, 32), cfgs.data_ptr()) == "tiled"
+    assert phi4.action_variant((32, 32), shifted.data_ptr()) == "general"
+    w0, w2, w4 = ScalarPhi4Action(kappa=0.6, m_sq=-2.4,
+                                  lambd=0.5).get_coef(2)
+    for w in ((w0, w2, w4), (0.0, w2, w4)):
+        before = (phi4.phi4_action_grad.launches,
+                  phi4.phi4_action_grad.tiled_launches)
+        tiled = phi4.phi4_action_grad(cfgs, g, *w)
+        assert phi4.phi4_action_grad.tiled_launches == before[1] + 1
+        general = phi4.phi4_action_grad(shifted, g, *w)
+        assert (phi4.phi4_action_grad.launches,
+                phi4.phi4_action_grad.tiled_launches) \
+            == (before[0] + 2, before[1] + 1)
+        want = phi4.phi4_action_grad_plain(cfgs, g, *w)
+        torch.cuda.synchronize()
+        assert torch.equal(tiled.view(torch.int32), general.view(torch.int32))
+        torch.testing.assert_close(tiled, want, rtol=2e-4, atol=2e-5)
 
 
 def test_autograd_goes_through_the_backward_kernels(cuda, np_rng):

@@ -33,7 +33,27 @@ from normflow__tpu_torch.tools import kernel_times as kt
 ])
 def test_bwd_variant_by_shape_and_alignment(s, offsets, variant):
     ptrs = [(1 << 20) + 512 * k + o for k, o in enumerate(offsets)]
-    assert sc.bwd_variant(s, ptrs) == variant
+    assert sc.coupling_variant(s, ptrs) == variant
+
+
+@pytest.mark.parametrize("s,offsets,variant", [
+    (512, (0, 0, 0, 0), "tiled"),        # the flagship's 32x16 sites
+    (132, (0, 0, 0, 0), "tiled"),        # a last tile of 4 sites
+    (4, (0, 0, 0, 0), "tiled"),
+    (35, (0, 0, 0, 0), "sites"),         # S % 4 != 0
+    (510, (0, 0, 0, 0), "sites"),
+    (1, (0, 0, 0, 0), "sites"),
+    (512, (4, 0, 0, 0), "sites"),        # x off 16 bytes
+    (512, (0, 8, 0, 0), "sites"),        # out off 16 bytes
+    (512, (0, 0, 12, 0), "sites"),       # y off 16 bytes
+    (512, (0, 0, 0, 4), "sites"),        # logg off 16 bytes
+    (512, (16, 32, 48, 64), "tiled"),    # offsets of whole 16 bytes
+])
+def test_forward_variant_by_shape_and_alignment(s, offsets, variant):
+    """The forward takes the backward's rule over its four tensors (x,
+    out, y, logg)."""
+    ptrs = [(1 << 20) + 512 * k + o for k, o in enumerate(offsets)]
+    assert sc.coupling_variant(s, ptrs) == variant
 
 
 @pytest.mark.parametrize("lat,plan", [
@@ -59,6 +79,25 @@ def test_action_plan(lat, plan):
 ])
 def test_action_variant(lat, ptr, variant):
     assert phi4.action_variant(lat, ptr) == variant
+
+
+@pytest.mark.parametrize("lat,offsets,variant", [
+    ((32, 32), (0, 0), "tiled"),          # the flagship's training field
+    ((128, 1), (0, 0), "general"),        # the zero-dim fit's one site
+    ((1,), (0, 0), "general"),
+    ((64,), (0, 0), "general"),           # 1-D
+    ((8, 8, 8), (0, 0), "general"),       # 3-D
+    ((6, 30), (0, 0), "general"),         # L1 % 4 != 0
+    ((8, 8), (0, 0), "general"),          # 16 float4s: not a warp
+    ((32, 32), (4, 0), "general"),        # the field off 16 bytes
+    ((32, 32), (0, 8), "general"),        # the force off 16 bytes
+    ((16, 16), (32, 64), "tiled"),
+])
+def test_grad_variant(lat, offsets, variant):
+    """The gradient takes the action's rule over the field and the
+    force."""
+    ptrs = [(1 << 20) + 4096 * k + o for k, o in enumerate(offsets)]
+    assert phi4.action_variant(lat, *ptrs) == variant
 
 
 @pytest.mark.parametrize("name,shape,nbytes", [
@@ -97,6 +136,21 @@ def test_card_peaks_refuses_an_unknown_card():
     ("phi4_action", "phi4_action_kernel(float const*)", True),
     ("phi4_action", "phi4_action_grad_kernel(float const*)", False),
     ("phi4_action_grad", "phi4_action_grad_kernel(float const*)", True),
+    ("rqs_coupling", "void (anonymous namespace)::rqs_coupling_tiled_kernel"
+     "<8, true, true, true>(float const*)", True),
+    ("rqs_coupling", "void (anonymous namespace)::"
+     "rqs_coupling_bwd_tiled_kernel<8, true, true, false>(float const*)",
+     False),
+    ("rqs_coupling_bwd", "void (anonymous namespace)::"
+     "rqs_coupling_tiled_kernel<8, true, true, false>(float const*)", False),
+    ("rqs_coupling_bwd", "rqs_coupling_kernel<8, true, true, false>", False),
+    ("phi4_action_grad", "(anonymous namespace)::"
+     "phi4_action_grad_tiled_kernel(float const*, float const*, float*, "
+     "long long, int, int, float, float, float)", True),
+    ("phi4_action", "(anonymous namespace)::phi4_action_grad_tiled_kernel("
+     "float const*)", False),
+    ("phi4_action_grad", "(anonymous namespace)::phi4_action_tiled_kernel("
+     "float const*)", False),
 ])
 def test_profiler_names_pick_each_kernel(kernel, name, hit):
     import re
@@ -130,3 +184,46 @@ def test_compare_holds_bits_and_the_action_bar(tmp_path, capsys, bwd_bits,
     b = _saved(tmp_path, "b", bwd_bits, action_rel)
     assert kt.compare(a, b) == rc
     assert ("FAILED" in capsys.readouterr().out) is bool(rc)
+
+
+_SASS = """
+	code for sm_90a
+		Function : _ZN12_GLOBAL__N_119rqs_coupling_kernelILi8ELb1ELb1ELb0EEEvPKf
+	.headerflags	@"EF_CUDA_TEXMODE_UNIFIED EF_CUDA_64BIT_ADDRESS"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;                  /* 0x00000a00ff017b82 */
+                                                                           /* 0x000fe40000000800 */
+        /*0010*/                   S2R R0, SR_TID.X ;                      /* 0x0000000000007919 */
+        /*0020*/                   LDG.E.CONSTANT R2, desc[UR6][R4.64] ;   /* 0x0000000604027981 */
+        /*0030*/              @!P0 BRA 0x50 ;                              /* 0x0000000000008947 */
+        /*0040*/                   FADD R2, R2, R2 ;                       /* 0x0000000202027221 */
+        /*0050*/                   STG.E desc[UR6][R6.64], R2 ;            /* 0x0000000206007986 */
+        /*0060*/                   EXIT ;                                  /* 0x000000000000794d */
+        /*0070*/                   BRA 0x70;                               /* 0xfffffffc00fc7947 */
+        /*0080*/                   NOP;                                    /* 0x0000000000007918 */
+		..........
+
+		Function : _ZN12_GLOBAL__N_129phi4_action_grad_tiled_kernelEPKfS1_Pf
+        /*0000*/                   LDC R1, c[0x0][0x28] ;                  /* 0x00000a00ff017b82 */
+        /*0010*/                   EXIT ;                                  /* 0x000000000000794d */
+        /*0020*/                   BRA 0x20;                               /* 0xfffffffc00fc7947 */
+"""
+
+
+def test_parse_sass_counts_each_function():
+    """Instructions per device function, and those from the first load to
+    the last store; the encoding lines, the padding NOPs and the closing
+    branch to itself do not count, a predicated branch elsewhere does."""
+    counts = kt.parse_sass(_SASS)
+    assert counts == {
+        "_ZN12_GLOBAL__N_119rqs_coupling_kernelILi8ELb1ELb1ELb0EEEvPKf":
+            (7, 4),
+        "_ZN12_GLOBAL__N_129phi4_action_grad_tiled_kernelEPKfS1_Pf": (2, 0)}
+
+
+@pytest.mark.parametrize("threads,instructions,ms", [
+    (1024 * 512, 1000, 1024 * 512 / 32 * 1000 / (132 * 4 * 1980e3)),
+    (32, 1, 1 / (132 * 4 * 1980e3)),
+])
+def test_issue_ms(threads, instructions, ms):
+    """One warp instruction per clock per scheduler, 4 schedulers per SM."""
+    assert kt.issue_ms(threads, instructions, 132, 1980) == pytest.approx(ms)
