@@ -11,23 +11,25 @@
 // linear boundary knots, segment by comparison count, then the
 // rational-quadratic map or its "citardauq" inverse -> (y, log dy/dx).
 //
-// What bounds it on an H100: bytes and instructions about equally.  A site
-// reads 4 B of x and 4(3m-2) B of conditioner output and writes 8 B; at
-// m = 8 that is 100 B per site, 52 MB per launch at B = 1024 and 512
+// What bounds it on an H100: bytes, with instructions close behind.  A
+// site reads 4 B of x and 4(3m-2) B of conditioner output and writes 8 B;
+// at m = 8 that is 100 B per site, 52 MB per launch at B = 1024 and 512
 // packed sites, 0.0157 ms at 3.35 TB/s.  Its arithmetic is IEEE float32
 // with no contraction (--fmad=false: the same bits as the plain version's
 // order of operations): 14 expf for the two softmaxes, a softplus_log2 per
-// derivative used (an expf, a log1pf and a division), half a dozen
-// divisions and a logf, on the order of a thousand instructions per site,
-// whose issue takes about as long as the bytes.  Two variants, chosen by
-// the wrapper by shape and alignment:
+// derivative (an expf, a log1pf and a division), half a dozen divisions
+// and a logf.  Computing all m derivatives, as the per-site kernel does,
+// that is about a thousand SASS instructions per site, whose issue alone
+// takes as long as the bytes (0.0153 ms).  Two variants, chosen by the
+// wrapper by shape and alignment:
 // - the tiled kernel (rqs_coupling_tiled_f32, the path's): persistent
 //   blocks stage tiles of kTileSites sites through a ring of shared-memory
 //   stages with bulk copies (bulk_copy.cuh), the next tiles arriving while
 //   this one computes, so every warp's arithmetic overlaps the bytes; and
 //   it evaluates softplus_log2 only on the derivatives the site uses (2 in
-//   the forward, up to 4 in the inverse, of m), which saves about a quarter
-//   of the instructions and changes no bit (design notes at the kernel);
+//   the forward, up to 4 in the inverse, of m), which cuts a site's
+//   instructions by two fifths forward and a quarter inverse (598 and 743
+//   of 977 and 1001 at m = 8) and changes no bit (notes at the kernel);
 // - the per-site kernel (rqs_coupling_f32) for S % 4 != 0 or an address
 //   off 16 bytes, which the bulk copies cannot take: one thread per
 //   (sample, site), per-channel loads coalesced across neighbouring
@@ -123,25 +125,25 @@ int launch_sites(Inst<M, LEFT, RIGHT, INVERSE>, const Args& a) {
 // the per-site kernel, operation for operation, except that softplus_log2
 // runs only on the raw derivative weights the site uses (segment_smem).
 
-constexpr int kTileSites = 128;  // sites per tile, one thread each
+// Tile width, ring depth and register cap, from a sweep on an H100 (m = 8,
+// B = 1024; normflow__tpu_torch/tools/const_sweep.py, PERF.md): tiles of
+// 128 sites in rings of 2, 3 or 4 stages and of 64 sites all ran slower
+// (1-7% cold, up to 15% warm), and y and log g sent from the stage by bulk
+// stores no faster than the coalesced stores below.  At m = 8 the ring of
+// two 256-site stages (47 KB) lets 4 blocks share an SM's 228 KB, and
+// __launch_bounds__ asks ptxas for those 4 (at most 64 registers: 50
+// forward, 54 inverse).
+constexpr int kTileSites = 256;  // sites per tile, one thread each
 constexpr int kStages = 2;       // tiles in flight per block
-constexpr int kMinBlocks = 9;    // blocks per SM asked of ptxas, m <= 8
-// y and log g leave by bulk stores from the stage (written over the rows
-// of x and channel 0) instead of coalesced stores from registers
-constexpr bool kStoreFromStage = false;
+constexpr int kMinBlocks = 4;    // blocks per SM asked of ptxas
 
 // Stages of the ring at m knots: kStages, or as many as the 48 KB of
-// static shared memory hold (the mbarriers beside them).
+// static shared memory hold (the mbarriers beside them): one at m = 12,
+// whose tile is then loaded while no other tile of the block computes.
 __host__ __device__ constexpr int stages(int m) {
   const int fit = (48 * 1024 - 256) / ((3 * m - 1) * kTileSites * 4);
   return fit < kStages ? fit : kStages;
 }
-
-// Blocks of kTileSites threads per SM that __launch_bounds__ asks the
-// register allocator to fit.  At m = 8 the two-stage ring (23.5 KB) lets 9
-// blocks share an SM's 228 KB, so 9 costs no block its place; m = 12
-// (34 channels) asks for 4, as the VJP does.
-constexpr int min_blocks(int m) { return m <= 8 ? kMinBlocks : 4; }
 
 // knots() + segment() of rqs_common.cuh for a site whose conditioner values
 // sit in a stage column `o` (rows `ts` floats apart), with softplus_log2
@@ -202,7 +204,7 @@ __device__ __forceinline__ Segment segment_smem(float xv, const float* o,
 // Persistent: block k takes tiles k, k + gridDim.x, ...; tile -> (sample
 // tile / tiles_per_sample, first site (tile % tiles_per_sample) * ts).
 template <int M, bool LEFT, bool RIGHT, bool INVERSE>
-__global__ void __launch_bounds__(kTileSites, min_blocks(M))
+__global__ void __launch_bounds__(kTileSites, kMinBlocks)
 rqs_coupling_tiled_kernel(const float* __restrict__ x,
                           const float* __restrict__ out,
                           float* __restrict__ y, float* __restrict__ logg,
@@ -259,8 +261,7 @@ rqs_coupling_tiled_kernel(const float* __restrict__ x,
     long long b, s0;
     int n;
     locate(tile, b, s0, n);
-    float* stage = smem + st * R * ts;
-    float* o = stage + t;
+    const float* o = smem + st * R * ts + t;
     mbar_wait(&full[st], parity);
     if (t < n) {
       const float xv = o[K3 * ts];
@@ -269,25 +270,12 @@ rqs_coupling_tiled_kernel(const float* __restrict__ x,
                       segment_smem<M, LEFT, RIGHT, INVERSE>(xv, o, ts, xlo,
                                                             xw, ylo, yw),
                       yv, lg);
-      if (kStoreFromStage) {
-        o[K3 * ts] = yv;
-        o[0] = lg;
-      } else {
-        y[b * S + s0 + t] = yv;
-        logg[b * S + s0 + t] = lg;
-      }
+      y[b * S + s0 + t] = yv;
+      logg[b * S + s0 + t] = lg;
     }
-    if (kStoreFromStage) fence_proxy_async();
-    __syncthreads();  // every thread has read (and written) the stage
+    __syncthreads();  // every thread has read the stage
     if (t < 32) {
       const long long next = tile + (long long)NS * gridDim.x;
-      if (kStoreFromStage) {
-        if (lane < 2)
-          bulk_store((lane ? y : logg) + b * S + s0,
-                     stage + (lane ? K3 : 0) * ts, (uint32_t)n * 4);
-        bulk_commit();
-        if (next < n_tiles) bulk_wait_read();
-      }
       if (next < n_tiles) load(next, st);
     }
     if (++st == NS) {
@@ -295,7 +283,6 @@ rqs_coupling_tiled_kernel(const float* __restrict__ x,
       parity ^= 1u;
     }
   }
-  if (kStoreFromStage && t < 32) bulk_wait_all();
 }
 
 template <int M, bool LEFT, bool RIGHT, bool INVERSE>

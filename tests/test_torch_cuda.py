@@ -95,16 +95,16 @@ def _offset(t):
 @pytest.mark.parametrize("inverse", [False, True])
 @pytest.mark.parametrize("m", sc.SUPPORTED_KNOTS)
 def test_rqs_coupling_variants_agree_bit_for_bit(cuda, np_rng, m, inverse):
-    """The tiled kernel (16-byte aligned, S % 4 == 0) on 12x11 = 132 sites,
-    two tiles of which the last holds 4 sites, at B = 3 and B = 1 for each
-    extrapolation flag, against the per-site kernel on the same values
-    with ``out`` 4 bytes off alignment: the same bits, and within 1e-4 of
-    the plain version."""
-    lat = (12, 11)
-    s = lat[0] * lat[1]
-    for b, (left, right) in zip((3, 1, 3, 1), ((None, None), ("linear", None),
-                                               (None, "linear"),
-                                               ("linear", "linear"))):
+    """The tiled kernel (16-byte aligned, S % 4 == 0) on 12x11 = 132 sites
+    (one tile, ragged) and 12x22 = 264 (two tiles, the last of 8 sites),
+    at B = 3 and B = 1, for each extrapolation flag, against the per-site
+    kernel on the same values with ``out`` 4 bytes off alignment: the same
+    bits, and within 1e-4 of the plain version."""
+    for (b, lat), (left, right) in zip(
+            ((3, (12, 11)), (1, (12, 22)), (3, (12, 22)), (1, (12, 11))),
+            ((None, None), ("linear", None), (None, "linear"),
+             ("linear", "linear"))):
+        s = lat[0] * lat[1]
         out = _f32(np_rng.standard_normal((b, 3 * m - 2, *lat)), cuda)
         x = np_rng.uniform(-1.9, 1.9, (b, *lat))
         x = np.where((x < 0) & bool(left) | (x > 0) & bool(right), 1.6 * x, x)
