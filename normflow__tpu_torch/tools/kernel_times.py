@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Device times and outputs of the port's four kernels in one checkout::
 
-    python3 normflow__tpu_torch/tools/kernel_times.py CHECKOUT LABEL OUT.pt [CASES]
+    python3 normflow__tpu_torch/tools/kernel_times.py CHECKOUT LABEL OUT.pt \\
+        [CASES]
     python3 normflow__tpu_torch/tools/kernel_times.py --compare A.pt B.pt
 
 ``CHECKOUT`` is the root of a checkout (it holds ``normflow__tpu_torch/``);
@@ -161,8 +162,9 @@ def parse_sass(text):
     function once (the padding NOPs and the closing branch to itself left
     out), the slow paths of the IEEE divisions and a tiled kernel's ring
     code included; ``site instructions`` are those from the first load of
-    an input (``LDG`` or ``LDS``) to the last store of a result (``STG``)
-    in address order: the code one thread runs for one site, or for one
+    an input (``LDG`` or ``LDS``) to the last store of a result (``STG``,
+    or ``STS`` into the stage that the tiled VJP's bulk stores send) in
+    address order: the code one thread runs for one site, or for one
     float4 of sites in the tiled force, where the division slow paths,
     placed after the function's last ``EXIT``, are not taken."""
     counts = {}
@@ -175,7 +177,8 @@ def parse_sass(text):
                  for _, op in ops]
         loads = [i for i, k in enumerate(kinds) if k in ("LDG.E.CONSTANT",
                  "LDG.E", "LDS", "LDG.E.128.CONSTANT", "LDS.128")]
-        stores = [i for i, k in enumerate(kinds) if k.startswith("STG")]
+        stores = [i for i, k in enumerate(kinds)
+                  if k.startswith(("STG", "STS"))]
         site = stores[-1] - loads[0] + 1 if loads and stores else 0
         counts[block.split()[0]] = (len(ops), site)
     return counts
@@ -269,13 +272,15 @@ def measure(src, label, path, cases=""):
     print_sass(label, torch, card)
 
 
-# the device functions whose SASS measure() counts, and the threads (one
-# per site) the path gives each launch
-SASS_FUNCTIONS = (("rqs_coupling_kernel", BATCH * LAT[0] * LAT[1] // 2),
-                  ("rqs_coupling_tiled_kernel", BATCH * LAT[0] * LAT[1] // 2),
-                  ("phi4_action_grad_kernel", TRAIN_BATCH * LAT[0] * LAT[1]),
-                  ("phi4_action_grad_tiled_kernel",
-                   TRAIN_BATCH * LAT[0] * LAT[1] // 4))
+# the device functions whose SASS measure() counts, and the threads the
+# path gives each launch (one per site; per float4 in the tiled force)
+SASS_FUNCTIONS = (
+    ("rqs_coupling_kernel", BATCH * LAT[0] * LAT[1] // 2),
+    ("rqs_coupling_tiled_kernel", BATCH * LAT[0] * LAT[1] // 2),
+    ("rqs_coupling_bwd_kernel", TRAIN_BATCH * LAT[0] * LAT[1] // 2),
+    ("rqs_coupling_bwd_tiled_kernel", TRAIN_BATCH * LAT[0] * LAT[1] // 2),
+    ("phi4_action_grad_kernel", TRAIN_BATCH * LAT[0] * LAT[1]),
+    ("phi4_action_grad_tiled_kernel", TRAIN_BATCH * LAT[0] * LAT[1] // 4))
 FLAGSHIP_INSTANCE = "ILi8ELb1ELb1E"  # m = 8, linear tails, as mangled
 
 
@@ -291,6 +296,7 @@ def print_sass(label, torch, card):
          "--format=csv,noheader,nounits"], capture_output=True, text=True,
         check=True).stdout.splitlines()[0])
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    _lib.library()  # built already, unless no case was timed
     counts = sass_counts(_lib.build_info["path"])
     for fn, threads in SASS_FUNCTIONS:
         for inst, (n, site) in sorted(counts.items()):

@@ -134,8 +134,10 @@ def test_rqs_coupling_bwd_variants_agree_bit_for_bit(cuda, np_rng, m,
                   inverse=inverse)
         args = (x, out, ybar, loggbar)
         shifted = tuple(_offset(t) for t in args)
-        assert sc.coupling_variant(s, [t.data_ptr() for t in args]) == "tiled"
-        assert sc.coupling_variant(s, [t.data_ptr() for t in shifted]) == "sites"
+        assert sc.coupling_variant(s, [t.data_ptr() for t in args]) \
+            == "tiled"
+        assert sc.coupling_variant(s, [t.data_ptr() for t in shifted]) \
+            == "sites"
         before = (sc.rqs_coupling_bwd.launches,
                   sc.rqs_coupling_bwd.tiled_launches)
         tiled = sc.rqs_coupling_bwd(*args, **kw)

@@ -1,10 +1,12 @@
-"""Host-side plans of the port's tiled kernels, and the kernel timing tool.
+"""Host-side plans of the port's tiled kernels, and the kernel tools.
 
 The tiled CUDA kernels run only on the card (``tests/test_torch_cuda*.py``,
 marker ``gpu``), but the wrappers choose between variants, and plan the
-tiled action's blocks, on the host by shape and alignment alone: these
-tests hold that logic, and the bytes, bounds and output comparison of
-``normflow__tpu_torch/tools/kernel_times.py``, on the CPU.
+tiled action's and force's blocks, on the host by shape and alignment
+alone: these tests hold that logic on the CPU, and with it the bytes,
+bounds, profiler names, SASS counts and output comparison of
+``normflow__tpu_torch/tools/kernel_times.py`` and the source edits of
+``normflow__tpu_torch/tools/const_sweep.py``.
 """
 
 import pytest
@@ -227,3 +229,47 @@ def test_parse_sass_counts_each_function():
 def test_issue_ms(threads, instructions, ms):
     """One warp instruction per clock per scheduler, 4 schedulers per SM."""
     assert kt.issue_ms(threads, instructions, 132, 1980) == pytest.approx(ms)
+
+
+_SOURCE = """constexpr int kTileSites = 256;  // sites per tile
+constexpr int kStages = 2;
+constexpr bool kFlag = false;
+"""
+
+
+@pytest.mark.parametrize("spec,want", [
+    ("base", _SOURCE),
+    ("kStages=3", _SOURCE.replace("kStages = 2", "kStages = 3")),
+    ("kTileSites=128,kFlag=true",
+     _SOURCE.replace("256;", "128;").replace("false", "true")),
+])
+def test_const_sweep_sets_constants(spec, want):
+    from normflow__tpu_torch.tools import const_sweep
+
+    assert const_sweep.edit(_SOURCE, spec) == want
+
+
+def test_const_sweep_refuses_an_unknown_constant():
+    from normflow__tpu_torch.tools import const_sweep
+
+    with pytest.raises(ValueError, match="kRing"):
+        const_sweep.edit(_SOURCE, "kRing=3")
+
+
+def test_const_sweep_reads_registers_of_the_flagship_instances():
+    """The registers and spill bytes ptxas reports for the m = 8, linear
+    instances compiled from the swept source, and for no other."""
+    from normflow__tpu_torch.tools import const_sweep
+
+    log = "\n".join(
+        f"ptxas info    : Compiling entry function '_ZN48_GLOBAL__N__1_15_"
+        f"{unit}_cu_2{name}ILi{m}ELb1ELb1ELb{inv}EEEvPKf' for 'sm_90a'\n"
+        f"    0 bytes stack frame, {spill} bytes spill stores, 0 bytes "
+        f"spill loads\nptxas info    : Used {regs} registers"
+        for unit, name, m, inv, spill, regs in (
+            ("rqs_coupling", "5rqs_coupling_tiled_kernel", 8, 0, 0, 50),
+            ("rqs_coupling", "5rqs_coupling_tiled_kernel", 8, 1, 8, 54),
+            ("rqs_coupling", "5rqs_coupling_tiled_kernel", 4, 0, 0, 40),
+            ("rqs_coupling_bwd", "9rqs_coupling_bwd_kernel", 8, 0, 0, 80)))
+    rows = const_sweep.registers(log, "rqs_coupling.cu")
+    assert [(r, s) for _, r, s in rows] == [(50, 0), (54, 8)]
