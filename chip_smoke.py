@@ -12,27 +12,53 @@ use) and imports nothing of JAX.  Phases, each of which raises on failure:
 1. the card's name and power limit; TF32 off; build the kernels;
 2. every kernel, forward and backward, against its plain PyTorch version
    on the card, at the flagship's shapes, with the tolerances stated below;
-3. the sampling path: the full-width 32x32 phi^4 flagship with seeded
+3. rates in turns: raw samples/s and training steps/s of the eager bodies
+   in a Python loop and of the graphed entry points, alternating, on
+   flagships of their own, before any profiler has run in the process;
+4. the sampling path: the full-width 32x32 phi^4 flagship with seeded
    perturbed weights, compared GPU vs CPU, then ``logqp_stream`` -> ESS
    and acceptance, ``mcmc.sample__`` twice, ``backward_sanitychecker``,
-   with every launch counter set to 0 just before the stream and read
-   after it;
-4. the training path: one path-gradient loss and its gradients, GPU vs a
+   with every launch counter set to 0 just before the stream, the stream
+   profiled, and the counts read after it;
+5. the training path: one path-gradient loss and its gradients, GPU vs a
    CPU copy; then ``model.fit`` with the bench protocol's settings
    (``bench.py:278-286``) for ``N_STEPS`` steps on a fresh seeded
-   flagship, counters set to 0 just before and read after; training
-   steps/s.  On both paths every launch of each of the four kernels must
-   have gone to its tiled kernel, the variant that phase 6 times;
-5. the zero-dim fit (``examples/scalar_zerodim.py``) on the card, whose
-   one-site lattice takes the general gradient kernel;
-6. each kernel's time at the path's shapes (``rqs_coupling`` forward and
-   inverse at the sampling and the training batch, ``rqs_coupling_bwd``
-   in both training variants, forward and inverse): the median device time
-   of its launches from the profiler, warm (the same tensors again and
-   again) and cold (L2 flushed before each launch), its plain version's
-   time, and the least time the card could take (bytes or operations over
-   the peak), with ``normflow__tpu_torch/tools/kernel_times.py``'s
-   helpers; one profiled sampled batch and one profiled training step.
+   flagship, counters set to 0 just before, the fit profiled, and the
+   counts read after;
+6. the zero-dim fit (``examples/scalar_zerodim.py``) on the card, whose
+   one-site lattice takes the general kernels;
+7. replay against eager at full width: three replayed sampled batches
+   against their eager bodies from one generator state, bit for bit, and
+   10 replayed training steps against 10 eager bodies from one state, and
+   10 eager bodies against 10 more from that state, within the tolerance
+   stated below;
+8. replays alone, profiled: the launches of each path by kernel name, and
+   the device idle share of one eager and one replayed batch and step;
+9. the port's bench (``python3 -m normflow__tpu_torch.bench
+   --train_epochs 200 --reps 2``), in process;
+10. each kernel's time at the path's shapes (``rqs_coupling`` forward and
+    inverse at the sampling and the training batch, ``rqs_coupling_bwd``
+    in both training variants, forward and inverse): the median device
+    time of its launches from the profiler, warm (the same tensors again
+    and again) and cold (L2 flushed before each launch), its plain
+    version's time, and the least time the card could take (bytes or
+    operations over the peak), with
+    ``normflow__tpu_torch/tools/kernel_times.py``'s helpers.
+
+On a CUDA model ``logqp_stream`` and ``model.fit`` replay a captured batch
+and a captured step (``normflow__tpu_torch/utils/graphs.py``).  The main
+path's two runs (phases 4 and 5) are profiled, and their launches are
+counted on the card by kernel name: the ``WARMUP`` eager bodies before the
+capture and every replay launch 4 ``rqs_coupling`` and 1 ``phi4_action``
+per sampled batch and 8 / 8 / 1 / 1 per training step, every one to the
+tiled kernel (the variant that phase 10 times), and the capture launches
+nothing.  The record's ``launches_by_path`` are these counts and
+``launches`` their sum over both paths.  A wrapper's launch counter runs
+with the wrapper, so it counts the warm-up and the capture, ``WARMUP + 1``
+calls per batch or step, not the replays: it must show exactly that too,
+every call to the tiled kernel.  Phase 8 profiles replays alone, which
+must launch the same per batch or step with no wrapper call
+(``replay_launches_per_unit`` in the record).
 
 Kernels 1 and 2 are read cold (the training backward finds ``out`` cold:
 it was written during the forward, and the other conditioners' outputs
@@ -47,6 +73,7 @@ and prints no result.
 from __future__ import annotations
 
 import copy
+import gc
 import json
 import math
 import re
@@ -84,6 +111,12 @@ FORCE_RTOL, FORCE_ATOL = 2e-4, 2e-5  # tests/test_kernels.py:36-37
 # 2.3e-6 / 3.4e-3).
 TRAIN_LOSS_TOL = 1e-5
 TRAIN_GRAD_TOL = 1e-3
+# 10 replayed training steps vs 10 eager bodies from one state, full width:
+# the losses, relative, and the parameters, absolute.  Both run the same
+# kernels on the same draws, but cuDNN's default weight-gradient algorithms
+# may sum in another order on every run, eager or replayed.
+REPLAY_LOSS_TOL = 1e-5
+REPLAY_PARAM_TOL = 1e-5
 
 N_BATCHES, BATCH = 32, 1024
 LAT = (32, 32)
@@ -322,6 +355,7 @@ def run_main_path(torch, kernels, rng, card):
     """The flagship sampling path, through the port's entry points."""
     from normflow__tpu_torch import (backward_sanitychecker, calc_ess,
                                      estimate_accept_rate)
+    from normflow__tpu_torch.tools.kernel_times import device_launches
     from normflow__tpu_torch.zoo import build_phi4_model
 
     model = build_phi4_model(LAT, seed=0)
@@ -346,24 +380,22 @@ def run_main_path(torch, kernels, rng, card):
     if not rel <= LOGQ_REL_TOL:
         raise AssertionError("GPU and CPU flagship disagree")
 
-    model.posterior.logqp_stream(2, BATCH)  # warm-up (cuDNN, allocator)
+    # the main path's run, profiled: its first call captures the batch
+    # (warm-up bodies and one capture through the wrappers), then replays
+    # it 32 times
     counters = {k: c for k, c in _counters().items()
                 if k in ("rqs_coupling", "phi4_action")}
-    torch.cuda.synchronize()
+    n_layers = len(model.net_[2].nets)
+    per_batch = {"rqs_coupling": n_layers, "phi4_action": 1}
+    reserved = pool_reserved(torch)
     reset_counts(counters)
     t0 = time.perf_counter()
-    logqp = model.posterior.logqp_stream(N_BATCHES, BATCH)
-    torch.cuda.synchronize()
+    device, logqp = device_launches(
+        lambda: model.posterior.logqp_stream(N_BATCHES, BATCH))
     seconds = time.perf_counter() - t0
-    launches = {k: c.launches for k, c in counters.items()}
-    print(f"launches over logqp_stream({N_BATCHES}, {BATCH}): {launches}")
-    n_layers = len(model.net_[2].nets)
-    want = {"rqs_coupling": n_layers * N_BATCHES, "phi4_action": N_BATCHES}
-    if launches != want:
-        raise AssertionError(f"launch counts {launches}, want {want}")
-    check_tiled(counters, kernels, "sample")
-    for name, n in launches.items():
-        kernels[name]["launches_by_path"] = {"sample": n}
+    gate_path(counters, kernels, "sample", per_batch, N_BATCHES, device)
+    print(f"the sampled batch's graph holds {pool_reserved(torch, reserved)} "
+          f"MiB of device memory (B = {BATCH}) on {card}")
 
     if logqp.shape != (N_BATCHES * BATCH,) or not bool(
             torch.isfinite(logqp).all()):
@@ -374,18 +406,8 @@ def run_main_path(torch, kernels, rng, card):
     if not (0.0 < ess <= 1.0 and 0.0 <= acc <= 1.0):
         raise AssertionError(f"ESS {ess} / accept rate {acc} out of range")
     print(f"logqp_stream: ESS {ess:.5f}; accept {acc:.5f} +- {acc_err:.5f} "
-          "(random perturbed weights, untrained)")
-    walls = [seconds]
-    for _ in range(4):
-        t0 = time.perf_counter()
-        model.posterior.logqp_stream(N_BATCHES, BATCH)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-    rates = sorted(N_BATCHES * BATCH / w for w in walls)
-    print(f"logqp_stream({N_BATCHES}, {BATCH}) x{len(walls)}: raw samples/s "
-          f"median {statistics.median(rates):.1f}, min {rates[0]:.1f}, max "
-          f"{rates[-1]:.1f} (first, counted run: "
-          f"{N_BATCHES * BATCH / seconds:.1f}) on {card}")
+          f"(random perturbed weights, untrained); the first call, capture "
+          f"included, profiled, {seconds:.2f} s on {card}")
 
     for _ in range(2):  # the second call runs from the carried _ref state
         y, logq, logp = model.mcmc.sample__(BATCH)
@@ -619,20 +641,79 @@ def reset_counts(counters):
             c.tiled_launches = 0
 
 
-def check_tiled(counters, kernels, path):
-    """Raise unless every launch on ``path`` of a kernel with a tiled
-    variant went to the tiled kernel, whose times the record reports."""
+def check_tiled(counters, path):
+    """Raise unless every wrapper launch on ``path`` of a kernel with a
+    tiled variant went to the tiled kernel, whose times the record
+    reports."""
     for name, c in counters.items():
         if not hasattr(c, "tiled_launches"):
             continue
         print(f"{name} over the {path} path: {c.tiled_launches} of "
-              f"{c.launches} launches to the tiled kernel")
-        kernels[name].setdefault("tiled_launches_by_path", {})[path] = \
-            c.tiled_launches
+              f"{c.launches} wrapper launches to the tiled kernel")
         if c.tiled_launches != c.launches:
             raise AssertionError(f"{name}: {c.launches - c.tiled_launches} "
                                  f"launches on the {path} path missed the "
                                  "tiled kernel")
+
+
+def pool_reserved(torch, before=None):
+    """The card's reserved memory after emptying PyTorch's cache, in MiB,
+    or its growth since ``before``: what the graphs' private pools hold.
+    Graphs of models no longer referenced are collected first."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    mib = torch.cuda.memory_reserved() / 2 ** 20
+    return mib if before is None else round(mib - before, 1)
+
+
+def gate_path(counters, kernels, path, per_unit, n_units, device):
+    """The main path's run on ``path``: ``n_units`` batches or steps, the
+    first of which captures the graph.  ``device`` holds the run's
+    launches by profiler name, ``(launches, tiled)`` per kernel: the
+    ``WARMUP`` eager bodies before the capture and the ``n_units`` replays
+    launch ``per_unit`` each, every one to the tiled kernel (the capture
+    itself launches nothing); these are the record's
+    ``launches_by_path``.  Each wrapper must have run ``per_unit`` times
+    for each warm-up body and for the capture, every launch tiled."""
+    from normflow__tpu_torch.utils.graphs import WARMUP
+
+    want = {k: (v * (WARMUP + n_units),) * 2 for k, v in per_unit.items()}
+    print(f"launches over the {path} path's run by profiler name "
+          f"(launches, tiled): {device}, want {want}")
+    if device != want:
+        raise AssertionError(f"{path}: launches on the card {device}, want "
+                             f"{want}")
+    wrapper = {k: c.launches for k, c in counters.items()}
+    want = {k: v * (WARMUP + 1) for k, v in per_unit.items()}
+    print(f"  by the wrappers: {wrapper} (warm-up and capture; want "
+          f"{want})")
+    if wrapper != want:
+        raise AssertionError(f"{path}: wrapper launch counts {wrapper}, "
+                             f"want {want}")
+    check_tiled(counters, path)
+    for k, (n, tiled) in device.items():
+        kernels[k].setdefault("launches_by_path", {})[path] = n
+        kernels[k].setdefault("tiled_launches_by_path", {})[path] = tiled
+
+
+def gate_replays(counters, kernels, path, per_unit, n_units, fn):
+    """``fn()`` replays ``n_units`` batches or steps: the profiler's
+    launches by kernel name must be exactly ``per_unit`` per batch or
+    step, every one tiled, and no wrapper may run."""
+    from normflow__tpu_torch.tools.kernel_times import device_launches
+
+    want = {k: (v * n_units,) * 2 for k, v in per_unit.items()}
+    before = {k: c.launches for k, c in counters.items()}
+    device = device_launches(fn)[0]
+    print(f"launches of {n_units} replays on the {path} path by profiler "
+          f"name (launches, tiled): {device}, want {want}")
+    if device != want or before != {k: c.launches
+                                    for k, c in counters.items()}:
+        raise AssertionError(f"{path}: replayed launches {device}, want "
+                             f"{want}, all tiled, and no wrapper call")
+    for k, v in per_unit.items():
+        kernels[k].setdefault("replay_launches_per_unit", {})[path] = v
 
 
 def check_train_grads(torch, model, rng):
@@ -676,59 +757,50 @@ def check_train_grads(torch, model, rng):
                              f"{TRAIN_LOSS_TOL} / {TRAIN_GRAD_TOL})")
 
 
-def run_training_path(torch, kernels, card):
-    """``model.fit`` on a fresh seeded full-width flagship with the bench
-    protocol's settings, then training steps/s."""
+def fit_protocol(model, n_epochs):
+    """``model.fit`` for ``n_epochs`` steps with the bench protocol's
+    settings (``bench.py:278-286``), the cosine decay over ``N_STEPS``;
+    returns the fit's history."""
     from normflow__tpu_torch import cosine_decay_schedule
-    from normflow__tpu_torch.zoo import build_phi4_model
 
-    model = build_phi4_model(LAT, seed=0)
-    counters = _counters()
-    torch.cuda.synchronize()
-    reset_counts(counters)
-    t0 = time.perf_counter()
-    hist = model.fit(n_epochs=N_STEPS, batch_size=TRAIN_BATCH,
+    return model.fit(n_epochs=n_epochs, batch_size=TRAIN_BATCH,
                      hyperparam=dict(lr=3e-3, weight_decay=1e-4),
                      scheduler=cosine_decay_schedule(1.0, decay_steps=N_STEPS,
                                                      alpha=0.05),
                      grad_estimator="path", clip_grad_norm=25.0,
                      steps_per_call=8, checkpoint_dict=dict(print_stride=None))
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    launches = {k: c.launches for k, c in counters.items()}
+
+
+def run_training_path(torch, kernels, card):
+    """``model.fit`` on a fresh seeded full-width flagship with the bench
+    protocol's settings, profiled: its launches counted by the profiler
+    and by the wrappers."""
+    from normflow__tpu_torch.tools.kernel_times import device_launches
+    from normflow__tpu_torch.zoo import build_phi4_model
+
+    model = build_phi4_model(LAT, seed=0)
+    counters = _counters()
     n_layers = len(model.net_[2].nets)
     per_step = {"rqs_coupling": 2 * n_layers, "rqs_coupling_bwd": 2 * n_layers,
                 "phi4_action": 1, "phi4_action_grad": 1}
-    print(f"launches over model.fit({N_STEPS} steps): {launches}, per step "
-          f"{ {k: v / N_STEPS for k, v in launches.items()} }")
-    if launches != {k: v * N_STEPS for k, v in per_step.items()}:
-        raise AssertionError(f"launch counts {launches}, want {per_step} per "
-                             "step")
-    check_tiled(counters, kernels, "train")
-    for name, n in launches.items():
-        kernels[name]["launches"] = n
-        kernels[name].setdefault("launches_by_path", {})["train"] = n
+    reserved = pool_reserved(torch)
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    device, hist = device_launches(lambda: fit_protocol(model, N_STEPS))
+    seconds = time.perf_counter() - t0
+    gate_path(counters, kernels, "train", per_step, N_STEPS, device)
+    print(f"the training step's graph holds "
+          f"{pool_reserved(torch, reserved)} MiB of device memory (batch "
+          f"{TRAIN_BATCH}) on {card}")
 
     loss = np.asarray(hist["loss"])
     first, last = float(loss[:10].mean()), float(loss[-10:].mean())
-    print(f"model.fit: {N_STEPS} steps in {seconds:.2f} s (first includes "
-          f"warm-up); loss {loss[0]:.3f} -> {loss[-1]:.3f}, mean of the first "
-          f"10 {first:.3f}, of the last 10 {last:.3f}")
+    print(f"model.fit: {N_STEPS} steps in {seconds:.2f} s (capture "
+          f"included, profiled); loss {loss[0]:.3f} -> {loss[-1]:.3f}, mean "
+          f"of the first 10 {first:.3f}, of the last 10 {last:.3f}")
     if loss.shape != (N_STEPS,) or not np.isfinite(loss).all() \
             or not last < first:
         raise AssertionError("training loss not finite or not falling")
-
-    rates = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        for _ in range(10):
-            model.fit.step()
-        torch.cuda.synchronize()
-        rates.append(10 / (time.perf_counter() - t0))
-    rates.sort()
-    print(f"training steps/s at batch {TRAIN_BATCH} (5 segments of 10): "
-          f"median {statistics.median(rates):.3f}, min {rates[0]:.3f}, max "
-          f"{rates[-1]:.3f} on {card}")
     return model
 
 
@@ -744,6 +816,8 @@ def run_zerodim(torch):
                   prior=NormalPrior(shape=(1,), device="cuda"),
                   action=ScalarPhi4Action(kappa=0, m_sq=-1.2, lambd=0.5),
                   seed=5)
+    from normflow__tpu_torch.utils.graphs import WARMUP
+
     grad = _counters()["phi4_action_grad"]
     reset_counts({"phi4_action_grad": grad})
     t0 = time.perf_counter()
@@ -754,13 +828,159 @@ def run_zerodim(torch):
     acc, ess = hist["accept_rate"][-1][0], hist["ess"][-1]
     print(f"zero-dim fit, 500 epochs in {seconds:.2f} s: loss "
           f"{hist['loss'][-1]:.4f} (<= -1.0), accept {acc:.4f} (>= 0.9), ESS "
-          f"{ess:.4f} (>= 0.95); phi4_action_grad launches {grad.launches},"
-          f" {grad.tiled_launches} of them tiled (the one-site lattice takes "
-          "the general kernel)")
+          f"{ess:.4f} (>= 0.95); phi4_action_grad wrapper launches "
+          f"{grad.launches} (warm-up and capture), {grad.tiled_launches} of "
+          "them tiled (the one-site lattice takes the general kernel)")
     if not (hist["loss"][-1] <= -1.0 and acc >= 0.9 and ess >= 0.95
-            and grad.launches == 500 and grad.tiled_launches == 0):
+            and grad.launches == WARMUP + 1 and grad.tiled_launches == 0):
         raise AssertionError("the zero-dim fit missed its targets or its "
                              "launch counts")
+    return model
+
+
+def replay_vs_eager(torch, model, trained):
+    """The graphs against their eager bodies at full width: three replayed
+    sampled batches against three eager bodies from the same generator
+    state (bit for bit), and 10 replayed training steps against 10 eager
+    bodies from the same parameters, optimizer state and generator state
+    (losses and parameters; bit for bit where cuDNN's default algorithms
+    sum alike, else within the stated tolerance)."""
+    from normflow__tpu_torch.training import optim
+
+    post, gen = model.posterior, model.generator
+    model.seed(21)
+    got = post.logqp_stream(3, BATCH)
+    model.seed(21)
+    want = torch.cat([post.logqp_batch(BATCH, gen) for _ in range(3)])
+    same = same_bits(torch, (got,), (want,))
+    print(f"replayed vs eager batch, 3 x {BATCH}: "
+          f"{'bit for bit' if same else 'NOT bit-identical'}, max |d| "
+          f"{float((got - want).abs().max()):.3e}")
+    if not same:
+        raise AssertionError("a replayed batch differs from its eager body")
+
+    fit = trained.fit
+    live = fit.params + optim.state_leaves(fit.opt_state)
+    start = ([t.detach().clone() for t in live],
+             trained.generator.get_state())
+
+    def run(step):
+        with torch.no_grad():
+            for t, v in zip(live, start[0]):
+                t.copy_(v)
+        trained.generator.set_state(start[1])
+        losses = torch.stack([step()[0] for _ in range(10)])
+        return losses, [p.detach().clone() for p in fit.params]
+
+    runs = {"replayed": run(fit.step), "eager": run(fit.train_body),
+            "eager again": run(fit.train_body)}
+    torch.cuda.synchronize()
+    for a, b in (("replayed", "eager"), ("eager again", "eager")):
+        (la, pa), (lb, pb) = runs[a], runs[b]
+        same = same_bits(torch, (la, *pa), (lb, *pb))
+        dloss = float(((la - lb).abs() / lb.abs().clamp(min=1.0)).max())
+        dpar = max(float((x - y).abs().max()) for x, y in zip(pa, pb))
+        print(f"10 {a} vs 10 eager training steps at batch {TRAIN_BATCH}: "
+              f"{'bit for bit' if same else 'NOT bit-identical'}; losses max "
+              f"rel {dloss:.3e} (tol {REPLAY_LOSS_TOL}), parameters max |d| "
+              f"{dpar:.3e} (tol {REPLAY_PARAM_TOL})")
+        if not (dloss <= REPLAY_LOSS_TOL and dpar <= REPLAY_PARAM_TOL):
+            raise AssertionError(f"{a} training steps differ from the eager "
+                                 "bodies")
+
+
+def rates_in_turns(torch, card):
+    """Eager bodies in a Python loop against the graphed entry points, in
+    turns (eager, graphed, ..., graphed, eager): raw samples/s of 32
+    batches of 1024 and training steps/s of segments of 10 steps, on two
+    flagships of their own (seeded perturbed weights for sampling; for
+    training, ``N_STEPS`` steps of the protocol's fit first, as the
+    training path takes), each run once untimed first.  It runs before any profiler has in this process: after
+    one, every launch from the host costs more."""
+    from normflow__tpu_torch.zoo import build_phi4_model
+
+    model = build_phi4_model(LAT, seed=0)
+    perturb_(model.net_, np.random.default_rng(1))
+    trained = build_phi4_model(LAT, seed=0)
+    fit_protocol(trained, N_STEPS)
+    post, gen, fit = model.posterior, model.generator, trained.fit
+
+    def eager_stream():
+        for _ in range(N_BATCHES):
+            post.logqp_batch(BATCH, gen)
+
+    def eager_steps():
+        for _ in range(10):
+            fit.train_body()
+
+    def graphed_steps():
+        for _ in range(10):
+            fit.step()
+
+    for what, unit, n, fns in (
+            ("sampling", "raw samples/s", N_BATCHES * BATCH,
+             {"eager": eager_stream,
+              "graphed": lambda: post.logqp_stream(N_BATCHES, BATCH)}),
+            (f"training at batch {TRAIN_BATCH}", "steps/s", 10,
+             {"eager": eager_steps, "graphed": graphed_steps})):
+        for fn in fns.values():  # untimed: cuDNN's picks, the capture
+            fn()
+        rates = {"eager": [], "graphed": []}
+        for key in ("eager", "graphed") * 3 + ("graphed", "eager") * 3:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fns[key]()
+            torch.cuda.synchronize()
+            rates[key].append(n / (time.perf_counter() - t0))
+        print(f"{what}, {unit} in turns, 6 runs each: " + "; ".join(
+            f"{k} median {statistics.median(r):.1f} (min {min(r):.1f}, max "
+            f"{max(r):.1f})" for k, r in rates.items()) + f" on {card}")
+
+
+def replay_launches(torch, kernels, model, trained, zerodim):
+    """Replays alone, profiled: each path's launches by kernel name per
+    batch or step (every one tiled on the flagship, general on the
+    zero-dim model's one site), and the device idle share of one eager and
+    one replayed batch and step."""
+    from normflow__tpu_torch.tools.kernel_times import device_launches
+
+    counters = _counters()
+    n_layers = len(model.net_[2].nets)
+    gate_replays(counters, kernels, "sample",
+                 {"rqs_coupling": n_layers, "phi4_action": 1}, N_BATCHES,
+                 lambda: model.posterior.logqp_stream(N_BATCHES, BATCH))
+    gate_replays(counters, kernels, "train",
+                 {"rqs_coupling": 2 * n_layers,
+                  "rqs_coupling_bwd": 2 * n_layers, "phi4_action": 1,
+                  "phi4_action_grad": 1}, 4,
+                 lambda: [trained.fit.step() for _ in range(4)])
+    want = {"phi4_action": (1, 0), "phi4_action_grad": (1, 0)}
+    got = device_launches(zerodim.fit.step)[0]
+    print(f"zero-dim fit, one replayed step's launches by profiler name "
+          f"(launches, tiled): {got}, want {want}")
+    if got != want:
+        raise AssertionError("the zero-dim step's replay missed the general "
+                             "kernels")
+    post, gen, fit = model.posterior, model.generator, trained.fit
+    profile_step(lambda: post.logqp_batch(BATCH, gen),
+                 f"one eager sampled batch of {BATCH}")
+    profile_step(lambda: post.logqp_stream(1, BATCH),
+                 f"one replayed sampled batch of {BATCH}")
+    profile_step(fit.train_body, f"one eager training step at batch "
+                 f"{TRAIN_BATCH}")
+    profile_step(fit.step, f"one replayed training step at batch "
+                 f"{TRAIN_BATCH}")
+
+
+def run_bench(torch):
+    """The port's bench, in process, with a short training."""
+    from normflow__tpu_torch import bench
+
+    out = bench.main(["--train_epochs", "200", "--reps", "2"])
+    if not (out["platform"] == "cuda" and 0.0 < out["ess"] <= 1.0
+            and out["value"] > 0 and math.isfinite(out["value_err"])
+            and 0.0 <= out["accept_rate"] <= 1.0):
+        raise AssertionError(f"the bench's record is out of range: {out}")
 
 
 # each kernel's device functions, the path's first, as ptxas and the
@@ -887,19 +1107,20 @@ def main() -> int:
                     peaks, rng),
               phase("check phi4_action_grad", check_phi4_grad, torch,
                     kernels, peaks, rng, action)]
+    # before the main path's runs, which are profiled: the rates are taken
+    # with no profiler run in the process
+    phase("rates in turns", rates_in_turns, torch, card)
     model = phase("sampling path", run_main_path, torch, kernels, rng, card)
     phase("GPU vs CPU training step", check_train_grads, torch, model, rng)
     trained = phase("training path", run_training_path, torch, kernels,
                     card)
-    phase("zero-dim fit", run_zerodim, torch)
-    # profiling last: the paths' times are taken with no profiler on
+    zerodim = phase("zero-dim fit", run_zerodim, torch)
+    phase("replay vs eager", replay_vs_eager, torch, model, trained)
+    phase("replay launches", replay_launches, torch, kernels, model,
+          trained, zerodim)
+    phase("bench", run_bench, torch)
     for time_it in timers:
         phase("kernel times", time_it)
-    phase("profiles", profile_step,
-          lambda: model.posterior.logqp_stream(1, BATCH),
-          f"logqp_stream(1, {BATCH}) (one sampled batch)")
-    phase("profiles", profile_step, trained.fit.step,
-          f"fit.step() at batch {TRAIN_BATCH} (one training step)")
     print("phase seconds: " + ", ".join(f"{n} {t:.1f}" for n, t in phases))
 
     for kname, rec in kernels.items():
@@ -910,11 +1131,13 @@ def main() -> int:
             or [r for _, r, _ in rows])
         rec["spill_bytes"] = sum(sp for fn in fns for _, _, sp in ptxas[fn])
         rec["device_functions"] = fns
+        rec["launches"] = sum(rec["launches_by_path"].values())
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "ms_cold", "plain_ms", "bound_ms", "bound_by",
             "bound_share", "bound_share_cold", "headline", "library_ms",
             "registers", "spill_bytes", "device_functions", "call_ms",
-            "plain_call_ms", "timing", "launches_by_path")
+            "plain_call_ms", "timing", "launches_by_path",
+            "replay_launches_per_unit")
     print(json.dumps({"kernels": [
         {**{k: rec[k] for k in keys},
          **{k: rec[k] for k in ("variants", "tiled_launches_by_path")

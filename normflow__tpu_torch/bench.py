@@ -1,0 +1,280 @@
+"""The port's bench: effective samples/s of the 32x32 phi^4 flagship::
+
+    python3 -m normflow__tpu_torch.bench [--train_epochs 96000] [--reps 5]
+
+Counterpart of the JAX package's bench protocol (root ``bench.py:225-436``),
+run through the port's entry points on one CUDA card (``--device cpu`` for
+a small check on the CPU):
+
+1. build the flagship (``zoo.build_phi4_model`` with ``--lat``,
+   ``--n_layers``, ``--knots``, ``--hidden``, ``--seed``), float32, TF32
+   off for the convolutions;
+2. train ``--train_epochs`` steps at ``--train_batch`` with the protocol's
+   settings (AdamW lr 3e-3, weight decay 1e-4, cosine decay to 0.05, path
+   gradient, gradient-norm clip 25, ``--steps_per_call`` steps per
+   segment) through ``model.fit``, which replays one captured training
+   step;
+3. pick the sampling batch from 128/256/512/1024 by raw rate at the
+   official ``--sample_iters`` (:func:`autotune_batch`), unless ``--batch``
+   pins it;
+4. time ``--reps`` runs of ``Posterior.logqp_stream(sample_iters, batch)``,
+   which replays one captured batch, each from its own seed
+   (:func:`rep_seeds`; root ``bench.py`` times every repetition on one
+   key);
+5. the ESS of the last run's stream with its bootstrap error
+   (:func:`bootstrap_ess_err`), the accept rate with its error, and the
+   effective rate (raw rate times ESS) with the timing spread and the ESS
+   error in quadrature;
+6. the device's idle share over one profiled replay of each graph.
+
+It prints one JSON line with root ``bench.py``'s keys (one sampling route,
+``"cuda"``; no roofline, no TPU probe, no ``--rng_impl``), plus
+``platform``, the card's name and power limit as ``nvidia-smi`` gives
+them, ``train_steps_per_s`` (``model.fit``'s steps over its wall time,
+the capture included) and the idle shares.  It keeps its own copies of
+root ``bench.py``'s helpers and imports nothing from it.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+from .mcmc.metropolis import estimate_accept_rate
+from .ops.stats import calc_ess
+from .training.optim import cosine_decay_schedule
+from .zoo import build_phi4_model
+
+__all__ = ["bootstrap_ess_err", "autotune_batch", "rep_seeds", "time_reps",
+           "idle_share", "main"]
+
+# The reference implementation's effective samples/s for the identical
+# 32x32 architecture on a CPU host, as root bench.py records it
+# (REFERENCE_EFF_SAMPLES_PER_SEC): raw 220.6 samples/s, ESS 0.0132.
+REFERENCE_EFF_SAMPLES_PER_SEC = 2.915
+
+
+def bootstrap_ess_err(logqp, n_boot=200, seed=123):
+    """Bootstrap standard error of the normalized ESS (root
+    ``bench.py:60-71``, the same resamples from the same seed)."""
+    rng = np.random.default_rng(seed)
+    logqp = np.asarray(logqp)
+    n = logqp.shape[0]
+    vals = [float(calc_ess(torch.from_numpy(logqp[rng.integers(0, n, n)]),
+                           0.0))
+            for _ in range(n_boot)]
+    return float(np.std(vals))
+
+
+def _synchronize(model):
+    if model.device.type == "cuda":
+        torch.cuda.synchronize(model.device)
+
+
+def _timed_stream(model, iters, batch, seed):
+    """``(seconds, logqp)`` of one ``logqp_stream(iters, batch)`` from the
+    model's generator seeded with ``seed``, ending in a synchronise."""
+    model.generator.manual_seed(seed)
+    _synchronize(model)
+    t0 = time.perf_counter()
+    logqp = model.posterior.logqp_stream(iters, batch)
+    _synchronize(model)
+    return time.perf_counter() - t0, logqp
+
+
+def autotune_batch(model, candidates=(128, 256, 512, 1024), iters=50,
+                   reps=3, seed=2):
+    """Pick the sampling batch by raw rate: a first stream at each
+    candidate (its capture), then ``reps`` rounds that time each candidate
+    in turn at the caller's ``iters``, the scan length that will be timed.
+    Returns ``(best_batch, {batch: raw samples/s})``, the rate of the
+    median time."""
+    for b in candidates:
+        _timed_stream(model, iters, b, seed)
+    times = {b: [] for b in candidates}
+    for _ in range(reps):
+        for b in candidates:
+            times[b].append(_timed_stream(model, iters, b, seed)[0])
+    rate = {b: iters * b / statistics.median(ts) for b, ts in times.items()}
+    best = max(rate, key=rate.get)
+    return best, {b: round(r, 1) for b, r in rate.items()}
+
+
+def rep_seeds(seed, reps):
+    """A distinct generator seed for each timed repetition."""
+    return [seed + 101 + r for r in range(reps)]
+
+
+def time_reps(model, iters, batch, seeds):
+    """One warm-up stream, then one timed ``logqp_stream(iters, batch)``
+    per seed.  Returns ``(seconds per run, the last run's logqp)``."""
+    _timed_stream(model, iters, batch, seeds[0])
+    times, logqp = [], None
+    for s in seeds:
+        dt, logqp = _timed_stream(model, iters, batch, s)
+        times.append(dt)
+    return times, logqp
+
+
+def idle_share(fn, reps=3):
+    """The card's idle share over ``reps`` calls of ``fn()``: one minus
+    the device time of every activity the profiler saw over the host wall
+    time of the loop (ending in a synchronise)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e6
+    if busy <= 0:
+        raise RuntimeError("the profiler saw no device activity")
+    return 1.0 - busy / wall
+
+
+def card_name_and_power():
+    """``nvidia-smi --query-gpu=name,power.limit`` of the first card."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.splitlines()[0].strip()
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(
+        prog="python3 -m normflow__tpu_torch.bench",
+        description="Effective samples/s of the 32x32 phi^4 flagship on "
+                    "one CUDA card (root bench.py's protocol).")
+    p.add_argument("--train_epochs", type=int, default=96000)
+    p.add_argument("--train_batch", type=int, default=512)
+    p.add_argument("--batch", type=int, default=0,
+                   help="sampling batch; 0 picks it from 128/256/512/1024 "
+                        "by raw rate")
+    p.add_argument("--sample_iters", type=int, default=400)
+    p.add_argument("--steps_per_call", type=int, default=1000)
+    p.add_argument("--reps", type=int, default=5)
+    p.add_argument("--lat", type=int, default=32)
+    p.add_argument("--n_layers", type=int, default=4)
+    p.add_argument("--knots", type=int, default=8)
+    p.add_argument("--hidden", type=int, nargs="*", default=[24, 24])
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--grad_estimator", default="path",
+                   choices=["rep", "path"])
+    p.add_argument("--clip", type=float, default=25.0)
+    p.add_argument("--device", default="cuda",
+                   help="cuda (the default) or cpu, for a small check")
+    return p.parse_args(argv)
+
+
+def main(argv=None):
+    """Run the protocol; print and return its JSON record."""
+    args = parse_args(argv)
+    on_card = args.device == "cuda"
+    if on_card:
+        if not torch.cuda.is_available():
+            raise RuntimeError("bench: no CUDA device (pass --device cpu "
+                               "for a check on the CPU)")
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    model = build_phi4_model((args.lat, args.lat), knots=args.knots,
+                             hidden=tuple(args.hidden),
+                             n_layers=args.n_layers, seed=args.seed,
+                             device=args.device)
+
+    t0 = time.perf_counter()
+    model.fit(n_epochs=args.train_epochs, batch_size=args.train_batch,
+              hyperparam=dict(lr=3e-3, weight_decay=1e-4),
+              scheduler=cosine_decay_schedule(
+                  1.0, decay_steps=max(args.train_epochs, 1), alpha=0.05),
+              steps_per_call=args.steps_per_call,
+              grad_estimator=args.grad_estimator, clip_grad_norm=args.clip,
+              checkpoint_dict=dict(print_stride=None))
+    _synchronize(model)
+    train_time = time.perf_counter() - t0
+
+    batch_table = None
+    if args.batch == 0:
+        args.batch, batch_table = autotune_batch(
+            model, iters=args.sample_iters, seed=args.seed + 2)
+        print(f"[bench] autotuned sampling batch: {args.batch} "
+              f"(raw/s {batch_table})", flush=True)
+
+    seeds = rep_seeds(args.seed, args.reps)
+    times, logqp = time_reps(model, args.sample_iters, args.batch, seeds)
+    n_per_program = args.sample_iters * args.batch
+    dt = statistics.median(times)
+    samples_per_sec = n_per_program / dt
+    logqp_np = logqp.cpu().numpy()
+    ess = float(calc_ess(logqp, 0.0))
+    ess_err = bootstrap_ess_err(logqp_np)
+    accept, accept_err = estimate_accept_rate(logqp_np, seed=args.seed)
+    eff = samples_per_sec * ess
+    rel_t = float(np.std(times) / dt) if len(times) > 1 else 0.0
+    rel_e = ess_err / max(ess, 1e-12)
+    eff_err = eff * float(np.hypot(rel_t, rel_e))
+
+    idle = {"sample": None, "train": None}
+    if on_card:
+        idle = {"sample": idle_share(
+                    lambda: model.posterior.logqp_stream(1, args.batch)),
+                "train": idle_share(model.fit.step)}
+
+    out = {
+        "metric": f"effective samples/s/chip, {args.lat}x{args.lat} phi^4",
+        "value": round(eff, 3),
+        "unit": "eff_samples/s/chip",
+        "vs_baseline": round(eff / REFERENCE_EFF_SAMPLES_PER_SEC, 3),
+        "value_err": round(eff_err, 3),
+        "raw_samples_per_sec": round(samples_per_sec, 1),
+        "timing_spread_s": [round(t, 4) for t in times],
+        "ess": round(ess, 4),
+        "ess_err": round(ess_err, 4),
+        "accept_rate": round(accept, 4),
+        "accept_rate_err": round(accept_err, 4),
+        "train_epochs": args.train_epochs,
+        "n_layers": args.n_layers,
+        "grad_estimator": args.grad_estimator,
+        "sampling_backend": "cuda" if on_card else "cpu",
+        "backend_medians_s": {"cuda" if on_card else "cpu": round(dt, 4)},
+        "backend_eff_per_s": {"cuda" if on_card else "cpu": round(eff, 1)},
+        "train_time_s": round(train_time, 1),
+        "train_steps_per_s": round(args.train_epochs / train_time, 3),
+        "platform": args.device,
+        "device": (torch.cuda.get_device_name(0) if on_card else "cpu"),
+        "card": card_name_and_power() if on_card else None,
+        "sampling_batch": args.batch,
+        "knots": args.knots,
+        "rng_impl": "philox" if on_card else "mt19937",
+        "rep_seeds": seeds,
+        "tf32": False if on_card else None,
+        "idle_share_sample_replay": idle["sample"],
+        "idle_share_train_replay": idle["train"],
+        "baseline": {
+            "eff_per_s": REFERENCE_EFF_SAMPLES_PER_SEC,
+            "config": "jkomijani/normflow_ (torch), identical 32x32 "
+                      "architecture, a CPU host -- the reference's only "
+                      "runnable configuration there",
+            "caveat": "vs_baseline is a cross-hardware+framework ratio, "
+                      "not a same-silicon speedup",
+        },
+    }
+    if batch_table is not None:
+        out["batch_autotune_raw_per_s"] = batch_table
+    print(json.dumps(out), flush=True)
+    return out
+
+
+if __name__ == "__main__":
+    main()

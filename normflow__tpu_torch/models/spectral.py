@@ -44,7 +44,8 @@ class IPSD(nn.Module):
         sigma_k2 = y[0] + y[1] * s
         if self.ignore_zeromode:
             sigma_k2 = sigma_k2.clone()  # out of place: s may need its grad
-            sigma_k2[(0,) * x.dim()] = 1.0
+            # a fill, not a copy from a host scalar: a CUDA graph holds it
+            sigma_k2[(0,) * x.dim()].fill_(1.0)
         return sigma_k2
 
 

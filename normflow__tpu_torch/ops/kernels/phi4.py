@@ -18,7 +18,10 @@ alignment (:func:`action_variant`): the tiled kernel for 2-D lattices that
 suit its float4 tile (the flagship's), the general kernel for every other
 lattice.  ``phi4_action.tiled_launches`` and
 ``phi4_action_grad.tiled_launches`` count the tiled kernels' share of each
-wrapper's ``launches``.
+wrapper's ``launches``.  As for the coupling's wrappers, the counts grow
+where the wrapper launches from the host: once per capture under a CUDA
+graph, not once per replay (``tools/kernel_times.device_launches`` counts
+a replay's launches by kernel name).
 """
 
 from __future__ import annotations

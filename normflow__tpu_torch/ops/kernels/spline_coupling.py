@@ -21,7 +21,13 @@ tiled kernel, whose persistent blocks stage tiles of 128 sites through
 shared memory with bulk copies, and the per-site kernel for the shapes the
 bulk copies cannot take; the two return the same bits.
 ``rqs_coupling.tiled_launches`` and ``rqs_coupling_bwd.tiled_launches``
-count the tiled kernels' share of each wrapper's ``launches``.
+count the tiled kernels' share of each wrapper's ``launches``.  The counts
+grow where the wrapper launches its kernel from the host: under a CUDA
+graph (``utils.graphs``) that is the warm-up and the capture, once per
+capture, not once per replay; a replay's launches are counted by kernel
+name in the profiler (``tools/kernel_times.device_launches``).  A launch
+goes to PyTorch's current stream, the capture stream while a graph is
+captured, and the variant is chosen from the addresses the capture sees.
 """
 
 from __future__ import annotations

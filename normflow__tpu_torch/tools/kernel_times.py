@@ -28,7 +28,8 @@ alone needs at the path's shapes (:func:`issue_ms`).
 ``rqs_coupling_bwd`` and ``phi4_action_grad`` bit for bit,
 ``phi4_action`` to max |dS| / max(1, |S|) <= 2e-5; it exits 1 if one
 differs.  :func:`warm_ms`, :func:`cold_ms`, :func:`bound_ms`,
-:func:`work` and :func:`card_peaks` serve ``chip_smoke.py`` too.
+:func:`work`, :func:`card_peaks` and :func:`device_launches` serve
+``chip_smoke.py`` and the ``gpu`` tests too.
 """
 
 from __future__ import annotations
@@ -99,6 +100,34 @@ def _kernel_us(fn, name, reps, between=None, tries=3):
             return us
     raise RuntimeError(f"the profiler saw {len(us)} launches of {name} in "
                        f"{reps} calls, {tries} times")
+
+
+def device_launches(fn):
+    """``({kernel: (launches, tiled launches)}, fn())``: the launches of
+    the port's four kernels in one profiled call of ``fn()``, counted by
+    name in the profiler's device events (:data:`KERNEL_RE`; the tiled
+    variants' names hold ``_tiled``), and what ``fn`` returned.  Under a
+    CUDA graph a wrapper's ``launches`` counts its warm-up and capture,
+    not the replays; this counts every launch on the card."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    pats = {k: re.compile(v) for k, v in KERNEL_RE.items()}
+    counts = {k: [0, 0] for k in pats}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for k, pat in pats.items():
+            m = pat.search(e.name)
+            if m:
+                counts[k][0] += 1
+                counts[k][1] += m.group(1) is not None
+    return {k: tuple(v) for k, v in counts.items() if v[0]}, out
 
 
 def warm_ms(fn, name, reps=50):

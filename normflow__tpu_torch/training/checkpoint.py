@@ -2,9 +2,12 @@
 
 Counterpart of ``normflow__tpu/training/checkpoint.py``.  A snapshot holds
 the net's ``state_dict``, the optimizer state (``training.optim``: nested
-dicts, tuples and lists of tensors and ints), the epoch counter and the
-state of the model's ``torch.Generator``, so that a resumed run continues
-bit-exactly.  It is read back with ``torch.load(weights_only=True)``,
+dicts, tuples and lists of tensors, the step counts float64 scalars;
+snapshots of earlier versions hold the counts as ints), the epoch counter
+and the state of the model's ``torch.Generator``, so that a resumed run
+continues bit-exactly.  The fitter copies a loaded optimizer state into its
+live tensors (``training.optim.assign_``, which fills a tensor count from
+an int), because its captured step keeps those tensors.  It is read back with ``torch.load(weights_only=True)``,
 which unpickles tensors and plain containers only.  Paths follow
 ``<base>.E<epoch>.pt``.
 """

@@ -1,14 +1,23 @@
 """Training loop: prior draw -> flow -> loss -> gradients -> guarded update.
 
 Counterpart of ``Fitter`` (``normflow__tpu/training/fitter.py:37-542``).
-PyTorch runs eagerly, so one training step is a Python function, not a
-jitted program: :meth:`Fitter.loss_of` builds the loss of one given prior
-draw (``'rep'`` or ``'path'`` gradient estimator),
-``torch.autograd.grad`` takes the gradients through the kernels' backward
-kernels, and the optimizer (``training.optim``) computes the updates
-without writing anything.  The NaN guard then reads one flag from the
-device and commits the new parameters and optimizer state only when the
-loss and every update are finite.
+One training step is a body that a CUDA graph can hold
+(:meth:`Fitter.train_body`): it draws from the prior with the model's
+generator, builds the loss (:meth:`Fitter.loss_of`, ``'rep'`` or
+``'path'`` gradient estimator), takes the gradients through the kernels'
+backward kernels with ``torch.autograd.grad``, runs the optimizer
+(``training.optim``, which writes nothing in place) and commits on the
+device: the NaN guard ``ok`` (a finite loss and every update finite, as
+``fitter.py:285-290`` does in JAX) selects with ``torch.where`` between
+the new and the old value of every parameter and every optimizer-state
+tensor, written into the live tensors in place.  Nothing in the body reads
+the device from the host.  The parameters and the optimizer state stay the
+same tensors for the whole fit (a rewind, a restore and a snapshot load
+copy into them), so on a CUDA model :meth:`Fitter.step` replays one
+captured step (``utils.graphs``; the counterpart of the scanned
+``multi_step``), captured once per batch size and dtype in each
+``model.fit`` call, and a segment of ``steps_per_call`` replays reads its
+losses from the device once.  On the CPU the same body runs eagerly.
 
 ``steps_per_call`` keeps its meaning as the length of a segment: the
 spike guard (``rewind_on_spike``) compares segment medians, and segments
@@ -16,7 +25,8 @@ are cut at print and save epochs so that metrics and snapshots land on the
 same epochs whatever the segment length.  A rewind restores the net and
 optimizer state of the last healthy segment and reseeds the model's
 generator deterministically: ``initial_seed() + 7919 + n``, ``n`` the
-number of earlier rewinds.
+number of earlier rewinds; its learning-rate backoff is a device scalar
+written between replays.  All of this runs on the host between segments.
 
 Not ported, because the flagship has none: per-step control variates
 (``Cntr*`` flows), keyed (stochastic) actions and mesh sharding.  A model
@@ -33,6 +43,7 @@ import numpy as np
 import torch
 
 from ..ops.stats import estimate_logz, fmt_val_err
+from ..utils.graphs import GraphCache, capture
 from . import losses, optim
 from .checkpoint import load_snapshot, save_snapshot, snapshot_path_for_epoch
 
@@ -63,7 +74,10 @@ class Fitter:
         self.rewind_on_spike = None
         self.max_rewinds = 10
         self.rewind_lr_backoff = None
-        self._lr_scale = 1.0
+        # the backoff's factor on the updates, read by the step on the device
+        self._lr_scale_t = torch.ones((), dtype=torch.float64,
+                                      device=model.device)
+        self._graphs = GraphCache()
 
     # ------------------------------------------------------------------ #
     def __call__(self, n_epochs=1000, save_every=None, batch_size=64,
@@ -99,7 +113,7 @@ class Fitter:
         self.grad_estimator = grad_estimator
         self.rewind_on_spike = rewind_on_spike
         self.rewind_lr_backoff = rewind_lr_backoff
-        self._lr_scale = 1.0
+        self._lr_scale_t.fill_(1.0)
         if grad_estimator == "path" and self.loss_fn is not losses.calc_kl_mean:
             # dropping the score term is unbiased only for E_q[log q - log p]
             warnings.warn(
@@ -121,6 +135,7 @@ class Fitter:
             self.optimizer = optim.chain(
                 optim.clip_by_global_norm(clip_grad_norm), self.optimizer)
         self.opt_state = self.optimizer.init(self.params)
+        self._graphs.clear()  # the new optimizer state needs a new capture
 
         snapshot_path = self.checkpoint_dict["snapshot_path"]
         if snapshot_path is None:
@@ -197,31 +212,65 @@ class Fitter:
         return self.loss_fn(logq, logp), logq, logp
 
     def _step(self, x, logr):
-        """One guarded update from the draw ``x``; returns the loss and
-        ``logq - logp`` (detached)."""
+        """One guarded update from the draw ``x``, committed on the device:
+        the parameters and every optimizer-state tensor take their new
+        values only where the loss and every update are finite, else keep
+        their old ones, bit for bit.  Returns the loss and ``logq - logp``
+        (detached)."""
         loss, logq, logp = self.loss_of(x, logr)
         grads = torch.autograd.grad(loss, self.params)
         updates, new_state = self.optimizer.update(list(grads),
                                                    self.opt_state,
                                                    self.params)
-        if self._lr_scale != 1.0:
-            updates = [u * self._lr_scale for u in updates]
+        loss = loss.detach()
+        scale = self._lr_scale_t.to(loss.dtype)
+        updates = torch._foreach_mul(updates, scale)
         # NaN guard: a finite loss can come with non-finite gradients, so
         # every update must be finite too; else keep params AND state
-        ok = torch.isfinite(loss.detach())
-        for u in updates:
-            ok = ok & torch.isfinite(u).all()
-        if bool(ok):
-            with torch.no_grad():
-                torch._foreach_add_(self.params, updates)
-            self.opt_state = new_state
-        return loss.detach(), (logq - logp).detach()
+        ok = torch.isfinite(torch.cat(
+            [loss.reshape(1)] + [u.reshape(-1) for u in updates])).all()
+        with torch.no_grad():
+            new = list(torch._foreach_add(self.params, updates))
+            for old, value in zip(
+                    self.params + optim.state_leaves(self.opt_state),
+                    new + optim.state_leaves(new_state)):
+                torch.where(ok, value, old, out=old)
+        return loss, (logq - logp).detach()
 
-    def step(self):
-        """One training step on a fresh draw from the prior."""
+    def train_body(self):
+        """One training step on a fresh draw from the prior, run eagerly:
+        the body that :meth:`step` replays on a CUDA model."""
         model = self._model
         x, logr = model.prior.sample_(self.train_batch_size, model.generator)
         return self._step(x, logr)
+
+    def step_graph(self):
+        """The captured training step of a CUDA model at the current batch
+        size (``None`` on the CPU): a ``utils.graphs.Captured`` whose
+        outputs are the step's loss and ``logq - logp``.  Captured at first
+        use in each ``model.fit`` call; the warm-up leaves the parameters,
+        the optimizer state and the generator as it found them."""
+        model = self._model
+        if model.device.type != "cuda":
+            return None
+        stamp = (model.net_, model.prior, model.action, model.generator,
+                 self.optimizer, self.loss_fn, self.grad_estimator,
+                 *(p.data_ptr() for p in self.params))
+        return self._graphs.get(
+            (self.train_batch_size, model.prior.loc.dtype), stamp,
+            lambda: capture(self.train_body, generators=(model.generator,),
+                            keep=self.params
+                            + optim.state_leaves(self.opt_state)))
+
+    def step(self):
+        """One training step on a fresh draw from the prior: a replay of
+        the captured step on a CUDA model, the body run eagerly on the
+        CPU.  Returns the loss and ``logq - logp`` as new tensors."""
+        captured = self.step_graph()
+        if captured is None:
+            return self.train_body()
+        captured.graph.replay()
+        return tuple(t.clone() for t in captured.outputs)
 
     # ------------------------------------------------------------------ #
     def train(self, n_epochs, batch_size=None, save_every=None,
@@ -271,8 +320,9 @@ class Fitter:
                                         + len(rewinds))
                         rewinds.append(epoch)
                         if self.rewind_lr_backoff is not None:
-                            self._lr_scale *= float(self.rewind_lr_backoff)
-                        back = (f", lr scale -> {self._lr_scale:g}"
+                            self._lr_scale_t.mul_(
+                                float(self.rewind_lr_backoff))
+                        back = (f", lr scale -> {float(self._lr_scale_t):g}"
                                 if self.rewind_lr_backoff else "")
                         print(f"Epoch {epoch} | loss spike {seg_med:g} > "
                               f"best {best_seg:g} + {guard:g}: rewound to "
@@ -290,21 +340,24 @@ class Fitter:
         return self.train_history
 
     def _segment(self, n_steps):
-        """``n_steps`` guarded steps; their losses as a numpy array, read
-        from the device once for the segment."""
-        return torch.stack([self.step()[0] for _ in range(n_steps)]) \
-            .cpu().numpy()
+        """``n_steps`` guarded steps (replays of the captured step on a CUDA
+        model); their losses as a numpy array, read from the device once
+        for the segment."""
+        return torch.stack([self.step()[0]
+                            for _ in range(n_steps)]).cpu().numpy()
 
     def _state_copy(self):
         return ([p.detach().clone() for p in self.params],
                 _clone(self.opt_state))
 
     def _restore(self, state):
+        """Copy a ``_state_copy`` into the live parameters and optimizer
+        state, in place."""
         params, opt_state = state
         with torch.no_grad():
             for p, q in zip(self.params, params):
                 p.copy_(q)
-        self.opt_state = _clone(opt_state)
+        optim.assign_(self.opt_state, opt_state)
 
     # ------------------------------------------------------------------ #
     def checkpoint(self, epoch, loss, save_every):
@@ -380,8 +433,8 @@ class Fitter:
         opt_state, epoch = load_snapshot(path, net=model.net_,
                                          generator=model.generator,
                                          device=model.device)
-        if opt_state is not None:
-            self.opt_state = opt_state
+        if opt_state is not None:  # into the live tensors, in place
+            optim.assign_(self.opt_state, opt_state)
         self.checkpoint_dict["epochs_run"] = epoch
         print(f"Snapshot found: {path}\nResuming training via Saved Snapshot "
               f"at Epoch {epoch}")

@@ -5,12 +5,16 @@ the net, the prior, the action and a ``torch.Generator`` on the model's
 device (the JAX package's stateful key), and wires up the ``posterior``,
 ``mcmc`` and ``fit`` services.  Sampling runs without autograd; training
 (``fit``, a ``training.fitter.Fitter``) draws from the same generator.
+On a CUDA model ``Posterior.logqp_stream`` replays one captured batch
+(``utils.graphs``), the counterpart of the JAX package's scanned
+``_logqp_scan``.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..utils.graphs import GraphCache, capture
 from .fitter import Fitter
 
 __all__ = ["Model", "Posterior", "backward_sanitychecker"]
@@ -44,6 +48,7 @@ class Posterior:
 
     def __init__(self, model: Model):
         self._model = model
+        self._graphs = GraphCache()
 
     @torch.no_grad()
     def sample_(self, batch_size: int = 1, generator=None):
@@ -70,16 +75,50 @@ class Posterior:
     @torch.no_grad()
     def logqp_stream(self, n_batches: int, batch_size: int, generator=None):
         """``logq - logp`` of ``n_batches`` fresh batches, flattened to
-        ``(n_batches * batch_size,)``, for ESS and acceptance estimates."""
+        ``(n_batches * batch_size,)``, for ESS and acceptance estimates.
+
+        On a CUDA model each batch is a replay of one captured batch
+        (:meth:`batch_graph`); on the CPU the same body runs eagerly.  The
+        draws are those of the eager body from the same generator state."""
         m = self._model
         gen = m.generator if generator is None else generator
         out = torch.empty((n_batches, batch_size), dtype=m.prior.loc.dtype,
                           device=m.device)
-        for i in range(n_batches):
-            x, logr = m.prior.sample_(batch_size, gen)
-            y, logj = m.net_.forward(x)
-            out[i] = (logr - logj) + m.action(y)
+        if m.device.type != "cuda":
+            for row in out:
+                row.copy_(self.logqp_batch(batch_size, gen))
+            return out.reshape(-1)
+        graph, (logqp,) = self.batch_graph(batch_size, gen)
+        for row in out:
+            graph.replay()
+            row.copy_(logqp)
         return out.reshape(-1)
+
+    @torch.no_grad()
+    def logqp_batch(self, batch_size: int, generator):
+        """The body of one batch of :meth:`logqp_stream`: a prior draw,
+        the flow, ``logr - logj + S(y)``."""
+        m = self._model
+        x, logr = m.prior.sample_(batch_size, generator)
+        y, logj = m.net_.forward(x)
+        return (logr - logj) + m.action(y)
+
+    @torch.no_grad()
+    def batch_graph(self, batch_size: int, generator=None):
+        """The captured batch of :meth:`logqp_stream` on a CUDA model, a
+        ``utils.graphs.Captured`` whose one output is the batch's
+        ``(batch_size,)`` stream.  Captured at first use for each batch
+        size, dtype and generator; a swapped net, prior or action, or
+        weights given new storage, capture anew."""
+        m = self._model
+        gen = m.generator if generator is None else generator
+        stamp = (m.net_, m.prior, m.action,
+                 *(t.data_ptr() for t in (*m.net_.parameters(),
+                                          *m.prior.buffers())))
+        return self._graphs.get(
+            (batch_size, m.prior.loc.dtype, gen), stamp,
+            lambda: capture(lambda: (self.logqp_batch(batch_size, gen),),
+                            generators=(gen,)))
 
 
 @torch.no_grad()

@@ -115,6 +115,58 @@ def test_optimizer_matches_optax(rng, name):
                                        atol=1e-12)
 
 
+@pytest.mark.parametrize("name", ["adamw", "adam", "sgd"])
+def test_device_count_optimizer_matches_optax_over_20_steps(rng, name):
+    """The step counts are float64 scalars on the parameters' device and
+    the cosine schedule reads them as tensors: clip 1.5 -> per-group
+    transform (lr 0.01 and 0.05 times a cosine decay over 12 steps, so the
+    schedule reaches its floor), weight decay 0.02, 20 steps, float64 to
+    1e-12 against optax."""
+    shapes = [(3, 4), (5,), (2, 2, 2)]
+    labels = ["g0", "g1", "g1"]
+    params = [rng.standard_normal(s) for s in shapes]
+    steps = [[rng.standard_normal(s) * scale for s in shapes]
+             for scale in rng.choice([0.05, 3.0], size=20)]
+    jsched = optax.cosine_decay_schedule(1.0, decay_steps=12, alpha=0.05)
+    sched = nt.cosine_decay_schedule(1.0, decay_steps=12, alpha=0.05)
+    make = dict(adamw=optim.adamw, adam=optim.adam, sgd=optim.sgd)[name]
+    jtx = optax.chain(optax.clip_by_global_norm(1.5), optax.multi_transform(
+        {"g0": _optax_tx(name, lambda s: 0.01 * jsched(s), 0.02),
+         "g1": _optax_tx(name, lambda s: 0.05 * jsched(s), 0.02)}, labels))
+    tx = optim.chain(optim.clip_by_global_norm(1.5), optim.multi_transform(
+        {"g0": make(lambda s: 0.01 * sched(s), weight_decay=0.02),
+         "g1": make(lambda s: 0.05 * sched(s), weight_decay=0.02)}, labels))
+    jparams = [jnp.asarray(p) for p in params]
+    tparams = [torch.from_numpy(p.copy()) for p in params]
+    jstate, tstate = jtx.init(jparams), tx.init(tparams)
+    counts = [t for t in optim.state_leaves(tstate) if t.dim() == 0]
+    assert counts and all(c.dtype == torch.float64 for c in counts)
+    for grads in steps:
+        jup, jstate = jtx.update([jnp.asarray(g) for g in grads], jstate,
+                                 jparams)
+        jparams = optax.apply_updates(jparams, jup)
+        tup, tstate = tx.update([torch.from_numpy(g) for g in grads],
+                                tstate, tparams)
+        tparams = [p + u for p, u in zip(tparams, tup)]
+        for t, j in zip(tparams, jparams):
+            np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=1e-12,
+                                       atol=1e-12)
+    assert all(float(c) == 20.0 for c in optim.state_leaves(tstate)
+               if c.dim() == 0)
+
+
+def test_cosine_schedule_reads_the_count_tensor():
+    """The schedule of a float64 count tensor: a float64 tensor on the
+    count's device, as optax's for a traced count, capped at the decay
+    steps."""
+    want = optax.cosine_decay_schedule(2.0, decay_steps=7, alpha=0.05)
+    got = nt.cosine_decay_schedule(2.0, decay_steps=7, alpha=0.05)
+    for step in range(10):
+        lr = got(torch.tensor(float(step), dtype=torch.float64))
+        assert lr.dtype == torch.float64 and lr.dim() == 0
+        np.testing.assert_allclose(float(lr), float(want(step)), rtol=1e-14)
+
+
 @pytest.mark.parametrize("estimator", ["rep", "path"])
 def test_flagship_step_matches_jax(rng, estimator):
     """One step's loss and gradients on the same draw, against
@@ -291,7 +343,7 @@ def _armed_fitter(spiking, backoff=None):
     real, seen = fit._segment, []
 
     def fake(n_steps):
-        seen.append((_params(model), fit._lr_scale))
+        seen.append((_params(model), float(fit._lr_scale_t)))
         out = real(n_steps)
         return out + 1e4 if len(seen) in spiking else out
 
@@ -316,7 +368,7 @@ def test_rewind_lr_backoff_shrinks_updates():
     hist = fit.train(40, batch_size=32, steps_per_call=10)
     assert len(hist["rewinds"]) == 2
     assert [s for _, s in seen] == [1.0, 1.0, 0.5, 0.25]
-    assert fit._lr_scale == 0.25
+    assert float(fit._lr_scale_t) == 0.25
     assert model.generator.initial_seed() == 5 + 7919 + 7920
 
     # the scale is exact: half the step from the same state and draw
@@ -325,7 +377,7 @@ def test_rewind_lr_backoff_shrinks_updates():
     deltas = []
     for scale in (1.0, 0.5):
         fit._restore((start[0], start[1]))
-        fit._lr_scale = scale
+        fit._lr_scale_t.fill_(scale)
         fit._step(x, logr)
         deltas.append([a - b for a, b in zip(_params(model), start[0])])
     for d1, dh in zip(*deltas):
