@@ -12,51 +12,69 @@ use) and imports nothing of JAX.  Phases, each of which raises on failure:
 1. the card's name and power limit; TF32 off; build the kernels;
 2. every kernel, forward and backward, against its plain PyTorch version
    on the card, at the flagship's shapes, with the tolerances stated below;
+   ``accept_scan`` bit for bit at lengths 1 to 10,000;
 3. rates in turns: raw samples/s and training steps/s of the eager bodies
    in a Python loop and of the graphed entry points, alternating, on
    flagships of their own, before any profiler has run in the process;
+   proposals/s of ``logqp_stream``, ``sample_chain`` and
+   ``sample_parallel_chains``;
 4. the sampling path: the full-width 32x32 phi^4 flagship with seeded
    perturbed weights, compared GPU vs CPU, then ``logqp_stream`` -> ESS
    and acceptance, ``mcmc.sample__`` twice, ``backward_sanitychecker``,
    with every launch counter set to 0 just before the stream, the stream
-   profiled, and the counts read after it;
+   profiled, and the counts read after it; then on the same flagship, each
+   with its counters set to 0 just before and read after:
+   ``mcmc.sample_chain`` (32 rounds of 1024, profiled; 8 graphed rounds
+   against their eager bodies bit for bit; ``accept_scan`` on the
+   flagship's ``logq - logp``; observables of the samples),
+   ``mcmc.sample_parallel_chains`` (32 rounds of 1024 chains, profiled;
+   graphed against eager bit for bit) and ``blocked_mcmc.sample__(4,
+   n_blocks=4)``;
 5. the training path: one path-gradient loss and its gradients, GPU vs a
    CPU copy; then ``model.fit`` with the bench protocol's settings
    (``bench.py:278-286``) for ``N_STEPS`` steps on a fresh seeded
    flagship, counters set to 0 just before, the fit profiled, and the
    counts read after;
 6. the zero-dim fit (``examples/scalar_zerodim.py``) on the card, whose
-   one-site lattice takes the general kernels;
+   one-site lattice takes the general kernels; a zero-dim model fitted
+   300 steps, whose <phi^2> through each of the three samplers must match
+   the quadrature;
 7. replay against eager at full width: three replayed sampled batches
    against their eager bodies from one generator state, bit for bit, and
    10 replayed training steps against 10 eager bodies from one state, and
    10 eager bodies against 10 more from that state, within the tolerance
    stated below;
 8. replays alone, profiled: the launches of each path by kernel name, and
-   the device idle share of one eager and one replayed batch and step;
+   the device idle share of one eager and one replayed batch and step and
+   of one replayed round of each graphed sampler;
 9. the port's bench (``python3 -m normflow__tpu_torch.bench
    --train_epochs 200 --reps 2``), in process;
 10. each kernel's time at the path's shapes (``rqs_coupling`` forward and
     inverse at the sampling and the training batch, ``rqs_coupling_bwd``
-    in both training variants, forward and inverse): the median device
+    in both training variants, forward and inverse; ``accept_scan`` at a
+    chain round's 1024 proposals): the median device
     time of its launches from the profiler, warm (the same tensors again
     and again) and cold (L2 flushed before each launch), its plain
     version's time, and the least time the card could take (bytes or
     operations over the peak), with
     ``normflow__tpu_torch/tools/kernel_times.py``'s helpers.
 
-On a CUDA model ``logqp_stream`` and ``model.fit`` replay a captured batch
-and a captured step (``normflow__tpu_torch/utils/graphs.py``).  The main
-path's two runs (phases 4 and 5) are profiled, and their launches are
-counted on the card by kernel name: the ``WARMUP`` eager bodies before the
-capture and every replay launch 4 ``rqs_coupling`` and 1 ``phi4_action``
-per sampled batch and 8 / 8 / 1 / 1 per training step, every one to the
-tiled kernel (the variant that phase 10 times), and the capture launches
-nothing.  The record's ``launches_by_path`` are these counts and
-``launches`` their sum over both paths.  A wrapper's launch counter runs
-with the wrapper, so it counts the warm-up and the capture, ``WARMUP + 1``
-calls per batch or step, not the replays: it must show exactly that too,
-every call to the tiled kernel.  Phase 8 profiles replays alone, which
+On a CUDA model ``logqp_stream``, ``model.fit``, ``mcmc.sample_chain`` and
+``mcmc.sample_parallel_chains`` replay a captured batch, step or round
+(``normflow__tpu_torch/utils/graphs.py``).  The main path's runs (phases
+4 and 5) are profiled, and their launches are counted on the card by
+kernel name: the ``WARMUP`` eager bodies before the capture and every
+replay launch 4 ``rqs_coupling`` and 1 ``phi4_action`` per sampled batch,
+8 / 8 / 1 / 1 per training step, 4 / 1 and 1 ``accept_scan`` per chain
+round and 4 / 1 per parallel round, every one to the tiled kernel where
+the kernel has one (the variant that phase 10 times), and the capture
+launches nothing.  The blocked sampler runs eagerly: one flow forward on
+one sample per block proposal.  The record's ``launches_by_path`` are
+these counts and ``launches`` their sum over the paths.  A wrapper's
+launch counter runs with the wrapper, so it counts the warm-up and the
+capture, ``WARMUP + 1`` calls per batch, step or round, not the replays:
+it must show exactly that too, every call to the tiled kernel where
+there is one.  Phase 8 profiles replays alone, which
 must launch the same per batch or step with no wrapper call
 (``replay_launches_per_unit`` in the record).
 
@@ -160,22 +178,22 @@ def device_profile(fn, reps):
                   if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
-def kernel_times(name, fn, plain_fn):
+def kernel_times(name, fn, plain_fn, plain_reps=20):
     """Per-call times of a kernel's wrapper and of its plain version: the
     median device time of the kernel's launches, warm (``ms``) and with L2
     flushed before each (``ms_cold``); the plain version's device time per
-    call (``plain_ms``); the CUDA-event median of one call, host overhead
-    included (``call_ms``, ``plain_call_ms``)."""
+    call over ``plain_reps`` calls (``plain_ms``); the CUDA-event median of
+    one call, host overhead included (``call_ms``, ``plain_call_ms``)."""
     from normflow__tpu_torch.tools.kernel_times import cold_ms, warm_ms
 
-    reps = 20
-    dev = device_profile(plain_fn, reps)[1]
+    dev = device_profile(plain_fn, plain_reps)[1]
     if not dev:
         raise AssertionError(f"the profiler saw no device time in {name}'s "
                              "plain version")
     return dict(ms=warm_ms(fn, name), ms_cold=cold_ms(fn, name),
-                plain_ms=sum(us for _, us in dev) / reps / 1e3,
-                call_ms=time_ms(fn), plain_call_ms=time_ms(plain_fn, reps=20))
+                plain_ms=sum(us for _, us in dev) / plain_reps / 1e3,
+                call_ms=time_ms(fn), plain_call_ms=time_ms(
+                    plain_fn, reps=plain_reps, warmup=min(5, plain_reps)))
 
 
 def report(name, t, shape, peaks, kernels, headline):
@@ -428,6 +446,277 @@ def run_main_path(torch, kernels, rng, card):
     return model
 
 
+SCAN_LENGTHS = (1, 2, 1000, 1024, 10000)  # 10,000 crosses the 2048 chunk
+
+
+def hold_scan(torch, what, lrand, logqp, ref):
+    """``accept_scan``'s kernel against its plain version on the card at
+    each of :data:`SCAN_LENGTHS`: identical accepts and indices."""
+    from normflow__tpu_torch.ops.kernels.accept_scan import (
+        accept_scan, accept_scan_plain)
+
+    for n in SCAN_LENGTHS:
+        got = accept_scan(lrand[:n], logqp[:n], ref)
+        want = accept_scan_plain(lrand[:n], logqp[:n], ref)
+        torch.cuda.synchronize()
+        same = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        print(f"accept_scan on {what}, n = {n}: kernel vs plain "
+              f"{'identical' if same else 'DIFFER'}, accept rate "
+              f"{float(got[0].float().mean()):.4f}")
+        if not same:
+            raise AssertionError(f"accept_scan disagrees with its plain "
+                                 f"version on {what} at n = {n}")
+
+
+def check_accept_scan(torch, kernels, peaks):
+    """accept_scan vs its plain version on random chains (log uniforms
+    with ``-inf`` among them, and a ``+inf`` reference), bit for bit; a
+    planted wrong reference must change the result.  Its inputs come from
+    a numpy generator of its own, which leaves the other phases' draws as
+    they were.  Returns the function that times it at the chain's length,
+    1024."""
+    from normflow__tpu_torch.ops.kernels.accept_scan import (
+        accept_scan, accept_scan_plain)
+
+    rng = np.random.default_rng(20261017)
+    n = max(SCAN_LENGTHS)
+    logqp = torch.tensor(rng.standard_normal(n) * 1.5, dtype=torch.float32,
+                         device="cuda")
+    lrand = torch.log(torch.tensor(rng.random(n), dtype=torch.float32,
+                                   device="cuda"))
+    lrand[::11] = -math.inf
+    for ref in (0.5, math.inf):
+        hold_scan(torch, f"a random chain, ref {ref}", lrand, logqp,
+                  torch.tensor(ref, device="cuda"))
+    logqp[0], lrand[0] = 0.0, -0.25  # ref 0 accepts proposal 0, -0.5 not
+    got = accept_scan(lrand, logqp, torch.zeros((), device="cuda"))[0]
+    planted = accept_scan_plain(lrand, logqp,
+                                torch.tensor(-0.5, device="cuda"))[0]
+    if torch.equal(got, planted):
+        raise AssertionError("the check of accept_scan let a planted wrong "
+                             "reference pass")
+    print("accept_scan: a planted wrong reference changes the accepts")
+    kernels["accept_scan"] = dict(
+        name="accept_scan", route="cuda",
+        source="normflow__tpu_torch/csrc/accept_scan.cu",
+        replaces="normflow__tpu/mcmc/metropolis.py:31",
+        max_abs_err=0.0, library_ms=None)
+    lr, lq = lrand[:BATCH].clone(), logqp[:BATCH].clone()
+    ref = torch.tensor(0.5, device="cuda")
+
+    def time_it():
+        """Time one chain round's scan, n = 1024; read warm.  The plain
+        version launches ~4,000 kernels a call: 3 calls time it."""
+        t = kernel_times("accept_scan", lambda: accept_scan(lr, lq, ref),
+                         lambda: accept_scan_plain(lr, lq, ref),
+                         plain_reps=3)
+        report("accept_scan", t, (BATCH,), peaks, kernels, "warm")
+
+    return time_it
+
+
+def path_counters(kinds):
+    """The launch counters of the kernels named in ``kinds``."""
+    from normflow__tpu_torch.ops.kernels.accept_scan import accept_scan
+
+    return {k: c for k, c in {**_counters(), "accept_scan": accept_scan}
+            .items() if k in kinds}
+
+
+def run_chain_path(torch, kernels, model, card):
+    """``mcmc.sample_chain`` on the sampling path's flagship: 32 rounds of
+    1024 in one profiled call, the first of which captures the round, the
+    counters set to 0 just before; then 8 graphed rounds against 8 eager
+    round bodies from the same generator state, bit for bit; accept_scan
+    against its plain version on the flagship's own ``logq - logp``; the
+    observables of the chain's samples."""
+    from normflow__tpu_torch.ops import observables
+    from normflow__tpu_torch.tools.kernel_times import device_launches
+
+    mcmc, gen = model.mcmc, model.generator
+    per_round = {"rqs_coupling": len(model.net_[2].nets), "phi4_action": 1,
+                 "accept_scan": 1}
+    counters = path_counters(per_round)
+    reserved = pool_reserved(torch)
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    device, out = device_launches(
+        lambda: mcmc.sample_chain(N_BATCHES, BATCH))
+    seconds = time.perf_counter() - t0
+    gate_path(counters, kernels, "chain", per_round, N_BATCHES, device)
+    print(f"the chain round's graph holds {pool_reserved(torch, reserved)} "
+          f"MiB of device memory (B = {BATCH}) on {card}")
+    rates = out["accept_rate"]
+    if out["logq"].shape != (N_BATCHES, BATCH) or not bool(
+            torch.isfinite(out["logq"]).all() & torch.isfinite(rates).all()):
+        raise AssertionError("sample_chain's output is not finite or has "
+                             "the wrong shape")
+    print(f"sample_chain({N_BATCHES}, {BATCH}): accept rate per round "
+          f"{float(rates.min()):.4f}-{float(rates.max()):.4f}, mean "
+          f"{float(rates.mean()):.4f} (random perturbed weights); the first "
+          f"call, capture included, profiled, {seconds:.2f} s on {card}")
+
+    n = 8
+    mcmc.reset()
+    model.seed(31)
+    got = mcmc.sample_chain(n, BATCH, collect_samples=True)
+    ref = mcmc._ref
+    model.seed(31)
+    carry = [torch.zeros(LAT, device="cuda"),
+             torch.tensor(math.inf, device="cuda"),
+             torch.zeros((), device="cuda")]
+    rounds = [mcmc.chain_body(BATCH, gen, carry) for _ in range(n)]
+    want = [torch.stack([r[k] for r in rounds]) for k in (1, 2, 3, 0)]
+    same = same_bits(torch, (got["logq"], got["logp"], got["accept_rate"],
+                             got["samples"], *ref), (*want, *carry))
+    print(f"sample_chain({n}, {BATCH}) graphed vs {n} eager rounds from one "
+          f"generator state: logq, logp, accept rates, samples and the final "
+          f"_ref {'bit for bit' if same else 'NOT bit-identical'}")
+    if not same:
+        raise AssertionError("graphed chain rounds differ from their eager "
+                             "bodies")
+
+    logqp = model.posterior.logqp_stream(10, BATCH)
+    lrand = torch.log(torch.rand(logqp.shape, generator=gen, device="cuda"))
+    hold_scan(torch, "the flagship's logq - logp", lrand, logqp, logqp[0])
+
+    cfgs = got["samples"].reshape(-1, *LAT)
+    print(f"observables of the chain's {cfgs.shape[0]} samples (random "
+          f"perturbed weights): <phi^2> "
+          f"{float(observables.phi2(cfgs).mean()):.5f}, susceptibility "
+          f"{float(observables.susceptibility(cfgs)):.5f}, <|m|> "
+          f"{float(observables.abs_mean_phi(cfgs).mean()):.5f}")
+
+
+def run_parallel_path(torch, kernels, model, card):
+    """``mcmc.sample_parallel_chains`` on the flagship: 32 rounds of 1024
+    chains in one profiled call, the first of which captures the round,
+    the counters set to 0 just before; then 32 graphed rounds against 32
+    eager round bodies from one generator state, bit for bit."""
+    from normflow__tpu_torch.tools.kernel_times import device_launches
+
+    mcmc, gen = model.mcmc, model.generator
+    per_round = {"rqs_coupling": len(model.net_[2].nets), "phi4_action": 1}
+    counters = path_counters(per_round)
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    device, out = device_launches(
+        lambda: mcmc.sample_parallel_chains(N_BATCHES, BATCH))
+    seconds = time.perf_counter() - t0
+    gate_path(counters, kernels, "parallel", per_round, N_BATCHES, device)
+    rates = out["accept_rate"]
+    if out["final_samples"].shape != (BATCH, *LAT) or not bool(
+            torch.isfinite(out["logq"]).all()):
+        raise AssertionError("sample_parallel_chains' output is not finite "
+                             "or has the wrong shape")
+    print(f"sample_parallel_chains({N_BATCHES}, {BATCH}): accept rate "
+          f"after round 1 {rates[1:].mean():.4f}; the first call, capture "
+          f"included, profiled, {seconds:.2f} s on {card}")
+
+    model.seed(32)
+    got = mcmc.sample_parallel_chains(N_BATCHES, BATCH, collect_samples=True)
+    model.seed(32)
+    carry = [torch.zeros((BATCH, *LAT), device="cuda"),
+             torch.full((BATCH,), math.inf, device="cuda"),
+             torch.zeros(BATCH, device="cuda")]
+    rows = [[t.clone() for t in (*carry, mcmc.parallel_body(
+        BATCH, gen, carry)[0])] for _ in range(N_BATCHES)]
+    want = [torch.stack([r[k] for r in rows]) for k in range(4)]
+    same = same_bits(torch, (got["samples"], got["logq"], got["logp"]),
+                     want[:3]) and np.array_equal(
+        got["accept_rate"], want[3].cpu().numpy().mean(axis=1))
+    print(f"sample_parallel_chains({N_BATCHES}, {BATCH}) graphed vs "
+          f"{N_BATCHES} eager rounds from one generator state: samples, "
+          f"logq, logp and accept rates "
+          f"{'bit for bit' if same else 'NOT bit-identical'}")
+    if not same:
+        raise AssertionError("graphed parallel rounds differ from their "
+                             "eager bodies")
+
+
+def run_blocked(torch, kernels, model):
+    """``blocked_mcmc.sample__(4, n_blocks=4)`` on the flagship, eager, the
+    counters set to 0 just before and read just after: one flow forward on
+    one sample for the start and for each of the 16 block proposals.  An
+    eager path's wrapper counts are its launches."""
+    n_layers = len(model.net_[2].nets)
+    counters = path_counters(("rqs_coupling", "phi4_action", "accept_scan"))
+    reset_counts(counters)
+    batch, n_blocks = 4, 4
+    cfgs, logq, logp = model.blocked_mcmc.sample__(batch, n_blocks=n_blocks)
+    torch.cuda.synchronize()
+    n = 1 + batch * n_blocks
+    want = {"rqs_coupling": n_layers * n, "phi4_action": n, "accept_scan": 0}
+    got = {k: c.launches for k, c in counters.items()}
+    tiled = {k: c.tiled_launches for k, c in counters.items()
+             if hasattr(c, "tiled_launches")}
+    print(f"blocked_mcmc.sample__({batch}, n_blocks={n_blocks}): wrapper "
+          f"launches {got} (tiled {tiled}), want {want}; accept rate "
+          f"{model.blocked_mcmc.history.accept_rate[-1]:.4f}")
+    if cfgs.shape != (batch, *LAT) or not all(
+            bool(torch.isfinite(t).all()) for t in (cfgs, logq, logp)):
+        raise AssertionError("the blocked sampler's output is not finite or "
+                             "has the wrong shape")
+    if got != want:
+        raise AssertionError("the blocked sampler's launches are not one "
+                             "flow forward per block proposal")
+    for k, n_ in tiled.items():
+        kernels[k]["launches_by_path"]["blocked"] = got[k]
+        kernels[k]["tiled_launches_by_path"]["blocked"] = n_
+
+
+def exact_phi2(m_sq=-1.2, lambd=0.5):
+    """<phi^2> of the zero-dim model by quadrature
+    (``tests/test_mcmc.py:64-69``)."""
+    phi = np.linspace(-6, 6, 20001)
+    s = 0.5 * m_sq * phi ** 2 + lambd * phi ** 4
+    w = np.exp(-s + s.min())
+    return float((phi ** 2 * w).sum() / w.sum())
+
+
+def run_exactness(torch, card):
+    """The zero-dim model fitted on the card (300 steps, lr 0.01, batch
+    256), then ``sample_chain(16, 1024)``, ``sample_parallel_chains(32,
+    1024)`` (4 rounds of burn-in dropped) and ``blocked_mcmc.sample__(256)``:
+    each <phi^2> within 5 sigma + 0.01 of the quadrature and each accept
+    rate above its bar (``tests/test_mcmc.py``: 0.8, 0.85, 0.5)."""
+    from normflow__tpu_torch import Model
+    from normflow__tpu_torch.models.actions import ScalarPhi4Action
+    from normflow__tpu_torch.models.elementwise import DistConvertor
+    from normflow__tpu_torch.models.priors import NormalPrior
+
+    model = Model(net_=DistConvertor(10, device="cuda"),
+                  prior=NormalPrior(shape=(1,), device="cuda"),
+                  action=ScalarPhi4Action(kappa=0, m_sq=-1.2, lambd=0.5),
+                  seed=11)
+    model.fit(n_epochs=300, batch_size=256,
+              hyperparam=dict(lr=0.01, weight_decay=0.0),
+              checkpoint_dict=dict(print_stride=None))
+    exact = exact_phi2()
+    chain = model.mcmc.sample_chain(16, 1024, collect_samples=True)
+    par = model.mcmc.sample_parallel_chains(32, 1024, collect_samples=True)
+    y = model.blocked_mcmc.sample__(256)[0]
+    ok = True
+    for what, phi, tau, acc, bar in (
+            ("sample_chain(16, 1024)", chain["samples"], 10,
+             float(chain["accept_rate"].mean()), 0.8),
+            ("sample_parallel_chains(32, 1024), rounds 4-31",
+             par["samples"][4:], 5, float(par["accept_rate"][1:].mean()),
+             0.85),
+            ("blocked_mcmc.sample__(256)", y, 10,
+             model.blocked_mcmc.history.accept_rate[-1], 0.5)):
+        phi2 = phi.double().cpu().numpy().ravel() ** 2
+        err = phi2.std() / np.sqrt(len(phi2) / tau)
+        held = abs(phi2.mean() - exact) < 5 * err + 0.01 and acc > bar
+        ok &= held
+        print(f"zero-dim exactness, {what}: <phi^2> {phi2.mean():.5f} vs "
+              f"quadrature {exact:.5f} (|d| {abs(phi2.mean() - exact):.5f},"
+              f" bar 5 x {err:.5f} + 0.01), accept {acc:.4f} (> {bar}) "
+              f"{'held' if held else 'FAILED'} on {card}")
+    if not ok:
+        raise AssertionError("a sampler missed the zero-dim exactness bars")
+
+
 def vjp_excess(got, want, rtol):
     """How far ``got`` is from ``want`` (pairs of tensors), element by
     element: ``(worst, d, w, k, i)``, the largest ``|got - want| /
@@ -667,18 +956,27 @@ def pool_reserved(torch, before=None):
     return mib if before is None else round(mib - before, 1)
 
 
+def tiled_want(counter, n):
+    """``(launches, tiled launches)`` wanted of a kernel launched ``n``
+    times: every launch tiled where the kernel has a tiled variant (its
+    wrapper counts ``tiled_launches``), none where it has not."""
+    return n, n if hasattr(counter, "tiled_launches") else 0
+
+
 def gate_path(counters, kernels, path, per_unit, n_units, device):
     """The main path's run on ``path``: ``n_units`` batches or steps, the
     first of which captures the graph.  ``device`` holds the run's
     launches by profiler name, ``(launches, tiled)`` per kernel: the
     ``WARMUP`` eager bodies before the capture and the ``n_units`` replays
-    launch ``per_unit`` each, every one to the tiled kernel (the capture
-    itself launches nothing); these are the record's
+    launch ``per_unit`` each, every one to the tiled kernel where there is
+    one (:func:`tiled_want`; the capture itself launches nothing); these
+    are the record's
     ``launches_by_path``.  Each wrapper must have run ``per_unit`` times
     for each warm-up body and for the capture, every launch tiled."""
     from normflow__tpu_torch.utils.graphs import WARMUP
 
-    want = {k: (v * (WARMUP + n_units),) * 2 for k, v in per_unit.items()}
+    want = {k: tiled_want(counters[k], v * (WARMUP + n_units))
+            for k, v in per_unit.items()}
     print(f"launches over the {path} path's run by profiler name "
           f"(launches, tiled): {device}, want {want}")
     if device != want:
@@ -698,12 +996,14 @@ def gate_path(counters, kernels, path, per_unit, n_units, device):
 
 
 def gate_replays(counters, kernels, path, per_unit, n_units, fn):
-    """``fn()`` replays ``n_units`` batches or steps: the profiler's
-    launches by kernel name must be exactly ``per_unit`` per batch or
-    step, every one tiled, and no wrapper may run."""
+    """``fn()`` replays ``n_units`` batches, steps or rounds: the
+    profiler's launches by kernel name must be exactly ``per_unit`` per
+    unit, every one tiled where there is a tiled kernel, and no wrapper
+    may run."""
     from normflow__tpu_torch.tools.kernel_times import device_launches
 
-    want = {k: (v * n_units,) * 2 for k, v in per_unit.items()}
+    want = {k: tiled_want(counters[k], v * n_units)
+            for k, v in per_unit.items()}
     before = {k: c.launches for k, c in counters.items()}
     device = device_launches(fn)[0]
     print(f"launches of {n_units} replays on the {path} path by profiler "
@@ -895,7 +1195,9 @@ def rates_in_turns(torch, card):
     batches of 1024 and training steps/s of segments of 10 steps, on two
     flagships of their own (seeded perturbed weights for sampling; for
     training, ``N_STEPS`` steps of the protocol's fit first, as the
-    training path takes), each run once untimed first.  It runs before any profiler has in this process: after
+    training path takes), each run once untimed first; then proposals/s
+    of ``logqp_stream``, ``sample_chain`` and ``sample_parallel_chains``
+    (32 rounds of 1024 each, graphed) in turns on the sampling flagship.  It runs before any profiler has in this process: after
     one, every launch from the host costs more."""
     from normflow__tpu_torch.zoo import build_phi4_model
 
@@ -917,16 +1219,23 @@ def rates_in_turns(torch, card):
         for _ in range(10):
             fit.step()
 
+    mcmc = model.mcmc
     for what, unit, n, fns in (
             ("sampling", "raw samples/s", N_BATCHES * BATCH,
              {"eager": eager_stream,
               "graphed": lambda: post.logqp_stream(N_BATCHES, BATCH)}),
             (f"training at batch {TRAIN_BATCH}", "steps/s", 10,
-             {"eager": eager_steps, "graphed": graphed_steps})):
+             {"eager": eager_steps, "graphed": graphed_steps}),
+            (f"samplers, {N_BATCHES} rounds of {BATCH}", "proposals/s",
+             N_BATCHES * BATCH,
+             {"logqp_stream": lambda: post.logqp_stream(N_BATCHES, BATCH),
+              "sample_chain": lambda: mcmc.sample_chain(N_BATCHES, BATCH),
+              "sample_parallel_chains": lambda: mcmc.sample_parallel_chains(
+                  N_BATCHES, BATCH)})):
         for fn in fns.values():  # untimed: cuDNN's picks, the capture
             fn()
-        rates = {"eager": [], "graphed": []}
-        for key in ("eager", "graphed") * 3 + ("graphed", "eager") * 3:
+        rates = {k: [] for k in fns}
+        for key in tuple(fns) * 3 + tuple(reversed(fns)) * 3:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             fns[key]()
@@ -939,9 +1248,10 @@ def rates_in_turns(torch, card):
 
 def replay_launches(torch, kernels, model, trained, zerodim):
     """Replays alone, profiled: each path's launches by kernel name per
-    batch or step (every one tiled on the flagship, general on the
-    zero-dim model's one site), and the device idle share of one eager and
-    one replayed batch and step."""
+    batch, step or round (every one tiled on the flagship where the kernel
+    has a tiled variant, general on the zero-dim model's one site), and
+    the device idle share of one eager and one replayed batch and step and
+    of one replayed round of each sampler."""
     from normflow__tpu_torch.tools.kernel_times import device_launches
 
     counters = _counters()
@@ -954,6 +1264,12 @@ def replay_launches(torch, kernels, model, trained, zerodim):
                   "rqs_coupling_bwd": 2 * n_layers, "phi4_action": 1,
                   "phi4_action_grad": 1}, 4,
                  lambda: [trained.fit.step() for _ in range(4)])
+    chain = {"rqs_coupling": n_layers, "phi4_action": 1, "accept_scan": 1}
+    gate_replays(path_counters(chain), kernels, "chain", chain, 4,
+                 lambda: model.mcmc.sample_chain(4, BATCH))
+    gate_replays(counters, kernels, "parallel",
+                 {"rqs_coupling": n_layers, "phi4_action": 1}, 4,
+                 lambda: model.mcmc.sample_parallel_chains(4, BATCH))
     want = {"phi4_action": (1, 0), "phi4_action_grad": (1, 0)}
     got = device_launches(zerodim.fit.step)[0]
     print(f"zero-dim fit, one replayed step's launches by profiler name "
@@ -966,6 +1282,10 @@ def replay_launches(torch, kernels, model, trained, zerodim):
                  f"one eager sampled batch of {BATCH}")
     profile_step(lambda: post.logqp_stream(1, BATCH),
                  f"one replayed sampled batch of {BATCH}")
+    profile_step(model.mcmc.chain_graph(BATCH).graph.replay,
+                 f"one replayed sample_chain round of {BATCH}")
+    profile_step(model.mcmc.parallel_graph(BATCH).graph.replay,
+                 f"one replayed sample_parallel_chains round of {BATCH}")
     profile_step(fit.train_body, f"one eager training step at batch "
                  f"{TRAIN_BATCH}")
     profile_step(fit.step, f"one replayed training step at batch "
@@ -993,6 +1313,7 @@ DEVICE_FUNCTIONS = {
     "phi4_action": ("phi4_action_tiled_kernel", "phi4_action_kernel"),
     "phi4_action_grad": ("phi4_action_grad_tiled_kernel",
                          "phi4_action_grad_kernel"),
+    "accept_scan": ("accept_scan_kernel",),
 }
 FLAGSHIP_INSTANCE = "ILi8ELb1ELb1E"
 
@@ -1046,8 +1367,8 @@ def profile_step(fn, what, reps=4):
           f"device busy {busy / reps * 1e3:.4f} ms, idle share "
           f"{1 - busy / wall:.4f}")
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
-    ours = [kv for kv in ranked[10:]
-            if "rqs_coupling" in kv[0] or "phi4_action" in kv[0]]
+    ours = [kv for kv in ranked[10:] if any(
+        k in kv[0] for k in ("rqs_coupling", "phi4_action", "accept_scan"))]
     for kname, us in ranked[:10] + ours:
         print(f"  {us / reps / 1e3:9.4f} ms {us / 1e6 / busy:7.2%}  "
               f"{kname[:90]}")
@@ -1106,15 +1427,22 @@ def main() -> int:
               phase("check rqs_coupling_bwd", check_rqs_bwd, torch, kernels,
                     peaks, rng),
               phase("check phi4_action_grad", check_phi4_grad, torch,
-                    kernels, peaks, rng, action)]
+                    kernels, peaks, rng, action),
+              phase("check accept_scan", check_accept_scan, torch, kernels,
+                    peaks)]
     # before the main path's runs, which are profiled: the rates are taken
     # with no profiler run in the process
     phase("rates in turns", rates_in_turns, torch, card)
     model = phase("sampling path", run_main_path, torch, kernels, rng, card)
+    phase("chain path", run_chain_path, torch, kernels, model, card)
+    phase("parallel chains path", run_parallel_path, torch, kernels, model,
+          card)
+    phase("blocked sampler", run_blocked, torch, kernels, model)
     phase("GPU vs CPU training step", check_train_grads, torch, model, rng)
     trained = phase("training path", run_training_path, torch, kernels,
                     card)
     zerodim = phase("zero-dim fit", run_zerodim, torch)
+    phase("zero-dim exactness", run_exactness, torch, card)
     phase("replay vs eager", replay_vs_eager, torch, model, trained)
     phase("replay launches", replay_launches, torch, kernels, model,
           trained, zerodim)

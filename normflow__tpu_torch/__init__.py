@@ -11,8 +11,12 @@ tensor on the CPU, launches the kernel for a CUDA tensor, and raises for any
 other device.
 """
 
-from .mcmc.metropolis import (MCMCSampler, Metropolis, accept_scan_core,
-                              estimate_accept_rate)
+from . import mcmc, ops
+from .mcmc.metropolis import (BlockedMCMCSampler, MCMCHistory, MCMCSampler,
+                              Metropolis, ModifiedMetropolis, accept_scan,
+                              accept_scan_core, estimate_accept_rate)
+from .models.priors import NormalPrior, PriorList, UniformPrior
+from .ops import observables
 from .ops.stats import Resampler, calc_ess, estimate_logz, fmt_val_err
 from .training import losses
 from .training.fitter import Fitter
@@ -25,7 +29,9 @@ from .training.optim import cosine_decay_schedule
 
 __all__ = [
     "Model", "Posterior", "backward_sanitychecker", "MCMCSampler",
-    "Metropolis", "accept_scan_core", "estimate_accept_rate", "Resampler",
+    "BlockedMCMCSampler", "MCMCHistory", "Metropolis", "ModifiedMetropolis",
+    "accept_scan", "accept_scan_core", "estimate_accept_rate", "mcmc", "ops",
+    "observables", "NormalPrior", "UniformPrior", "PriorList", "Resampler",
     "calc_ess", "estimate_logz", "fmt_val_err", "Fitter", "losses",
     "calc_kl_mean", "calc_kl_var", "calc_corrcoef", "calc_direct_kl_mean",
     "calc_kl_mean_includelogz", "calc_least_squares", "calc_minus_logz",

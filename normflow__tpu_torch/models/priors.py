@@ -1,8 +1,10 @@
 """Prior distributions sampled from an explicit ``torch.Generator``.
 
-Counterpart of ``Prior``/``NormalPrior``
-(``normflow__tpu/models/priors.py:45-103``): where the JAX package threads
-``jax.random`` keys, the port takes a generator on the prior's device.
+Counterpart of ``normflow__tpu/models/priors.py``: ``Prior``,
+``NormalPrior`` and ``UniformPrior`` with ``chopped`` for blocked
+proposals, and ``PriorList``.  Where the JAX package threads
+``jax.random`` keys, the port takes a generator on the prior's device;
+``PriorList`` draws its priors in order from the one generator.
 """
 
 from __future__ import annotations
@@ -12,9 +14,23 @@ import math
 import torch
 from torch import nn
 
-__all__ = ["Prior", "NormalPrior"]
+__all__ = ["Prior", "NormalPrior", "UniformPrior", "PriorList"]
 
 _LOG_2PI = math.log(2.0 * math.pi)
+
+
+def _check_homogeneous(tensors, what):
+    """Raise unless every tensor holds one value at every site.  Blocked
+    proposals reuse one chopped prior for every block, so the proposal
+    density matches each block's own marginal only for a homogeneous prior;
+    per-site parameters would bias every block after the first."""
+    for t in tensors:
+        t = t.reshape(-1)
+        if t.numel() and not bool((t == t[0]).all()):
+            raise ValueError(
+                "blocked proposals need a homogeneous prior (identical "
+                f"{what} at every site); per-site parameters would bias "
+                "every block after the first")
 
 
 class Prior(nn.Module):
@@ -24,9 +40,10 @@ class Prior(nn.Module):
     def sample(self, batch_size: int = 1, generator=None):
         raise NotImplementedError
 
-    def sample_(self, batch_size: int = 1, generator=None):
+    def sample_(self, batch_size: int = 1, generator=None, *,
+                density: bool = False):
         x = self.sample(batch_size, generator)
-        return x, self.log_prob(x)
+        return x, self.log_prob(x, density=density)
 
     def log_prob(self, x, *, density: bool = False):
         d = self.log_prob_density(x)
@@ -37,6 +54,30 @@ class Prior(nn.Module):
     def log_prob_density(self, x):
         raise NotImplementedError
 
+    @property
+    def nvar(self) -> int:
+        return math.prod(self.shape)
+
+    @property
+    def device(self) -> torch.device:
+        """The device of the prior's first buffer."""
+        return next(self.buffers()).device
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """The dtype of the prior's first buffer."""
+        return next(self.buffers()).dtype
+
+
+def _pair(a, b, shape, fill, dtype, device):
+    """Two parameter tensors: ``fill`` at ``shape``, or ``a`` and ``b``."""
+    if shape is not None:
+        shape = (shape,) if isinstance(shape, int) else tuple(shape)
+        return (torch.full(shape, fill[0], dtype=dtype, device=device),
+                torch.full(shape, fill[1], dtype=dtype, device=device))
+    return (torch.as_tensor(a, dtype=dtype, device=device),
+            torch.as_tensor(b, dtype=dtype, device=device))
+
 
 class NormalPrior(Prior):
     """Independent normal prior with per-site ``loc``/``scale`` buffers;
@@ -45,13 +86,7 @@ class NormalPrior(Prior):
     def __init__(self, loc=None, scale=None, *, shape=None, dtype=None,
                  device=None):
         super().__init__()
-        if shape is not None:
-            shape = (shape,) if isinstance(shape, int) else tuple(shape)
-            loc = torch.zeros(shape, dtype=dtype, device=device)
-            scale = torch.ones(shape, dtype=dtype, device=device)
-        else:
-            loc = torch.as_tensor(loc, dtype=dtype, device=device)
-            scale = torch.as_tensor(scale, dtype=dtype, device=device)
+        loc, scale = _pair(loc, scale, shape, (0.0, 1.0), dtype, device)
         self.register_buffer("loc", loc)
         self.register_buffer("scale", scale)
         self.shape = tuple(loc.shape)
@@ -64,3 +99,68 @@ class NormalPrior(Prior):
     def log_prob_density(self, x):
         z = (x - self.loc) / self.scale
         return -0.5 * (z * z + _LOG_2PI) - torch.log(self.scale)
+
+    def chopped(self, block_len: int) -> "NormalPrior":
+        """A flattened prior over the first ``block_len`` sites, for
+        block-Gibbs proposals; raises ``ValueError`` unless the prior is
+        homogeneous."""
+        loc, scale = self.loc.reshape(-1), self.scale.reshape(-1)
+        _check_homogeneous((loc, scale), "loc/scale")
+        return NormalPrior(loc[:block_len], scale[:block_len])
+
+
+class UniformPrior(Prior):
+    """Uniform prior on ``[low, high]`` per site;
+    ``UniformPrior(shape=...)`` is uniform on ``[0, 1]``."""
+
+    def __init__(self, low=None, high=None, *, shape=None, dtype=None,
+                 device=None):
+        super().__init__()
+        low, high = _pair(low, high, shape, (0.0, 1.0), dtype, device)
+        self.register_buffer("low", low)
+        self.register_buffer("high", high)
+        self.shape = tuple(low.shape)
+
+    def sample(self, batch_size: int = 1, generator=None):
+        u = torch.rand((batch_size, *self.shape), generator=generator,
+                       dtype=self.low.dtype, device=self.low.device)
+        return self.low + (self.high - self.low) * u
+
+    def log_prob_density(self, x):
+        inside = (x >= self.low) & (x <= self.high)
+        d = -torch.log(self.high - self.low)
+        return torch.where(inside, d, -math.inf)
+
+    def chopped(self, block_len: int) -> "UniformPrior":
+        """As :meth:`NormalPrior.chopped`."""
+        low, high = self.low.reshape(-1), self.high.reshape(-1)
+        _check_homogeneous((low, high), "low/high")
+        return UniformPrior(low[:block_len], high[:block_len])
+
+
+class PriorList(Prior):
+    """Product of priors over a list of fields: samples and log-probs are
+    lists, one entry per prior, drawn in order from one generator."""
+
+    def __init__(self, priors):
+        super().__init__()
+        self.priors = nn.ModuleList(priors)
+
+    def sample(self, batch_size: int = 1, generator=None):
+        return [p.sample(batch_size, generator) for p in self.priors]
+
+    def log_prob(self, x, *, density: bool = False):
+        return [p.log_prob(x_, density=density)
+                for p, x_ in zip(self.priors, x)]
+
+    @property
+    def nvar(self) -> int:
+        return sum(p.nvar for p in self.priors)
+
+    @property
+    def device(self) -> torch.device:
+        return self.priors[0].device
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.priors[0].dtype

@@ -1,1 +1,6 @@
-"""Numerical building blocks: splines, lattice grids, statistics, kernels."""
+"""Numerical building blocks: splines, lattice grids, statistics,
+observables, kernels."""
+
+from . import observables
+
+__all__ = ["observables"]

@@ -62,6 +62,8 @@ _SIGNATURES = {
     # cfgs, g, grad, B, L0, L1, samples, w0, w2, w4, stream
     "phi4_action_grad_tiled_f32": (_P, _P, _P, _L, _I, _I, _I, _F, _F, _F,
                                    _P),
+    # lrand, logqp, ref, accept, indices, n, stream
+    "accept_scan_f32": (_P, _P, _P, _P, _P, _L, _P),
 }
 
 

@@ -13,9 +13,14 @@ prints, each line starting with ``LABEL``:
   calls, then a synchronise; median of 5 repeats);
 - raw samples/s of ``logqp_stream(32, 1024)`` on the full-width 32x32
   flagship with seeded perturbed weights (median of 7 runs);
+- where the checkout has them, proposals/s of ``mcmc.sample_chain(32,
+  1024)`` and ``mcmc.sample_parallel_chains(32, 1024)`` on that flagship
+  (median of 7 runs);
 - where the checkout has a ``Fitter``, training steps/s of ``model.fit``
   with the bench protocol's settings at batch 512 (20 steps per call,
-  ``steps_per_call=10``; median of 5 calls).
+  ``steps_per_call=10``, each call capturing its step; median of 5
+  calls), then of the replayed step alone (``fit.step()``, 10 steps per
+  run; median of 7 runs).
 """
 
 import math
@@ -84,6 +89,21 @@ def main(src, label):
         rates.append(32 * 1024 / (time.perf_counter() - t0))
     print(f"{label}: logqp_stream(32, 1024) x7 raw samples/s "
           f"{_median_min_max(rates)}")
+    if hasattr(model.mcmc, "sample_chain"):
+        for name, fn in (
+                ("sample_chain", model.mcmc.sample_chain),
+                ("sample_parallel_chains",
+                 model.mcmc.sample_parallel_chains)):
+            fn(4, 1024)
+            rates = []
+            for _ in range(7):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn(32, 1024)
+                torch.cuda.synchronize()
+                rates.append(32 * 1024 / (time.perf_counter() - t0))
+            print(f"{label}: {name}(32, 1024) x7 proposals/s "
+                  f"{_median_min_max(rates)}")
 
     if not hasattr(model, "fit"):
         return
@@ -101,6 +121,15 @@ def main(src, label):
         rates.append(20 / (time.perf_counter() - t0))
     print(f"{label}: model.fit(20 steps, steps_per_call=10) x5 steps/s "
           f"{_median_min_max(rates)}")
+    rates = []
+    for _ in range(7):  # the replayed step alone, no capture
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            model.fit.step()
+        torch.cuda.synchronize()
+        rates.append(10 / (time.perf_counter() - t0))
+    print(f"{label}: fit.step() x10, x7 steps/s {_median_min_max(rates)}")
 
 
 if __name__ == "__main__":

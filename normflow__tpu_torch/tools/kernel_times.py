@@ -54,6 +54,7 @@ KERNEL_RE = {
     "rqs_coupling_bwd": r"\brqs_coupling_bwd(_tiled)?_kernel\b",
     "phi4_action": r"\bphi4_action(_tiled)?_kernel\b",
     "phi4_action_grad": r"\bphi4_action_grad(_tiled)?_kernel\b",
+    "accept_scan": r"\baccept_scan_kernel\b",
 }
 M, LAT, BATCH, TRAIN_BATCH = 8, (32, 32), 1024, 512
 LIM = dict(xlim=(-4.0, 4.0), ylim=(-4.0, 4.0), left="linear", right="linear")
@@ -104,9 +105,10 @@ def _kernel_us(fn, name, reps, between=None, tries=3):
 
 def device_launches(fn):
     """``({kernel: (launches, tiled launches)}, fn())``: the launches of
-    the port's four kernels in one profiled call of ``fn()``, counted by
-    name in the profiler's device events (:data:`KERNEL_RE`; the tiled
-    variants' names hold ``_tiled``), and what ``fn`` returned.  Under a
+    the port's kernels in one profiled call of ``fn()``, counted by name in
+    the profiler's device events (:data:`KERNEL_RE`; the tiled variants'
+    names hold ``_tiled``, and a kernel with no tiled variant counts 0
+    tiled launches), and what ``fn`` returned.  Under a
     CUDA graph a wrapper's ``launches`` counts its warm-up and capture,
     not the replays; this counts every launch on the card."""
     import torch
@@ -126,7 +128,7 @@ def device_launches(fn):
             m = pat.search(e.name)
             if m:
                 counts[k][0] += 1
-                counts[k][1] += m.group(1) is not None
+                counts[k][1] += bool(pat.groups) and m.group(1) is not None
     return {k: tuple(v) for k, v in counts.items() if v[0]}, out
 
 
@@ -166,6 +168,11 @@ def work(name, shape):
         # the forward again, ~100 scalar operations, 2 softmax
         # transpositions (~8m), m sigmoids (~6m) and the selects (~6m)
         return sites * 4 * (4 + 2 * k3), sites * (fwd + 100 + 20 * m)
+    if name == "accept_scan":
+        # reads lrand, logqp and the ref, writes a bool and an int64 index
+        # per proposal; a subtract and a compare each
+        n = shape[0]
+        return n * (4 + 4 + 1 + 8) + 4, 2 * n
     b, sites = shape[0], math.prod(shape)
     if name == "phi4_action":  # phi^2, phi^4 terms, 2 neighbour products
         return 4 * sites + 4 * b, sites * (6 + 3 * 2)

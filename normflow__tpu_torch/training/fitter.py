@@ -257,7 +257,7 @@ class Fitter:
                  self.optimizer, self.loss_fn, self.grad_estimator,
                  *(p.data_ptr() for p in self.params))
         return self._graphs.get(
-            (self.train_batch_size, model.prior.loc.dtype), stamp,
+            (self.train_batch_size, model.prior.dtype), stamp,
             lambda: capture(self.train_body, generators=(model.generator,),
                             keep=self.params
                             + optim.state_leaves(self.opt_state)))

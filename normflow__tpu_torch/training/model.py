@@ -2,8 +2,9 @@
 
 Counterpart of ``normflow__tpu/training/model.py:22-183``: ``Model`` owns
 the net, the prior, the action and a ``torch.Generator`` on the model's
-device (the JAX package's stateful key), and wires up the ``posterior``,
-``mcmc`` and ``fit`` services.  Sampling runs without autograd; training
+device (the JAX package's stateful key), and wires up the ``posterior``
+(alias ``raw_dist``), ``mcmc``, ``blocked_mcmc`` and ``fit`` services.
+Sampling runs without autograd; training
 (``fit``, a ``training.fitter.Fitter``) draws from the same generator.
 On a CUDA model ``Posterior.logqp_stream`` replays one captured batch
 (``utils.graphs``), the counterpart of the JAX package's scanned
@@ -26,21 +27,36 @@ class Model:
 
     def __init__(self, *, prior, net_, action, name: str | None = None,
                  seed: int = 0):
-        from ..mcmc.metropolis import MCMCSampler
+        from ..mcmc.metropolis import BlockedMCMCSampler, MCMCSampler
 
         self.name = name
         self.net_ = net_
         self.prior = prior
         self.action = action
-        self.device = prior.loc.device
+        self.device = prior.device
         self.generator = torch.Generator(device=self.device)
         self.seed(seed)
         self.posterior = Posterior(self)
+        self.raw_dist = self.posterior  # alias, as in the JAX package
         self.mcmc = MCMCSampler(self)
+        self.blocked_mcmc = BlockedMCMCSampler(self)
         self.fit = Fitter(self)
 
     def seed(self, seed: int):
         self.generator.manual_seed(seed)
+
+    def transform(self, x):
+        """The flow's output for ``x`` (no log-Jacobian)."""
+        return self.net_(x)[0]
+
+    def graph_stamp(self) -> tuple:
+        """What a captured graph of this model holds to without seeing it
+        at replay (``utils.graphs.GraphCache``): the net, the prior, the
+        action, and the addresses of the weights and the prior's
+        buffers."""
+        return (self.net_, self.prior, self.action,
+                *(t.data_ptr() for t in (*self.net_.parameters(),
+                                         *self.prior.buffers())))
 
 
 class Posterior:
@@ -50,19 +66,27 @@ class Posterior:
         self._model = model
         self._graphs = GraphCache()
 
+    def sample(self, batch_size: int = 1, generator=None, **kwargs):
+        """``y``."""
+        return self.sample_(batch_size, generator, **kwargs)[0]
+
     @torch.no_grad()
-    def sample_(self, batch_size: int = 1, generator=None):
-        """``(y, logq)``."""
+    def sample_(self, batch_size: int = 1, generator=None,
+                preprocess_func=None):
+        """``(y, logq)``; ``preprocess_func(x, logr) -> (x, logr)`` acts on
+        the prior's draw before the flow."""
         m = self._model
         gen = m.generator if generator is None else generator
         x, logr = m.prior.sample_(batch_size, gen)
+        if preprocess_func is not None:
+            x, logr = preprocess_func(x, logr)
         y, logj = m.net_.forward(x)
         return y, logr - logj
 
     @torch.no_grad()
-    def sample__(self, batch_size: int = 1, generator=None):
+    def sample__(self, batch_size: int = 1, generator=None, **kwargs):
         """``(y, logq, logp)``; ``logp`` is ``log(p z) = -S(y)``."""
-        y, logq = self.sample_(batch_size, generator)
+        y, logq = self.sample_(batch_size, generator, **kwargs)
         return y, logq, -self._model.action(y)
 
     @torch.no_grad()
@@ -82,7 +106,7 @@ class Posterior:
         draws are those of the eager body from the same generator state."""
         m = self._model
         gen = m.generator if generator is None else generator
-        out = torch.empty((n_batches, batch_size), dtype=m.prior.loc.dtype,
+        out = torch.empty((n_batches, batch_size), dtype=m.prior.dtype,
                           device=m.device)
         if m.device.type != "cuda":
             for row in out:
@@ -112,11 +136,8 @@ class Posterior:
         weights given new storage, capture anew."""
         m = self._model
         gen = m.generator if generator is None else generator
-        stamp = (m.net_, m.prior, m.action,
-                 *(t.data_ptr() for t in (*m.net_.parameters(),
-                                          *m.prior.buffers())))
         return self._graphs.get(
-            (batch_size, m.prior.loc.dtype, gen), stamp,
+            (batch_size, m.prior.dtype, gen), m.graph_stamp(),
             lambda: capture(lambda: (self.logqp_batch(batch_size, gen),),
                             generators=(gen,)))
 

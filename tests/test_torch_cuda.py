@@ -28,6 +28,7 @@ import torch
 
 from normflow__tpu_torch.models.actions import ScalarPhi4Action
 from normflow__tpu_torch.ops.kernels import phi4, spline_coupling as sc
+from normflow__tpu_torch.tools.kernel_times import device_launches
 from normflow__tpu_torch.zoo import build_phi4_model
 
 pytestmark = pytest.mark.gpu
@@ -134,9 +135,8 @@ def test_rqs_coupling_variants_agree_bit_for_bit(cuda, np_rng, m, inverse):
 def test_flagship_coupling_launches_the_tiled_kernel(cuda, np_rng, inverse):
     """At the flagship's (1024, 22, 32, 16) the wrapper launches the tiled
     coupling kernel in both directions, as its count and the profiler name
-    it."""
-    from torch.profiler import ProfilerActivity, profile
-
+    it (``device_launches``: 3 launches by name, all of the tiled kernel,
+    none of the per-site one)."""
     out = _f32(np_rng.standard_normal((1024, 22, 32, 16)), cuda)
     x = _f32(np_rng.standard_normal((1024, 32, 16)), cuda)
     kw = dict(xlim=(-4.0, 4.0), ylim=(-4.0, 4.0), left="linear",
@@ -144,15 +144,10 @@ def test_flagship_coupling_launches_the_tiled_kernel(cuda, np_rng, inverse):
     sc.rqs_coupling(x, out, **kw)
     torch.cuda.synchronize()
     before = sc.rqs_coupling.tiled_launches
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            sc.rqs_coupling(x, out, **kw)
-        torch.cuda.synchronize()
+    launches = device_launches(
+        lambda: [sc.rqs_coupling(x, out, **kw) for _ in range(3)])[0]
     assert sc.rqs_coupling.tiled_launches == before + 3
-    names = [e.name for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
-    assert any("rqs_coupling_tiled_kernel" in n for n in names), names
-    assert not any("rqs_coupling_kernel" in n for n in names), names
+    assert launches == {"rqs_coupling": (3, 3)}, launches
 
 
 @pytest.mark.parametrize("lat,hopping", [
@@ -208,24 +203,18 @@ def test_phi4_action_variants_match_plain(cuda, np_rng, b, lat, variant):
 
 def test_flagship_action_launches_the_tiled_kernel(cuda, np_rng):
     """At the flagship's (1024, 32, 32) the wrapper launches the tiled
-    kernel, as its count and the profiler name it."""
-    from torch.profiler import ProfilerActivity, profile
-
+    kernel, as its count and the profiler name it (3 launches by name, all
+    tiled)."""
     cfgs = _f32(np_rng.standard_normal((1024, 32, 32)), cuda)
     assert phi4.action_variant((32, 32), cfgs.data_ptr()) == "tiled"
     assert phi4.action_plan((32, 32)) == (256, 1)
     phi4.phi4_action(cfgs, 0.6, 0.4, 0.5)
     torch.cuda.synchronize()
     before = phi4.phi4_action.tiled_launches
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            phi4.phi4_action(cfgs, 0.6, 0.4, 0.5)
-        torch.cuda.synchronize()
+    launches = device_launches(
+        lambda: [phi4.phi4_action(cfgs, 0.6, 0.4, 0.5) for _ in range(3)])[0]
     assert phi4.phi4_action.tiled_launches == before + 3
-    names = [e.name for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
-    assert any("phi4_action_tiled_kernel" in n for n in names), names
-    assert not any("phi4_action_kernel" in n for n in names), names
+    assert launches == {"phi4_action": (3, 3)}, launches
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):

@@ -31,7 +31,10 @@ def test_sources_import_no_jax():
     # and what runs on the card, where JAX is not installed
     files += [ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py",
               ROOT / "tests" / "test_torch_cuda_grad.py",
-              ROOT / "tests" / "test_torch_cuda_graphs.py"]
+              ROOT / "tests" / "test_torch_cuda_graphs.py",
+              ROOT / "tests" / "test_torch_cuda_mcmc.py",
+              ROOT / "normflow__tpu_torch" / "ops" / "kernels"
+              / "accept_scan.py"]
     assert len(files) > 10
     offenders = [str(f.relative_to(ROOT)) for f in files
                  if FORBIDDEN.search(f.read_text())]
