@@ -9,9 +9,18 @@ Device rule: entry points run on ``cuda`` unless the caller passes
 version of the same function; its wrapper takes the plain version only for a
 tensor on the CPU, launches the kernel for a CUDA tensor, and raises for any
 other device.
+
+The reference's layout is kept too: ``nn`` (the flows under the
+reference's names), ``prior``, ``action``, ``mask``, ``lib`` (the numerical
+building blocks) and ``zoo``; ``normflow__tpu_torch.examples`` holds the
+ported examples.
 """
 
-from . import mcmc, ops
+from . import mcmc, nn, ops, zoo
+from .models import actions as action
+from .models import masks as mask
+from .models import priors as prior
+from . import ops as lib
 from .mcmc.metropolis import (BlockedMCMCSampler, MCMCHistory, MCMCSampler,
                               Metropolis, ModifiedMetropolis, accept_scan,
                               accept_scan_core, estimate_accept_rate)
@@ -35,5 +44,6 @@ __all__ = [
     "calc_ess", "estimate_logz", "fmt_val_err", "Fitter", "losses",
     "calc_kl_mean", "calc_kl_var", "calc_corrcoef", "calc_direct_kl_mean",
     "calc_kl_mean_includelogz", "calc_least_squares", "calc_minus_logz",
-    "calc_minus_ess", "cosine_decay_schedule",
+    "calc_minus_ess", "cosine_decay_schedule", "nn", "zoo", "prior",
+    "action", "mask", "lib",
 ]

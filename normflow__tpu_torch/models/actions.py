@@ -6,10 +6,13 @@ r"""The scalar phi^4 action (``normflow__tpu/models/actions.py:26-88``).
 
 with lattice-spacing-absorbed couplings from :meth:`get_coef`.  The action
 goes through the fused kernel's wrapper (``ops.kernels.phi4_action``),
-which dispatches on the tensor's device.
+which dispatches on the tensor's device; the action density and the
+potential are plain PyTorch.
 """
 
 from __future__ import annotations
+
+import torch
 
 from ..ops.kernels.phi4 import phi4_action
 
@@ -37,6 +40,22 @@ class ScalarPhi4Action:
 
     def action(self, cfgs):
         return phi4_action(cfgs, *self.get_coef(cfgs.dim() - 1))
+
+    def action_density(self, cfgs):
+        """Per-site density with a symmetric, positive kinetic term; it
+        sums to the action."""
+        nd = cfgs.dim() - 1
+        w0, w2, w4 = self.get_coef(nd)
+        w2 = w2 - w0 * nd
+        phi2 = cfgs * cfgs
+        dens = w2 * phi2 + w4 * phi2 * phi2
+        for mu in range(1, cfgs.dim()):
+            dens = dens + (w0 / 4) * (cfgs - torch.roll(cfgs, -1, mu)) ** 2
+            dens = dens + (w0 / 4) * (cfgs - torch.roll(cfgs, +1, mu)) ** 2
+        return dens
+
+    def potential(self, x):
+        return self.m_sq * x**2 + self.lambd * x**4
 
     def log_prob(self, x, action_logz=0.0):
         return -self.action(x) - action_logz

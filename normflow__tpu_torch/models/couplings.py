@@ -1,26 +1,42 @@
-r"""Mask-based coupling flows with per-site rational-quadratic splines.
+r"""Mask-based coupling flows: shift, affine and rational-quadratic spline.
 
-Counterpart of ``Coupling`` (``normflow__tpu/models/couplings.py:36-93``)
-and ``RQSplineCoupling`` (l.214-284).  Net ``k`` reads the frozen
-partition and parameterises the transform of partition ``k % 2``.  The
-conditioner is a PyTorch conv stack on NCHW data; its ``(B, 3m-2, *lat)``
-output goes straight to the fused coupling kernel's wrapper
-(``ops.kernels.rqs_coupling``), which dispatches on the tensor's device.
+Counterpart of ``normflow__tpu/models/couplings.py:36-350``.  Net ``k``
+reads the frozen partition and parameterises the transform of partition
+``k % 2``.  The data keeps the JAX package's layout, ``(B, *lat)`` (with
+any trailing channel axes); the conditioner is a PyTorch module on NCHW
+data, fed the frozen partition with a channel axis 1 in front of the
+lattice, and emits its transform parameters on axis 1: 2 channels for the
+affine ``(t, s)``, ``3m - 2`` for an ``m``-knot spline.
+
+``RQSplineCoupling`` routes as the JAX package's ``_can_fuse`` does: with
+free knots and ``None`` or ``'linear'`` sides the conditioner output goes
+straight to the fused coupling kernel's wrapper (``ops.kernels.
+rqs_coupling``, which dispatches on the tensor's device and raises on the
+card for a knot count it was not built for); fixed knots and the
+reflecting extrapolations take the plain ``ops.spline.rqs`` on either
+device, as the JAX package's XLA branch does.
 """
 
 from __future__ import annotations
 
+import numpy as np
+import torch
 from torch import nn
 
+from ..ops import spline as sp
 from ..ops.kernels.spline_coupling import rqs_coupling
 from .core import Flow, sum_density
+from .elementwise import softplus_log2
 
-__all__ = ["Coupling", "RQSplineCoupling"]
+__all__ = ["Coupling", "ShiftCoupling", "AffineCoupling", "RQSplineCoupling",
+           "MultiRQSplineCoupling"]
 
 
 class Coupling(Flow):
-    """Base coupling: ``mask.split(x) -> (x0, x1)``, net ``k`` transforms
-    partition ``k % 2`` from the other one, ``mask.cat`` reassembles."""
+    """Base coupling: ``mask.split(x) -> (x0, x1, *extra)``, net ``k``
+    transforms partition ``k % 2`` from the other one, and ``mask.cat``
+    reassembles, with any ``extra`` parts of the split (``DoubleMask``'s
+    invisible partition) passed through untouched."""
 
     def __init__(self, nets, *, mask):
         super().__init__()
@@ -28,22 +44,24 @@ class Coupling(Flow):
         self.mask = mask
 
     def forward(self, x, log0=0.0, *, density: bool = False):
-        x = list(self.mask.split(x))
+        parts = list(self.mask.split(x))
+        x, extra = parts[:2], parts[2:]
         for k, net in enumerate(self.nets):
             parity = k % 2
             x[parity], log0 = self.atomic_forward(
                 x_active=x[parity], x_frozen=x[1 - parity], parity=parity,
                 net=net, log0=log0, density=density)
-        return self.mask.cat(*x), log0
+        return self.mask.cat(*x, *extra), log0
 
     def backward(self, x, log0=0.0, *, density: bool = False):
-        x = list(self.mask.split(x))
+        parts = list(self.mask.split(x))
+        x, extra = parts[:2], parts[2:]
         for k in reversed(range(len(self.nets))):
             parity = k % 2
             x[parity], log0 = self.atomic_backward(
                 x_active=x[parity], x_frozen=x[1 - parity], parity=parity,
                 net=self.nets[k], log0=log0, density=density)
-        return self.mask.cat(*x), log0
+        return self.mask.cat(*x, *extra), log0
 
     def atomic_forward(self, *, x_active, x_frozen, parity, net, log0,
                        density):
@@ -59,22 +77,140 @@ class Coupling(Flow):
         return x.unsqueeze(1)
 
 
+def _zero_logj(x, density):
+    if density:
+        return torch.zeros_like(x)
+    return torch.zeros(x.shape[:1], dtype=x.dtype, device=x.device)
+
+
+class ShiftCoupling(Coupling):
+    """Additive coupling ``y = x + t(frozen)``, ``logJ = 0``; ``t`` is the
+    conditioner's channel 0."""
+
+    def _shift(self, x_frozen, net):
+        return net(self.preprocess_fz(x_frozen))[:, 0]
+
+    def atomic_forward(self, *, x_active, x_frozen, parity, net, log0,
+                       density):
+        y = self.mask.purify(x_active + self._shift(x_frozen, net),
+                             channel=parity)
+        return y, log0 + _zero_logj(x_active, density)
+
+    def atomic_backward(self, *, x_active, x_frozen, parity, net, log0,
+                        density):
+        y = self.mask.purify(x_active - self._shift(x_frozen, net),
+                             channel=parity)
+        return y, log0 + _zero_logj(x_active, density)
+
+
+class AffineCoupling(Coupling):
+    r"""Affine coupling ``y = t + x e^{-s}``, ``logJ = -sum s``: ``t`` and
+    ``s`` are the first channels of the two halves of the conditioner's
+    channels (channels 0 and 1 of a two-channel net), ``s <- |s|``, both
+    purified by the mask."""
+
+    def _params(self, x_frozen, parity, net):
+        out = net(self.preprocess_fz(x_frozen))
+        half = out.shape[1] // 2
+        t = self.mask.purify(out[:, 0], channel=parity)
+        s = self.mask.purify(out[:, half], channel=parity)
+        return t, torch.abs(s)
+
+    def atomic_forward(self, *, x_active, x_frozen, parity, net, log0,
+                       density):
+        t, s = self._params(x_frozen, parity, net)
+        return t + x_active * torch.exp(-s), log0 - sum_density(s, density)
+
+    def atomic_backward(self, *, x_active, x_frozen, parity, net, log0,
+                        density):
+        t, s = self._params(x_frozen, parity, net)
+        return (x_active - t) * torch.exp(s), log0 + sum_density(s, density)
+
+
+def _fixed(cache, name, a, out):
+    """The fixed knots ``a`` on ``out``'s device and dtype, kept in
+    ``cache`` under ``name`` for each device and dtype (a CUDA graph must
+    not copy from the host)."""
+    if a is None:
+        return None
+    key = (name, out.device, out.dtype)
+    if key not in cache:
+        cache[key] = torch.as_tensor(np.asarray(a), dtype=out.dtype,
+                                     device=out.device)
+    return cache[key]
+
+
+def _knots_from_net_out(out, *, xlim, ylim, xwidth, ywidth, fixed_x,
+                        fixed_y, extrap):
+    """Per-site knots from the net's channels on the last axis of ``out``:
+    ``(m-1, m-1, m)`` slices for the x knots, the y knots and the
+    derivatives, or ``(m-1, m)`` where one coordinate set is fixed, or the
+    derivatives alone; softmax + cumsum coordinates in the box,
+    ``softplus_log2`` derivatives, then the augmentation ``extrap``."""
+    n = out.shape[-1]
+    if fixed_x is None and fixed_y is None:
+        m = (n + 2) // 3
+        x_, y_, d_ = torch.split(out, [m - 1, m - 1, m], dim=-1)
+        kx = sp.knot_coords(x_, xlim[0], xwidth)
+        ky = sp.knot_coords(y_, ylim[0], ywidth)
+    elif fixed_y is None:
+        m = (n + 2) // 2
+        y_, d_ = torch.split(out, [m - 1, m], dim=-1)
+        kx, ky = fixed_x, sp.knot_coords(y_, ylim[0], ywidth)
+    elif fixed_x is None:
+        m = (n + 2) // 2
+        x_, d_ = torch.split(out, [m - 1, m], dim=-1)
+        kx, ky = sp.knot_coords(x_, xlim[0], xwidth), fixed_y
+    else:
+        kx, ky, d_ = fixed_x, fixed_y, out
+    kd = softplus_log2(d_)
+    if extrap:
+        kx, ky, kd = sp.augment_knots(kx, ky, kd, **dict(extrap))
+    return kx, ky, kd
+
+
 class RQSplineCoupling(Coupling):
-    """Coupling with per-site RQ splines of ``m`` free knots: the net emits
-    ``3m - 2`` channels; ``extrap`` sides are ``None`` or ``'linear'``."""
+    """Coupling with per-site RQ splines: the net emits ``3m - 2`` channels
+    for ``m`` free knots (``2m - 1`` with ``knots_x`` or ``knots_y`` fixed,
+    ``m`` with both); ``extrap`` sides are ``None``, ``'linear'``,
+    ``'anti'``, ``'anti-periodic'`` or ``'periodic'``.  See the module
+    docstring for the route."""
 
     def __init__(self, nets, *, mask, xlim=(0.0, 1.0), ylim=(0.0, 1.0),
-                 extrap=None):
+                 knots_x=None, knots_y=None, extrap=None):
         super().__init__(nets, mask=mask)
         self.xlim, self.ylim = tuple(xlim), tuple(ylim)
         self.extrap = dict(extrap or {})
+        self.knots_x, self.knots_y = knots_x, knots_y
+        self._knots = {}
+
+    def _can_fuse(self):
+        """Whether the fused kernel's wrapper takes this coupling."""
+        return (self.knots_x is None and self.knots_y is None
+                and self.extrap.get("left") in (None, "linear")
+                and self.extrap.get("right") in (None, "linear"))
+
+    def make_knots(self, out):
+        """Per-site knots of the conditioner output ``out``
+        ``(B, C, *lat)``, knots on the last axis."""
+        return _knots_from_net_out(
+            out.movedim(1, -1), xlim=self.xlim, ylim=self.ylim,
+            xwidth=self.xlim[1] - self.xlim[0],
+            ywidth=self.ylim[1] - self.ylim[0],
+            fixed_x=_fixed(self._knots, "x", self.knots_x, out),
+            fixed_y=_fixed(self._knots, "y", self.knots_y, out),
+            extrap=self.extrap)
 
     def _transform(self, x_active, x_frozen, parity, net, inverse):
-        out = net(self.preprocess_fz(x_frozen)).contiguous()
-        fx, logg = rqs_coupling(
-            x_active.contiguous(), out, xlim=self.xlim, ylim=self.ylim,
-            left=self.extrap.get("left"), right=self.extrap.get("right"),
-            inverse=inverse)
+        out = net(self.preprocess_fz(x_frozen))
+        if self._can_fuse():
+            fx, logg = rqs_coupling(
+                x_active.contiguous(), out.contiguous(), xlim=self.xlim,
+                ylim=self.ylim, left=self.extrap.get("left"),
+                right=self.extrap.get("right"), inverse=inverse)
+        else:
+            fx, g = sp.rqs(x_active, *self.make_knots(out), inverse=inverse)
+            logg = torch.log(g)
         return (self.mask.purify(fx, channel=parity),
                 self.mask.purify(logg, channel=parity))
 
@@ -87,3 +223,50 @@ class RQSplineCoupling(Coupling):
                         density):
         fx, logg = self._transform(x_active, x_frozen, parity, net, True)
         return fx, log0 + sum_density(logg, density)
+
+
+class MultiRQSplineCoupling(Coupling):
+    """One RQ spline per input channel, on the plain spline.  The data
+    carries ``num_splines`` trailing channels, ``(B, *lat, c)``; the net
+    takes the frozen partition with those channels on axis 1, and its
+    output channels split evenly into one knot group per spline."""
+
+    def __init__(self, nets, *, mask, xlims=((0.0, 1.0), (0.0, 1.0)),
+                 ylims=((0.0, 1.0), (0.0, 1.0)), knots_x=None, knots_y=None,
+                 extraps=None):
+        super().__init__(nets, mask=mask)
+        n = len(xlims)
+        self.xlims = tuple(map(tuple, xlims))
+        self.ylims = tuple(map(tuple, ylims))
+        self.knots_x = tuple(knots_x or [None] * n)
+        self.knots_y = tuple(knots_y or [None] * n)
+        self.extraps = tuple(dict(e or {}) for e in (extraps or [{}] * n))
+        self._knots = {}
+
+    @property
+    def num_splines(self):
+        return len(self.xlims)
+
+    def _transform(self, x_active, x_frozen, parity, net, inverse):
+        out = net(x_frozen.movedim(-1, 1)).movedim(1, -1)
+        fxs, loggs = [], []
+        for i, (xi, oi) in enumerate(zip(
+                x_active.chunk(self.num_splines, dim=-1),
+                out.chunk(self.num_splines, dim=-1))):
+            kx, ky, kd = _knots_from_net_out(
+                oi, xlim=self.xlims[i], ylim=self.ylims[i],
+                xwidth=self.xlims[i][1] - self.xlims[i][0],
+                ywidth=self.ylims[i][1] - self.ylims[i][0],
+                fixed_x=_fixed(self._knots, ("x", i), self.knots_x[i], out),
+                fixed_y=_fixed(self._knots, ("y", i), self.knots_y[i], out),
+                extrap=self.extraps[i])
+            # the knots broadcast over the channel slice
+            fx, g = sp.rqs(xi, kx[..., None, :], ky[..., None, :],
+                           kd[..., None, :], inverse=inverse)
+            fxs.append(fx)
+            loggs.append(torch.log(g))
+        return (self.mask.purify(torch.cat(fxs, dim=-1), channel=parity),
+                self.mask.purify(torch.cat(loggs, dim=-1), channel=parity))
+
+    atomic_forward = RQSplineCoupling.atomic_forward
+    atomic_backward = RQSplineCoupling.atomic_backward

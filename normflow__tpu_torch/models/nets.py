@@ -1,10 +1,13 @@
-"""Conditioner nets: circular convolutions, conv stacks, row-parity feature.
+"""Conditioner nets: circular convolutions, conv stacks, linear stacks.
 
-Counterpart of ``normflow__tpu/models/nets.py``: ``CircularConv``
-(l.64-132), ``ConvNet`` (l.149-222), ``RowParityFeature`` (l.244-261) and
-the ``ACTIVATIONS`` the flagship uses.  Data here is NCHW, PyTorch's
-layout; weights are OIHW (the JAX package keeps channels last and HWIO
-weights, ``utils.transplant`` converts).
+Counterpart of ``normflow__tpu/models/nets.py``: ``ACTIVATIONS``,
+``CircularConv`` (1-4 spatial dims, per-layer dilation), ``ConvNet``,
+``RowParityFeature``, ``Dense``, ``PlusBias`` and ``LinearNet``.  Data here
+is NCHW, PyTorch's layout; conv weights are OIHW and ``Dense`` weights
+``(out, in)`` (the JAX package keeps channels last, HWIO and ``(in, out)``
+weights; ``utils.transplant`` converts).  A 4-D conv is the sum of 3-D
+convs of the input rolled along the first lattice axis, as in the JAX
+package (neither cuDNN nor XLA has a native 4-D conv).
 """
 
 from __future__ import annotations
@@ -15,67 +18,132 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["ACTIVATIONS", "CircularConv", "ConvNet", "RowParityFeature"]
+from ..ops.lattice import neighbor_mean
 
-ACTIVATIONS = {"tanh": torch.tanh}
+__all__ = ["ACTIVATIONS", "CircularConv", "ConvNet", "RowParityFeature",
+           "Dense", "PlusBias", "LinearNet"]
+
+
+def _avg_neighbor_pool(x):
+    # the lattice axes of NCHW data: all but the batch and channel axes
+    return neighbor_mean(x, axes=range(2, x.dim()))
+
+
+ACTIVATIONS = {
+    "tanh": torch.tanh,
+    "relu": torch.relu,
+    "leaky_relu": F.leaky_relu,  # slope 0.01, as jax.nn.leaky_relu
+    # exact for every x, as JAX's (F.softplus turns linear above 20)
+    "softplus": lambda x: torch.logaddexp(x, torch.zeros_like(x)),
+    "avg_neighbor_pool": _avg_neighbor_pool,
+    "abs": torch.abs,
+    "expit": torch.sigmoid,
+    "logit": lambda x: torch.log(x) - torch.log1p(-x),
+    "none": lambda x: x,
+}
 
 _CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
 
 
+def _uniform(shape, bound, generator, dtype, device):
+    u = torch.rand(shape, generator=generator, dtype=torch.float64)
+    return nn.Parameter(((2 * u - 1) * bound).to(
+        dtype=dtype or torch.get_default_dtype(), device=device))
+
+
 class CircularConv(nn.Module):
-    """One conv layer with periodic padding, 1-3 spatial dims.
+    """One conv layer with periodic padding, 1-4 spatial dims;
+    ``dilation`` spaces the taps that many sites apart.
 
     Weights start Kaiming-uniform with bound ``1/sqrt(fan_in)``, PyTorch's
     conv default and the JAX package's init (``nets.py:49-61``)."""
 
     def __init__(self, in_channels, out_channels, kernel_size, *, conv_dim=2,
-                 bias=True, generator=None, dtype=None, device=None):
+                 bias=True, dilation=1, generator=None, dtype=None,
+                 device=None):
         super().__init__()
         ks = ((kernel_size,) * conv_dim if isinstance(kernel_size, int)
               else tuple(kernel_size))
-        if len(ks) != conv_dim or conv_dim not in _CONV:
+        if len(ks) != conv_dim or not 1 <= conv_dim <= 4:
             raise ValueError(f"conv_dim {conv_dim} with kernel {ks}")
         bound = 1.0 / math.sqrt(in_channels * math.prod(ks))
-
-        def uniform(shape):
-            u = torch.rand(shape, generator=generator, dtype=torch.float64)
-            return nn.Parameter(((2 * u - 1) * bound).to(dtype=dtype,
-                                                         device=device))
-
-        self.weight = uniform((out_channels, in_channels, *ks))
-        self.bias = uniform((out_channels,)) if bias else None
+        kw = dict(generator=generator, dtype=dtype, device=device)
+        self.weight = _uniform((out_channels, in_channels, *ks), bound, **kw)
+        self.bias = _uniform((out_channels,), bound, **kw) if bias else None
         self.conv_dim = conv_dim
+        self.dilation = int(dilation)
+
+    def _convnd(self, x, w, bias=None):
+        # periodic 'same' padding of the dilated extent e = (k-1) d + 1,
+        # split ((e-1)//2, e//2) as in the JAX package; F.pad lists the
+        # last spatial dim first
+        d = self.dilation
+        pad = []
+        for k in reversed(w.shape[2:]):
+            pad += [((k - 1) * d) // 2, ((k - 1) * d + 1) // 2]
+        x = F.pad(x, pad, mode="circular")
+        return _CONV[w.dim() - 2](x, w, bias, dilation=d)
+
+    def _conv4d(self, x):
+        # sum over the first kernel axis of 3-D convs of the input rolled
+        # along the first lattice axis, which goes into the batch
+        b, c, l0, *rest = x.shape
+        k0 = self.weight.shape[2]
+        y = 0.0
+        for i in range(k0):
+            shift = (i - (k0 - 1) // 2) * self.dilation
+            xi = torch.roll(x, -shift, dims=2).transpose(1, 2)
+            yi = self._convnd(xi.reshape(b * l0, c, *rest),
+                              self.weight[:, :, i])
+            y = y + yi.reshape(b, l0, *yi.shape[1:]).transpose(1, 2)
+        return y
 
     def forward(self, x):
-        # periodic 'same' padding split ((k-1)//2, k//2) as in the JAX
-        # package; F.pad lists the last spatial dim first
-        pad = []
-        for k in reversed(self.weight.shape[2:]):
-            pad += [(k - 1) // 2, k // 2]
-        x = F.pad(x, pad, mode="circular")
-        return _CONV[self.conv_dim](x, self.weight, self.bias)
+        if self.conv_dim < 4:
+            return self._convnd(x, self.weight, self.bias)
+        y = self._conv4d(x)
+        if self.bias is not None:
+            y = y + self.bias.reshape(-1, 1, 1, 1, 1)
+        return y
+
+
+def _per_layer(value, n):
+    if value is None:
+        return (1,) * n
+    if isinstance(value, int):
+        return (value,) * n
+    value = tuple(value)
+    if len(value) != n:
+        raise ValueError(f"{len(value)} dilations for {n} layers")
+    return value
 
 
 class ConvNet(nn.Module):
     """Stack of circular conv layers, one activation name (or ``None``)
-    per layer; sizes ``[in_channels, *hidden_sizes, out_channels]``."""
+    per layer, sizes ``[in_channels, *hidden_sizes, out_channels]``, an
+    optional ``pre_act`` and per-layer ``dilations`` (an int or one per
+    layer)."""
 
     def __init__(self, in_channels, out_channels, kernel_size, *, conv_dim=2,
-                 hidden_sizes=(), acts=(None,), bias=True, generator=None,
-                 dtype=None, device=None):
+                 hidden_sizes=(), acts=(None,), pre_act=None, bias=True,
+                 dilations=None, generator=None, dtype=None, device=None):
         super().__init__()
         sizes = [in_channels, *hidden_sizes, out_channels]
         acts = tuple(acts)
         if len(acts) != len(hidden_sizes) + 1:
             raise ValueError("one activation per layer")
+        dil = _per_layer(dilations, len(acts))
         self.layers = nn.ModuleList(
             CircularConv(sizes[i], sizes[i + 1], kernel_size,
-                         conv_dim=conv_dim, bias=bias, generator=generator,
-                         dtype=dtype, device=device)
+                         conv_dim=conv_dim, bias=bias, dilation=dil[i],
+                         generator=generator, dtype=dtype, device=device)
             for i in range(len(acts)))
         self.acts = acts
+        self.pre_act = pre_act
 
     def forward(self, x):
+        if self.pre_act is not None:
+            x = ACTIVATIONS[self.pre_act](x)
         for layer, act in zip(self.layers, self.acts):
             x = layer(x)
             if act is not None:
@@ -98,3 +166,71 @@ class RowParityFeature(nn.Module):
         shape = [1, 1, x.shape[2]] + [1] * (x.dim() - 3)
         plane = par.reshape(shape).expand(x.shape[0], 1, *x.shape[2:])
         return self.net(torch.cat([x, plane], dim=1))
+
+
+class Dense(nn.Module):
+    """One linear layer on the last axis, weight ``(out, in)``; PyTorch's
+    ``Linear`` init, uniform with bound ``1/sqrt(in_features)``."""
+
+    def __init__(self, in_features, out_features, bias=True, *,
+                 generator=None, dtype=None, device=None):
+        super().__init__()
+        bound = 1.0 / math.sqrt(in_features)
+        kw = dict(generator=generator, dtype=dtype, device=device)
+        self.weight = _uniform((out_features, in_features), bound, **kw)
+        self.bias = _uniform((out_features,), bound, **kw) if bias else None
+
+    def forward(self, x):
+        return F.linear(x, self.weight, self.bias)
+
+
+class PlusBias(nn.Module):
+    """A bias add on the last axis, the bias drawn from N(0, 1)."""
+
+    def __init__(self, out_features, *, generator=None, dtype=None,
+                 device=None):
+        super().__init__()
+        b = torch.randn((out_features,), generator=generator,
+                        dtype=torch.float64)
+        self.bias = nn.Parameter(b.to(dtype=dtype or torch.get_default_dtype(),
+                                      device=device))
+
+    def forward(self, x):
+        return x + self.bias
+
+
+class LinearNet(nn.Module):
+    """Stack of ``Dense`` layers with activations on the features axis
+    ``features_axis``, an optional ``pre_act`` and an optional final
+    ``PlusBias``."""
+
+    def __init__(self, in_features, out_features, *, hidden_sizes=(),
+                 acts=(None,), pre_act=None, final_bias=False,
+                 features_axis=-1, bias=True, generator=None, dtype=None,
+                 device=None):
+        super().__init__()
+        sizes = [in_features, *hidden_sizes, out_features]
+        acts = tuple(acts)
+        if len(acts) != len(hidden_sizes) + 1:
+            raise ValueError("one activation per layer")
+        kw = dict(generator=generator, dtype=dtype, device=device)
+        self.layers = nn.ModuleList(
+            Dense(sizes[i], sizes[i + 1], bias=bias, **kw)
+            for i in range(len(acts)))
+        self.final_bias = PlusBias(out_features, **kw) if final_bias else None
+        self.acts = acts
+        self.pre_act = pre_act
+        self.features_axis = features_axis
+
+    def forward(self, x):
+        axis = self.features_axis % x.dim()
+        y = x.movedim(axis, -1)
+        if self.pre_act is not None:
+            y = ACTIVATIONS[self.pre_act](y)
+        for layer, act in zip(self.layers, self.acts):
+            y = layer(y)
+            if act is not None:
+                y = ACTIVATIONS[act](y)
+        if self.final_bias is not None:
+            y = self.final_bias(y)
+        return y.movedim(-1, axis)

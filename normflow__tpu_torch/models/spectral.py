@@ -1,9 +1,9 @@
 r"""Spectral flows: inverse power spectral density, FFT flow, mean-field
 flow and the PSD block.
 
-Counterpart of ``normflow__tpu/models/spectral.py``: ``IPSD`` (l.26-69),
-``FFTFlow`` (l.134-231), ``MeanFieldFlow`` (l.234-272), ``PSDBlock``
-(l.275-311).  The FFT is ``torch.fft.rfftn``/``irfftn``; the spectral
+Counterpart of ``normflow__tpu/models/spectral.py``: ``IPSD`` and
+``IPSDNoZeroMode``, ``FreeScalar``, ``FFTFlow``, ``MeanFieldFlow`` and
+``PSDBlock``.  The FFT is ``torch.fft.rfftn``/``irfftn``; the spectral
 multiply is elementwise in k-space and the exact log-Jacobian carries the
 rfft redundancy correction.
 """
@@ -19,7 +19,8 @@ from ..ops.lattice import rfft_lattice_k2
 from .core import Flow
 from .elementwise import DistConvertor, SplineFlow
 
-__all__ = ["IPSD", "FFTFlow", "MeanFieldFlow", "PSDBlock"]
+__all__ = ["IPSD", "IPSDNoZeroMode", "FreeScalar", "FFTFlow",
+           "MeanFieldFlow", "PSDBlock"]
 
 
 class IPSD(nn.Module):
@@ -31,9 +32,10 @@ class IPSD(nn.Module):
     leaf_order = ("spline", "logy")
 
     def __init__(self, knots_len, *, logy, ignore_zeromode=False,
-                 dtype=None, device=None):
+                 dtype=None, device=None, **spline_kwargs):
         super().__init__()
-        self.spline = SplineFlow(knots_len, dtype=dtype, device=device)
+        self.spline = SplineFlow(knots_len, dtype=dtype, device=device,
+                                 **spline_kwargs)
         self.logy = nn.Parameter(torch.as_tensor(logy, dtype=dtype,
                                                  device=device).clone())
         self.ignore_zeromode = ignore_zeromode
@@ -48,22 +50,96 @@ class IPSD(nn.Module):
             sigma_k2[(0,) * x.dim()].fill_(1.0)
         return sigma_k2
 
+    @staticmethod
+    def apply_scale(logy, *, a, ndim):
+        """Absorb the lattice spacing's powers into the log-scales."""
+        log_a = math.log(a)
+        return [float(logy[0]) + log_a * ndim,
+                float(logy[1]) + log_a * (ndim - 2)]
+
+    def infrared_mass(self, max_lat_k2=None):
+        """The dimensionless infrared mass ``exp(logy[0] / 2)``."""
+        return torch.exp(0.5 * self.logy[0])
+
+
+class IPSDNoZeroMode(nn.Module):
+    """IPSD without the additive mass term, ``y0 * spline(k^2/k^2_max)``,
+    the zero-mode weight pinned to 1."""
+
+    leaf_order = ("spline", "logy")
+
+    def __init__(self, knots_len, *, logy, dtype=None, device=None,
+                 **spline_kwargs):
+        super().__init__()
+        self.spline = SplineFlow(knots_len, dtype=dtype, device=device,
+                                 **spline_kwargs)
+        self.logy = nn.Parameter(torch.as_tensor(logy, dtype=dtype,
+                                                 device=device).clone())
+
+    def forward(self, x):
+        s, _ = self.spline.forward(x, density=True)
+        sigma_k2 = torch.exp(self.logy[0]) * s
+        sigma_k2[(0,) * x.dim()].fill_(1.0)
+        return sigma_k2
+
+    @staticmethod
+    def apply_scale(logy, *, a, ndim):
+        return [float(logy[0]) + math.log(a) * (ndim - 2)]
+
+    def infrared_mass(self, max_lat_k2):
+        """From the slope of the raw curve at k = 0 (the zero-mode pin is
+        left out: it guards the FFT weight, it is not the curve)."""
+        k = torch.tensor([1e-6 / max_lat_k2, 2e-6 / max_lat_k2],
+                         dtype=self.logy.dtype, device=self.logy.device)
+        s, _ = self.spline.forward(k, density=True)
+        z = torch.exp(self.logy[0]) * s
+        return torch.sqrt(z[0] / ((z[1] - z[0]) / 1e-6))
+
+
+class FreeScalar:
+    """The free theory's momentum grid (``calc_lattice_k2``)."""
+
+    def __init__(self, lat_shape, kappa=None, m_sq=None):
+        self.lat_shape = tuple(lat_shape)
+        self.kappa, self.m_sq = kappa, m_sq
+
+    def calc_lattice_k2(self, dtype=torch.float64, device=None):
+        return rfft_lattice_k2(self.lat_shape, dtype, device)
+
 
 class FFTFlow(Flow):
     r"""Linear spectral flow ``y = irfftn(rfftn(x) * w)``,
     ``w = ipsd^{-1/2}``, over the trailing ``len(lat_shape)`` axes.  The
-    IPSD starts at unit effective mass and kappa: ``logy = (0, log k2_max)``
-    (``FFTFlow.build`` with its defaults)."""
+    IPSD starts at the effective mass and kappa ``eff_mass2``,
+    ``eff_kappa`` at spacing ``a``: ``logy = (log m2, log(kappa k2_max))``
+    scaled by ``IPSD.apply_scale`` (``FFTFlow.build``); fewer than 2 knots
+    give a smooth 2-knot spline.  ``ipsd_net`` replaces the IPSD (an
+    ``IPSDNoZeroMode``, say); other keywords go to the IPSD's spline."""
 
-    def __init__(self, lat_shape, knots_len=10, *, ignore_zeromode=False,
-                 dtype=None, device=None):
+    def __init__(self, lat_shape, knots_len=10, *, eff_mass2=1.0,
+                 eff_kappa=1.0, a=1.0, ignore_zeromode=False, ipsd_net=None,
+                 dtype=None, device=None, **ipsd_kwargs):
         super().__init__()
         self.lat_shape = tuple(lat_shape)
+        if ipsd_net is None:
+            max_k2 = float(torch.max(rfft_lattice_k2(self.lat_shape,
+                                                     torch.float64)))
+            if knots_len < 2:
+                knots_len = 2
+                ipsd_kwargs.setdefault("smooth", True)
+            logy = IPSD.apply_scale(
+                [math.log(eff_mass2), math.log(eff_kappa * max_k2)], a=a,
+                ndim=len(self.lat_shape))
+            ipsd_net = IPSD(knots_len, logy=logy,
+                            ignore_zeromode=ignore_zeromode, dtype=dtype,
+                            device=device, **ipsd_kwargs)
+        self.ipsd_net = ipsd_net
+
+    @property
+    def infrared_mass(self):
         max_k2 = float(torch.max(rfft_lattice_k2(self.lat_shape,
                                                  torch.float64)))
-        self.ipsd_net = IPSD(knots_len, logy=[0.0, math.log(max_k2)],
-                             ignore_zeromode=ignore_zeromode, dtype=dtype,
-                             device=device)
+        return self.ipsd_net.infrared_mass(max_lat_k2=max_k2)
 
     @property
     def _fft_dims(self):
@@ -107,22 +183,36 @@ class FFTFlow(Flow):
 
 
 class MeanFieldFlow(Flow):
-    """Distribution convertor for the volume-mean mode.  Inside the PSD
-    block it receives the mean field and ``rvol = sqrt(V)``: the mean is
-    scaled by ``rvol``, converted and scaled back."""
+    """Distribution convertor (``DistConvertor(knots_len, **kwargs)``) for
+    the volume-mean mode.  Inside the PSD block it receives the mean field
+    and ``rvol = sqrt(V)``: the mean is scaled by ``rvol``, converted and
+    scaled back.  Without ``rvol`` it takes the whole field, converts its
+    mean and leaves the fluctuation as it is; its log-Jacobian density is
+    then spread over the lattice."""
 
     def __init__(self, knots_len=10, *, dtype=None, device=None, **kwargs):
         super().__init__()
         self.dc = DistConvertor(knots_len, dtype=dtype, device=device,
                                 **kwargs)
 
-    def forward(self, x, log0=0.0, *, rvol, density: bool = False):
-        y_scaled, log0 = self.dc.forward(x * rvol, log0, density=density)
-        return y_scaled / rvol, log0
+    def forward(self, x, log0=0.0, *, rvol=None, density: bool = False):
+        return self._convert(x, log0, density, rvol, self.dc.forward)
 
-    def backward(self, x, log0=0.0, *, rvol, density: bool = False):
-        y_scaled, log0 = self.dc.backward(x * rvol, log0, density=density)
-        return y_scaled / rvol, log0
+    def backward(self, x, log0=0.0, *, rvol=None, density: bool = False):
+        return self._convert(x, log0, density, rvol, self.dc.backward)
+
+    @staticmethod
+    def _convert(x, log0, density, rvol, fn):
+        if rvol is not None:
+            y_scaled, log0 = fn(x * rvol, log0, density=density)
+            return y_scaled / rvol, log0
+        dims = tuple(range(1, x.dim()))
+        rvol = float(math.prod(x.shape[1:])) ** 0.5
+        x_mean = torch.mean(x, dim=dims, keepdim=True)
+        y_scaled, logj = fn(x_mean * rvol, 0.0, density=False)
+        if density:
+            logj = _spread_density(logj, x.shape[1:])
+        return x + (y_scaled / rvol - x_mean), log0 + logj
 
 
 def _spread_density(logj, lat_shape):
@@ -139,7 +229,7 @@ class PSDBlock(Flow):
 
     def __init__(self, mfnet, fftnet):
         super().__init__()
-        if not fftnet.ipsd_net.ignore_zeromode:
+        if not getattr(fftnet.ipsd_net, "ignore_zeromode", True):
             # the mean-field flow owns the zero mode
             raise ValueError(
                 "PSDBlock needs an fftnet built with ignore_zeromode=True")

@@ -1,6 +1,8 @@
 r"""Monotone rational-quadratic splines.
 
-Counterpart of ``normflow__tpu/ops/spline.py:46-147, 177-186, 209-273``.
+Counterpart of ``normflow__tpu/ops/spline.py:46-273``: the rational-quadratic
+map and the rational-linear (Pade 1/1) one, their parameter-free knot
+derivatives, and the knot augmentations for extrapolation.
 Knots live on the last axis; ``x`` has any shape ``S`` and the knot arrays
 broadcast against ``S + (K,)`` (shared knots ``(K,)`` or per-site knots).
 The segment is found by a comparison count and its parameters are read
@@ -12,8 +14,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["knot_coords", "searchsorted_last", "rqs",
-           "smooth_derivatives_rq", "augment_knots"]
+__all__ = ["knot_coords", "searchsorted_last", "rqs", "rls",
+           "smooth_derivatives_rq", "smooth_derivatives_rl", "augment_knots"]
 
 
 def knot_coords(w, lo, width):
@@ -91,6 +93,26 @@ def rqs(x, kx, ky, kd, *, inverse: bool = False):
     return xout, 1.0 / _rq_grad(theta, m, d0, d1)
 
 
+def rls(x, kx, ky, kd, *, inverse: bool = False):
+    """Monotone rational-linear (Pade 1/1) spline map or its inverse; only
+    each segment's left derivative ``d0`` is used.  Returns ``(out, grad)``
+    as :func:`rqs` does."""
+    lookup = ky if inverse else kx
+    x0, x1, y0, y1, d0, _ = _gather_segment_params(x, kx, ky, kd, lookup)
+    m = (y1 - y0) / (x1 - x0)
+
+    def grad_of(theta):
+        return m**2 * d0 / (m + (d0 - m) * theta) ** 2
+
+    if not inverse:
+        theta = (x - x0) / (x1 - x0)
+        y = y0 + (y1 - y0) * d0 * theta / (m + (d0 - m) * theta)
+        return y, grad_of(theta)
+    eta = (x - y0) / (y1 - y0)
+    theta = -eta * m / (eta * (d0 - m) - d0)
+    return x0 + (x1 - x0) * theta, 1.0 / grad_of(theta)
+
+
 def smooth_derivatives_rq(kx, ky):
     """Knot derivatives without parameters: the mean of the adjacent
     segment slopes inside, the adjacent slope at the two ends."""
@@ -99,15 +121,39 @@ def smooth_derivatives_rq(kx, ky):
     return torch.cat([m[..., :1], inner, m[..., -1:]], dim=-1)
 
 
+def smooth_derivatives_rl(kx, ky):
+    """Knot derivatives for the rational-linear spline: ``d_0 = 1`` and
+    ``d_{k+1} = m_k^2 / d_k``, which makes every interior derivative
+    continuous."""
+    m = (ky[..., 1:] - ky[..., :-1]) / (kx[..., 1:] - kx[..., :-1])
+    d = torch.ones_like(m[..., :1])
+    ds = [d]
+    for i in range(kx.shape[-1] - 1):
+        d = m[..., i:i + 1] ** 2 / d
+        ds.append(d)
+    return torch.cat(ds, dim=-1)
+
+
+def _check_periodic_edge(edge):
+    """'periodic' needs a zero derivative at the boundary knot.  The check
+    reads the device, so it is left out while a CUDA graph is captured."""
+    if edge.is_cuda and torch.cuda.is_current_stream_capturing():
+        return
+    if not bool(torch.all(torch.abs(edge) <= 1e-8)):
+        raise ValueError("periodic knot augmentation requires a zero "
+                         "derivative at the boundary knot")
+
+
 def augment_knots(kx, ky, kd, *, left=None, right=None):
     """Augment knots for extrapolation, in two passes: ``'linear'`` sides
-    get one knot continuing the boundary derivative first; ``'anti'``
-    reflections (odd mirror about the boundary knot) then act on the
-    linearly augmented arrays.  Only the modes of the flagship path
-    (``None``, ``'linear'``, ``'anti'``) are supported."""
+    get one knot continuing the boundary derivative first; the reflections
+    then act on the linearly augmented arrays: ``'anti'`` (or
+    ``'anti-periodic'``) an odd mirror of all knots about the boundary
+    knot, ``'periodic'`` an even one, which needs a zero derivative
+    there."""
     for mode in (left, right):
-        if mode not in (None, "linear", "anti"):
-            raise NotImplementedError(f"knot augmentation {mode!r}")
+        if mode not in (None, "linear", "anti", "anti-periodic", "periodic"):
+            raise ValueError(f"unknown knot augmentation {mode!r}")
     kx, ky, kd = torch.broadcast_tensors(kx, ky, kd)
 
     def cat(parts):
@@ -124,8 +170,13 @@ def augment_knots(kx, ky, kd, *, left=None, right=None):
         ky = cat([lparts and lparts[1], ky, rparts and rparts[1]])
         kd = cat([lparts and lparts[2], kd, rparts and rparts[2]])
 
-    # Pass 2: odd reflections of the (possibly linear-augmented) arrays.
-    def reflect(is_left):
+    # Pass 2: reflections of the (possibly linear-augmented) arrays.
+    def reflect(mode, is_left):
+        anti = mode in ("anti", "anti-periodic")
+        if not (anti or mode == "periodic"):
+            return None
+        if not anti:
+            _check_periodic_edge(kd[..., :1] if is_left else kd[..., -1:])
         flip = lambda a: torch.flip(a, dims=(-1,))  # noqa: E731
         if is_left:
             xs, ys, ds = flip(kx[..., 1:]), flip(ky[..., 1:]), flip(kd[..., 1:])
@@ -134,10 +185,12 @@ def augment_knots(kx, ky, kd, *, left=None, right=None):
             xs, ys, ds = (flip(kx[..., :-1]), flip(ky[..., :-1]),
                           flip(kd[..., :-1]))
             x_edge, y_edge = kx[..., -1:], ky[..., -1:]
-        return 2 * x_edge - xs, 2 * y_edge - ys, ds
+        if anti:
+            return 2 * x_edge - xs, 2 * y_edge - ys, ds
+        return 2 * x_edge - xs, ys, -ds
 
-    lref = reflect(True) if left == "anti" else None
-    rref = reflect(False) if right == "anti" else None
+    lref = reflect(left, True)
+    rref = reflect(right, False)
     if lref is not None or rref is not None:
         kx = cat([lref and lref[0], kx, rref and rref[0]])
         ky = cat([lref and lref[1], ky, rref and rref[1]])

@@ -12,13 +12,18 @@ For each kernel at the main path's shapes (``rqs_coupling`` forward and
 inverse at B = 1024, the sampling batch, and at B = 512, the training
 batch; ``rqs_coupling_bwd`` at B = 512 forward and inverse; all with
 linear tails on the flagship's 32x16 sites and m = 8; ``phi4_action`` at
-(1024, 32, 32); ``phi4_action_grad`` at (512, 32, 32)) it prints, each
-line starting with ``LABEL``, the median device time per launch from
-``torch.profiler`` (the kernel's own events, by name) with the inputs warm
-in L2 and with L2 flushed before every launch (a 256 MB buffer written
+(1024, 32, 32); ``phi4_action_grad`` at (512, 32, 32)), and at the
+unpacked flagship's and the 8x8 affine example's shapes (the coupling at
+32x32 = 1024 sites at B = 1024 and 512 and its VJP at B = 512; the action
+and its force at (128, 8, 8), which take the general kernels) it prints, each
+line starting with ``LABEL``, the median device time per launch from CUDA
+events around each call, the device held behind a spin kernel so that the
+host is ahead, less what the events add around nothing (:func:`warm_ms`;
+that is printed first, :func:`event_floor_ms`), with the inputs warm in
+L2 and with L2 flushed before every launch (a 256 MB buffer written
 between launches), the least time the card could take (:func:`bound_ms`)
 and the share of it each time reaches.  It saves every kernel's outputs on
-the seeded inputs to ``OUT.pt`` (about 50 MB).  ``CASES``, a regular
+the seeded inputs to ``OUT.pt`` (about 180 MB).  ``CASES``, a regular
 expression, keeps the cases whose name it matches.  It also prints the SASS
 instructions of each device function's flagship instance in the built
 library (``cuobjdump -sass``, :func:`sass_counts`) and the time their issue
@@ -27,9 +32,10 @@ alone needs at the path's shapes (:func:`issue_ms`).
 ``--compare`` holds two such files against each other: ``rqs_coupling``,
 ``rqs_coupling_bwd`` and ``phi4_action_grad`` bit for bit,
 ``phi4_action`` to max |dS| / max(1, |S|) <= 2e-5; it exits 1 if one
-differs.  :func:`warm_ms`, :func:`cold_ms`, :func:`bound_ms`,
-:func:`work`, :func:`card_peaks` and :func:`device_launches` serve
-``chip_smoke.py`` and the ``gpu`` tests too.
+differs (cases that only one file holds are left out).  :func:`warm_ms`,
+:func:`cold_ms`, :func:`event_floor_ms`, :func:`bound_ms`, :func:`work`,
+:func:`card_peaks` and :func:`device_launches` serve ``chip_smoke.py`` and
+the ``gpu`` tests too.
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ import sys
 
 PHI4_REL_TOL = 2e-5
 FLUSH_BYTES = 256 * 2 ** 20  # > 2 x the H100's 50 MB L2
+HEAD_CYCLES = 1 << 20  # the spin ahead of a timed call: ~0.5 ms on an H100
 # the card's published peaks (NVIDIA data sheets), keyed by a part of the
 # name nvidia-smi reports: memory bytes/s and float32 (non-tensor) FLOP/s
 PEAKS = (("H100 NVL", 3.9e12, 60e12), ("H100 PCIe", 2.0e12, 51e12),
@@ -75,32 +82,56 @@ def bound_ms(nbytes, nops, peaks):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _kernel_us(fn, name, reps, between=None, tries=3):
-    """Device microseconds of each launch of kernel ``name`` over ``reps``
-    calls of ``fn()``, ``between()`` before each.  The profiler may drop
-    events of a window, one at its start or, rarely, all: a window that
-    shows fewer than half the launches is profiled again, up to ``tries``
-    times, and then it raises."""
+def _event_us(fn, reps, between=None):
+    """Device microseconds of each of ``reps`` calls of ``fn()``,
+    ``between()`` before each: the span between two CUDA events recorded
+    on the stream just before and just after the call.  A spin kernel
+    (``torch.cuda._sleep``) is queued ahead of each call, so the host has
+    enqueued the whole call before the device reaches it and the span is
+    the call's device time plus the events' own latency
+    (:func:`event_floor_ms`), not the host's.  A call whose spin the device
+    finished before the host had enqueued it is timed again behind a spin
+    twice as long; after 8 doublings it raises.  No profiler is involved:
+    :func:`device_launches` counts by kernel name."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    pat = re.compile(KERNEL_RE[name])
-    for _ in range(tries):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                if between is not None:
-                    between()
-                fn()
-            torch.cuda.synchronize()
-        us = [e.time_range.elapsed_us() for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and pat.search(e.name)]
-        if reps // 2 <= len(us) <= reps:
-            return us
-    raise RuntimeError(f"the profiler saw {len(us)} launches of {name} in "
-                       f"{reps} calls, {tries} times")
+    spans, cycles = [], HEAD_CYCLES
+    torch.cuda.synchronize()
+    while len(spans) < reps:
+        if between is not None:
+            between()
+        torch.cuda._sleep(cycles)
+        ready = torch.cuda.Event()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        ready.record()
+        start.record()
+        fn()
+        end.record()
+        if not ready.query():
+            spans.append((start, end))
+        elif cycles < HEAD_CYCLES << 8:
+            cycles *= 2
+        else:
+            raise RuntimeError(f"the device caught up with the host behind "
+                               f"a spin of {cycles} cycles")
+    torch.cuda.synchronize()
+    return [start.elapsed_time(end) * 1e3 for start, end in spans]
+
+
+def event_floor_ms(reps=50):
+    """Median ms between two CUDA events with nothing between them, timed
+    as :func:`_event_us` times a call: what the events add to a call."""
+    return statistics.median(_event_us(lambda: None, reps)) / 1e3
+
+
+def _call_ms(fn, reps, between=None):
+    """Median device ms of one call of ``fn()`` (:func:`_event_us`) less
+    :func:`event_floor_ms`.  What is left holds the device's latency in
+    starting the call's kernel after the first event (about a microsecond
+    more than the profiler's kernel time on an H100)."""
+    call = statistics.median(_event_us(fn, reps, between)) / 1e3
+    return call - event_floor_ms(reps)
 
 
 def device_launches(fn):
@@ -110,7 +141,10 @@ def device_launches(fn):
     names hold ``_tiled``, and a kernel with no tiled variant counts 0
     tiled launches), and what ``fn`` returned.  Under a
     CUDA graph a wrapper's ``launches`` counts its warm-up and capture,
-    not the replays; this counts every launch on the card."""
+    not the replays; this counts every launch on the card.  The raw
+    events are read: the profiler's event tree takes minutes to build for
+    a thousand replayed steps.  (A window that traces the device alone
+    saw no events on the card.)"""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -121,35 +155,37 @@ def device_launches(fn):
                              ProfilerActivity.CUDA]) as prof:
         out = fn()
         torch.cuda.synchronize()
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+    cuda = torch.autograd.DeviceType.CUDA
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != cuda:
             continue
+        name = e.name()
         for k, pat in pats.items():
-            m = pat.search(e.name)
+            m = pat.search(name)
             if m:
                 counts[k][0] += 1
                 counts[k][1] += bool(pat.groups) and m.group(1) is not None
     return {k: tuple(v) for k, v in counts.items() if v[0]}, out
 
 
-def warm_ms(fn, name, reps=50):
-    """Median device ms of one launch of ``name`` when ``fn()`` runs again
-    and again on the same tensors (they stay in L2 where they fit)."""
+def warm_ms(fn, reps=50):
+    """Median device ms of one call of ``fn()`` (:func:`_call_ms`) when
+    it runs again and again on the same tensors (they stay in L2 where
+    they fit)."""
     for _ in range(5):
         fn()
-    return statistics.median(_kernel_us(fn, name, reps)) / 1e3
+    return _call_ms(fn, reps)
 
 
-def cold_ms(fn, name, reps=30):
-    """Median device ms of one launch of ``name`` with L2 flushed before
-    it: a 256 MB buffer is written between launches."""
+def cold_ms(fn, reps=30):
+    """Median device ms of one call of ``fn()`` (:func:`_call_ms`) with
+    L2 flushed before it: a 256 MB buffer is written between calls."""
     import torch
 
     flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32,
                         device="cuda")
     fn()
-    return statistics.median(
-        _kernel_us(fn, name, reps, between=lambda: flush.fill_(1.0))) / 1e3
+    return _call_ms(fn, reps, between=lambda: flush.fill_(1.0))
 
 
 def work(name, shape):
@@ -242,10 +278,20 @@ def inputs(torch, rng, w):
     ybar, loggbar = f32((TRAIN_BATCH, *lat)), f32((TRAIN_BATCH, *lat))
     cfgs3, cfgs4 = f32((BATCH, *LAT)), f32((TRAIN_BATCH, *LAT))
     g4 = f32((TRAIN_BATCH,))
+    # the unpacked flagship: every site; the affine example: 8x8, B = 128
+    xu, outu = f32((BATCH, *LAT)), f32((BATCH, k3, *LAT))
+    xu2, outu2 = xu[:TRAIN_BATCH], outu[:TRAIN_BATCH]
+    ybaru, loggbaru = f32((TRAIN_BATCH, *LAT)), f32((TRAIN_BATCH, *LAT))
+    cfgs8, g8 = f32((128, 8, 8)), f32((128,))
 
     def coupling(x, out, inverse):
         return ("rqs_coupling", tuple(out.shape), lambda sc, ph:
                 sc.rqs_coupling(x, out, inverse=inverse, **LIM))
+
+    def vjp(inverse):
+        return ("rqs_coupling_bwd", tuple(outu2.shape), lambda sc, ph:
+                sc.rqs_coupling_bwd(xu2, outu2, ybaru, loggbaru,
+                                    inverse=inverse, **LIM))
 
     return {
         "rqs_coupling forward": coupling(x1, out1, False),
@@ -265,6 +311,18 @@ def inputs(torch, rng, w):
         "phi4_action_grad": ("phi4_action_grad", tuple(cfgs4.shape),
                              lambda sc, ph: ph.phi4_action_grad(cfgs4, g4,
                                                                 *w)),
+        "rqs_coupling forward S=1024": coupling(xu, outu, False),
+        "rqs_coupling inverse S=1024": coupling(xu, outu, True),
+        "rqs_coupling forward S=1024 B=512": coupling(xu2, outu2, False),
+        "rqs_coupling inverse S=1024 B=512": coupling(xu2, outu2, True),
+        "rqs_coupling_bwd forward S=1024": vjp(False),
+        "rqs_coupling_bwd inverse S=1024": vjp(True),
+        "phi4_action (128, 8, 8)": ("phi4_action", tuple(cfgs8.shape),
+                                    lambda sc, ph: ph.phi4_action(cfgs8,
+                                                                  *w)),
+        "phi4_action_grad (128, 8, 8)": (
+            "phi4_action_grad", tuple(cfgs8.shape),
+            lambda sc, ph: ph.phi4_action_grad(cfgs8, g8, *w)),
     }
 
 
@@ -286,6 +344,7 @@ def measure(src, label, path, cases=""):
         check=True).stdout.splitlines()[0].strip()
     peaks = card_peaks(torch.cuda.get_device_name(0))
     saved = {"card": card}
+    print(f"{label}: CUDA events alone {event_floor_ms():.5f} ms on {card}")
     with torch.no_grad():
         w = ScalarPhi4Action(kappa=0.6, m_sq=-2.4, lambd=0.5).get_coef(2)
         for case, (name, shape, call) in inputs(
@@ -297,7 +356,7 @@ def measure(src, label, path, cases=""):
             torch.cuda.synchronize()
             saved[case] = [t.cpu() for t in
                            (got if isinstance(got, tuple) else (got,))]
-            warm, cold = warm_ms(fn, name), cold_ms(fn, name)
+            warm, cold = warm_ms(fn), cold_ms(fn)
             bms, by = bound_ms(*work(name, shape), peaks)
             print(f"{label}: {case} warm {warm:.5f} ms ({bms / warm:.3f} of "
                   f"bound), cold {cold:.5f} ms ({bms / cold:.3f}); bound "
@@ -355,9 +414,9 @@ def compare(path_a, path_b):
     a, b = torch.load(path_a), torch.load(path_b)
     ok = True
     for case in a:
-        if case == "card":
+        if case == "card" or case not in b:
             continue
-        if case == "phi4_action":
+        if case.split()[0] == "phi4_action":
             want, got = a[case][0].double(), b[case][0].double()
             rel = float(((got - want).abs() / want.abs().clamp(min=1.0))
                         .max())

@@ -151,14 +151,17 @@ def sgd(learning_rate, weight_decay=0.0) -> Transform:
 
 def multi_transform(txs: dict, labels) -> Transform:
     """One transform per group: ``labels[i]`` names the key of ``txs`` that
-    updates parameter ``i`` (``optax.multi_transform``)."""
+    updates parameter ``i`` (``optax.multi_transform``).  A group with no
+    parameter keeps its state too, on the parameters' device."""
     groups = {k: [i for i, lab in enumerate(labels) if lab == k] for k in txs}
 
     def pick(xs, k):
         return [xs[i] for i in groups[k]]
 
     def init(params):
-        return {k: tx.init(pick(params, k)) for k, tx in txs.items()}
+        device = params[0].device if params else None
+        return {k: _on(tx.init(pick(params, k)), device)
+                for k, tx in txs.items()}
 
     def update(grads, state, params):
         out, new_state = [None] * len(grads), {}
@@ -190,6 +193,18 @@ def cosine_decay_schedule(init_value, decay_steps, alpha=0.0,
         return init_value * ((1 - alpha) * cosine_decay ** exponent + alpha)
 
     return schedule
+
+
+def _on(state, device):
+    """``state`` (nested tuples, lists and dicts) with its tensors on
+    ``device``."""
+    if isinstance(state, torch.Tensor):
+        return state.to(device)
+    if isinstance(state, dict):
+        return {k: _on(v, device) for k, v in state.items()}
+    if isinstance(state, (list, tuple)):
+        return type(state)(_on(v, device) for v in state)
+    return state
 
 
 def state_leaves(state):

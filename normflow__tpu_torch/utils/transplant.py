@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..models.nets import CircularConv
+from ..models.nets import CircularConv, Dense
 
 __all__ = ["jax_leaf_order", "load_jax_leaves", "jax_leaf_grads"]
 
@@ -37,15 +37,16 @@ def jax_leaf_order(module):
 @torch.no_grad()
 def load_jax_leaves(net, leaves: dict):
     """Copy JAX leaves into ``net``.  Conv weights go HWIO -> OIHW (the
-    input-channel order is kept: field first, row parity second).  Raises
-    on a count or shape mismatch."""
+    input-channel order is kept: field first, row parity second) and
+    ``Dense`` weights ``(in, out) -> (out, in)``.  Raises on a count or
+    shape mismatch."""
     params = list(jax_leaf_order(net))
     if len(params) != len(leaves):
         raise ValueError(f"{len(leaves)} JAX leaves for {len(params)} "
                          "parameters: architecture mismatch")
     for i, (owner, name, p) in enumerate(params):
         a = np.asarray(leaves[str(i)])
-        if _is_conv_weight(owner, name):
+        if _is_transposed(owner, name):
             a = a.transpose(a.ndim - 1, a.ndim - 2, *range(a.ndim - 2))
         if tuple(a.shape) != tuple(p.shape):
             raise ValueError(f"leaf {i} ({type(owner).__name__}.{name}): "
@@ -54,19 +55,21 @@ def load_jax_leaves(net, leaves: dict):
     return net
 
 
-def _is_conv_weight(owner, name):
-    return isinstance(owner, CircularConv) and name == "weight"
+def _is_transposed(owner, name):
+    """Conv and ``Dense`` weights, whose axes the two packages order
+    differently."""
+    return isinstance(owner, (CircularConv, Dense)) and name == "weight"
 
 
 def jax_leaf_grads(net) -> dict:
     """``{str(i): ndarray}`` of every parameter's ``.grad`` in the JAX
-    package's leaf order, conv gradients transposed back OIHW -> HWIO (a
-    parameter without a gradient gives zeros)."""
+    package's leaf order, conv and ``Dense`` gradients transposed back to
+    the JAX layouts (a parameter without a gradient gives zeros)."""
     out = {}
     for i, (owner, name, p) in enumerate(jax_leaf_order(net)):
         g = p.grad if p.grad is not None else torch.zeros_like(p)
         a = g.detach().cpu().numpy()
-        if _is_conv_weight(owner, name):
+        if _is_transposed(owner, name):
             a = a.transpose(*range(2, a.ndim), 1, 0)
         out[str(i)] = a
     return out

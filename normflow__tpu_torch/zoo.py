@@ -1,9 +1,14 @@
 """Model zoo: the 2-D phi^4 flagship (``normflow__tpu/zoo.py:51-107``).
 
-PSD block -> DistConvertor -> RQ-spline coupling of ``n_layers`` packed
-checkerboard conditioners, each ``RowParityFeature(ConvNet)`` with 3x3
-circular convs and tanh, no bias -> DistConvertor, over a standard normal
-prior, with the action ``ScalarPhi4Action(kappa, m_sq, lambd)``.
+PSD block -> DistConvertor -> RQ-spline coupling of ``n_layers``
+checkerboard conditioners with 3x3 circular convs and tanh, no bias ->
+DistConvertor, over a standard normal prior, with the action
+``ScalarPhi4Action(kappa, m_sq, lambd)``.  The checkerboard is packed
+(``PackedEvenOddMask``: each conditioner, ``RowParityFeature(ConvNet)``,
+sees the frozen half of the sites as a dense grid, with a row-parity
+channel) or, with ``packed=False``, multiplicative (``EvenOddMask``, the
+reference's layout: a bare ``ConvNet`` on the whole lattice, whose output
+goes to the coupling kernel at every site).
 
 The weights start as in the JAX build, from the same distributions (the
 random streams differ): Kaiming-uniform conv weights with bound
@@ -19,7 +24,7 @@ from .models.actions import ScalarPhi4Action
 from .models.core import FlowList
 from .models.couplings import RQSplineCoupling
 from .models.elementwise import DistConvertor
-from .models.masks import PackedEvenOddMask
+from .models.masks import EvenOddMask, PackedEvenOddMask
 from .models.nets import ConvNet, RowParityFeature
 from .models.priors import NormalPrior
 from .models.spectral import FFTFlow, MeanFieldFlow, PSDBlock
@@ -31,23 +36,29 @@ __all__ = ["build_phi4_model"]
 
 def build_phi4_model(lat_shape=(32, 32), *, kappa=0.6, m_sq=-2.4, lambd=0.5,
                      knots=8, hidden=(24, 24), n_layers=4, dc_knots=16,
-                     packed=True, kernel_size=3, seed=0,
-                     dtype=torch.float32, device=None) -> Model:
+                     packed=True, parity_feature=None, kernel_size=3,
+                     seed=0, dtype=torch.float32, device=None,
+                     conv_dilations=None) -> Model:
     """The flagship on ``device`` (``None`` means ``cuda``, and raises when
-    no GPU is present).  Only the packed checkerboard layout is ported."""
-    if not packed:
-        raise NotImplementedError("only packed=True (PackedEvenOddMask) is "
-                                  "ported")
+    no GPU is present).  ``parity_feature`` (default: ``packed``) adds the
+    row-parity input channel; ``conv_dilations`` are the conditioner
+    layers' dilations (``ConvNet``)."""
     device = resolve_device(device)
     lat_shape = tuple(lat_shape)
+    if parity_feature is None:
+        parity_feature = packed
+    mask = (PackedEvenOddMask(shape=lat_shape) if packed
+            else EvenOddMask(shape=lat_shape))
     gen = torch.Generator().manual_seed(seed)
     kw = dict(dtype=dtype, device=device)
 
     def make_net():
-        return RowParityFeature(ConvNet(
-            2, 3 * knots - 2, kernel_size, conv_dim=len(lat_shape),
-            hidden_sizes=tuple(hidden), acts=("tanh",) * len(hidden) + (None,),
-            bias=False, generator=gen, **kw))
+        net = ConvNet(
+            2 if parity_feature else 1, 3 * knots - 2, kernel_size,
+            conv_dim=len(lat_shape), hidden_sizes=tuple(hidden),
+            acts=("tanh",) * len(hidden) + (None,), bias=False,
+            dilations=conv_dilations, generator=gen, **kw)
+        return RowParityFeature(net) if parity_feature else net
 
     net_ = FlowList([
         PSDBlock(
@@ -58,7 +69,7 @@ def build_phi4_model(lat_shape=(32, 32), *, kappa=0.6, m_sq=-2.4, lambd=0.5,
         DistConvertor(dc_knots, smooth=True, **kw),
         RQSplineCoupling(
             [make_net() for _ in range(n_layers)],
-            mask=PackedEvenOddMask(shape=lat_shape),
+            mask=mask,
             xlim=(-4.0, 4.0), ylim=(-4.0, 4.0),
             extrap={"left": "linear", "right": "linear"}),
         DistConvertor(dc_knots, smooth=True, **kw),

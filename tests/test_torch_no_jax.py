@@ -33,6 +33,7 @@ def test_sources_import_no_jax():
               ROOT / "tests" / "test_torch_cuda_grad.py",
               ROOT / "tests" / "test_torch_cuda_graphs.py",
               ROOT / "tests" / "test_torch_cuda_mcmc.py",
+              ROOT / "tests" / "test_torch_cuda_zoo.py",
               ROOT / "normflow__tpu_torch" / "ops" / "kernels"
               / "accept_scan.py"]
     assert len(files) > 10
