@@ -77,7 +77,41 @@ use) and imports nothing of JAX.  Phases, each of which raises on failure:
     the least time the card could take (bytes or operations over the
     peak), with
     ``normflow__tpu_torch/tools/kernel_times.py``'s helpers; the new paths'
-    shapes under each kernel's ``variants``.
+    shapes under each kernel's ``variants``;
+13. the U(1) gauge sector, BASELINE config 5 at full width
+    (``zoo.build_u1_model()``: 32 plaquette couplings, 107,168
+    parameters): the flow's angles (modulo 2 pi) and logq against a
+    float64 CPU copy, seeded perturbed weights; ``logqp_stream(16, 512)``
+    profiled with every counter set to 0 just before (no kernel of the
+    port runs: the gauge flow is plain PyTorch, as it is plain XLA in the
+    JAX package) and a replayed batch bit for bit with its eager body;
+14. one path-gradient step of a fresh config 5 model against float64,
+    then ``model.fit`` for ``U1_STEPS`` steps at batch 256 (clip 25, path
+    gradient, lr 1e-3), the first ``U1_PROFILED`` profiled with the
+    counters set to 0 just before, and 10 replayed steps bit for bit with
+    10 eager bodies under cuDNN's deterministic algorithms;
+15. ``mcmc.sample_chain`` on it in calls of 32 rounds of 512 (the first
+    profiled: 1 ``accept_scan`` per round) until <cos P>'s binned error is
+    at most 0.002; <cos P> within 3 sigma of I1(2)/I0(2) from
+    ``scipy.special``;
+16. the Schwinger model: the exact Schur log-det in float32 on the card
+    against the dense float64 ``slogdet`` on the CPU and its gauge
+    invariance on the card; ``examples/schwinger.py``'s ``main()`` at its
+    defaults with every counter set to 0 just before and read after;
+    replayed steps (no port kernel) and 64 replayed chain rounds of 128
+    profiled; <cos P> more than 3 binned sigma above I1(2)/I0(2);
+17. the stochastic log-det: its gradient's mean over 256 probe draws at
+    4x4 against the exact gradient on the card, and a 16x16 Schwinger fit
+    with ``StochasticStaggeredLogDet(n_probes=2, cg_tol=1e-5)``: 32
+    replayed steps, replays bit for bit with eager bodies under cuDNN's
+    deterministic algorithms, the CG iterations a step's probe systems
+    need, and sampling with the exact, keyless action.
+
+The gauge paths' rates (eager bodies against graphed entry points, in
+turns) are taken in a phase of their own right after phase 3's, before any
+profiler has run in the process; their idle shares are 1 - the profiled
+device busy time / a wall time taken without the profiler, which slows
+the replay of a graph of thousands of short kernels.
 
 On a CUDA model ``logqp_stream``, ``model.fit``, ``mcmc.sample_chain`` and
 ``mcmc.sample_parallel_chains`` replay a captured batch, step or round
@@ -180,6 +214,31 @@ AFFINE_ACTION = dict(kappa=0.67, m_sq=-4 * 0.67, lambd=0.5)
 JAX_RECORD = {"phi2": (0.84888, 0.00157), "chi": (3.565, 0.278)}
 JAX_ACCEPT = 0.586
 OBS_SIGMAS = 3.0
+# BASELINE config 5, zoo.build_u1_model() at its defaults: logqp_stream and
+# chain rounds of U1_BATCH, U1_STEPS training steps at U1_TRAIN_BATCH (the
+# first U1_PROFILED profiled), chain calls of U1_CHUNK rounds until <cos P>'s
+# binned error is U1_COSP_ERR or less (at most U1_MAX_ROUNDS rounds).  After
+# 300 steps the chain accepted 0.05 and stuck for long runs: 196,608
+# configurations left the error at 0.0034; 400 and 600 steps reached 0.002
+# with 64 and 32 rounds (accept 0.075, 0.095; H100 80GB HBM3 runs)
+U1_LAT = (16, 16)
+U1_STREAM, U1_BATCH = 16, 512
+U1_TRAIN_BATCH, U1_STEPS, U1_PROFILED = 256, 800, 2
+U1_CHUNK, U1_MAX_ROUNDS, U1_COSP_ERR = 32, 512, 0.002
+# U(1) flow angles on the card vs float64, modulo 2 pi: at least this, and
+# FLOOR_FACTOR times the float32 CPU copy's own error (the spline of 32
+# couplings with perturbed weights is steep: 2.5e-4 on the CPU in float32)
+U1_ANGLE_TOL = 1e-4
+# the Schwinger example (examples/schwinger.py's defaults) and the JAX
+# package's records of its <cos P> (docs/EXPERIMENTS.md:684-693, 1060-1063)
+SCHWINGER_LAT, SCHWINGER_ROUNDS = (8, 8), 64
+SCHWINGER_RECORDS = "0.7338, 0.7236, 0.7315 (stochastic)"
+# the stochastic log-det's fit at 16x16 (docs/EXPERIMENTS.md:1055's settings)
+STOCH_LAT, STOCH_BATCH, STOCH_STEPS, STOCH_CG_TOL = (16, 16), 64, 32, 1e-5
+# Schur log-det in float32 vs float64, relative to max(1, |log det|): a
+# float32 CPU Schur path is ~4e-7 off float64 at 8x8 and 16x16 on random
+# links; the bar gives ten times that
+LOGDET_REL_TOL = 5e-6
 
 
 def time_ms(fn, reps=50, warmup=5):
@@ -1260,7 +1319,7 @@ def replayed_vs_eager_steps(torch, trained, what="", deterministic=False):
         dloss = float(((la - lb).abs() / lb.abs().clamp(min=1.0)).max())
         dpar = max(float((x - y).abs().max()) for x, y in zip(pa, pb))
         print(f"{what}10 {a} vs 10 eager training steps at batch "
-              f"{TRAIN_BATCH}{', cuDNN deterministic' if deterministic else ''}"
+              f"{fit.train_batch_size}{', cuDNN deterministic' if deterministic else ''}"
               f": {'bit for bit' if same else 'NOT bit-identical'}; losses "
               f"max rel {dloss:.3e} (tol {REPLAY_LOSS_TOL}), parameters max "
               f"|d| {dpar:.3e} (tol {REPLAY_PARAM_TOL})")
@@ -1698,18 +1757,7 @@ def rates_in_turns(torch, card):
              "graphed", "steps/s", 10,
              {"packed": graphed_steps,
               "unpacked": lambda: [ufit.step() for _ in range(10)]})):
-        for fn in fns.values():  # untimed: cuDNN's picks, the capture
-            fn()
-        rates = {k: [] for k in fns}
-        for key in tuple(fns) * 3 + tuple(reversed(fns)) * 3:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fns[key]()
-            torch.cuda.synchronize()
-            rates[key].append(n / (time.perf_counter() - t0))
-        print(f"{what}, {unit} in turns, 6 runs each: " + "; ".join(
-            f"{k} median {statistics.median(r):.1f} (min {min(r):.1f}, max "
-            f"{max(r):.1f})" for k, r in rates.items()) + f" on {card}")
+        in_turns(torch, card, what, unit, n, fns)
 
 
 def replay_launches(torch, kernels, model, trained, zerodim):
@@ -1819,9 +1867,619 @@ def ptxas_by_kernel(log):
     return found
 
 
+
+# --------------------------------------------------------------------- #
+# The U(1) gauge and Schwinger paths (no hand-written kernel but
+# accept_scan: they are plain XLA in the JAX package too)
+# --------------------------------------------------------------------- #
+def gauge_counters():
+    """Every launch counter: the four scalar kernels and accept_scan."""
+    from normflow__tpu_torch.ops.kernels.accept_scan import accept_scan
+
+    return {**_counters(), "accept_scan": accept_scan}
+
+
+def gauge_profile(torch, fn, what, reps=4):
+    """:func:`profile_step` of ``fn`` after one untimed call (a capture
+    is not profiled) and ``reps`` calls timed on the host without the
+    profiler, which slows the replay of a graph of thousands of short
+    kernels: the idle share is 1 - busy / that wall."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / reps
+    busy = profile_step(fn, what, reps)
+    print(f"  {what} without the profiler: wall {wall * 1e3:.4f} ms, idle "
+          f"share {1 - busy / wall:.4f}")
+
+
+def gate_gauge(counters, kernels, path, device, want_scan=0,
+               wrapper_scan=0):
+    """A gauge path's run: the profiler saw ``want_scan`` ``accept_scan``
+    launches and none of the four scalar kernels, and the wrappers ran
+    ``wrapper_scan`` times (accept_scan) and 0 times (the others).  The
+    counts go into the record's ``launches_by_path``."""
+    want = {"accept_scan": (want_scan, 0)} if want_scan else {}
+    wrapper = {k: c.launches for k, c in counters.items()}
+    want_wrapper = {k: wrapper_scan if k == "accept_scan" else 0
+                    for k in counters}
+    print(f"launches over the {path} path by profiler name (launches, "
+          f"tiled): {device}, want {want}; by the wrappers {wrapper}, want "
+          f"{want_wrapper}")
+    if device != want or wrapper != want_wrapper:
+        raise AssertionError(f"{path}: launches {device} / wrappers "
+                             f"{wrapper}, want {want} / {want_wrapper}")
+    for k in counters:
+        kernels[k].setdefault("launches_by_path", {})[path] = \
+            device.get(k, (0, 0))[0]
+
+
+def pure_gauge_cos_p(beta=2.0):
+    """<cos P> of 2-D U(1) on a large torus: I1(beta) / I0(beta)."""
+    from scipy.special import i0, i1
+
+    return float(i1(beta) / i0(beta))
+
+
+def u1_copy(torch, model, dtype):
+    """A CPU copy of the U(1) model in ``dtype`` with ``model``'s
+    weights."""
+    from normflow__tpu_torch.zoo import build_u1_model
+
+    m = build_u1_model(U1_LAT, device="cpu", dtype=dtype)
+    m.net_.load_state_dict({k: v.to(dtype) for k, v in
+                            model.net_.state_dict().items()})
+    return m
+
+
+def gauge_rates_in_turns(torch, card):
+    """Eager bodies in a Python loop against the graphed entry points, in
+    turns (eager, graphed, ..., graphed, eager), on models of their own,
+    each run once untimed first: raw samples/s of 8 batches and training
+    steps/s of segments of 3 steps of BASELINE config 5 (batch
+    ``U1_BATCH``; ``U1_TRAIN_BATCH``, path gradient, clip 25), of the 8x8
+    exact Schwinger model of ``examples/schwinger.py`` (batch 128, its
+    reparametrization gradient) and of the 16x16 stochastic Schwinger model
+    (batch ``STOCH_BATCH``).  It runs beside ``rates_in_turns``, before any
+    profiler has in this process (after one, every launch from the host
+    costs more)."""
+    from normflow__tpu_torch.zoo import build_u1_model
+
+    u1 = build_u1_model()
+    schw = schwinger_model(torch, SCHWINGER_LAT)
+    stoch = schwinger_model(torch, STOCH_LAT, stochastic=True)
+    fit_u1(u1, 2)
+    fit_plain(schw, 2, 128)
+    fit_plain(stoch, 2, STOCH_BATCH)
+    n, n_steps = 8, 3  # batches and steps per timed run
+    for what, model, batch in (("U(1) config 5", u1, U1_BATCH),
+                               ("Schwinger 8x8 exact", schw, 128)):
+        post, gen = model.posterior, model.generator
+
+        def eager(post=post, gen=gen, batch=batch):
+            for _ in range(n):
+                post.logqp_batch(batch, gen)
+
+        in_turns(torch, card, f"{what} sampling, {n} batches of {batch}",
+                 "raw samples/s", n * batch,
+                 {"eager": eager, "graphed": lambda post=post, batch=batch:
+                  post.logqp_stream(n, batch)})
+    for what, model in (("U(1) config 5", u1), ("Schwinger 8x8 exact", schw),
+                        ("Schwinger 16x16 stochastic", stoch)):
+        fit = model.fit
+        in_turns(torch, card, f"{what} training at batch "
+                 f"{fit.train_batch_size}, segments of {n_steps}", "steps/s",
+                 n_steps, {"eager": lambda fit=fit: [
+                     fit.train_body() for _ in range(n_steps)],
+                     "graphed": lambda fit=fit: [
+                     fit.step() for _ in range(n_steps)]})
+
+
+def in_turns(torch, card, what, unit, n, fns):
+    """``n / seconds`` of each of ``fns`` in turns, 6 runs each, after one
+    untimed run of each (cuDNN's picks, the capture); prints the
+    medians."""
+    for fn in fns.values():
+        fn()
+    rates = {k: [] for k in fns}
+    for key in tuple(fns) * 3 + tuple(reversed(fns)) * 3:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fns[key]()
+        torch.cuda.synchronize()
+        rates[key].append(n / (time.perf_counter() - t0))
+    print(f"{what}, {unit} in turns, 6 runs each: " + "; ".join(
+        f"{k} median {statistics.median(r):.1f} (min {min(r):.1f}, max "
+        f"{max(r):.1f})" for k, r in rates.items()) + f" on {card}")
+
+
+def fit_u1(model, n_epochs, steps_per_call=None):
+    """``model.fit`` as the smoke trains BASELINE config 5: path gradient,
+    clip 25, AdamW lr 1e-3 without decay, batch ``U1_TRAIN_BATCH``."""
+    return model.fit(n_epochs=n_epochs, batch_size=U1_TRAIN_BATCH,
+                     hyperparam=dict(lr=1e-3, weight_decay=0.0),
+                     grad_estimator="path", clip_grad_norm=25.0,
+                     steps_per_call=steps_per_call,
+                     checkpoint_dict=dict(print_stride=None))
+
+
+def fit_plain(model, n_epochs, batch):
+    """``model.fit`` as ``examples/schwinger.py`` trains: AdamW lr 1e-3
+    without decay, the reparametrization gradient."""
+    return model.fit(n_epochs=n_epochs, batch_size=batch,
+                     hyperparam=dict(lr=1e-3, weight_decay=0.0),
+                     checkpoint_dict=dict(print_stride=None))
+
+
+def schwinger_model(torch, lat, stochastic=False):
+    """The Schwinger model of ``examples/schwinger.py`` (beta 2, m 0.2, 2
+    cycles, hidden 16, seed 0) at ``lat``; ``stochastic`` trains with
+    ``StochasticStaggeredLogDet(n_probes=2, cg_tol=1e-5)``."""
+    from normflow__tpu_torch import Model
+    from normflow__tpu_torch.models.fermions import (
+        SchwingerAngleAction, StochasticStaggeredLogDet)
+    from normflow__tpu_torch.models.gauge import build_u1_gauge_flow
+    from normflow__tpu_torch.models.priors import UniformPrior
+
+    kw = dict(dtype=torch.float32, device="cuda")
+    flow = build_u1_gauge_flow(torch.Generator().manual_seed(0), lat,
+                               hidden=(16,), n_cycles=2, **kw)
+    prior = UniformPrior(torch.full((2, *lat), -math.pi, **kw),
+                         torch.full((2, *lat), math.pi, **kw))
+    ld = (StochasticStaggeredLogDet(lat_shape=lat, mass=0.2, n_probes=2,
+                                    cg_tol=STOCH_CG_TOL)
+          if stochastic else None)
+    return Model(net_=flow, prior=prior, seed=0, action=SchwingerAngleAction(
+        beta=2.0, lat_shape=lat, mass=0.2, logdet_func=ld))
+
+
+def run_u1_sampling(torch, kernels, rng, card):
+    """BASELINE config 5 at full width (``build_u1_model()``), seeded
+    perturbed weights: logq and the flow's angles on the card against a
+    float64 CPU copy (angles modulo 2 pi), beside a float32 CPU copy that
+    sets the bars; ``logqp_stream(U1_STREAM, U1_BATCH)`` profiled with the
+    counters set to 0 just before (no kernel of the port runs); a replayed
+    batch against its eager body, bit for bit."""
+    from normflow__tpu_torch.models.gauge import wrap_angle
+    from normflow__tpu_torch.tools.kernel_times import device_launches
+    from normflow__tpu_torch.zoo import build_u1_model
+
+    model = build_u1_model()
+    print(f"U(1) BASELINE config 5 {U1_LAT}: {len(model.net_.flows)} "
+          f"couplings, {model.net_.npar} parameters on {model.device}")
+    perturb_(model.net_, rng)
+    x = rng.uniform(-math.pi, math.pi, (64, 2, *U1_LAT))
+    res = {}
+    for key, dtype in (("gpu", torch.float32), ("cpu", torch.float32),
+                       ("cpu64", torch.float64)):
+        m = model if key == "gpu" else u1_copy(torch, model, dtype)
+        xd = torch.tensor(x, dtype=dtype, device=m.device)
+        with torch.no_grad():
+            y, logj = m.net_.forward(xd)
+            res[key] = (y.double().cpu(),
+                        (m.prior.log_prob(xd) - logj).double().cpu())
+
+    def err(a, b):
+        (ya, la), (yb, lb) = res[a], res[b]
+        return (float(wrap_angle(ya - yb).abs().max()),
+                float(((la - lb).abs() / lb.abs().clamp(min=1.0)).max()))
+
+    (gy, gl), (cy, cl) = err("gpu", "cpu64"), err("cpu", "cpu64")
+    bars = max(U1_ANGLE_TOL, FLOOR_FACTOR * cy), \
+        max(LOGQ_REL_TOL, FLOOR_FACTOR * cl)
+    print(f"U(1) forward, 64 samples, vs a float64 CPU copy: card max "
+          f"|d angle| mod 2 pi {gy:.3e}, max rel logq {gl:.3e}; float32 CPU "
+          f"{cy:.3e}, {cl:.3e}; bars {bars[0]:.3e}, {bars[1]:.3e}")
+    if not (gy <= bars[0] and gl <= bars[1]):
+        raise AssertionError("the U(1) model on the card disagrees with "
+                             "float64")
+
+    counters = gauge_counters()
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    device, logqp = device_launches(
+        lambda: model.posterior.logqp_stream(U1_STREAM, U1_BATCH))
+    seconds = time.perf_counter() - t0
+    gate_gauge(counters, kernels, "u1 sample", device)
+    if logqp.shape != (U1_STREAM * U1_BATCH,) or not bool(
+            torch.isfinite(logqp).all()):
+        raise AssertionError("the U(1) stream is not finite or has the "
+                             "wrong shape")
+    print(f"U(1) logqp_stream({U1_STREAM}, {U1_BATCH}): the first call, "
+          f"capture included, profiled, {seconds:.2f} s on {card}")
+    post, gen = model.posterior, model.generator
+    model.seed(21)
+    got = post.logqp_stream(3, U1_BATCH)
+    model.seed(21)
+    want = torch.cat([post.logqp_batch(U1_BATCH, gen) for _ in range(3)])
+    same = same_bits(torch, (got,), (want,))
+    print(f"U(1) replayed vs eager batch, 3 x {U1_BATCH}: "
+          f"{'bit for bit' if same else 'NOT bit-identical'}")
+    if not same:
+        raise AssertionError("a replayed U(1) batch differs from its eager "
+                             "body")
+    gauge_profile(torch, lambda: post.logqp_batch(U1_BATCH, gen),
+                  f"one eager U(1) batch of {U1_BATCH}")
+    gauge_profile(torch, lambda: post.logqp_stream(1, U1_BATCH),
+                  f"one replayed U(1) batch of {U1_BATCH}")
+
+
+def check_u1_step(torch, model, rng):
+    """One path-gradient loss and its gradients of the U(1) model at its
+    initial weights on one numpy draw of 32: the card against a float64
+    CPU copy, beside a float32 CPU copy.  The loss is held to
+    ``TRAIN_LOSS_TOL``, each leaf to the larger of ``TRAIN_GRAD_TOL`` and
+    ``FLOOR_FACTOR`` times the float32 CPU copy's own error, as the
+    unpacked flagship's: the path gradient through 32 inverse couplings
+    loses digits in float32 on the CPU too (1.4e-2 on one leaf, the card
+    alike, on an H100 80GB HBM3).  With perturbed weights the float32
+    inverse is worse still (a round trip off by up to a radian on the
+    CPU), so the step is taken at ``build_u1_model``'s initial weights."""
+    x = rng.uniform(-math.pi, math.pi, (32, 2, *U1_LAT))
+    res = {}
+    for key, dtype in (("gpu", torch.float32), ("cpu", torch.float32),
+                       ("cpu64", torch.float64)):
+        m = model if key == "gpu" else u1_copy(torch, model, dtype)
+        m.fit.grad_estimator = "path"
+        xd = torch.tensor(x, dtype=dtype, device=m.device)
+        loss, _, _ = m.fit.loss_of(xd, m.prior.log_prob(xd))
+        grads = torch.autograd.grad(loss, list(m.net_.parameters()))
+        res[key] = (float(loss.detach()),
+                    [g.detach().cpu().double() for g in grads])
+
+    def rel(a, b):
+        loss = abs(res[a][0] - res[b][0]) / max(1.0, abs(res[b][0]))
+        return loss, [float((p - q).norm()) / max(float(q.norm()), 1e-30)
+                      for p, q in zip(res[a][1], res[b][1])]
+
+    for a in ("gpu", "cpu"):
+        loss, leaves = rel(a, "cpu64")
+        print(f"U(1) path-gradient step, batch 32, {a} vs cpu64: loss rel "
+              f"{loss:.3e}; |dg|/|g| per leaf max {max(leaves):.3e}, median "
+              f"{statistics.median(leaves):.3e}")
+    loss, leaves = rel("gpu", "cpu64")
+    bars = [max(TRAIN_GRAD_TOL, FLOOR_FACTOR * f)
+            for f in rel("cpu", "cpu64")[1]]
+    over = max(r / b for r, b in zip(leaves, bars))
+    print(f"  every leaf against the larger of {TRAIN_GRAD_TOL} and "
+          f"{FLOOR_FACTOR} x the float32 CPU copy's own error: worst "
+          f"{over:.3f} of its bar")
+    if not (loss <= TRAIN_LOSS_TOL and over <= 1.0):
+        raise AssertionError(f"the U(1) step on the card disagrees with "
+                             f"float64 (tol {TRAIN_LOSS_TOL} / per-leaf "
+                             "bars)")
+
+
+def run_u1_training(torch, kernels, rng, card):
+    """A fresh BASELINE config 5 model: one path-gradient step against
+    float64; ``model.fit`` for ``U1_STEPS`` steps (``fit_u1``), the first
+    ``U1_PROFILED`` profiled with the counters set to 0 just before (no
+    kernel of the port runs), the rest on the same optimizer state and
+    captured step; 10 replayed steps against 10 eager bodies; the idle
+    share of a replayed step."""
+    from normflow__tpu_torch.tools.kernel_times import device_launches
+    from normflow__tpu_torch.zoo import build_u1_model
+
+    model = build_u1_model()
+    t0 = time.perf_counter()
+    check_u1_step(torch, model, rng)
+    print(f"  (the step check took {time.perf_counter() - t0:.1f} s, the "
+          "CPU copies included)")
+    counters = gauge_counters()
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    device, _ = device_launches(lambda: fit_u1(model, U1_PROFILED,
+                                               U1_PROFILED))
+    gate_gauge(counters, kernels, "u1 train", device)
+    model.fit.train(U1_STEPS - U1_PROFILED, batch_size=U1_TRAIN_BATCH,
+                    steps_per_call=50)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if any(c.launches for c in counters.values()):
+        raise AssertionError("the U(1) fit ran a kernel wrapper")
+    loss = np.asarray(model.fit.train_history["loss"])
+    first, last = float(loss[:50].mean()), float(loss[-50:].mean())
+    print(f"U(1) model.fit: {U1_STEPS} steps at batch {U1_TRAIN_BATCH} in "
+          f"{seconds:.2f} s (capture included, the first {U1_PROFILED} "
+          f"profiled) on {card}; loss mean of the first 50 {first:.3f}, of "
+          f"the last 50 {last:.3f}")
+    if loss.shape != (U1_STEPS,) or not np.isfinite(loss).all() \
+            or not last < first:
+        raise AssertionError("the U(1) loss is not finite or not falling")
+    # Adam's first hundreds of steps turn a last-bit difference of cuDNN's
+    # default weight-gradient order into 1e-4 of the loss within four
+    # steps here (the gpu test file's first card run): the comparison
+    # takes cuDNN's deterministic algorithms and asks for the bits
+    t0 = time.perf_counter()
+    replayed_vs_eager_steps(torch, model, "U(1) ", deterministic=True)
+    print(f"  (the comparison took {time.perf_counter() - t0:.1f} s)")
+    gauge_profile(torch, model.fit.step, f"one replayed U(1) training step "
+                  f"at batch {U1_TRAIN_BATCH}", reps=2)
+    return model
+
+
+def sample_gauge(torch, kernels, model, lat, batch, path, card, first,
+                 max_rounds, captured=False):
+    """``mcmc.sample_chain`` in calls of ``first`` rounds of ``batch``, the
+    first profiled with the counters set to 0 just before (1 accept_scan
+    per round, its warm-up bodies and capture included unless
+    ``captured``), until <cos P>'s binned error is at most
+    ``U1_COSP_ERR`` or ``max_rounds`` rounds ran.  Returns the
+    per-configuration <cos P> and charge and the per-round accept rates."""
+    from normflow__tpu_torch.examples.u1_gauge import binned, plaquette_series
+    from normflow__tpu_torch.tools.kernel_times import device_launches
+    from normflow__tpu_torch.utils.graphs import WARMUP
+
+    counters = gauge_counters()
+    reset_counts(counters)
+    device, out = device_launches(lambda: model.mcmc.sample_chain(
+        first, batch, collect_samples=True))
+    gate_gauge(counters, kernels, path, device,
+               first + (0 if captured else WARMUP),
+               0 if captured else WARMUP + 1)
+    cos_p, q, rates, rounds = [], [], [], 0
+    t0 = time.perf_counter()
+    while True:
+        c, qq = plaquette_series(out["samples"].reshape(-1, 2, *lat)
+                                 .double())
+        c, qq = c.cpu().numpy(), qq.cpu().numpy()
+        cos_p.append(c)
+        q.append(qq)
+        rates.append(out["accept_rate"].cpu().numpy())
+        rounds += first
+        if binned(np.concatenate(cos_p))[1] <= U1_COSP_ERR \
+                or rounds >= max_rounds:
+            break
+        out = model.mcmc.sample_chain(first, batch, collect_samples=True)
+    print(f"{path}: {rounds} rounds of {batch} ({rounds * batch} "
+          f"configurations) in {time.perf_counter() - t0:.2f} s after the "
+          f"profiled call, on {card}")
+    return np.concatenate(cos_p), np.concatenate(q), np.concatenate(rates)
+
+
+def run_u1_chain(torch, kernels, model, card):
+    """``sample_chain`` on the trained config 5 model until <cos P>'s
+    binned error is at most ``U1_COSP_ERR``; <cos P> must lie within 3
+    sigma of the 2-D U(1) value I1(2) / I0(2) (on a 16x16 torus the
+    topological corrections, (I1/I0)^256 ~ e^-92, vanish)."""
+    from normflow__tpu_torch.examples.u1_gauge import binned
+
+    cos_p, q, rates = sample_gauge(torch, kernels, model, U1_LAT, U1_BATCH,
+                                   "u1 chain", card, U1_CHUNK, U1_MAX_ROUNDS)
+    value, err = binned(cos_p)
+    oracle = pure_gauge_cos_p(2.0)
+    sigma = abs(value - oracle) / err
+    print(f"U(1) <cos P> {value:.5f} +- {err:.5f} (binned, {len(cos_p)} "
+          f"configurations) vs I1(2)/I0(2) = {oracle:.5f} (scipy): "
+          f"{sigma:.2f} sigma (bar 3, error bar {U1_COSP_ERR}); sigma(Q) "
+          f"{q.std():.3f}, <Q> {q.mean():+.3f}; accept rate {rates.mean():.4f}"
+          f" on {card}")
+    if not (err <= U1_COSP_ERR and sigma <= OBS_SIGMAS):
+        raise AssertionError("U(1) <cos P> misses the exact value")
+    gauge_profile(torch, model.mcmc.chain_graph(U1_BATCH).graph.replay,
+                  f"one replayed U(1) sample_chain round of {U1_BATCH}")
+
+
+def check_logdet(torch, card):
+    """The exact Schur log-det on the card in float32 against the dense
+    float64 ``slogdet`` on the CPU at 8x8 and 16x16 (random links, batch
+    64, m 0.2), and its invariance under a random gauge transform on the
+    card; relative to ``max(1, |log det|)``, ``LOGDET_REL_TOL``."""
+    from normflow__tpu_torch.models.fermions import StaggeredFermionLogDet
+    from normflow__tpu_torch.models.gauge import wrap_angle
+
+    rng = np.random.default_rng(8)
+    for lat in (SCHWINGER_LAT, STOCH_LAT):
+        theta = rng.uniform(-math.pi, math.pi, (64, 2, *lat))
+        ld = StaggeredFermionLogDet(lat_shape=lat, mass=0.2)
+        t = torch.tensor(theta, dtype=torch.float32, device="cuda")
+        got = ld(t)
+        want = StaggeredFermionLogDet(lat_shape=lat, mass=0.2,
+                                      method="dense")(torch.tensor(theta))
+        rel = float(((got.double().cpu() - want).abs()
+                     / want.abs().clamp(min=1.0)).max())
+        a = torch.tensor(rng.uniform(-math.pi, math.pi, lat),
+                         dtype=torch.float32, device="cuda")
+        g = wrap_angle(torch.stack(
+            [t[:, 0] + a - torch.roll(a, -1, 0),
+             t[:, 1] + a - torch.roll(a, -1, 1)], dim=1))
+        inv = float(((ld(g) - got).abs() / got.abs().clamp(min=1.0)).max())
+        print(f"Schur log-det {lat}, float32 on the card vs dense float64 on "
+              f"the CPU: max rel {rel:.3e}; gauge transformed vs not, on the "
+              f"card: max rel {inv:.3e} (tol {LOGDET_REL_TOL}; |log det| up "
+              f"to {float(want.abs().max()):.2f}) on {card}")
+        if not (rel <= LOGDET_REL_TOL and inv <= LOGDET_REL_TOL):
+            raise AssertionError("the Schur log-det on the card is off")
+
+
+def run_schwinger(torch, kernels, card):
+    """``examples/schwinger.py`` at its defaults on the card (8x8, beta 2,
+    m 0.2, 1000 epochs at batch 128, 2 cycles, exact Schur log-det,
+    graphed), every counter set to 0 just before and read just after
+    (accept_scan's wrapper for its chain's warm-up and capture, no other);
+    the training action is the exact one (``with_key`` is a no-op) and
+    ``mcmc`` samples with it; 4 replayed steps (no kernel of the port) and
+    ``SCHWINGER_ROUNDS`` replayed chain rounds profiled, the counters set
+    to 0 just before each; <cos P> must lie more than 3 binned
+    sigma above the pure-gauge I1(2) / I0(2)."""
+    from normflow__tpu_torch.examples import schwinger
+    from normflow__tpu_torch.examples.u1_gauge import binned
+    from normflow__tpu_torch.tools.kernel_times import device_launches
+    from normflow__tpu_torch.utils.graphs import WARMUP
+
+    check_logdet(torch, card)
+    counters = gauge_counters()
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    model = schwinger.main()
+    seconds = time.perf_counter() - t0
+    wrapper = {k: c.launches for k, c in counters.items()}
+    want = {k: WARMUP + 1 if k == "accept_scan" else 0 for k in counters}
+    print(f"Schwinger example's wrapper launches {wrapper}, want {want} "
+          "(accept_scan: its chain's warm-up and capture)")
+    if wrapper != want:
+        raise AssertionError("the Schwinger example ran a scalar kernel or "
+                             "missed accept_scan")
+    keyed = model.fit._training_action()
+    print(f"Schwinger example at its defaults: {model.net_.npar} parameters,"
+          f" 1000 epochs and sample_chain(8, 128) in {seconds:.2f} s on "
+          f"{card}; training action {type(keyed).__name__} is model.action: "
+          f"{keyed is model.action} (exact log-det, keyless); mcmc samples "
+          "with model.action")
+    if keyed is not model.action:
+        raise AssertionError("the exact Schwinger action was keyed")
+    counters = gauge_counters()
+    reset_counts(counters)
+    device = device_launches(lambda: [model.fit.step() for _ in range(4)])[0]
+    gate_gauge(counters, kernels, "schwinger train", device)
+    cos_p, q, rates = sample_gauge(
+        torch, kernels, model, SCHWINGER_LAT, 128, "schwinger chain", card,
+        SCHWINGER_ROUNDS, SCHWINGER_ROUNDS, captured=True)
+    value, err = binned(cos_p)
+    oracle = pure_gauge_cos_p(2.0)
+    above = (value - oracle) / err
+    print(f"Schwinger <cos P> {value:.5f} +- {err:.5f} (binned, "
+          f"{len(cos_p)} configurations) vs pure gauge I1(2)/I0(2) = "
+          f"{oracle:.5f}: {above:.2f} sigma above (bar 3); the JAX "
+          f"package's records {SCHWINGER_RECORDS} (docs/EXPERIMENTS.md, not "
+          f"a gate); sigma(Q) {q.std():.3f}; accept rate {rates.mean():.4f} "
+          f"on {card}")
+    if not above > OBS_SIGMAS:
+        raise AssertionError("the Schwinger model shows no sea-quark shift "
+                             "of <cos P>")
+    gauge_profile(torch, lambda: model.posterior.logqp_stream(1, 128),
+                  "one replayed Schwinger batch of 128")
+    gauge_profile(torch, model.fit.step, "one replayed Schwinger training "
+                  "step at batch 128", reps=2)
+    gauge_profile(torch, model.mcmc.chain_graph(128).graph.replay,
+                  "one replayed Schwinger sample_chain round of 128")
+
+
+def cg_iterations(torch, links, z, mass, tol, maxiter):
+    """The iterations the JAX ``while_loop`` runs on these systems (it
+    stops once every residual is below ``tol |b|``), from the same masked
+    body, and the worst final ``|r| / |b|``."""
+    from normflow__tpu_torch.models import fermions as tf
+
+    ops = tf._hop_operands(links, True)
+    axes = tuple(range(2, z.dim()))
+
+    def dot(a, b):
+        return torch.sum(torch.conj(a) * b, dim=axes).real
+
+    def expand(a):
+        return a.reshape(a.shape + (1, 1))
+
+    b2 = dot(z, z)
+    tol2 = tol * tol * b2
+    r, p, rs = z, z, b2
+    it = 0
+    while it < maxiter and bool((rs > tol2).any()):
+        kp = tf._apply_K(ops, mass, p)
+        live = rs > tol2
+        alpha = torch.where(live, rs / dot(p, kp), 0.0)
+        r = r - expand(alpha) * kp
+        rs_new = dot(r, r)
+        p = r + expand(torch.where(live, rs_new / rs, 0.0)) * p
+        rs, it = rs_new, it + 1
+    return it, float((rs / b2).sqrt().max())
+
+
+def run_stochastic(torch, kernels, card):
+    """(a) At 4x4 on the card, float64: the surrogate's gradient over 256
+    probe draws (256 copies of one configuration in one batch, 4 probes
+    each) against the exact log-det's gradient, within 5 standard errors
+    per component, as ``tests/test_fermions.py:273``.  (b) The 16x16
+    Schwinger model with ``StochasticStaggeredLogDet(n_probes=2,
+    cg_tol=1e-5)``: ``STOCH_STEPS`` replayed steps (the first profiled,
+    counters set to 0 just before: no kernel of the port runs), 3 replays
+    against 3 eager bodies, the CG iterations the probe systems of a step
+    need, and time per step.  (c) Sampling on that model with the exact,
+    keyless action."""
+    from normflow__tpu_torch.examples.u1_gauge import plaquette_series
+    from normflow__tpu_torch.models.fermions import (
+        StaggeredFermionLogDet, StochasticStaggeredLogDet)
+    from normflow__tpu_torch.tools.kernel_times import device_launches
+
+    lat, n = (4, 4), 256
+    rng = np.random.default_rng(9)
+    theta = torch.tensor(rng.uniform(-math.pi, math.pi, (1, 2, *lat)),
+                         dtype=torch.float64, device="cuda")
+    t = theta.clone().requires_grad_(True)
+    (g_exact,) = torch.autograd.grad(
+        StaggeredFermionLogDet(lat_shape=lat, mass=0.3)(t).sum(), t)
+    est = StochasticStaggeredLogDet(lat_shape=lat, mass=0.3, n_probes=4,
+                                    cg_tol=1e-10, cg_maxiter=400)
+    rep = theta.expand(n, -1, -1, -1).clone().requires_grad_(True)
+    gen = torch.Generator(device="cuda").manual_seed(100)
+    (grads,) = torch.autograd.grad(est.with_key(gen)(rep).sum(), rep)
+    mean, stderr = grads.mean(0), grads.std(0) / math.sqrt(n) + 1e-12
+    worst = float(((mean - g_exact[0]).abs() / stderr).max())
+    corr = float(np.corrcoef(mean.cpu().numpy().ravel(),
+                             g_exact.cpu().numpy().ravel())[0, 1])
+    print(f"stochastic log-det gradient at 4x4, float64 on the card, {n} "
+          f"draws x 4 probes: worst component {worst:.2f} standard errors "
+          f"from the exact gradient (bar 5), correlation {corr:.4f} (bar "
+          f"0.95) on {card}")
+    if not (worst < 5 and corr > 0.95):
+        raise AssertionError("the stochastic log-det gradient is biased")
+
+    model = schwinger_model(torch, STOCH_LAT, stochastic=True)
+    counters = gauge_counters()
+    reset_counts(counters)
+    device, _ = device_launches(lambda: fit_plain(model, 1, STOCH_BATCH))
+    gate_gauge(counters, kernels, "stochastic train", device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hist = model.fit.train(STOCH_STEPS, batch_size=STOCH_BATCH,
+                           steps_per_call=STOCH_STEPS)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if any(c.launches for c in counters.values()):
+        raise AssertionError("the stochastic fit ran a kernel wrapper")
+    loss = np.asarray(hist["loss"])
+    keyed = model.fit._training_action()
+    x = model.prior.sample(STOCH_BATCH, model.generator)
+    with torch.no_grad():
+        links = torch.exp(1j * model.net_.forward(x)[0])
+    z = keyed.logdet_func._probes(links)
+    iters, resid = cg_iterations(torch, links, z, 0.2, STOCH_CG_TOL,
+                                 keyed.logdet_func.cg_maxiter)
+    print(f"stochastic Schwinger {STOCH_LAT}, batch {STOCH_BATCH}: "
+          f"{STOCH_STEPS} replayed steps in {seconds:.3f} s "
+          f"({seconds / STOCH_STEPS * 1e3:.2f} ms per step, "
+          f"{len(loss)} steps in all), losses finite "
+          f"{bool(np.isfinite(loss).all())}; CG runs "
+          f"{keyed.logdet_func.cg_maxiter} masked iterations per step, the "
+          f"probe systems of a fresh draw need {iters} (worst |r|/|b| "
+          f"{resid:.2e}, tol {STOCH_CG_TOL}) on {card}")
+    if not (np.isfinite(loss).all() and iters < keyed.logdet_func.cg_maxiter
+            and keyed is not model.action and keyed.logdet_func.key
+            is model.generator):
+        raise AssertionError("the stochastic fit failed, its CG did not "
+                             "converge, or its probes were not keyed")
+    replayed_vs_eager_steps(torch, model, "stochastic Schwinger ",
+                            deterministic=True)
+    gauge_profile(torch, model.fit.step, f"one replayed stochastic "
+                  f"Schwinger step at batch {STOCH_BATCH}", reps=2)
+    out = model.mcmc.sample_chain(4, STOCH_BATCH, collect_samples=True)
+    exact = model.action.logdet_func.key is None
+    c = plaquette_series(out["samples"].reshape(-1, 2, *STOCH_LAT))[0]
+    c = c.double().cpu().numpy()
+    print(f"stochastic Schwinger model sampled with sample_chain(4, "
+          f"{STOCH_BATCH}) through model.action, whose log-det is keyless "
+          f"(exact Schur): {exact}; <cos P> {c.mean():.4f}, accept rate "
+          f"{float(out['accept_rate'].mean()):.4f} (after {len(loss)} steps)")
+    if not (exact and np.isfinite(c).all()):
+        raise AssertionError("the stochastic model's sampling is not exact")
+
+
 def profile_step(fn, what, reps=4):
     """Where the device time of ``fn`` goes: busy, wall, idle share and the
-    top kernels."""
+    top kernels; returns the busy seconds per call."""
     wall, dev = device_profile(fn, reps)
     if not dev:
         raise AssertionError(f"the profiler saw no device activity in {what}")
@@ -1838,6 +2496,7 @@ def profile_step(fn, what, reps=4):
     for kname, us in ranked[:10] + ours:
         print(f"  {us / reps / 1e3:9.4f} ms {us / 1e6 / busy:7.2%}  "
               f"{kname[:90]}")
+    return busy / reps
 
 
 def main() -> int:
@@ -1904,6 +2563,7 @@ def main() -> int:
     # before the main path's runs, which are profiled: the rates are taken
     # with no profiler run in the process
     phase("rates in turns", rates_in_turns, torch, card)
+    phase("gauge rates in turns", gauge_rates_in_turns, torch, card)
     model = phase("sampling path", run_main_path, torch, kernels, rng, card)
     phase("chain path", run_chain_path, torch, kernels, model, card)
     phase("parallel chains path", run_parallel_path, torch, kernels, model,
@@ -1929,6 +2589,15 @@ def main() -> int:
           f"{floor:.5f} ms on {card}")
     for time_it in timers:
         phase("kernel times", time_it)
+    # the U(1) gauge and Schwinger paths, on numpy draws of their own
+    grng = np.random.default_rng(20261017)
+    phase("U(1) sampling path", run_u1_sampling, torch, kernels, grng, card)
+    u1 = phase("U(1) training path", run_u1_training, torch, kernels, grng,
+               card)
+    phase("U(1) chain", run_u1_chain, torch, kernels, u1, card)
+    del u1
+    phase("Schwinger example", run_schwinger, torch, kernels, card)
+    phase("stochastic log-det", run_stochastic, torch, kernels, card)
     print("phase seconds: " + ", ".join(f"{n} {t:.1f}" for n, t in phases))
 
     for kname, rec in kernels.items():

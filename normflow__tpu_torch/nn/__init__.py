@@ -2,8 +2,8 @@
 
 The reference's trailing-underscore names are aliases of the port's
 classes, so that scripts written against it port mechanically.  The
-controlled couplings (``Cntr*``) and the U(1) gauge flows are not ported
-yet, and their names are not here.
+controlled couplings (``Cntr*``) are not ported yet, and their names are
+not here.
 """
 
 from ..models.core import (Flow, FlowList, Frozen, InvisibilityMaskWrapper,
@@ -17,6 +17,8 @@ from ..models.elementwise import (ArcTanh, Clone, DistConvertor, Expit,
                                   PhaseDistConvertor, Scale, SgnBias,
                                   SplineFlow, SplineNet, Tanh,
                                   UnityDistConvertor)
+from ..models.gauge import (U1AngleAction, U1PlaquetteCoupling,
+                            build_u1_gauge_flow)
 from ..models.nets import (ACTIVATIONS, CircularConv, ConvNet, Dense,
                            LinearNet)
 from ..models.spectral import (IPSD, FFTFlow, FreeScalar, IPSDNoZeroMode,

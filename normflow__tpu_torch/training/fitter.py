@@ -28,9 +28,16 @@ generator deterministically: ``initial_seed() + 7919 + n``, ``n`` the
 number of earlier rewinds; its learning-rate backoff is a device scalar
 written between replays.  All of this runs on the host between segments.
 
-Not ported, because the flagship has none: per-step control variates
-(``Cntr*`` flows), keyed (stochastic) actions and mesh sharding.  A model
-whose action has ``with_key`` raises.
+A keyed action (one with ``with_key``, e.g. ``SchwingerAngleAction`` over
+a ``StochasticStaggeredLogDet``) trains as the JAX step does
+(``fitter.py:233-247``): the training body calls ``action.with_key`` with
+the model's generator, which the captured step registers, so every step
+and every replay draws fresh probes; evaluation and the samplers keep the
+keyless (exact) ``model.action``.  The keyed action is built once per
+``model.action``, and anew in each ``model.fit`` call.
+
+Not ported yet: per-step control variates (``Cntr*`` flows) and mesh
+sharding.
 """
 
 from __future__ import annotations
@@ -78,6 +85,7 @@ class Fitter:
         self._lr_scale_t = torch.ones((), dtype=torch.float64,
                                       device=model.device)
         self._graphs = GraphCache()
+        self._keyed = None  # (model.action, its keyed training action)
 
     # ------------------------------------------------------------------ #
     def __call__(self, n_epochs=1000, save_every=None, batch_size=64,
@@ -122,9 +130,7 @@ class Fitter:
                 f"{getattr(self.loss_fn, '__name__', self.loss_fn)!r}. "
                 "The gradient may be biased -- use grad_estimator='rep'.",
                 stacklevel=2)
-        if hasattr(self._model.action, "with_key"):
-            raise NotImplementedError(
-                "Fitter: keyed (stochastic) actions are not ported")
+        self._keyed = None  # the training action, keyed anew in this call
 
         # the trainable mask is requires_grad
         self.params = [p for p in self._model.net_.parameters()
@@ -208,8 +214,19 @@ class Fitter:
             logq = model.prior.log_prob(x_inv) + mlogj
         else:
             logq = logr - logj
-        logp = -model.action(y)
+        logp = -self._training_action()(y)
         return self.loss_fn(logq, logp), logq, logp
+
+    def _training_action(self):
+        """``model.action``, keyed with the model's generator where it has
+        ``with_key`` (a stochastic log-det's probes), built once per
+        action."""
+        action = self._model.action
+        if not hasattr(action, "with_key"):
+            return action
+        if self._keyed is None or self._keyed[0] is not action:
+            self._keyed = (action, action.with_key(self._model.generator))
+        return self._keyed[1]
 
     def _step(self, x, logr):
         """One guarded update from the draw ``x``, committed on the device:

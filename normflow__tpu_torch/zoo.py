@@ -1,4 +1,5 @@
-"""Model zoo: the 2-D phi^4 flagship (``normflow__tpu/zoo.py:51-107``).
+"""Model zoo: the 2-D phi^4 flagship (``normflow__tpu/zoo.py:51-107``) and
+the 2-D U(1) gauge model (``zoo.py:110-136``, BASELINE config 5).
 
 PSD block -> DistConvertor -> RQ-spline coupling of ``n_layers``
 checkerboard conditioners with 3x3 circular convs and tanh, no bias ->
@@ -14,9 +15,15 @@ The weights start as in the JAX build, from the same distributions (the
 random streams differ): Kaiming-uniform conv weights with bound
 ``1/sqrt(fan_in)``, zero spline weights, and the FFT flow's ``logy`` from
 its effective-mass initialisation.
+
+The U(1) model (:func:`build_u1_model`) is ``models.gauge``'s plaquette
+coupling flow over a uniform prior on the link angles, with the Wilson
+action on angles.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -24,14 +31,15 @@ from .models.actions import ScalarPhi4Action
 from .models.core import FlowList
 from .models.couplings import RQSplineCoupling
 from .models.elementwise import DistConvertor
+from .models.gauge import U1AngleAction, build_u1_gauge_flow
 from .models.masks import EvenOddMask, PackedEvenOddMask
 from .models.nets import ConvNet, RowParityFeature
-from .models.priors import NormalPrior
+from .models.priors import NormalPrior, UniformPrior
 from .models.spectral import FFTFlow, MeanFieldFlow, PSDBlock
 from .training.model import Model
 from .utils.device import resolve_device
 
-__all__ = ["build_phi4_model"]
+__all__ = ["build_phi4_model", "build_u1_model"]
 
 
 def build_phi4_model(lat_shape=(32, 32), *, kappa=0.6, m_sq=-2.4, lambd=0.5,
@@ -77,3 +85,23 @@ def build_phi4_model(lat_shape=(32, 32), *, kappa=0.6, m_sq=-2.4, lambd=0.5,
     prior = NormalPrior(shape=lat_shape, **kw)
     action = ScalarPhi4Action(kappa=kappa, m_sq=m_sq, lambd=lambd)
     return Model(net_=net_, prior=prior, action=action, seed=seed)
+
+
+def build_u1_model(lat_shape=(16, 16), *, beta=2.0, knots_len=8,
+                   hidden=(16,), n_cycles=4, seed=0, dtype=torch.float32,
+                   device=None) -> Model:
+    """2-D U(1) gauge model with gauge-equivariant plaquette couplings
+    (BASELINE config 5) on ``device`` (``None`` means ``cuda``): ``8
+    n_cycles`` couplings, a uniform prior on [-pi, pi] per link angle and
+    ``U1AngleAction(beta)``; the conditioners' weights drawn from a
+    generator seeded with ``seed``."""
+    device = resolve_device(device)
+    lat_shape = tuple(lat_shape)
+    flow = build_u1_gauge_flow(torch.Generator().manual_seed(seed),
+                               lat_shape, knots_len=knots_len, hidden=hidden,
+                               n_cycles=n_cycles, dtype=dtype, device=device)
+    kw = dict(dtype=dtype, device=device)
+    prior = UniformPrior(torch.full((2, *lat_shape), -math.pi, **kw),
+                         torch.full((2, *lat_shape), math.pi, **kw))
+    return Model(net_=flow, prior=prior, action=U1AngleAction(beta=beta),
+                 seed=seed)

@@ -34,8 +34,13 @@ def test_sources_import_no_jax():
               ROOT / "tests" / "test_torch_cuda_graphs.py",
               ROOT / "tests" / "test_torch_cuda_mcmc.py",
               ROOT / "tests" / "test_torch_cuda_zoo.py",
+              ROOT / "tests" / "test_torch_cuda_gauge.py",
               ROOT / "normflow__tpu_torch" / "ops" / "kernels"
-              / "accept_scan.py"]
+              / "accept_scan.py",
+              ROOT / "normflow__tpu_torch" / "models" / "gauge.py",
+              ROOT / "normflow__tpu_torch" / "models" / "fermions.py",
+              ROOT / "normflow__tpu_torch" / "examples" / "u1_gauge.py",
+              ROOT / "normflow__tpu_torch" / "examples" / "schwinger.py"]
     assert len(files) > 10
     offenders = [str(f.relative_to(ROOT)) for f in files
                  if FORBIDDEN.search(f.read_text())]
@@ -53,9 +58,12 @@ def test_forbidden_pattern_catches_jax_imports():
 
 
 def test_default_device_is_the_gpu():
-    from normflow__tpu_torch.zoo import build_phi4_model
+    from normflow__tpu_torch.examples import schwinger, u1_gauge
+    from normflow__tpu_torch.zoo import build_phi4_model, build_u1_model
 
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is usable")
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        build_phi4_model()
+    for entry in (build_phi4_model, build_u1_model, u1_gauge.main,
+                  schwinger.main):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            entry()

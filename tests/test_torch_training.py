@@ -239,10 +239,17 @@ def test_path_estimator_warns_for_other_losses():
 
 
 def test_keyed_actions_are_refused():
+    """Keyed actions were refused until the fermion sector was ported; now
+    the fitter keys one with the model's generator, once per ``fit`` call,
+    for its training steps only."""
     model = _zerodim_model()
-    model.action.with_key = lambda key: model.action
-    with pytest.raises(NotImplementedError, match="keyed"):
-        model.fit(n_epochs=1, checkpoint_dict=QUIET)
+    action = model.action
+    keys = []
+    action.with_key = lambda key: keys.append(key) or action
+    hist = model.fit(n_epochs=3, checkpoint_dict=QUIET)
+    assert keys == [model.generator] and len(hist["loss"]) == 3
+    model.fit(n_epochs=1, checkpoint_dict=QUIET)
+    assert keys == [model.generator] * 2
 
 
 @pytest.mark.parametrize("kw", [
