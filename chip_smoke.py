@@ -105,7 +105,25 @@ use) and imports nothing of JAX.  Phases, each of which raises on failure:
     with ``StochasticStaggeredLogDet(n_probes=2, cg_tol=1e-5)``: 32
     replayed steps, replays bit for bit with eager bodies under cuDNN's
     deterministic algorithms, the CG iterations a step's probe systems
-    need, and sampling with the exact, keyless action.
+    need, and sampling with the exact, keyless action;
+18. BASELINE config 4 at full width (64x64, 4 couplings, hidden (16,
+    16), 8 knots, batch 512, 1024 chains): the coupling and its VJP at
+    S = 2048 and the action and its force at 64x64 (1024-thread tiles)
+    against their plain versions; a world-size-1 NCCL group on a free
+    localhost port; ``examples.scalar_64x64_distributed.main()`` with the
+    coarse fit and the epochs cut for time (``C4_*`` below), the wrapper
+    counts set to 0 just before and read after; the transferred flow's
+    logq against a float64 CPU copy and a quality bar on the zero-shot
+    loss per site; a profiled fine-tune (4 / 4 / 1 / 1 per step: the
+    example's reparametrization gradient; the gradients' all-reduce
+    inside every replayed step), profiled parallel
+    chains (4 / 1 per round) and ``sample_chain`` (4 / 1 / 1 per round,
+    the proposals' gather inside), all tiled; 10 replayed steps against
+    10 eager bodies bit for bit under cuDNN's deterministic algorithms;
+    rates, idle shares, the data-parallel bucket's time per step (at world
+    size 1 its flat copy and division: a one-rank NCCL all-reduce launches
+    no kernel), and the kernels' times at these shapes; its added wall
+    time.
 
 The gauge paths' rates (eager bodies against graphed entry points, in
 turns) are taken in a phase of their own right after phase 3's, before any
@@ -260,22 +278,21 @@ def time_ms(fn, reps=50, warmup=5):
 
 
 def device_profile(fn, reps):
-    """Run ``fn()`` ``reps`` times under ``torch.profiler``.  Returns the
-    host wall seconds of the loop (ending in a synchronise) and
-    ``(name, microseconds)`` of every device activity it caused."""
+    """Run ``fn()`` ``reps`` times in a profiled window
+    (``kernel_times.device_window``).  Returns the host wall seconds of
+    the loop (ending in a synchronise) and ``(name, microseconds)`` of
+    every device activity it caused."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    from normflow__tpu_torch.tools.kernel_times import device_window
+
+    with device_window() as events:
         t0 = time.perf_counter()
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    return wall, [(e.name, e.time_range.elapsed_us()) for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    return wall, events
 
 
 def kernel_times(name, fn, plain_fn, plain_reps=20):
@@ -1344,18 +1361,19 @@ def record_variant(name, what, t, shape, peaks, kernels):
           f"{bms:.5f} ms ({by}: {nbytes / 1e6:.2f} MB)")
 
 
-def check_unpacked_kernels(torch, kernels, peaks):
-    """rqs_coupling at the unpacked flagship's S = 1024 sites per sample
-    (forward and inverse, at the sampling batch 1024 and the training batch
-    512) and rqs_coupling_bwd (B = 512, forward and inverse) against their
-    plain versions, with linear tails and the packed shapes' tolerances,
-    every launch on the tiled kernel; a planted wrong adjoint must fail.
-    Its inputs come from a numpy generator of its own, which leaves the
-    other phases' draws as they were.  Returns the function that times
-    them."""
+def check_coupling_at(torch, kernels, peaks, lat, seed):
+    """rqs_coupling at ``lat`` sites per sample (forward and inverse, at
+    the sampling batch 1024 and the training batch 512) and
+    rqs_coupling_bwd (B = 512, forward and inverse) against their plain
+    versions, with linear tails and the packed shapes' tolerances, every
+    launch on the tiled kernel; a planted wrong adjoint must fail.  Its
+    inputs come from a numpy generator of its own (``seed``), which leaves
+    the other phases' draws as they were.  Returns the function that times
+    them, under ``variants`` named by ``S=<sites>``."""
     from normflow__tpu_torch.ops.kernels import spline_coupling as sc
 
-    rng = np.random.default_rng(20261018)
+    rng = np.random.default_rng(seed)
+    tag = f"S={math.prod(lat)}"
     kw = dict(xlim=(-4.0, 4.0), ylim=(-4.0, 4.0), left="linear",
               right="linear")
 
@@ -1363,7 +1381,7 @@ def check_unpacked_kernels(torch, kernels, peaks):
         return torch.tensor(rng.standard_normal(shape), dtype=torch.float32,
                             device="cuda")
 
-    x, out = f32((BATCH, *LAT)), f32((BATCH, 22, *LAT))
+    x, out = f32((BATCH, *lat)), f32((BATCH, 22, *lat))
     counters = {k: c for k, c in _counters().items()
                 if k in ("rqs_coupling", "rqs_coupling_bwd")}
     reset_counts(counters)
@@ -1375,17 +1393,17 @@ def check_unpacked_kernels(torch, kernels, peaks):
                                            **kw)
             dy = float((y - yp).abs().max())
             dg = float((g - gp).abs().max())
-            print(f"rqs_coupling S = 1024, B = {b}, inverse={inverse}: "
+            print(f"rqs_coupling {tag}, B = {b}, inverse={inverse}: "
                   f"max|dy| {dy:.3e}  max|dlogg| {dg:.3e}  (tol {RQS_TOL})")
             if not (dy <= RQS_TOL and dg <= RQS_TOL):
                 raise AssertionError("rqs_coupling disagrees with its plain "
-                                     "version at S = 1024")
+                                     f"version at {tag}")
             worst = max(worst, dy, dg)
     kernels["rqs_coupling"]["max_abs_err"] = max(
         kernels["rqs_coupling"]["max_abs_err"], worst)
 
     xb, ob = x[:TRAIN_BATCH], out[:TRAIN_BATCH]
-    ybar, loggbar = f32((TRAIN_BATCH, *LAT)), f32((TRAIN_BATCH, *LAT))
+    ybar, loggbar = f32((TRAIN_BATCH, *lat)), f32((TRAIN_BATCH, *lat))
     worst = 0.0
     for inverse in (False, True):
         got = sc.rqs_coupling_bwd(xb, ob, ybar, loggbar, inverse=inverse,
@@ -1396,30 +1414,30 @@ def check_unpacked_kernels(torch, kernels, peaks):
         plant = tuple(g + 0.01 * med for g, med in zip(got, medians))
         e = vjp_excess(got, vjp, VJP_RTOL)
         planted = vjp_excess(plant, vjp, VJP_RTOL)[0]
-        print(f"rqs_coupling_bwd S = 1024, B = {TRAIN_BATCH}, inverse="
+        print(f"rqs_coupling_bwd {tag}, B = {TRAIN_BATCH}, inverse="
               f"{inverse}: worst |d|/(atol+{VJP_RTOL:g}|plain|) {e[0]:.3e} "
               f"(|d| {e[1]:.3e} where |plain| {e[2]:.4g}); a planted wrong "
               f"adjoint {planted:.3e} (must exceed 1)")
         if not (e[0] <= 1.0 and all(bool(torch.isfinite(g).all())
                                     for g in got)):
             raise AssertionError("rqs_coupling_bwd disagrees with its plain "
-                                 "version at S = 1024")
+                                 f"version at {tag}")
         if not planted > 1.0:
-            raise AssertionError("the S = 1024 check of rqs_coupling_bwd let "
+            raise AssertionError(f"the {tag} check of rqs_coupling_bwd let "
                                  "a planted wrong adjoint pass")
         worst = max(worst, max(float((g - w).abs().max())
                                for g, w in zip(got, vjp)))
     kernels["rqs_coupling_bwd"]["max_abs_err"] = max(
         kernels["rqs_coupling_bwd"]["max_abs_err"], worst)
-    check_tiled(counters, "S = 1024 checks")
+    check_tiled(counters, f"{tag} checks")
 
     def time_it():
-        """Both kernels at S = 1024: the coupling forward and inverse at
+        """Both kernels at ``lat``: the coupling forward and inverse at
         B = 1024 and 512, the VJP forward and inverse at B = 512."""
-        for what, b, inverse in (("forward S=1024", BATCH, False),
-                                 ("inverse S=1024", BATCH, True),
-                                 ("forward S=1024 B=512", TRAIN_BATCH, False),
-                                 ("inverse S=1024 B=512", TRAIN_BATCH, True)):
+        for what, b, inverse in ((f"forward {tag}", BATCH, False),
+                                 (f"inverse {tag}", BATCH, True),
+                                 (f"forward {tag} B=512", TRAIN_BATCH, False),
+                                 (f"inverse {tag} B=512", TRAIN_BATCH, True)):
             xs, os_ = x[:b], out[:b]
             t = kernel_times(
                 "rqs_coupling",
@@ -1428,8 +1446,8 @@ def check_unpacked_kernels(torch, kernels, peaks):
                                               **kw), plain_reps=5)
             record_variant("rqs_coupling", what, t, tuple(os_.shape), peaks,
                            kernels)
-        for what, inverse in (("forward S=1024", False),
-                              ("inverse S=1024", True)):
+        for what, inverse in ((f"forward {tag}", False),
+                              (f"inverse {tag}", True)):
             t = kernel_times(
                 "rqs_coupling_bwd",
                 lambda: sc.rqs_coupling_bwd(xb, ob, ybar, loggbar,
@@ -1815,6 +1833,326 @@ def run_bench(torch):
             and out["value"] > 0 and math.isfinite(out["value_err"])
             and 0.0 <= out["accept_rate"] <= 1.0):
         raise AssertionError(f"the bench's record is out of range: {out}")
+
+
+# --------------------------------------------------------------------- #
+# BASELINE config 4: the 64x64 flagship, data parallel, coarse-to-fine
+# --------------------------------------------------------------------- #
+C4_LAT, C4_HIDDEN = (64, 64), (16, 16)
+# the example's epochs (normflow__tpu_torch/examples/
+# scalar_64x64_distributed.py: 0 coarse, 4000 at lr 3e-3) cut for time:
+# main() fits C4_COARSE steps at 32x32 with its own settings and samples
+# the zero-shot transfer (n_epochs 0); then model.fit fine-tunes C4_FINE
+# steps at lr C4_FINE_LR (docs/TRAINING.md:150-159's fine-tune rate)
+C4_COARSE, C4_FINE, C4_FINE_LR = 2000, 200, 1e-4
+C4_CHAINS, C4_ROUNDS, C4_BURN = 1024, 16, 4  # the example's chains
+C4_CHAIN_ROUNDS = 8  # sample_chain rounds of C4_CHAINS proposals
+# launches per training step and per round: the example trains with the
+# fitter's default reparametrization estimator, as the JAX example does
+# (4 coupling forwards and their 4 VJPs a step; the bench's path gradient
+# adds the 4 inverses)
+C4_STEP = {"rqs_coupling": 4, "rqs_coupling_bwd": 4, "phi4_action": 1,
+           "phi4_action_grad": 1}
+C4_ROUND = {"rqs_coupling": 4, "phi4_action": 1}
+# Quality bar: per-site quality is what transfers (the volume law of
+# docs/TRAINING.md:139-146 assumes it), so the zero-shot 64x64 flow's
+# reverse-KL loss per site must keep at least C4_KEEP of the gain per site
+# that the coarse fit made over an untrained 64x64 flow of the same seed:
+# (loss_untrained - loss_64) / (loss_untrained - loss_32) >= C4_KEEP, each
+# loss the mean of logq - logp over 8 x 1024 draws divided by the sites.
+# The two lattices' free energies per site differ by finite-size terms far
+# below that gain, so a transfer that kept the per-site quality passes
+# and one that lost a tenth of it fails.
+C4_KEEP = 0.9
+
+
+def check_phi4_tiles(torch, kernels, peaks, lat, seed):
+    """phi4_action at (1024, *lat) and phi4_action_grad at (512, *lat)
+    on the tiled kernels against their plain versions with the flagship's
+    tolerances, the force also bit for bit against its general kernel; at
+    64x64 a tile is 1024 threads holding one sample.  Inputs from a numpy
+    generator of its own (``seed``).  Returns the function that times
+    them."""
+    from normflow__tpu_torch.models.actions import ScalarPhi4Action
+    from normflow__tpu_torch.ops.kernels import phi4
+
+    rng = np.random.default_rng(seed)
+    groups, samples = phi4.action_plan(lat)
+    cfgs = torch.tensor(rng.standard_normal((BATCH, *lat)),
+                        dtype=torch.float32, device="cuda")
+    fc = cfgs[:TRAIN_BATCH]
+    g = torch.tensor(rng.standard_normal(TRAIN_BATCH), dtype=torch.float32,
+                     device="cuda")
+    w = ScalarPhi4Action(kappa=0.6, m_sq=-2.4, lambd=0.5).get_coef(2)
+    if phi4.action_variant(lat, cfgs.data_ptr()) != "tiled":
+        raise AssertionError(f"{lat} does not take the tiled phi4 kernels")
+    counters = {k: c for k, c in _counters().items()
+                if k in ("phi4_action", "phi4_action_grad")}
+    reset_counts(counters)
+    got, want = phi4.phi4_action(cfgs, *w), phi4.phi4_action_plain(cfgs, *w)
+    fgot = phi4.phi4_action_grad(fc, g, *w)
+    fwant = phi4.phi4_action_grad_plain(fc, g, *w)
+    fgen = phi4.phi4_action_grad(offset_copy(torch, fc), g, *w)
+    torch.cuda.synchronize()
+    d, fd = (got - want).abs(), (fgot - fwant).abs()
+    rel = float((d / want.abs().clamp(min=1.0)).max())
+    ok = bool((fd <= FORCE_ATOL + FORCE_RTOL * fwant.abs()).all())
+    same = same_bits(torch, (fgot,), (fgen,))
+    tiled = {k: c.tiled_launches for k, c in counters.items()}
+    print(f"phi4 kernels at {lat}: tiles of {groups} threads x {samples} "
+          f"sample(s); phi4_action (1024, {lat[0]}, {lat[1]}) max rel "
+          f"{rel:.3e} (tol {PHI4_REL_TOL}); phi4_action_grad (512, "
+          f"{lat[0]}, {lat[1]}) max abs {float(fd.max()):.3e} (rtol "
+          f"{FORCE_RTOL}, atol {FORCE_ATOL}) {'ok' if ok else 'FAILED'}, vs "
+          f"the general kernel {'bit for bit' if same else 'NOT bit-identical'}"
+          f"; tiled launches {tiled}")
+    if not (rel <= PHI4_REL_TOL and ok and same
+            and tiled == {"phi4_action": 1, "phi4_action_grad": 1}):
+        raise AssertionError(f"a phi4 kernel disagrees with its plain "
+                             f"version or missed its tile at {lat}")
+    for name, err in (("phi4_action", float(d.max())),
+                      ("phi4_action_grad", float(fd.max()))):
+        kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"], err)
+
+    def time_it():
+        """Both kernels at ``lat``, tiled: the action at B = 1024, the
+        force at 512."""
+        for name, fn, plain, shape in (
+                ("phi4_action", lambda: phi4.phi4_action(cfgs, *w),
+                 lambda: phi4.phi4_action_plain(cfgs, *w), cfgs.shape),
+                ("phi4_action_grad",
+                 lambda: phi4.phi4_action_grad(fc, g, *w),
+                 lambda: phi4.phi4_action_grad_plain(fc, g, *w), fc.shape)):
+            record_variant(name, f"{tuple(shape)} tiled",
+                           kernel_times(name, fn, plain, plain_reps=5),
+                           tuple(shape), peaks, kernels)
+
+    return time_it
+
+
+def mean_loss_per_site(torch, model, n_batches=8):
+    """``(mean of logq - logp per site, ESS)`` over ``n_batches`` x
+    ``C4_CHAINS`` fresh draws."""
+    from normflow__tpu_torch import calc_ess
+
+    logqp = model.posterior.logqp_stream(n_batches, C4_CHAINS)
+    return (float(logqp.mean()) / math.prod(model.prior.shape),
+            float(calc_ess(logqp)))
+
+
+def run_config4(torch, kernels, peaks, card):
+    """BASELINE config 4 at full width: the four kernels at its shapes;
+    a world-size-1 NCCL group on a free localhost port; the example's
+    ``main()`` (coarse 32x32 fit, transfer, zero-shot 1024 chains) with the
+    counters set to 0 just before; the transferred flow against a float64
+    CPU copy and the quality bar; a profiled fine-tune with the all-reduce
+    in every replayed step, profiled parallel chains and ``sample_chain``;
+    10 replayed steps against 10 eager bodies bit for bit; rates, idle
+    shares and the bucket's time; the kernels' times at its shapes.  The
+    group has one rank, so its all-reduce calls launch no NCCL kernel."""
+    import torch.distributed as dist
+
+    from normflow__tpu_torch.examples import scalar_64x64_distributed as ex
+    from normflow__tpu_torch.models.masks import PackedEvenOddMask
+    from normflow__tpu_torch.ops import observables
+    from normflow__tpu_torch.parallel import free_port, init_distributed
+    from normflow__tpu_torch.tools.kernel_times import device_launches
+    from normflow__tpu_torch.utils.graphs import WARMUP
+    from normflow__tpu_torch.zoo import build_phi4_model
+
+    t_phase = time.perf_counter()
+    timers = [check_coupling_at(torch, kernels, peaks,
+                                (C4_LAT[0], C4_LAT[1] // 2), 20261020),
+              check_phi4_tiles(torch, kernels, peaks, C4_LAT, 20261021)]
+    init_distributed(rank=0, world_size=1,
+                     init_method=f"tcp://localhost:{free_port()}")
+    try:
+        print(f"config 4: NCCL group of {dist.get_world_size()} on "
+              f"{card}; cuts: coarse fit {C4_COARSE} steps at 32x32 (the "
+              f"example's default: off), main(n_epochs=0) (default 4000), "
+              f"then {C4_FINE} fine-tune steps at lr {C4_FINE_LR}")
+        counters = path_counters(("rqs_coupling", "rqs_coupling_bwd",
+                                  "phi4_action", "phi4_action_grad",
+                                  "accept_scan"))
+        reset_counts(counters)
+        t0 = time.perf_counter()
+        model = ex.main(coarse_epochs=C4_COARSE, n_epochs=0,
+                        chains=C4_CHAINS, chain_rounds=C4_ROUNDS,
+                        device="cuda")
+        seconds = time.perf_counter() - t0
+        # the coarse step's capture and the 64x64 parallel round's, each
+        # WARMUP bodies and the capture itself
+        want = {k: (WARMUP + 1) * (C4_STEP.get(k, 0) + C4_ROUND.get(k, 0))
+                for k in counters}
+        got = {k: c.launches for k, c in counters.items()}
+        print(f"config 4 main(): {seconds:.2f} s; wrapper launches {got} "
+              f"(want {want})")
+        dh = model.device_handler
+        if got != want or dh.group is None:
+            raise AssertionError("config 4's main() missed a kernel or "
+                                 "the process group")
+        check_tiled(counters, "config 4 main()")
+        n_par = model.net_.npar
+        print(f"config 4 flow: {n_par} parameters, {C4_LAT}, hidden "
+              f"{C4_HIDDEN}, 4 couplings, 8 knots")
+
+        x = np.random.default_rng(20261022).standard_normal((64, *C4_LAT))
+        cpu64 = build_phi4_model(C4_LAT, hidden=C4_HIDDEN, device="cpu",
+                                 dtype=torch.float64)
+        cpu64.net_.load_state_dict({k: v.double() for k, v in
+                                    model.net_.state_dict().items()})
+        with torch.no_grad():
+            xg = torch.tensor(x, dtype=torch.float32, device="cuda")
+            logq = (model.prior.log_prob(xg) - model.net_(xg)[1]).cpu()
+            x64 = torch.tensor(x)
+            want64 = cpu64.prior.log_prob(x64) - cpu64.net_(x64)[1]
+        rel = float(((logq.double() - want64).abs()
+                     / want64.abs().clamp(min=1.0)).max())
+        print(f"config 4 transferred flow on the card vs float64 CPU: max "
+              f"rel logq {rel:.3e} (tol {LOGQ_REL_TOL})")
+        if not rel <= LOGQ_REL_TOL:
+            raise AssertionError("the transferred 64x64 flow disagrees with "
+                                 "its float64 CPU copy")
+
+        coarse = build_phi4_model((32, 32), hidden=C4_HIDDEN)
+        coarse.net_ = model.net_.transfer(
+            shape=(32, 32), mask=PackedEvenOddMask(shape=(32, 32)))
+        loss32, ess32 = mean_loss_per_site(torch, coarse)
+        loss64, ess64 = mean_loss_per_site(torch, model)
+        fresh = build_phi4_model(C4_LAT, hidden=C4_HIDDEN)
+        loss_u = mean_loss_per_site(torch, fresh, 2)[0]
+        del coarse, fresh
+        keep = (loss_u - loss64) / (loss_u - loss32)
+        print(f"config 4 quality: loss per site 32x32 {loss32:.6f}, "
+              f"zero-shot 64x64 {loss64:.6f}, untrained 64x64 {loss_u:.6f}:"
+              f" the transfer keeps {keep:.4f} of the per-site gain (bar "
+              f"{C4_KEEP}); ESS 32x32 {ess32:.5f}, zero-shot 64x64 "
+              f"{ess64:.6f}, the volume law's ESS32^4 {ess32 ** 4:.6f}")
+        if not keep >= C4_KEEP:
+            raise AssertionError("the zero-shot 64x64 flow lost its per-site "
+                                 "quality")
+
+        train = {k: counters[k] for k in C4_STEP}
+        reset_counts(train)
+        t0 = time.perf_counter()
+        device, hist = device_launches(lambda: ex.fit(
+            model, C4_FINE, TRAIN_BATCH, C4_FINE_LR, 50, None))
+        seconds = time.perf_counter() - t0
+        gate_path(train, kernels, "config 4 train", C4_STEP, C4_FINE,
+                  device)
+        loss = np.asarray(hist["loss"][-C4_FINE:])
+        if loss.shape != (C4_FINE,) or not np.isfinite(loss).all():
+            raise AssertionError("config 4's fine-tune loss is not finite")
+        print(f"config 4 fine-tune: {C4_FINE} steps in {seconds:.2f} s "
+              f"(capture included, profiled), the all-reduce in each; loss "
+              f"per site {loss[0] / 4096:.6f} -> {loss[-1] / 4096:.6f}")
+        loss_ft, ess_ft = mean_loss_per_site(torch, model)
+        print(f"config 4 after the fine-tune: loss per site {loss_ft:.6f}, "
+              f"ESS {ess_ft:.6f}")
+
+        replayed_vs_eager_steps(torch, model, "config 4, the all-reduce "
+                                "in each step: ", deterministic=True)
+        c4_rates(torch, model, card)
+
+        mcmc = model.mcmc
+        par = {k: counters[k] for k in C4_ROUND}
+        mcmc._graphs.clear()  # the profiled call captures anew
+        reset_counts(par)
+        device, out = device_launches(lambda: mcmc.sample_parallel_chains(
+            C4_ROUNDS + C4_BURN, C4_CHAINS, collect_samples=True))
+        gate_path(par, kernels, "config 4 parallel", C4_ROUND,
+                  C4_ROUNDS + C4_BURN, device)
+        if out["samples"].shape != (C4_ROUNDS + C4_BURN, C4_CHAINS,
+                                    *C4_LAT) \
+                or not bool(torch.isfinite(out["logq"]).all()):
+            raise AssertionError("config 4's parallel chains are not finite "
+                                 "or have the wrong shape")
+        o = ex.chain_observables(out, C4_BURN)
+        del out
+        y, logq, logp = zip(*(model.posterior.sample__(C4_CHAINS)
+                              for _ in range(16)))
+        p2 = observables.phi2(torch.cat(y)).double()
+        logw = (torch.cat(logp) - torch.cat(logq)).double()
+        wgt = torch.softmax(logw, 0)
+        print(f"config 4 after the fine-tune: chains <phi^2> "
+              f"{o['phi2']:.5f} +- {o['phi2_err']:.5f}, chi {o['chi']:.3f}, "
+              f"tau_int {o['tau']:.2f}, accept {o['accept']:.4f}; "
+              f"reweighted raw samples <phi^2> {float((wgt * p2).sum()):.5f}"
+              f" (weights' ESS {float(1 / (wgt ** 2).sum()) / len(wgt):.5f}"
+              f" of {len(wgt)})")
+
+        per_round = {**C4_ROUND, "accept_scan": 1}
+        chain = {k: counters[k] for k in per_round}
+        mcmc._graphs.clear()
+        mcmc.reset()
+        reset_counts(chain)
+        device, out = device_launches(lambda: mcmc.sample_chain(
+            C4_CHAIN_ROUNDS, C4_CHAINS))
+        gate_path(chain, kernels, "config 4 chain", per_round,
+                  C4_CHAIN_ROUNDS, device)
+        rates = out["accept_rate"]
+        if not bool(torch.isfinite(out["logq"]).all()):
+            raise AssertionError("config 4's sample_chain is not finite")
+        print(f"config 4 sample_chain({C4_CHAIN_ROUNDS}, {C4_CHAINS}), the "
+              f"gather in each round: accept {float(rates.mean()):.4f}")
+    finally:
+        dist.destroy_process_group()
+    for time_it in timers:
+        time_it()
+    print(f"config 4 phase: {time.perf_counter() - t_phase:.1f} s of added "
+          f"wall on {card}")
+
+
+def c4_rates(torch, model, card):
+    """Config 4's graphed rates and where a replay's time goes: raw
+    samples/s of ``logqp_stream(16, 1024)`` and steps/s of 20 replayed
+    steps, each the median of 3 timings; the idle share and top kernels
+    of a replayed step, batch and parallel round; the device time per
+    step of the data-parallel bucket, as a replayed step's time less that
+    of the same model with no group, in turns: at world size 1 the flat
+    copy and the division, since a one-rank NCCL all-reduce launches no
+    kernel."""
+    from normflow__tpu_torch.examples import scalar_64x64_distributed as ex
+    from normflow__tpu_torch.zoo import build_phi4_model
+
+    post, fit = model.posterior, model.fit
+    post.logqp_stream(1, C4_CHAINS)  # captured
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    batch = statistics.median(
+        wall(lambda: post.logqp_stream(16, C4_CHAINS)) for _ in range(3))
+    step = statistics.median(
+        wall(lambda: [fit.step() for _ in range(20)]) for _ in range(3))
+    print(f"config 4 graphed: {16 * C4_CHAINS / batch:.1f} raw samples/s, "
+          f"{20 / step:.2f} steps/s (batch {TRAIN_BATCH}) on {card}")
+    profile_step(fit.step, f"one replayed config 4 step at {TRAIN_BATCH}, "
+                 "the all-reduce in it")
+    plain = build_phi4_model(C4_LAT, hidden=C4_HIDDEN)
+    plain.net_.load_state_dict(model.net_.state_dict())
+    ex.fit(plain, 1, TRAIN_BATCH, C4_FINE_LR, None, None)  # captured
+    turns = {"group": [], "none": []}
+    for _ in range(3):
+        for key, m in (("group", model), ("none", plain), ("group", model)):
+            turns[key].append(time_ms(m.fit.step, reps=20, warmup=1))
+    with_group, without = (statistics.median(turns[k])
+                           for k in ("group", "none"))
+    print(f"  a replayed step, median of 20 CUDA-event timings, in turns: "
+          f"{with_group:.5f}"
+          f" ms with the group, {without:.5f} ms without; the data-parallel "
+          f"bucket at world size 1 (flat copy and division; no NCCL kernel) "
+          f"{with_group - without:.5f} ms per step")
+    del plain
+    profile_step(lambda: post.logqp_stream(1, C4_CHAINS),
+                 f"one replayed config 4 batch of {C4_CHAINS}")
+    model.mcmc.sample_parallel_chains(1, C4_CHAINS)
+    profile_step(model.mcmc.parallel_graph(C4_CHAINS).graph.replay,
+                 f"one replayed config 4 parallel round of {C4_CHAINS}")
 
 
 # each kernel's device functions, the path's first, as ptxas and the
@@ -2557,7 +2895,7 @@ def main() -> int:
               phase("check accept_scan", check_accept_scan, torch, kernels,
                     peaks),
               phase("check the coupling kernels at S = 1024",
-                    check_unpacked_kernels, torch, kernels, peaks),
+                    check_coupling_at, torch, kernels, peaks, LAT, 20261018),
               phase("check the phi4 kernels at (128, 8, 8)",
                     check_phi4_general, torch, kernels, peaks)]
     # before the main path's runs, which are profiled: the rates are taken
@@ -2598,7 +2936,11 @@ def main() -> int:
     del u1
     phase("Schwinger example", run_schwinger, torch, kernels, card)
     phase("stochastic log-det", run_stochastic, torch, kernels, card)
+    phase("config 4", run_config4, torch, kernels, peaks, card)
     print("phase seconds: " + ", ".join(f"{n} {t:.1f}" for n, t in phases))
+    from normflow__tpu_torch.tools.kernel_times import HEAD_LOSSES, HEAD_NODES
+    print(f"profiled windows: {len(HEAD_LOSSES)}, the most head activities "
+          f"one lost {max(HEAD_LOSSES, default=0)} of {HEAD_NODES} on {card}")
 
     for kname, rec in kernels.items():
         fns = DEVICE_FUNCTIONS[kname]

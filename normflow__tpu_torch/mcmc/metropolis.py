@@ -17,6 +17,19 @@ the counterparts of the JAX package's scanned ``_chain_scan`` and
 action, the uniforms, the accept step and the carry of the chain's
 reference, written in place into tensors that live as long as the graph.
 On the CPU the same round body runs eagerly.
+
+With a process group attached to ``model.device_handler`` the production
+samplers split their work over the ranks (``normflow__tpu/mcmc/
+metropolis.py:320-325, 361-370``).  A chain round (``sample__``,
+``sample_chain``) draws ``batch_size / nranks`` proposals and their log
+uniforms on each rank from the rank's generator, pushes them through the
+flow and gathers the proposals, their ``logq``, ``logp`` and uniforms from
+every rank in rank order, with one collective inside the round: every rank
+then runs the recurrence on the same global sequence and holds the same
+chain.  ``sample_parallel_chains`` runs ``n_chains / nranks`` chains on each
+rank with no collective inside a round and gathers its outputs along the
+chains' axis after the last round.  The blocked sampler is not sharded, as
+in the JAX package.
 """
 
 from __future__ import annotations
@@ -218,14 +231,22 @@ class MCMCSampler:
         y, logj = m.net_.forward(x)
         return y, logr - logj, -m.action(y)
 
+    def _proposals(self, batch_size, generator):
+        """A chain round's proposals ``(y, logq, logp)`` and log uniforms:
+        this rank's share drawn and pushed through the flow, then gathered
+        from every rank (``ModelDeviceHandler.gather_rows``)."""
+        dh = self._model.device_handler
+        x, logr, lrand = self._draws(dh.batch_sharder()(batch_size),
+                                     generator)
+        return dh.gather_rows(*self._propose(x, logr), lrand)
+
     @torch.no_grad()
     def sample__(self, batch_size=1, generator=None, bookkeeping=False):
         """Return ``(y, logq, logp)`` after the Metropolis correction.  A
         first call seeds the chain from proposal 0."""
         m = self._model
         gen = m.generator if generator is None else generator
-        x, logr, lrand = self._draws(batch_size, gen)
-        y, logq, logp = self._propose(x, logr)
+        y, logq, logp, lrand = self._proposals(batch_size, gen)
         if bookkeeping:
             self.history.bookkeeping(raw_logq=logq, raw_logp=logp)
         if self._ref is None:
@@ -253,8 +274,7 @@ class MCMCSampler:
         (ref_y, ref_logq, ref_logp)``, and the new reference written into
         ``carry`` in place.  Returns ``(y, logq, logp, accept_rate,
         raw_logq, raw_logp, accept_seq)``."""
-        x, logr, lrand = self._draws(batch_size, generator)
-        y, logq, logp = self._propose(x, logr)
+        y, logq, logp, lrand = self._proposals(batch_size, generator)
         yn, lqn, lpn, accept = accept_reject(y, logq, logp, lrand, carry)
         for t, v in zip(carry, (yn[-1], lqn[-1], lpn[-1])):
             t.copy_(v)
@@ -308,9 +328,8 @@ class MCMCSampler:
         replay, each round's outputs into a row of the output tensors
         (allocated at the first round) after it, and reads the device once
         at the end for :attr:`history`.  On the CPU
-        :meth:`chain_body` runs eagerly.  The JAX package's mesh sharding
-        of the proposals has no counterpart yet (distribution is later
-        work of the port)."""
+        :meth:`chain_body` runs eagerly.  With a process group each rank
+        draws its share of every round's proposals (module docstring)."""
         m = self._model
         gen = m.generator if generator is None else generator
         if m.device.type == "cuda":
@@ -416,10 +435,13 @@ class MCMCSampler:
         ``logq``/``logp`` ``(n_rounds, n_chains)``, the ``final_samples``
         and, with ``collect_samples``, every round's ``samples``.  On a
         CUDA model every round is a replay of :meth:`parallel_graph`; on
-        the CPU :meth:`parallel_body` runs eagerly.  The JAX package's mesh
-        sharding has no counterpart yet."""
+        the CPU :meth:`parallel_body` runs eagerly.  With a process group
+        each rank runs ``n_chains / nranks`` of the chains and the outputs
+        are gathered along the chains' axis after the run."""
         m = self._model
         gen = m.generator if generator is None else generator
+        dh = m.device_handler
+        n_chains = dh.batch_sharder()(n_chains)
         if m.device.type == "cuda":
             graph, outs = self.parallel_graph(n_chains, gen)
             carry = outs[:3]
@@ -441,6 +463,9 @@ class MCMCSampler:
                 rows.put(i, samples=carry[0])
             if bookkeeping:
                 rows.put(i, raw_logq=raw_logq, raw_logp=raw_logp)
+        for k in rows:  # (rounds, chains, ...): every rank's chains
+            rows[k] = dh.all_gather_into_tensor(rows[k], dim=1)
+        final = dh.all_gather_into_tensor(carry[0].clone())
 
         accept_rate = np.mean(_to_numpy(rows["accept_seq"]), axis=1)
         for r in accept_rate:
@@ -448,7 +473,7 @@ class MCMCSampler:
         if bookkeeping:
             self._book_rounds(rows, n_rounds, indices=False)
         out = dict(logq=rows["logq"], logp=rows["logp"],
-                   accept_rate=accept_rate, final_samples=carry[0].clone())
+                   accept_rate=accept_rate, final_samples=final)
         if collect_samples:
             out["samples"] = rows["samples"]
         return out

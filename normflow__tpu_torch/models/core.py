@@ -10,9 +10,16 @@ A frozen flow (:class:`Frozen`, :func:`freeze`) is one whose parameters do
 not require gradients: they take no gradient, and the ``Fitter``, which
 trains exactly the parameters that require one, gives them no update and
 no weight decay.
+
+``transfer(**kwargs)`` maps a flow onto another lattice (coarse-to-fine
+training, ``normflow__tpu/models/core.py:62, 135``).  The JAX flows are
+immutable, so their ``transfer`` returns a new pytree; here it returns a
+new module with weights of its own and leaves the source as it was.
 """
 
 from __future__ import annotations
+
+import copy
 
 import torch
 from torch import nn
@@ -39,6 +46,12 @@ class Flow(nn.Module):
     def backward(self, x, log0=0.0, *, density: bool = False):
         raise NotImplementedError
 
+    def transfer(self, **kwargs):
+        """This flow on another lattice, as a new module: a copy, for a
+        flow that does not depend on the lattice (the keywords, e.g.
+        ``shape`` and ``mask``, are for the flows that do)."""
+        return copy.deepcopy(self)
+
 
 class FlowList(Flow):
     """Sequential composition: ``forward`` in order, ``backward`` in
@@ -64,6 +77,10 @@ class FlowList(Flow):
     @property
     def npar(self) -> int:
         return sum(p.numel() for p in self.parameters())
+
+    def transfer(self, **kwargs):
+        """Every flow transferred with the same keywords, in a new list."""
+        return FlowList([f.transfer(**kwargs) for f in self.flows])
 
 
 class Frozen(Flow):

@@ -15,9 +15,16 @@ rqs_coupling``, which dispatches on the tensor's device and raises on the
 card for a knot count it was not built for); fixed knots and the
 reflecting extrapolations take the plain ``ops.spline.rqs`` on either
 device, as the JAX package's XLA branch does.
+
+``Coupling.transfer`` and ``Coupling.grow`` (``normflow__tpu/models/
+couplings.py:95-117``) return new couplings: on another lattice's mask,
+and with conditioners appended whose last layer is zero, so that the grown
+flow computes the same map.
 """
 
 from __future__ import annotations
+
+import copy
 
 import numpy as np
 import torch
@@ -75,6 +82,28 @@ class Coupling(Flow):
     def preprocess_fz(x):
         """The frozen partition as a one-channel NCHW input."""
         return x.unsqueeze(1)
+
+    def transfer(self, mask=None, **kwargs):
+        """A new coupling with every conditioner transferred (``kwargs``)
+        and, if given, ``mask`` (the new lattice's) in place of this one's."""
+        new = copy.deepcopy(self)
+        new.nets = nn.ModuleList(net.transfer(**kwargs) for net in self.nets)
+        if mask is not None:
+            new.mask = mask
+        return new
+
+    def grow(self, new_nets):
+        """A new coupling with ``new_nets`` appended as near-identity
+        layers: each one's last layer is zeroed (``zeroed_final``), and a
+        zero conditioner output is the identity of every coupling here
+        (shift 0; affine ``t = s = 0``; uniform knots with unit
+        derivatives for the spline, to round-off), so the grown flow
+        computes the same map while the zeroed layers still get
+        gradients.  The existing conditioners keep their indices, and so
+        their parities."""
+        new = copy.deepcopy(self)
+        new.nets.extend(net.zeroed_final() for net in new_nets)
+        return new
 
 
 def _zero_logj(x, density):

@@ -8,10 +8,18 @@ is NCHW, PyTorch's layout; conv weights are OIHW and ``Dense`` weights
 weights; ``utils.transplant`` converts).  A 4-D conv is the sum of 3-D
 convs of the input rolled along the first lattice axis, as in the JAX
 package (neither cuDNN nor XLA has a native 4-D conv).
+
+The conv nets and ``LinearNet`` have ``zeroed()`` (every weight zero),
+``zeroed_final()`` (the last layer zero: the net outputs zeros, so a
+coupling on it is the identity, while the hidden layers keep their weights
+and the zeroed layer a nonzero gradient) and ``transfer()`` (a copy: their
+weights do not depend on the lattice), each returning a new module
+(``normflow__tpu/models/nets.py:224-240, 263-270, 356-368``).
 """
 
 from __future__ import annotations
 
+import copy
 import math
 
 import torch
@@ -49,6 +57,42 @@ def _uniform(shape, bound, generator, dtype, device):
     u = torch.rand(shape, generator=generator, dtype=torch.float64)
     return nn.Parameter(((2 * u - 1) * bound).to(
         dtype=dtype or torch.get_default_dtype(), device=device))
+
+
+def _zeroed(module, part=None):
+    """A copy of ``module`` with every weight of ``part(copy)`` (default:
+    the whole copy) set to zero."""
+    new = copy.deepcopy(module)
+    with torch.no_grad():
+        for p in (new if part is None else part(new)).parameters():
+            p.zero_()
+    return new
+
+
+def _final_part(net):
+    """What ``zeroed_final`` zeroes, as one module: the last layer and the
+    ``final_bias`` (if any), those of the wrapped net through a
+    ``RowParityFeature``."""
+    if isinstance(net, RowParityFeature):
+        return _final_part(net.net)
+    parts = [net.layers[-1]]
+    if getattr(net, "final_bias", None) is not None:
+        parts.append(net.final_bias)
+    return nn.ModuleList(parts)
+
+
+class _Transferable:
+    """``zeroed``, ``zeroed_final`` and ``transfer`` (see the module
+    docstring)."""
+
+    def zeroed(self):
+        return _zeroed(self)
+
+    def zeroed_final(self):
+        return _zeroed(self, _final_part)
+
+    def transfer(self, **kwargs):
+        return copy.deepcopy(self)
 
 
 class CircularConv(nn.Module):
@@ -118,7 +162,7 @@ def _per_layer(value, n):
     return value
 
 
-class ConvNet(nn.Module):
+class ConvNet(_Transferable, nn.Module):
     """Stack of circular conv layers, one activation name (or ``None``)
     per layer, sizes ``[in_channels, *hidden_sizes, out_channels]``, an
     optional ``pre_act`` and per-layer ``dilations`` (an int or one per
@@ -151,7 +195,7 @@ class ConvNet(nn.Module):
         return x
 
 
-class RowParityFeature(nn.Module):
+class RowParityFeature(_Transferable, nn.Module):
     """Appends a +-1 row-parity plane ``2 (row % 2) - 1`` as the last input
     channel, after the field, so a shared-weight conv on the
     checkerboard-packed grid can tell its row-skewed geometry apart."""
@@ -199,7 +243,7 @@ class PlusBias(nn.Module):
         return x + self.bias
 
 
-class LinearNet(nn.Module):
+class LinearNet(_Transferable, nn.Module):
     """Stack of ``Dense`` layers with activations on the features axis
     ``features_axis``, an optional ``pre_act`` and an optional final
     ``PlusBias``."""

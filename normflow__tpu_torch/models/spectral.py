@@ -6,10 +6,16 @@ Counterpart of ``normflow__tpu/models/spectral.py``: ``IPSD`` and
 ``PSDBlock``.  The FFT is ``torch.fft.rfftn``/``irfftn``; the spectral
 multiply is elementwise in k-space and the exact log-Jacobian carries the
 rfft redundancy correction.
+
+``transfer`` (``normflow__tpu/models/spectral.py:63, 226, 328``) maps the
+FFT flow to another lattice and spacing: the IPSD's log-scales absorb the
+spacing's powers (``IPSD.apply_scale``) and the flow takes the new
+``lat_shape``, from which its momentum grid is built at every call.
 """
 
 from __future__ import annotations
 
+import copy
 import math
 
 import torch
@@ -56,6 +62,17 @@ class IPSD(nn.Module):
         log_a = math.log(a)
         return [float(logy[0]) + log_a * ndim,
                 float(logy[1]) + log_a * (ndim - 2)]
+
+    def transfer(self, scale_factor=1, ndim=1):
+        """A new IPSD at ``1 / scale_factor`` times the lattice spacing in
+        ``ndim`` dimensions."""
+        new = copy.deepcopy(self)
+        log_a = math.log(1 / scale_factor)
+        with torch.no_grad():
+            new.logy.add_(torch.tensor([log_a * ndim, log_a * (ndim - 2)],
+                                       dtype=new.logy.dtype,
+                                       device=new.logy.device))
+        return new
 
     def infrared_mass(self, max_lat_k2=None):
         """The dimensionless infrared mass ``exp(logy[0] / 2)``."""
@@ -140,6 +157,17 @@ class FFTFlow(Flow):
         max_k2 = float(torch.max(rfft_lattice_k2(self.lat_shape,
                                                  torch.float64)))
         return self.ipsd_net.infrared_mass(max_lat_k2=max_k2)
+
+    def transfer(self, scale_factor=1, shape=None, **extra):
+        """A new flow on the lattice ``shape`` (default: this one's) at
+        ``1 / scale_factor`` times the spacing; other keywords are for
+        other flows."""
+        new = copy.deepcopy(self)
+        new.ipsd_net = self.ipsd_net.transfer(scale_factor=scale_factor,
+                                              ndim=len(self.lat_shape))
+        if shape is not None:
+            new.lat_shape = tuple(shape)
+        return new
 
     @property
     def _fft_dims(self):
@@ -235,6 +263,10 @@ class PSDBlock(Flow):
                 "PSDBlock needs an fftnet built with ignore_zeromode=True")
         self.mfnet = mfnet
         self.fftnet = fftnet
+
+    def transfer(self, **kwargs):
+        return PSDBlock(self.mfnet.transfer(**kwargs),
+                        self.fftnet.transfer(**kwargs))
 
     def forward(self, x, log0=0.0, *, density: bool = False):
         return self._split_apply(x, log0, density, inverse=False)

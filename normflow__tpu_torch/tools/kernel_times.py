@@ -34,12 +34,14 @@ alone needs at the path's shapes (:func:`issue_ms`).
 ``phi4_action`` to max |dS| / max(1, |S|) <= 2e-5; it exits 1 if one
 differs (cases that only one file holds are left out).  :func:`warm_ms`,
 :func:`cold_ms`, :func:`event_floor_ms`, :func:`bound_ms`, :func:`work`,
-:func:`card_peaks` and :func:`device_launches` serve ``chip_smoke.py`` and
-the ``gpu`` tests too.
+:func:`card_peaks`, :func:`device_window` and :func:`device_launches`
+serve ``chip_smoke.py`` and the ``gpu`` tests too, and
+:func:`profiled_window` ``tools/profiler_windows.py``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 import re
@@ -47,6 +49,8 @@ import shutil
 import statistics
 import subprocess
 import sys
+import time
+import types
 
 PHI4_REL_TOL = 2e-5
 FLUSH_BYTES = 256 * 2 ** 20  # > 2 x the H100's 50 MB L2
@@ -134,32 +138,129 @@ def _call_ms(fn, reps, between=None):
     return call - event_floor_ms(reps)
 
 
-def device_launches(fn):
-    """``({kernel: (launches, tiled launches)}, fn())``: the launches of
-    the port's kernels in one profiled call of ``fn()``, counted by name in
-    the profiler's device events (:data:`KERNEL_RE`; the tiled variants'
-    names hold ``_tiled``, and a kernel with no tiled variant counts 0
-    tiled launches), and what ``fn`` returned.  Under a
-    CUDA graph a wrapper's ``launches`` counts its warm-up and capture,
-    not the replays; this counts every launch on the card.  The raw
+# the spin kernel of torch.cuda._sleep, which marks a profiled window's
+# edges (~2 us on an H100)
+MARKER_RE = re.compile(r"\bspin_kernel\b")
+MARKER_CYCLES = 1 << 12
+# a window's opening: on an H100 the profiler at times lost what started
+# in its first ~4 ms (0 of 400 windows at 5 or 10 ms of pause), and after a
+# long profiled window each later one lost its first device activities: 1
+# in tools/profiler_windows.py's windows, more than 8 in the smoke's kernel
+# times (a head of 2048 has held in every run of the smoke)
+WINDOW_PAD_S = 0.01
+HEAD_NODES = 2048  # one-element kernels that open a window
+HEAD_LOSSES = []  # the head activities each device_window lost, in order
+_HEADS = {}
+
+
+def _head(nodes):
+    """A CUDA graph of ``nodes`` one-element adds on the current card,
+    captured once per size and card.  The cache holds the tensor the graph
+    writes with the graph: freed, it would be handed to other tensors
+    while the graph still writes it."""
+    import torch
+
+    key = (nodes, torch.cuda.current_device())
+    if key not in _HEADS:
+        x = torch.zeros(1, device="cuda")
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            x.add_(1.0)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(nodes):
+                x.add_(1.0)
+        _HEADS[key] = graph, x
+    return _HEADS[key][0]
+
+
+@contextlib.contextmanager
+def profiled_window(pad_s=WINDOW_PAD_S, head=HEAD_NODES):
+    """The mechanics of :func:`device_window`: a ``torch.profiler`` window
+    (CPU and CUDA activities) that opens with a pause of ``pad_s`` seconds
+    and a replay of ``head`` one-element kernels (none for 0), then
+    synchronises and runs a marker spin, the body, a second marker and a
+    synchronise.  Yields a namespace whose ``events`` holds, once the
+    window has closed, ``(start_ns, name, duration_us, correlation_id,
+    on_device)`` of every event the profiler reported, sorted by start,
+    the host's runtime calls among them, and whose ``start_ns`` is the
+    profiler's start on the same clock.  The raw
     events are read: the profiler's event tree takes minutes to build for
-    a thousand replayed steps.  (A window that traces the device alone
-    saw no events on the card.)"""
+    a thousand replayed steps.  (A window that traces the device alone saw
+    no events on the card.)"""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    pats = {k: re.compile(v) for k, v in KERNEL_RE.items()}
-    counts = {k: [0, 0] for k in pats}
+    window = types.SimpleNamespace(events=[], start_ns=None)
+    graph = _head(head) if head else None
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        out = fn()
+        time.sleep(pad_s)
+        if graph is not None:
+            graph.replay()
+            torch.cuda.synchronize()
+        torch.cuda._sleep(MARKER_CYCLES)
+        yield window
+        torch.cuda._sleep(MARKER_CYCLES)
         torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
-    for e in prof.profiler.kineto_results.events():
-        if e.device_type() != cuda:
-            continue
-        name = e.name()
+    results = prof.profiler.kineto_results
+    window.start_ns = results.trace_start_ns()
+    window.events.extend(sorted(
+        (e.start_ns(), e.name(), e.duration_ns() / 1e3, e.correlation_id(),
+         e.device_type() == cuda) for e in results.events()))
+
+
+@contextlib.contextmanager
+def device_window():
+    """A ``torch.profiler`` window around the body, yielding a list that
+    holds ``(name, microseconds)`` of every device activity the body
+    caused once the window has closed (:func:`profiled_window`).
+
+    The card's profiler has dropped device activities at a window's
+    opening in two ways: now and then what started in its first few
+    milliseconds, and, after a long profiled window, the first device
+    activities of every later window.  So the window opens with
+    :data:`WINDOW_PAD_S` of pause and :data:`HEAD_NODES` one-element
+    kernels that may be lost, and only the activities that start between
+    the two marker kernels count; if the profiler reports either marker
+    missing, the window lost more than its head, and this raises rather
+    than return counts short of what ran.  What each head lost is kept in
+    :data:`HEAD_LOSSES`."""
+    events = []
+    with profiled_window() as window:
+        yield events
+    dev = [(t, n, us) for t, n, us, _, on_device in window.events
+           if on_device]
+    marks = [t for t, n, _ in dev if MARKER_RE.search(n)]
+    if len(marks) < 2:
+        raise RuntimeError(
+            f"the profiler reported {len(marks)} of the 2 marker kernels of "
+            f"its window ({len(dev)} device events, {HEAD_NODES} of them "
+            "the head's at most): it lost device activities, and its "
+            "counts would be short")
+    first, last = marks[-2:]
+    HEAD_LOSSES.append(HEAD_NODES - sum(t < first for t, _, _ in dev))
+    events.extend((n, us) for t, n, us in dev if first < t < last)
+
+
+def device_launches(fn):
+    """``({kernel: (launches, tiled launches)}, fn())``: the launches of
+    the port's kernels in one profiled call of ``fn()``
+    (:func:`device_window`), counted by name in the profiler's device
+    events (:data:`KERNEL_RE`; the tiled variants' names hold ``_tiled``,
+    and a kernel with no tiled variant counts 0 tiled launches), and what
+    ``fn`` returned.  Under a CUDA graph a wrapper's ``launches`` counts
+    its warm-up and capture, not the replays; this counts every launch on
+    the card."""
+    pats = {k: re.compile(v) for k, v in KERNEL_RE.items()}
+    counts = {k: [0, 0] for k in pats}
+    with device_window() as events:
+        out = fn()
+    for name, _ in events:
         for k, pat in pats.items():
             m = pat.search(name)
             if m:

@@ -36,8 +36,22 @@ and every replay draws fresh probes; evaluation and the samplers keep the
 keyless (exact) ``model.action``.  The keyed action is built once per
 ``model.action``, and anew in each ``model.fit`` call.
 
-Not ported yet: per-step control variates (``Cntr*`` flows) and mesh
-sharding.
+Data parallelism (``normflow__tpu/training/fitter.py:229, 319, 400-470``):
+with a process group attached to ``model.device_handler`` every rank
+draws ``batch_size / nranks`` samples from its own generator and, after
+``torch.autograd.grad``, all-reduces the loss and the gradients in one
+flat bucket (sum, then divided by the ranks: the psum XLA puts into the
+JAX step), before the clip, the optimizer and the NaN guard.  The module is
+not wrapped in ``DistributedDataParallel``, whose reducer never sees
+gradients taken with ``torch.autograd.grad``.  Every rank so takes the
+same update and reads the same loss, and the host's decisions (a spike
+rewind, the guard) come out the same on every rank; the all-reduce sits
+inside the captured step.  The loss is the mean of the ranks' losses, the
+global loss only for a batch mean: a fit over more than one rank takes
+``calc_kl_mean`` alone.  Rank 0 alone prints, saves snapshots and keeps the
+history, the metric batch gathered from every rank first.
+
+Not ported yet: per-step control variates (``Cntr*`` flows).
 """
 
 from __future__ import annotations
@@ -131,6 +145,13 @@ class Fitter:
                 "The gradient may be biased -- use grad_estimator='rep'.",
                 stacklevel=2)
         self._keyed = None  # the training action, keyed anew in this call
+        dh = self._model.device_handler
+        if (dh.group is not None and dh.nranks > 1
+                and self.loss_fn is not losses.calc_kl_mean):
+            raise ValueError(
+                "a data-parallel fit averages the ranks' losses, which is "
+                "the global loss only for calc_kl_mean; got "
+                f"{getattr(self.loss_fn, '__name__', self.loss_fn)!r}")
 
         # the trainable mask is requires_grad
         self.params = [p for p in self._model.net_.parameters()
@@ -144,13 +165,14 @@ class Fitter:
         self._graphs.clear()  # the new optimizer state needs a new capture
 
         snapshot_path = self.checkpoint_dict["snapshot_path"]
+        say = print if dh.rank == 0 else _silent
         if snapshot_path is None:
-            print("Not saving model snapshots")
+            say("Not saving model snapshots")
         elif os.path.exists(snapshot_path):
-            print(f"Trying to load snapshot from {snapshot_path}")
+            say(f"Trying to load snapshot from {snapshot_path}")
             self._load_snapshot(snapshot_path)
         else:
-            print("Starting training from scratch")
+            say("Starting training from scratch")
         return self.train(n_epochs, batch_size, save_every,
                           steps_per_call=steps_per_call)
 
@@ -236,10 +258,13 @@ class Fitter:
         (detached)."""
         loss, logq, logp = self.loss_of(x, logr)
         grads = torch.autograd.grad(loss, self.params)
+        loss = loss.detach()
+        dh = self._model.device_handler
+        if dh.group is not None:  # the loss and gradients of the group
+            loss, *grads = dh.all_reduce_mean([loss, *grads])
         updates, new_state = self.optimizer.update(list(grads),
                                                    self.opt_state,
                                                    self.params)
-        loss = loss.detach()
         scale = self._lr_scale_t.to(loss.dtype)
         updates = torch._foreach_mul(updates, scale)
         # NaN guard: a finite loss can come with non-finite gradients, so
@@ -254,11 +279,17 @@ class Fitter:
                 torch.where(ok, value, old, out=old)
         return loss, (logq - logp).detach()
 
+    def _draw(self, batch_size, generator):
+        """A training step's draw from the prior, ``(x, log r(x))``."""
+        return self._model.prior.sample_(batch_size, generator)
+
     def train_body(self):
-        """One training step on a fresh draw from the prior, run eagerly:
-        the body that :meth:`step` replays on a CUDA model."""
+        """One training step on a fresh draw from the prior (this rank's
+        share of the batch), run eagerly: the body that :meth:`step`
+        replays on a CUDA model."""
         model = self._model
-        x, logr = model.prior.sample_(self.train_batch_size, model.generator)
+        local = model.device_handler.batch_sharder()(self.train_batch_size)
+        x, logr = self._draw(local, model.generator)
         return self._step(x, logr)
 
     def step_graph(self):
@@ -298,6 +329,9 @@ class Fitter:
         if save_every is None:
             save_every = n_epochs
         model = self._model
+        rank = model.device_handler.rank
+        say = print if rank == 0 else _silent
+        model.device_handler.batch_sharder()(self.train_batch_size)  # raises
         print_stride = self.checkpoint_dict["print_stride"]
         evals_on = print_stride is not None
         stride = max(int(print_stride), 1) if evals_on else n_epochs + 1
@@ -341,19 +375,20 @@ class Fitter:
                                 float(self.rewind_lr_backoff))
                         back = (f", lr scale -> {float(self._lr_scale_t):g}"
                                 if self.rewind_lr_backoff else "")
-                        print(f"Epoch {epoch} | loss spike {seg_med:g} > "
-                              f"best {best_seg:g} + {guard:g}: rewound to "
-                              f"last healthy snapshot ({len(rewinds)}/"
-                              f"{self.max_rewinds}){back}")
+                        say(f"Epoch {epoch} | loss spike {seg_med:g} > "
+                            f"best {best_seg:g} + {guard:g}: rewound to "
+                            f"last healthy snapshot ({len(rewinds)}/"
+                            f"{self.max_rewinds}){back}")
                         continue
                 else:
                     best_seg = min(best_seg, seg_med)
                     last_good = self._state_copy()
-            self.train_history["loss"].extend(losses_np.tolist())
+            if rank == 0:
+                self.train_history["loss"].extend(losses_np.tolist())
             self.checkpoint(epoch, losses_np[-1], save_every)
         t2 = time.time()
         if n_epochs > 0:
-            print(f"({model.device.type}) Time = {t2 - t1:.3g} sec.")
+            say(f"({model.device.type}) Time = {t2 - t1:.3g} sec.")
         return self.train_history
 
     def _segment(self, n_steps):
@@ -379,24 +414,27 @@ class Fitter:
     # ------------------------------------------------------------------ #
     def checkpoint(self, epoch, loss, save_every):
         """Snapshot every ``save_every`` epochs; metrics at epochs 1, 10 and
-        every ``print_stride``."""
+        every ``print_stride``, of a batch of ``print_batch_size`` shared
+        among the ranks and gathered; rank 0 alone saves and prints."""
         model = self._model
+        dh = model.device_handler
         cd = self.checkpoint_dict
-        if (cd["snapshot_path"] is not None and save_every
+        if (dh.rank == 0 and cd["snapshot_path"] is not None and save_every
                 and epoch % save_every == 0):
             self._save_snapshot(epoch)
         if not cd["print_stride"]:  # None or 0: evals disabled
             return
         if epoch == 1 or epoch == 10 or epoch % cd["print_stride"] == 0:
             with torch.no_grad():
-                x, logr = model.prior.sample_(cd["print_batch_size"],
-                                              model.generator)
+                x, logr = model.prior.sample_(
+                    dh.batch_sharder()(cd["print_batch_size"]),
+                    model.generator)
                 y, logj = model.net_.forward(x)
-                logq = logr - logj
-                logp = -model.action(y)
-                loss_ = self.loss_fn(logq, logp)
-            self._append_to_train_history(logq, logp)
-            self.print_fit_status(epoch, loss=float(loss_))
+                logq, logp = dh.gather_rows(logr - logj, -model.action(y))
+            if dh.rank == 0:
+                self._append_to_train_history(logq, logp)
+                self.print_fit_status(epoch,
+                                      loss=float(self.loss_fn(logq, logp)))
 
     def _append_to_train_history(self, logq, logp):
         from ..mcmc.metropolis import estimate_accept_rate
@@ -466,6 +504,10 @@ class Fitter:
     calc_minus_logz = staticmethod(losses.calc_minus_logz)
     calc_ess = staticmethod(losses.calc_ess)
     calc_minus_ess = staticmethod(losses.calc_minus_ess)
+
+
+def _silent(*args, **kwargs):
+    """``print`` on ranks other than 0."""
 
 
 def _clone(state):

@@ -9,12 +9,19 @@ Sampling runs without autograd; training
 On a CUDA model ``Posterior.logqp_stream`` replays one captured batch
 (``utils.graphs``), the counterpart of the JAX package's scanned
 ``_logqp_scan``.
+
+``model.device_handler`` (``parallel.mesh.ModelDeviceHandler``) shards the
+model over a process group once one is attached: the posterior's entry
+points then draw this rank's share of the global batch from this rank's
+generator and return it (``logqp_stream`` captures one batch of that
+share per rank).
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..parallel.mesh import ModelDeviceHandler, fold_seed
 from ..utils.graphs import GraphCache, capture
 from .fitter import Fitter
 
@@ -35,6 +42,7 @@ class Model:
         self.action = action
         self.device = prior.device
         self.generator = torch.Generator(device=self.device)
+        self.device_handler = ModelDeviceHandler(self)
         self.seed(seed)
         self.posterior = Posterior(self)
         self.raw_dist = self.posterior  # alias, as in the JAX package
@@ -43,7 +51,12 @@ class Model:
         self.fit = Fitter(self)
 
     def seed(self, seed: int):
-        self.generator.manual_seed(seed)
+        """Seed the generator: with ``seed`` itself on rank 0 or with no
+        group attached, else with the rank's ``parallel.mesh.fold_seed``."""
+        self.base_seed = seed
+        dh = self.device_handler
+        self.generator.manual_seed(
+            fold_seed(seed, dh.rank) if dh.group is not None else seed)
 
     def transform(self, x):
         """The flow's output for ``x`` (no log-Jacobian)."""
@@ -77,7 +90,8 @@ class Posterior:
         the prior's draw before the flow."""
         m = self._model
         gen = m.generator if generator is None else generator
-        x, logr = m.prior.sample_(batch_size, gen)
+        x, logr = m.prior.sample_(m.device_handler.batch_sharder()(batch_size),
+                                  gen)
         if preprocess_func is not None:
             x, logr = preprocess_func(x, logr)
         y, logj = m.net_.forward(x)
@@ -103,9 +117,12 @@ class Posterior:
 
         On a CUDA model each batch is a replay of one captured batch
         (:meth:`batch_graph`); on the CPU the same body runs eagerly.  The
-        draws are those of the eager body from the same generator state."""
+        draws are those of the eager body from the same generator state.
+        With a process group attached each batch is this rank's share of
+        ``batch_size``."""
         m = self._model
         gen = m.generator if generator is None else generator
+        batch_size = m.device_handler.batch_sharder()(batch_size)
         out = torch.empty((n_batches, batch_size), dtype=m.prior.dtype,
                           device=m.device)
         if m.device.type != "cuda":

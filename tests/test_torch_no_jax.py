@@ -18,6 +18,8 @@ FORBIDDEN = re.compile(
 
 def test_import_leaves_jax_out():
     code = ("import sys, normflow__tpu_torch, normflow__tpu_torch.zoo\n"
+            "import normflow__tpu_torch.parallel.dryrun\n"
+            "import normflow__tpu_torch.examples.scalar_64x64_distributed\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'optax', 'normflow__tpu'))\n"
             "assert not bad, bad\n")
@@ -35,6 +37,12 @@ def test_sources_import_no_jax():
               ROOT / "tests" / "test_torch_cuda_mcmc.py",
               ROOT / "tests" / "test_torch_cuda_zoo.py",
               ROOT / "tests" / "test_torch_cuda_gauge.py",
+              ROOT / "tests" / "test_torch_cuda_distributed.py",
+              ROOT / "tests" / "_torch_ddp_worker.py",
+              ROOT / "normflow__tpu_torch" / "parallel" / "mesh.py",
+              ROOT / "normflow__tpu_torch" / "parallel" / "dryrun.py",
+              ROOT / "normflow__tpu_torch" / "examples"
+              / "scalar_64x64_distributed.py",
               ROOT / "normflow__tpu_torch" / "ops" / "kernels"
               / "accept_scan.py",
               ROOT / "normflow__tpu_torch" / "models" / "gauge.py",
