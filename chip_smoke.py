@@ -20,7 +20,9 @@ use) and imports nothing of JAX.  Phases, each of which raises on failure:
    flagships of their own, before any profiler has run in the process;
    proposals/s of ``logqp_stream``, ``sample_chain`` and
    ``sample_parallel_chains``; the packed against the unpacked flagship's
-   graphed samples/s and steps/s;
+   graphed samples/s and steps/s; the float32 against the bf16
+   conditioners' graphed samples/s, and the plain against the controlled
+   couplings' graphed steps/s;
 4. the sampling path: the full-width 32x32 phi^4 flagship with seeded
    perturbed weights, compared GPU vs CPU, then ``logqp_stream`` -> ESS
    and acceptance, ``mcmc.sample__`` twice, ``backward_sanitychecker``,
@@ -99,7 +101,9 @@ use) and imports nothing of JAX.  Phases, each of which raises on failure:
     invariance on the card; ``examples/schwinger.py``'s ``main()`` at its
     defaults with every counter set to 0 just before and read after;
     replayed steps (no port kernel) and 64 replayed chain rounds of 128
-    profiled; <cos P> more than 3 binned sigma above I1(2)/I0(2);
+    profiled, then calls of 64 more until <cos P>'s binned error is at
+    most 0.002 (at most 1024 rounds); <cos P> more than 3 binned sigma
+    above I1(2)/I0(2);
 17. the stochastic log-det: its gradient's mean over 256 probe draws at
     4x4 against the exact gradient on the card, and a 16x16 Schwinger fit
     with ``StochasticStaggeredLogDet(n_probes=2, cg_tol=1e-5)``: 32
@@ -123,7 +127,26 @@ use) and imports nothing of JAX.  Phases, each of which raises on failure:
     rates, idle shares, the data-parallel bucket's time per step (at world
     size 1 its flat copy and division: a one-rank NCCL all-reduce launches
     no kernel), and the kernels' times at these shapes; its added wall
-    time.
+    time;
+19. (after phase 8) the bf16 sampling path: the sampling flagship through
+    ``zoo.with_conv_compute_dtype(net_, torch.bfloat16)`` on a ``Model`` of
+    its own (the bench's ``cuda_bf16`` arm): kernels 1 and 3 against their
+    plain versions at the inputs this path gives them (the conditioner's
+    output cast back to float32); logq against the float32 flow on the
+    same draws, max and mean gap per sample, on the card and on the CPU
+    (the card's gap at most twice the CPU's); ``logqp_stream(32, 1024)``
+    profiled with the counters set to 0 just before (4 / 1 per batch, all
+    tiled); 3 replayed batches bit for bit with their eager bodies under
+    cuDNN's deterministic algorithms; where a replayed float32 and bf16
+    batch's time goes, and the conv kernels' share;
+20. the controlled coupling training: the flagship with its four
+    couplings as one ``CntrRQSplineCoupling`` whose conditioners' first
+    layer reads a normal control of the frozen partition's shape, trained
+    ``N_STEPS`` steps with the bench protocol, profiled with the counters
+    set to 0 just before (8 / 8 / 1 / 1 per step, all tiled), the loss
+    finite and falling; two replays drawing different controls into one
+    buffer; 10 replayed steps against 10 eager bodies bit for bit under
+    cuDNN's deterministic algorithms; where a replayed step's time goes.
 
 The gauge paths' rates (eager bodies against graphed entry points, in
 turns) are taken in a phase of their own right after phase 3's, before any
@@ -134,8 +157,8 @@ the replay of a graph of thousands of short kernels.
 On a CUDA model ``logqp_stream``, ``model.fit``, ``mcmc.sample_chain`` and
 ``mcmc.sample_parallel_chains`` replay a captured batch, step or round
 (``normflow__tpu_torch/utils/graphs.py``).  The main path's runs (phases
-4, 5, 9 and 10) are profiled, and their launches are counted on the card by
-kernel name: the ``WARMUP`` eager bodies before the capture and every
+4, 5, 9, 10, 19 and 20) are profiled, and their launches are counted on the
+card by kernel name: the ``WARMUP`` eager bodies before the capture and every
 replay launch 4 ``rqs_coupling`` and 1 ``phi4_action`` per sampled batch,
 8 / 8 / 1 / 1 per training step, 4 / 1 and 1 ``accept_scan`` per chain
 round and 4 / 1 per parallel round, every one to the tiled kernel where
@@ -250,6 +273,10 @@ U1_ANGLE_TOL = 1e-4
 # the Schwinger example (examples/schwinger.py's defaults) and the JAX
 # package's records of its <cos P> (docs/EXPERIMENTS.md:684-693, 1060-1063)
 SCHWINGER_LAT, SCHWINGER_ROUNDS = (8, 8), 64
+# its chain runs on in calls of SCHWINGER_ROUNDS until <cos P>'s binned
+# error is U1_COSP_ERR or less: 64 rounds (8192 configurations, accept 0.14)
+# left it at 0.0074 and the shift 2.51 sigma (an H100 80GB HBM3 run, 700 W)
+SCHWINGER_MAX_ROUNDS = 1024
 SCHWINGER_RECORDS = "0.7338, 0.7236, 0.7315 (stochastic)"
 # the stochastic log-det's fit at 16x16 (docs/EXPERIMENTS.md:1055's settings)
 STOCH_LAT, STOCH_BATCH, STOCH_STEPS, STOCH_CG_TOL = (16, 16), 64, 32, 1e-5
@@ -1741,6 +1768,9 @@ def rates_in_turns(torch, card):
     unpacked_trained = build_phi4_model(LAT, packed=False, seed=0)
     fit_protocol(unpacked_trained, 8)
     upost, ufit = unpacked.posterior, unpacked_trained.fit
+    arm = bf16_arm(torch, model)
+    cntr = controlled(torch, build_phi4_model(LAT, seed=0))
+    fit_protocol(cntr, 8)
 
     def eager_stream():
         for _ in range(N_BATCHES):
@@ -1774,7 +1804,16 @@ def rates_in_turns(torch, card):
             (f"packed vs unpacked flagship training at batch {TRAIN_BATCH}, "
              "graphed", "steps/s", 10,
              {"packed": graphed_steps,
-              "unpacked": lambda: [ufit.step() for _ in range(10)]})):
+              "unpacked": lambda: [ufit.step() for _ in range(10)]}),
+            ("float32 vs bf16 conditioners, sampling, graphed",
+             "raw samples/s", N_BATCHES * BATCH,
+             {"float32": lambda: post.logqp_stream(N_BATCHES, BATCH),
+              "bf16": lambda: arm.posterior.logqp_stream(N_BATCHES,
+                                                         BATCH)}),
+            (f"plain vs controlled couplings, training at batch "
+             f"{TRAIN_BATCH}, graphed", "steps/s", 10,
+             {"plain": graphed_steps,
+              "controlled": lambda: [cntr.fit.step() for _ in range(10)]})):
         in_turns(torch, card, what, unit, n, fns)
 
 
@@ -1822,6 +1861,231 @@ def replay_launches(torch, kernels, model, trained, zerodim):
                  f"{TRAIN_BATCH}")
     profile_step(fit.step, f"one replayed training step at batch "
                  f"{TRAIN_BATCH}")
+
+
+# --------------------------------------------------------------------- #
+# bf16 conditioners and controlled couplings at the flagship's widths
+# --------------------------------------------------------------------- #
+# the conv kernels of a profile, by name: cuDNN's and CUTLASS's conv
+# kernels (fprop, dgrad, wgrad, implicit GEMMs)
+CONV_RE = re.compile(r"conv|fprop|dgrad|wgrad|xmma|implicit_gemm|cudnn",
+                     re.IGNORECASE)
+
+
+def bf16_arm(torch, model):
+    """A ``Model`` of its own on ``model``'s weights (shared) with bf16
+    conditioners (``zoo.with_conv_compute_dtype``), the bench's
+    ``cuda_bf16`` arm."""
+    from normflow__tpu_torch import Model
+    from normflow__tpu_torch.zoo import with_conv_compute_dtype
+
+    return Model(net_=with_conv_compute_dtype(model.net_, torch.bfloat16),
+                 prior=model.prior, action=model.action, seed=0)
+
+
+def controlled(torch, model):
+    """``model`` (a packed flagship) with its coupling stack rebuilt as one
+    ``CntrRQSplineCoupling`` on the same nets and mask: each conditioner
+    stack's first layer reads a standard normal control field of the
+    frozen partition's shape, drawn from the model's generator."""
+    from normflow__tpu_torch.models.couplings import CntrRQSplineCoupling
+
+    cpl = model.net_[2]
+    shape = (model.prior.shape[0], model.prior.shape[1] // 2)
+
+    def draw(generator, batch_size):
+        return torch.randn((batch_size, *shape), generator=generator,
+                           device=generator.device)
+
+    model.net_.flows[2] = CntrRQSplineCoupling(
+        list(cpl.nets), mask=cpl.mask, xlim=cpl.xlim, ylim=cpl.ylim,
+        extrap=cpl.extrap, control_generator=draw)
+    return model
+
+
+def conv_share(fn, what, reps=4):
+    """The conv kernels' share of ``fn``'s device time (:data:`CONV_RE`),
+    printed; ``fn`` run ``reps`` times in a profiled window."""
+    dev = device_profile(fn, reps)[1]
+    busy = sum(us for _, us in dev)
+    conv = sum(us for n, us in dev if CONV_RE.search(n))
+    print(f"{what}: conv kernels {conv / reps / 1e3:.4f} ms of "
+          f"{busy / reps / 1e3:.4f} ms device time, share {conv / busy:.4f}")
+    return conv / busy
+
+
+def hold_on_path(torch, kernels, arm, x):
+    """Kernels 1 and 3 at the inputs the bf16 path gives them: the first
+    coupling's active partition and its bf16 conditioner's output (cast
+    back to float32), and the flow's output, from the draws ``x``; each
+    against its plain version (``RQS_TOL``, ``PHI4_REL_TOL``)."""
+    from normflow__tpu_torch.ops.kernels import phi4, spline_coupling as sc
+
+    net = arm.net_
+    cpl = net[2]
+    with torch.no_grad():
+        h = net[1].forward(*net[0].forward(x))[0]
+        x_act, x_frz = cpl.mask.split(h)[:2]
+        out = cpl.nets[0](cpl.preprocess_fz(x_frz)).contiguous()
+        y = net.forward(x)[0]
+    if out.dtype != torch.float32:
+        raise AssertionError(f"the bf16 conditioner returned {out.dtype}")
+    kw = dict(xlim=cpl.xlim, ylim=cpl.ylim, left="linear", right="linear")
+    got = sc.rqs_coupling(x_act.contiguous(), out, **kw)
+    want = sc.rqs_coupling_plain(x_act.contiguous(), out, **kw)
+    w = arm.action.get_coef(2)
+    s_got, s_want = phi4.phi4_action(y, *w), phi4.phi4_action_plain(y, *w)
+    torch.cuda.synchronize()
+    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    diff = (s_got - s_want).abs()
+    rel = float((diff / s_want.abs().clamp(min=1.0)).max())
+    print(f"bf16 path's inputs: rqs_coupling {tuple(out.shape)} vs plain "
+          f"max |d| {err:.3e} (tol {RQS_TOL}); phi4_action "
+          f"{tuple(y.shape)} vs plain max rel {rel:.3e} (tol "
+          f"{PHI4_REL_TOL})")
+    if not (err <= RQS_TOL and rel <= PHI4_REL_TOL):
+        raise AssertionError("a kernel disagrees with its plain version at "
+                             "the bf16 path's inputs")
+    for k, e in (("rqs_coupling", err), ("phi4_action",
+                                         float(diff.max()))):
+        kernels[k]["max_abs_err"] = max(kernels[k]["max_abs_err"], e)
+
+
+def run_bf16_sampling(torch, kernels, model, card):
+    """The sampling flagship (seeded perturbed weights) through
+    ``with_conv_compute_dtype(net_, torch.bfloat16)`` on a ``Model`` of its
+    own: kernels 1 and 3 at this path's inputs; logq against the float32
+    flow on the same draws, on the card and on the CPU; ``logqp_stream(32,
+    1024)`` profiled, the counters set to 0 just before; three replayed
+    batches against their eager bodies, bit for bit, under
+    ``cudnn.deterministic``; where a replayed batch's time goes, against
+    the float32 batch's."""
+    from normflow__tpu_torch import calc_ess
+    from normflow__tpu_torch.tools.kernel_times import device_launches
+    from normflow__tpu_torch.zoo import build_phi4_model
+
+    rng = np.random.default_rng(20261019)
+    arm = bf16_arm(torch, model)
+    x = torch.tensor(rng.standard_normal((BATCH, *LAT)), dtype=torch.float32,
+                     device="cuda")
+    hold_on_path(torch, kernels, arm, x)
+
+    cpu = build_phi4_model(LAT, seed=0, device="cpu")
+    cpu.net_.load_state_dict({k: v.cpu() for k, v in
+                              model.net_.state_dict().items()})
+    cpu_arm = bf16_arm(torch, cpu)
+    gaps = {}
+    for where, m32, m16, xd in (("card", model, arm, x),
+                                ("CPU", cpu, cpu_arm, x[:64].cpu())):
+        with torch.no_grad():
+            lq = [m.prior.log_prob(xd) - m.net_.forward(xd)[1]
+                  for m in (m32, m16)]
+        gap = (lq[1] - lq[0]).abs()
+        gaps[where] = float(gap[:64].max())
+        print(f"bf16 vs float32 conditioners on the {where}, "
+              f"{xd.shape[0]} draws: logq gap per sample max "
+              f"{float(gap.max()):.5f}, mean {float(gap.mean()):.5f} "
+              f"(float32 logq spread {float(lq[0].std()):.3f})")
+        if not bool(torch.isfinite(lq[1]).all()):
+            raise AssertionError("the bf16 flow's logq is not finite")
+    print(f"first 64 draws: card gap {gaps['card']:.5f}, CPU gap "
+          f"{gaps['CPU']:.5f} (want 0 < card <= 2 CPU)")
+    if not 0 < gaps["card"] <= 2 * gaps["CPU"]:
+        raise AssertionError("the bf16 conditioners on the card are not "
+                             "within twice the CPU's gap")
+
+    counters = {k: c for k, c in _counters().items()
+                if k in ("rqs_coupling", "phi4_action")}
+    per_batch = {"rqs_coupling": len(arm.net_[2].nets), "phi4_action": 1}
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    device, logqp = device_launches(
+        lambda: arm.posterior.logqp_stream(N_BATCHES, BATCH))
+    seconds = time.perf_counter() - t0
+    gate_path(counters, kernels, "bf16 sample", per_batch, N_BATCHES,
+              device)
+    if logqp.shape != (N_BATCHES * BATCH,) or not bool(
+            torch.isfinite(logqp).all()):
+        raise AssertionError("the bf16 logqp stream is not finite or has "
+                             "the wrong shape")
+    print(f"bf16 logqp_stream({N_BATCHES}, {BATCH}): ESS "
+          f"{float(calc_ess(logqp)):.5f} (perturbed weights); the first "
+          f"call, capture included, profiled, {seconds:.2f} s on {card}")
+
+    flag = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    arm.posterior._graphs.clear()  # captured anew with these algorithms
+    try:
+        arm.seed(21)
+        got = arm.posterior.logqp_stream(3, BATCH)
+        arm.seed(21)
+        want = torch.cat([arm.posterior.logqp_batch(BATCH, arm.generator)
+                          for _ in range(3)])
+    finally:
+        torch.backends.cudnn.deterministic = flag
+        arm.posterior._graphs.clear()
+    same = same_bits(torch, (got,), (want,))
+    print(f"bf16 replayed vs eager batch, 3 x {BATCH}, cuDNN "
+          f"deterministic: {'bit for bit' if same else 'NOT bit-identical'}")
+    if not same:
+        raise AssertionError("a bf16 replayed batch differs from its eager "
+                             "body")
+    for m, what in ((model, "float32"), (arm, "bf16")):
+        fn = lambda m=m: m.posterior.logqp_stream(1, BATCH)  # noqa: E731
+        fn()  # captured outside the profiled windows
+        profile_step(fn, f"one replayed {what} sampled batch of {BATCH}")
+        conv_share(fn, f"one replayed {what} sampled batch")
+
+
+def run_cntr_training(torch, kernels, card):
+    """The flagship's widths and the bench protocol with its couplings as
+    one ``CntrRQSplineCoupling`` (``controlled``): ``model.fit`` for
+    ``N_STEPS`` steps profiled, the counters set to 0 just before; two
+    replays drawing different controls into one buffer; 10 replayed steps
+    against 10 eager bodies from one state, bit for bit, under
+    ``cudnn.deterministic``; where a replayed step's time goes."""
+    from normflow__tpu_torch.tools.kernel_times import device_launches
+    from normflow__tpu_torch.zoo import build_phi4_model
+
+    model = controlled(torch, build_phi4_model(LAT, seed=0))
+    counters = _counters()
+    n_layers = len(model.net_[2].coupling.nets)
+    per_step = {"rqs_coupling": 2 * n_layers, "rqs_coupling_bwd": 2 * n_layers,
+                "phi4_action": 1, "phi4_action_grad": 1}
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    device, hist = device_launches(lambda: fit_protocol(model, N_STEPS))
+    seconds = time.perf_counter() - t0
+    gate_path(counters, kernels, "cntr train", per_step, N_STEPS, device)
+    loss = np.asarray(hist["loss"])
+    first, last = float(loss[:10].mean()), float(loss[-10:].mean())
+    print(f"controlled model.fit: {N_STEPS} steps in {seconds:.2f} s "
+          f"(capture included, profiled); loss {loss[0]:.3f} -> "
+          f"{loss[-1]:.3f}, mean of the first 10 {first:.3f}, of the last "
+          f"10 {last:.3f}")
+    if loss.shape != (N_STEPS,) or not np.isfinite(loss).all() \
+            or not last < first:
+        raise AssertionError("the controlled training loss is not finite "
+                             "or not falling")
+
+    cpl = model.net_[2]
+    ptr, controls = cpl.control.data_ptr(), []
+    for _ in range(2):
+        model.fit.step()
+        controls.append(cpl.control.clone())
+    torch.cuda.synchronize()
+    fresh = not torch.equal(*controls)
+    print(f"two replays' controls {tuple(cpl.control.shape)}: "
+          f"{'different' if fresh else 'THE SAME'}, one buffer "
+          f"{cpl.control.data_ptr() == ptr}; mean |d| "
+          f"{float((controls[0] - controls[1]).abs().mean()):.4f}")
+    if not fresh or cpl.control.data_ptr() != ptr:
+        raise AssertionError("successive replays did not draw new controls "
+                             "into the control's buffer")
+    replayed_vs_eager_steps(torch, model, "controlled: ", deterministic=True)
+    model.fit.step()  # captured anew outside the profiled window
+    profile_step(model.fit.step, f"one replayed controlled training step at "
+                 f"batch {TRAIN_BATCH}")
 
 
 def run_bench(torch):
@@ -2641,8 +2905,10 @@ def run_schwinger(torch, kernels, card):
     the training action is the exact one (``with_key`` is a no-op) and
     ``mcmc`` samples with it; 4 replayed steps (no kernel of the port) and
     ``SCHWINGER_ROUNDS`` replayed chain rounds profiled, the counters set
-    to 0 just before each; <cos P> must lie more than 3 binned
-    sigma above the pure-gauge I1(2) / I0(2)."""
+    to 0 just before each, then calls of as many until <cos P>'s binned
+    error is ``U1_COSP_ERR`` or less (at most ``SCHWINGER_MAX_ROUNDS``);
+    <cos P> must lie more than 3 binned sigma above the pure-gauge I1(2) /
+    I0(2)."""
     from normflow__tpu_torch.examples import schwinger
     from normflow__tpu_torch.examples.u1_gauge import binned
     from normflow__tpu_torch.tools.kernel_times import device_launches
@@ -2675,7 +2941,7 @@ def run_schwinger(torch, kernels, card):
     gate_gauge(counters, kernels, "schwinger train", device)
     cos_p, q, rates = sample_gauge(
         torch, kernels, model, SCHWINGER_LAT, 128, "schwinger chain", card,
-        SCHWINGER_ROUNDS, SCHWINGER_ROUNDS, captured=True)
+        SCHWINGER_ROUNDS, SCHWINGER_MAX_ROUNDS, captured=True)
     value, err = binned(cos_p)
     oracle = pure_gauge_cos_p(2.0)
     above = (value - oracle) / err
@@ -2915,6 +3181,10 @@ def main() -> int:
     phase("replay vs eager", replay_vs_eager, torch, model, trained)
     phase("replay launches", replay_launches, torch, kernels, model,
           trained, zerodim)
+    phase("bf16 sampling path", run_bf16_sampling, torch, kernels, model,
+          card)
+    phase("controlled coupling training", run_cntr_training, torch, kernels,
+          card)
     unpacked = phase("unpacked sampling path", run_unpacked_sampling, torch,
                      kernels, rng, card)
     phase("unpacked training path", run_unpacked_training, torch, kernels,
@@ -2938,9 +3208,12 @@ def main() -> int:
     phase("stochastic log-det", run_stochastic, torch, kernels, card)
     phase("config 4", run_config4, torch, kernels, peaks, card)
     print("phase seconds: " + ", ".join(f"{n} {t:.1f}" for n, t in phases))
-    from normflow__tpu_torch.tools.kernel_times import HEAD_LOSSES, HEAD_NODES
+    from normflow__tpu_torch.tools.kernel_times import (CLOSE_LOSSES,
+                                                         HEAD_LOSSES,
+                                                         HEAD_NODES)
     print(f"profiled windows: {len(HEAD_LOSSES)}, the most head activities "
-          f"one lost {max(HEAD_LOSSES, default=0)} of {HEAD_NODES} on {card}")
+          f"one lost {max(HEAD_LOSSES, default=0)} of {HEAD_NODES}; "
+          f"{len(CLOSE_LOSSES)} lost the closing marker on {card}")
 
     for kname, rec in kernels.items():
         fns = DEVICE_FUNCTIONS[kname]

@@ -14,21 +14,31 @@ a small check on the CPU):
    gradient, gradient-norm clip 25, ``--steps_per_call`` steps per
    segment) through ``model.fit``, which replays one captured training
    step;
-3. pick the sampling batch from 128/256/512/1024 by raw rate at the
-   official ``--sample_iters`` (:func:`autotune_batch`), unless ``--batch``
-   pins it;
-4. time ``--reps`` runs of ``Posterior.logqp_stream(sample_iters, batch)``,
-   which replays one captured batch, each from its own seed
-   (:func:`rep_seeds`; root ``bench.py`` times every repetition on one
-   key);
-5. the ESS of the last run's stream with its bootstrap error
+3. the sampling arms, root ``bench.py``'s ``xla`` / ``xla_bf16``
+   (l.289-352): ``cuda``, the trained flow, and ``cuda_bf16``, the same
+   weights with bf16 conditioners (``zoo.with_conv_compute_dtype``), each
+   on a ``Model`` of its own so that each keeps its captured batches; on
+   the CPU the one arm ``cpu`` (root ``bench.py`` runs bf16 on its
+   accelerator only);
+4. pick the sampling batch from 128/256/512/1024 by raw rate at the
+   official ``--sample_iters`` on the bf16 arm where there is one
+   (:func:`autotune_batch`), unless ``--batch`` pins it;
+5. a first stream of every arm (its capture), then ``--reps`` rounds that
+   time ``Posterior.logqp_stream(sample_iters, batch)``, which replays
+   one captured batch, of each arm in turn, every round from its own seed
+   (:func:`rep_seeds`, :func:`time_reps`; root ``bench.py`` times every
+   repetition on one key); no capture falls inside a timed run;
+6. each arm's ESS of its last stream and its effective rate (raw rate of
+   the median time times ESS); the arm with the higher effective rate is
+   kept and reported: its ESS with the bootstrap error
    (:func:`bootstrap_ess_err`), the accept rate with its error, and the
-   effective rate (raw rate times ESS) with the timing spread and the ESS
-   error in quadrature;
-6. the device's idle share over one profiled replay of each graph.
+   effective rate with the timing spread and the ESS error in quadrature;
+7. the device's idle share over one profiled replay of each graph (the
+   kept arm's batch).
 
-It prints one JSON line with root ``bench.py``'s keys (one sampling route,
-``"cuda"``; no roofline, no TPU probe, no ``--rng_impl``), plus
+It prints one JSON line with root ``bench.py``'s keys (the Pallas arms
+stay out: the port has one route per kernel; no roofline, no TPU probe,
+no ``--rng_impl``), plus
 ``platform``, the card's name and power limit as ``nvidia-smi`` gives
 them, ``train_steps_per_s`` (``model.fit``'s steps over its wall time,
 the capture included) and the idle shares.  It keeps its own copies of
@@ -48,8 +58,9 @@ import torch
 
 from .mcmc.metropolis import estimate_accept_rate
 from .ops.stats import calc_ess
+from .training.model import Model
 from .training.optim import cosine_decay_schedule
-from .zoo import build_phi4_model
+from .zoo import build_phi4_model, with_conv_compute_dtype
 
 __all__ = ["bootstrap_ess_err", "autotune_batch", "rep_seeds", "time_reps",
            "idle_share", "main"]
@@ -111,14 +122,18 @@ def rep_seeds(seed, reps):
     return [seed + 101 + r for r in range(reps)]
 
 
-def time_reps(model, iters, batch, seeds):
-    """One warm-up stream, then one timed ``logqp_stream(iters, batch)``
-    per seed.  Returns ``(seconds per run, the last run's logqp)``."""
-    _timed_stream(model, iters, batch, seeds[0])
-    times, logqp = [], None
+def time_reps(arms, iters, batch, seeds):
+    """``arms`` maps a name to a model.  One warm-up stream of each arm,
+    then for each seed one timed ``logqp_stream(iters, batch)`` of each
+    arm in turn.  Returns ``({arm: seconds per run}, {arm: its last run's
+    logqp})``."""
+    for model in arms.values():
+        _timed_stream(model, iters, batch, seeds[0])
+    times, logqp = {a: [] for a in arms}, {}
     for s in seeds:
-        dt, logqp = _timed_stream(model, iters, batch, s)
-        times.append(dt)
+        for a, model in arms.items():
+            dt, logqp[a] = _timed_stream(model, iters, batch, s)
+            times[a].append(dt)
     return times, logqp
 
 
@@ -204,17 +219,30 @@ def main(argv=None):
     _synchronize(model)
     train_time = time.perf_counter() - t0
 
+    arms = {"cuda" if on_card else "cpu": model}
+    if on_card:
+        arms["cuda_bf16"] = Model(
+            net_=with_conv_compute_dtype(model.net_, torch.bfloat16),
+            prior=model.prior, action=model.action, seed=args.seed)
+
     batch_table = None
     if args.batch == 0:
         args.batch, batch_table = autotune_batch(
-            model, iters=args.sample_iters, seed=args.seed + 2)
+            arms.get("cuda_bf16", model), iters=args.sample_iters,
+            seed=args.seed + 2)
         print(f"[bench] autotuned sampling batch: {args.batch} "
               f"(raw/s {batch_table})", flush=True)
 
     seeds = rep_seeds(args.seed, args.reps)
-    times, logqp = time_reps(model, args.sample_iters, args.batch, seeds)
+    times_by, logqp_by = time_reps(arms, args.sample_iters, args.batch,
+                                   seeds)
     n_per_program = args.sample_iters * args.batch
-    dt = statistics.median(times)
+    med = {a: statistics.median(t) for a, t in times_by.items()}
+    eff_by = {a: n_per_program / med[a] * float(calc_ess(logqp_by[a], 0.0))
+              for a in arms}
+    best = max(eff_by, key=eff_by.get)
+    kept, times, logqp = arms[best], times_by[best], logqp_by[best]
+    dt = med[best]
     samples_per_sec = n_per_program / dt
     logqp_np = logqp.cpu().numpy()
     ess = float(calc_ess(logqp, 0.0))
@@ -228,7 +256,7 @@ def main(argv=None):
     idle = {"sample": None, "train": None}
     if on_card:
         idle = {"sample": idle_share(
-                    lambda: model.posterior.logqp_stream(1, args.batch)),
+                    lambda: kept.posterior.logqp_stream(1, args.batch)),
                 "train": idle_share(model.fit.step)}
 
     out = {
@@ -246,9 +274,9 @@ def main(argv=None):
         "train_epochs": args.train_epochs,
         "n_layers": args.n_layers,
         "grad_estimator": args.grad_estimator,
-        "sampling_backend": "cuda" if on_card else "cpu",
-        "backend_medians_s": {"cuda" if on_card else "cpu": round(dt, 4)},
-        "backend_eff_per_s": {"cuda" if on_card else "cpu": round(eff, 1)},
+        "sampling_backend": best,
+        "backend_medians_s": {a: round(v, 4) for a, v in med.items()},
+        "backend_eff_per_s": {a: round(v, 1) for a, v in eff_by.items()},
         "train_time_s": round(train_time, 1),
         "train_steps_per_s": round(args.train_epochs / train_time, 3),
         "platform": args.device,

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..models.actions import ScalarPhi4Action
 from ..models.core import FlowList
@@ -26,6 +27,7 @@ from ..models.masks import EvenOddMask
 from ..models.nets import ConvNet
 from ..models.priors import NormalPrior
 from ..models.spectral import FFTFlow, MeanFieldFlow, PSDBlock
+from ..parallel.mesh import init_distributed
 from ..training.model import Model, backward_sanitychecker
 from ..utils.device import resolve_device
 
@@ -45,10 +47,9 @@ def main(kappa=0.67, m_sq=-4 * 0.67, lambd=0.5, n_epochs=1000,
          steps_per_call=None, print_stride=100, dtype=torch.float32,
          device=None, **net_kwargs):
     """Build the model, fit it and check the round trip through the flow;
-    returns the model.  ``n_devices > 1`` (a mesh) is not ported yet."""
-    if n_devices > 1:
-        raise NotImplementedError(
-            "n_devices > 1: distribution is not ported yet")
+    returns the model.  ``n_devices > 1`` shards the batch over that many
+    processes, one per device (``parallel/mesh.py``): run it under
+    ``torchrun --nproc_per_node N`` or ``spawnprocesses``."""
     device = resolve_device(device)
     kw = dict(dtype=dtype, device=device)
     model = Model(net_=assemble_net(lat_shape=lat_shape, seed=seed,
@@ -58,6 +59,10 @@ def main(kappa=0.67, m_sq=-4 * 0.67, lambd=0.5, n_epochs=1000,
                                           lambd=lambd),
                   seed=seed)
     print("number of model parameters =", model.net_.npar)
+    if n_devices > 1:  # one process per device: torchrun, spawnprocesses
+        init_distributed(device=model.device)
+        model.device_handler.use_mesh(n_devices=n_devices)
+        model.device_handler.replicate_params()
     model.fit(n_epochs=n_epochs, save_every=save_every,
               batch_size=batch_size, hyperparam=dict(lr=lr),
               param_groups=[dict(g) for g in param_groups],
@@ -164,4 +169,8 @@ if __name__ == "__main__":
     for k in ("lat_shape", "hidden_sizes"):
         if k in args:
             args[k] = ast.literal_eval(args[k])
-    main(**args)
+    try:
+        main(**args)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()

@@ -7,8 +7,9 @@ the Wilson action on angles and sampled with ``mcmc.sample_chain``::
 
     python3 -m normflow__tpu_torch.examples.u1_gauge [--n_epochs N]
 
-It runs on the GPU unless ``--device cpu`` is given.  The mesh
-(``n_devices``) is not ported yet.  :func:`observables` is the plaquette
+It runs on the GPU unless ``--device cpu`` is given; ``--n_devices N``
+shards the batch over N processes (``torchrun --nproc_per_node N``).
+:func:`observables` is the plaquette
 mean with its binned error (:func:`binned`), and the topological charge.
 """
 
@@ -18,8 +19,10 @@ import math
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..models.gauge import u1_plaq_angle
+from ..parallel.mesh import init_distributed
 from ..training.model import backward_sanitychecker
 from ..zoo import build_u1_model
 
@@ -28,12 +31,19 @@ __all__ = ["main", "plaquette_series", "binned", "observables", "report"]
 
 def main(beta=2.0, lat_shape=(16, 16), n_epochs=2000, batch_size=256,
          n_cycles=4, knots_len=8, lr=1e-3, seed=0, steps_per_call=None,
-         dtype=torch.float32, device=None):
-    """Build, fit and sample the model; returns the model."""
+         n_devices=1, dtype=torch.float32, device=None):
+    """Build, fit and sample the model; returns the model.
+    ``n_devices > 1`` shards the batch over that many processes, one per
+    device: run it under ``torchrun --nproc_per_node N`` or
+    ``spawnprocesses``."""
     model = build_u1_model(lat_shape, beta=beta, knots_len=knots_len,
                            hidden=(16,), n_cycles=n_cycles, seed=seed,
                            dtype=dtype, device=device)
     print("number of model parameters =", model.net_.npar)
+    if n_devices > 1:  # one process per device: torchrun, spawnprocesses
+        init_distributed(device=model.device)
+        model.device_handler.use_mesh(n_devices=n_devices)
+        model.device_handler.replicate_params()
     model.fit(n_epochs=n_epochs, batch_size=batch_size,
               hyperparam=dict(lr=lr, weight_decay=0.0),
               steps_per_call=steps_per_call,
@@ -98,9 +108,14 @@ if __name__ == "__main__":
     add("--lr", type=float)
     add("--seed", type=int)
     add("--steps_per_call", type=int)
+    add("--n_devices", type=int)
     add("--device", type=str)
     args = {k: v for k, v in vars(parser.parse_args()).items()
             if v is not None}
     if "lat_shape" in args:
         args["lat_shape"] = ast.literal_eval(args["lat_shape"])
-    main(**args)
+    try:
+        main(**args)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()

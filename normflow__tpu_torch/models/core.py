@@ -11,6 +11,13 @@ not require gradients: they take no gradient, and the ``Fitter``, which
 trains exactly the parameters that require one, gives them no update and
 no weight decay.
 
+``FlowList`` also has the JAX list's ``hack`` (every intermediate),
+portable weight blobs (``get_weights_blob`` / ``set_weights_blob``: base64
+of the port's own ``torch.save`` of the ``state_dict``, not the JAX
+package's flax msgpack, so neither package reads the other's blob) and
+``freeze_parameters`` / ``unfreeze_parameters`` (``normflow__tpu/models/
+core.py:104-160``).
+
 ``transfer(**kwargs)`` maps a flow onto another lattice (coarse-to-fine
 training, ``normflow__tpu/models/core.py:62, 135``).  The JAX flows are
 immutable, so their ``transfer`` returns a new pytree; here it returns a
@@ -19,7 +26,9 @@ new module with weights of its own and leaves the source as it was.
 
 from __future__ import annotations
 
+import base64
 import copy
+import io
 
 import torch
 from torch import nn
@@ -74,6 +83,36 @@ class FlowList(Flow):
     def __getitem__(self, i):
         return self.flows[i]
 
+    def hack(self, x, log0=0.0, **kwargs):
+        """The forward pass with every intermediate: ``[(x, log0), (x1,
+        log1), ...]``, one pair per flow after the input."""
+        stack = [(x, log0)]
+        for f in self.flows:
+            x, log0 = f.forward(x, log0, **kwargs)
+            stack.append((x, log0))
+        return stack
+
+    def get_weights_blob(self) -> str:
+        """The ``state_dict`` as a base64 string."""
+        buf = io.BytesIO()
+        torch.save(self.state_dict(), buf)
+        return base64.b64encode(buf.getvalue()).decode("utf-8")
+
+    def set_weights_blob(self, blob: str) -> "FlowList":
+        """A copy of this list with the weights of ``blob``
+        (:meth:`get_weights_blob`); raises ``ValueError`` unless the blob's
+        names and shapes are this list's."""
+        device = next(self.parameters()).device
+        state = torch.load(io.BytesIO(base64.b64decode(blob.strip())),
+                           map_location=device, weights_only=True)
+        new = copy.deepcopy(self)
+        try:
+            new.load_state_dict(state)
+        except RuntimeError as e:
+            raise ValueError(f"weights blob does not fit this flow -- model "
+                             f"architecture mismatch: {e}") from None
+        return new
+
     @property
     def npar(self) -> int:
         return sum(p.numel() for p in self.parameters())
@@ -81,6 +120,15 @@ class FlowList(Flow):
     def transfer(self, **kwargs):
         """Every flow transferred with the same keywords, in a new list."""
         return FlowList([f.transfer(**kwargs) for f in self.flows])
+
+    def freeze_parameters(self) -> "FlowList":
+        """A copy of this list whose flows are each :class:`Frozen`."""
+        return FlowList([freeze(f) for f in copy.deepcopy(self).flows])
+
+    def unfreeze_parameters(self) -> "FlowList":
+        """A copy of this list with every :class:`Frozen` flow unwrapped
+        (its parameters require gradients again)."""
+        return FlowList([unfreeze(f) for f in copy.deepcopy(self).flows])
 
 
 class Frozen(Flow):

@@ -16,6 +16,18 @@ card for a knot count it was not built for); fixed knots and the
 reflecting extrapolations take the plain ``ops.spline.rqs`` on either
 device, as the JAX package's XLA branch does.
 
+The controlled couplings (``couplings.py:356-531``): a
+:class:`DirectCntrCoupling` maps ``(x, control)``, its first layer
+conditioned on the control instead of the other partition; a
+:class:`CntrCoupling` keeps its control as a buffer (not a parameter:
+never trained) that :meth:`CntrCoupling.refresh_control` draws from its
+``control_generator(generator, batch_size)`` (JAX: ``(key,
+batch_size)``) into the same tensor whenever the shape holds, so that a
+captured training step that draws it keeps writing and reading one
+address.  :func:`refresh_controls` draws every ``CntrCoupling`` of a flow
+(the ``Fitter`` does so before every step), :func:`has_controls` says
+whether there is one; both find one inside a plain list or dict too.
+
 ``Coupling.transfer`` and ``Coupling.grow`` (``normflow__tpu/models/
 couplings.py:95-117``) return new couplings: on another lattice's mask,
 and with conditioners appended whose last layer is zero, so that the grown
@@ -36,7 +48,9 @@ from .core import Flow, sum_density
 from .elementwise import softplus_log2
 
 __all__ = ["Coupling", "ShiftCoupling", "AffineCoupling", "RQSplineCoupling",
-           "MultiRQSplineCoupling"]
+           "MultiRQSplineCoupling", "DirectCntrCoupling", "CntrCoupling",
+           "CntrShiftCoupling", "CntrAffineCoupling", "CntrRQSplineCoupling",
+           "CntrMultiRQSplineCoupling", "refresh_controls", "has_controls"]
 
 
 class Coupling(Flow):
@@ -51,22 +65,25 @@ class Coupling(Flow):
         self.mask = mask
 
     def forward(self, x, log0=0.0, *, density: bool = False):
-        parts = list(self.mask.split(x))
-        x, extra = parts[:2], parts[2:]
-        for k, net in enumerate(self.nets):
-            parity = k % 2
-            x[parity], log0 = self.atomic_forward(
-                x_active=x[parity], x_frozen=x[1 - parity], parity=parity,
-                net=net, log0=log0, density=density)
-        return self.mask.cat(*x, *extra), log0
+        return self._layers(x, log0, density, inverse=False)
 
     def backward(self, x, log0=0.0, *, density: bool = False):
+        return self._layers(x, log0, density, inverse=True)
+
+    def _layers(self, x, log0, density, inverse, control=None):
+        """Every layer in order, or in reverse order for ``inverse``; the
+        first layer's frozen input is ``control`` where one is given
+        (:class:`DirectCntrCoupling`)."""
         parts = list(self.mask.split(x))
         x, extra = parts[:2], parts[2:]
-        for k in reversed(range(len(self.nets))):
+        atomic = self.atomic_backward if inverse else self.atomic_forward
+        order = range(len(self.nets))
+        for k in (reversed(order) if inverse else order):
             parity = k % 2
-            x[parity], log0 = self.atomic_backward(
-                x_active=x[parity], x_frozen=x[1 - parity], parity=parity,
+            frozen = control if k == 0 and control is not None \
+                else x[1 - parity]
+            x[parity], log0 = atomic(
+                x_active=x[parity], x_frozen=frozen, parity=parity,
                 net=self.nets[k], log0=log0, density=density)
         return self.mask.cat(*x, *extra), log0
 
@@ -299,3 +316,147 @@ class MultiRQSplineCoupling(Coupling):
 
     atomic_forward = RQSplineCoupling.atomic_forward
     atomic_backward = RQSplineCoupling.atomic_backward
+
+
+# --------------------------------------------------------------------- #
+# controlled couplings
+# --------------------------------------------------------------------- #
+class DirectCntrCoupling(Flow):
+    """A coupling whose first layer's frozen input is an external control:
+    ``forward((x, control)) -> ((y, control), log0 + logJ)``, and
+    ``backward`` alike; ``coupling`` is any :class:`Coupling`."""
+
+    def __init__(self, coupling):
+        super().__init__()
+        self.coupling = coupling
+
+    def forward(self, x_and_control, log0=0.0, *, density: bool = False):
+        x, control = x_and_control
+        y, log0 = self.coupling._layers(x, log0, density, False, control)
+        return (y, control), log0
+
+    def backward(self, x_and_control, log0=0.0, *, density: bool = False):
+        x, control = x_and_control
+        y, log0 = self.coupling._layers(x, log0, density, True, control)
+        return (y, control), log0
+
+
+class CntrCoupling(Flow):
+    """A controlled coupling with a stored control (the ``control``
+    buffer; ``None`` until drawn).  ``control_generator(generator,
+    batch_size)`` returns a fresh control; sampling uses the stored one and
+    never draws.  The JAX leaf order is the coupling's, then the control
+    (``leaf_order``)."""
+
+    leaf_order = ("coupling", "control")
+
+    def __init__(self, coupling, control=None, control_generator=None):
+        super().__init__()
+        self.coupling = coupling
+        self.register_buffer("control", control)
+        self.control_generator = control_generator
+
+    @torch.no_grad()
+    def refresh_control(self, generator, batch_size: int):
+        """Draw a new control from ``generator`` into the buffer, in place
+        when its shape, dtype and device hold; returns ``self``."""
+        if self.control_generator is None:
+            raise ValueError(
+                "CntrCoupling.refresh_control needs a control_generator "
+                "(a callable (generator, batch_size) -> control tensor)")
+        new = self.control_generator(generator, batch_size)
+        old = self.control
+        if old is not None and (old.shape, old.dtype, old.device) == (
+                new.shape, new.dtype, new.device):
+            old.copy_(new)
+        else:
+            self.control = new.detach().clone()
+        return self
+
+    def _control(self):
+        if self.control is None:
+            raise ValueError(
+                "CntrCoupling has no control tensor: call "
+                "refresh_control(generator, batch_size) first (the Fitter "
+                "does this when a control_generator is set)")
+        return self.control
+
+    def forward(self, x, log0=0.0, *, density: bool = False):
+        return self.coupling._layers(x, log0, density, False,
+                                     self._control())
+
+    def backward(self, x, log0=0.0, *, density: bool = False):
+        return self.coupling._layers(x, log0, density, True,
+                                     self._control())
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        # a stored control of another shape, or one this coupling has not
+        # drawn yet, takes a buffer of its own shape first
+        value = state_dict.get(prefix + "control")
+        if value is not None and (self.control is None
+                                  or self.control.shape != value.shape):
+            device = next(self.coupling.parameters(), value).device
+            self.control = torch.empty_like(value, device=device)
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
+
+
+def _cntr_couplings(node, seen=None):
+    """Every :class:`CntrCoupling` with a control generator under
+    ``node``: through registered submodules and through plain lists,
+    tuples and dicts held by a module (``_map_container``'s case in
+    JAX)."""
+    seen = set() if seen is None else seen
+    if isinstance(node, nn.Module):
+        if id(node) in seen:
+            return
+        seen.add(id(node))
+        if isinstance(node, CntrCoupling) and \
+                node.control_generator is not None:
+            yield node
+        children = [*node._modules.values(),
+                    *(v for v in vars(node).values()
+                      if isinstance(v, (list, tuple, dict)))]
+        for child in children:
+            yield from _cntr_couplings(child, seen)
+    elif isinstance(node, (list, tuple)):
+        for v in node:
+            yield from _cntr_couplings(v, seen)
+    elif isinstance(node, dict):
+        for v in node.values():
+            yield from _cntr_couplings(v, seen)
+
+
+def has_controls(flow) -> bool:
+    """Whether ``flow`` holds a ``CntrCoupling`` with a control
+    generator."""
+    return next(_cntr_couplings(flow), None) is not None
+
+
+def refresh_controls(flow, generator, batch_size: int):
+    """Draw a fresh control for every ``CntrCoupling`` of ``flow`` from
+    ``generator``, one after the other, each in place where its shape
+    holds; returns ``flow``."""
+    for c in list(_cntr_couplings(flow)):
+        c.refresh_control(generator, batch_size)
+    return flow
+
+
+def CntrShiftCoupling(nets, *, mask, control_generator=None, **kwargs):
+    return CntrCoupling(ShiftCoupling(nets, mask=mask, **kwargs),
+                        control_generator=control_generator)
+
+
+def CntrAffineCoupling(nets, *, mask, control_generator=None, **kwargs):
+    return CntrCoupling(AffineCoupling(nets, mask=mask, **kwargs),
+                        control_generator=control_generator)
+
+
+def CntrRQSplineCoupling(nets, *, mask, control_generator=None, **kwargs):
+    return CntrCoupling(RQSplineCoupling(nets, mask=mask, **kwargs),
+                        control_generator=control_generator)
+
+
+def CntrMultiRQSplineCoupling(nets, *, mask, control_generator=None,
+                              **kwargs):
+    return CntrCoupling(MultiRQSplineCoupling(nets, mask=mask, **kwargs),
+                        control_generator=control_generator)

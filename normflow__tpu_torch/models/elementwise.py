@@ -21,9 +21,9 @@ from torch import nn
 from ..ops import spline as sp
 from .core import Flow, FlowList, sum_density
 
-__all__ = ["softplus_log2", "Identity", "Clone", "Scale", "Tanh", "ArcTanh",
-           "Expit", "Logit", "Pade11", "Pade22", "Pade32", "SgnBias",
-           "SplineFlow", "SplineNet", "UnityDistConvertor",
+__all__ = ["softplus_log2", "inv_softplus_log2", "Identity", "Clone", "Scale",
+           "Tanh", "ArcTanh", "Expit", "Logit", "Pade11", "Pade22", "Pade32",
+           "SgnBias", "SplineFlow", "SplineNet", "UnityDistConvertor",
            "PhaseDistConvertor", "DistConvertor"]
 
 _LOG2 = math.log(2.0)
@@ -36,6 +36,13 @@ def softplus_log2(x):
     of 20, which JAX's softplus does not, so it is computed as a
     ``logaddexp`` instead."""
     return torch.logaddexp(x * _LOG2, torch.zeros_like(x)) / _LOG2
+
+
+def inv_softplus_log2(y):
+    """The inverse of :func:`softplus_log2`, for a weight that should start
+    at a given positive value."""
+    y = torch.as_tensor(y)
+    return torch.log(torch.expm1(y * _LOG2)) / _LOG2
 
 
 def _softplus(x):
@@ -447,3 +454,21 @@ class DistConvertor(FlowList):
         if sgnbias:  # SgnBias must come first if it exists
             flows = [SgnBias(generator=generator, **kw)] + flows
         super().__init__(flows)
+
+    def _find(self, kind):
+        return next((f for f in self.flows if type(f) is kind), None)
+
+    @property
+    def spline_layer(self):
+        """The ``SplineFlow`` (``None`` at ``knots_len <= 1``)."""
+        return self._find(SplineFlow)
+
+    @property
+    def scale_layer(self):
+        """The ``Scale``, if any."""
+        return self._find(Scale)
+
+    @property
+    def sgnbias_layer(self):
+        """The ``SgnBias``, if any."""
+        return self._find(SgnBias)

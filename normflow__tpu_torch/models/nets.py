@@ -15,10 +15,23 @@ coupling on it is the identity, while the hidden layers keep their weights
 and the zeroed layer a nonzero gradient) and ``transfer()`` (a copy: their
 weights do not depend on the lattice), each returning a new module
 (``normflow__tpu/models/nets.py:224-240, 263-270, 356-368``).
+
+A ``ConvNet`` with a ``compute_dtype`` (``torch.bfloat16``, or its JAX
+name ``'bfloat16'``) casts its input and every weight to that dtype at
+each call, runs the stack there and casts the result back to the caller's
+dtype; the weights stay in their own dtype (``normflow__tpu/models/
+nets.py:160-222``).  Its convs then do what ``lax.conv_general_dilated``
+does in a reduced dtype: the conv in that dtype, the bias added after it,
+in that dtype too (the bias inside ``F.conv2d`` rounds differently).
+``fuse_out_cast`` makes the last layer emit the caller's dtype directly,
+JAX's ``preferred_element_type``: PyTorch has none, so that conv runs in
+float32 on the rounded input and weights with TF32 off, whose products of
+bf16 values are exact in float32.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import math
 
@@ -128,27 +141,59 @@ class CircularConv(nn.Module):
         x = F.pad(x, pad, mode="circular")
         return _CONV[w.dim() - 2](x, w, bias, dilation=d)
 
-    def _conv4d(self, x):
+    def _conv4d(self, x, w):
         # sum over the first kernel axis of 3-D convs of the input rolled
         # along the first lattice axis, which goes into the batch
         b, c, l0, *rest = x.shape
-        k0 = self.weight.shape[2]
+        k0 = w.shape[2]
         y = 0.0
         for i in range(k0):
             shift = (i - (k0 - 1) // 2) * self.dilation
             xi = torch.roll(x, -shift, dims=2).transpose(1, 2)
-            yi = self._convnd(xi.reshape(b * l0, c, *rest),
-                              self.weight[:, :, i])
+            yi = self._convnd(xi.reshape(b * l0, c, *rest), w[:, :, i])
             y = y + yi.reshape(b, l0, *yi.shape[1:]).transpose(1, 2)
         return y
 
-    def forward(self, x):
-        if self.conv_dim < 4:
-            return self._convnd(x, self.weight, self.bias)
-        y = self._conv4d(x)
-        if self.bias is not None:
-            y = y + self.bias.reshape(-1, 1, 1, 1, 1)
-        return y
+    def forward(self, x, out_dtype=None):
+        """The conv of ``x`` with the weights cast to ``x``'s dtype.  In
+        the weights' own dtype the bias goes into the conv, as before; in
+        another one (a ``ConvNet``'s compute dtype) it is added after it.
+        ``out_dtype``: emit that dtype, the conv in float32 on the rounded
+        operands (see the module docstring)."""
+        w = self.weight.to(x.dtype)
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        if x.dtype == self.weight.dtype and out_dtype is None:
+            if self.conv_dim < 4:
+                return self._convnd(x, w, b)
+            y = self._conv4d(x, w)
+            return y if b is None else y + b.reshape(-1, 1, 1, 1, 1)
+        if out_dtype is not None:
+            x, w = x.to(out_dtype), w.to(out_dtype)
+            b = None if b is None else b.to(out_dtype)
+        with _no_tf32() if out_dtype is not None else \
+                contextlib.nullcontext():
+            y = self._convnd(x, w) if self.conv_dim < 4 \
+                else self._conv4d(x, w)
+        if b is None:
+            return y
+        return y + b.reshape(-1, *([1] * (y.dim() - 2)))
+
+
+@contextlib.contextmanager
+def _no_tf32():
+    """cuDNN's convs without TF32 inside the block."""
+    flag = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = flag
+
+
+def _as_dtype(dtype):
+    """A torch dtype from itself or its name (``'bfloat16'``, as the JAX
+    package spells it); ``None`` stays ``None``."""
+    return getattr(torch, dtype) if isinstance(dtype, str) else dtype
 
 
 def _per_layer(value, n):
@@ -165,12 +210,15 @@ def _per_layer(value, n):
 class ConvNet(_Transferable, nn.Module):
     """Stack of circular conv layers, one activation name (or ``None``)
     per layer, sizes ``[in_channels, *hidden_sizes, out_channels]``, an
-    optional ``pre_act`` and per-layer ``dilations`` (an int or one per
-    layer)."""
+    optional ``pre_act``, per-layer ``dilations`` (an int or one per
+    layer) and a ``compute_dtype`` (``None``: the weights' own), with
+    ``fuse_out_cast`` (default ``False``, as in JAX) for the last layer
+    (see the module docstring)."""
 
     def __init__(self, in_channels, out_channels, kernel_size, *, conv_dim=2,
                  hidden_sizes=(), acts=(None,), pre_act=None, bias=True,
-                 dilations=None, generator=None, dtype=None, device=None):
+                 dilations=None, compute_dtype=None, generator=None,
+                 dtype=None, device=None):
         super().__init__()
         sizes = [in_channels, *hidden_sizes, out_channels]
         acts = tuple(acts)
@@ -184,15 +232,24 @@ class ConvNet(_Transferable, nn.Module):
             for i in range(len(acts)))
         self.acts = acts
         self.pre_act = pre_act
+        self.compute_dtype = _as_dtype(compute_dtype)
+        self.fuse_out_cast = False
 
     def forward(self, x):
+        out_dtype = x.dtype
+        cd = _as_dtype(self.compute_dtype)
+        if cd is not None:
+            x = x.to(cd)
         if self.pre_act is not None:
             x = ACTIVATIONS[self.pre_act](x)
-        for layer, act in zip(self.layers, self.acts):
-            x = layer(x)
+        n_last = len(self.layers) - 1
+        for i, (layer, act) in enumerate(zip(self.layers, self.acts)):
+            fuse = (i == n_last and act is None and self.fuse_out_cast
+                    and cd is not None and out_dtype != cd)
+            x = layer(x, out_dtype=out_dtype if fuse else None)
             if act is not None:
                 x = ACTIVATIONS[act](x)
-        return x
+        return x.to(out_dtype)
 
 
 class RowParityFeature(_Transferable, nn.Module):

@@ -274,6 +274,18 @@ class PSDBlock(Flow):
     def backward(self, x, log0=0.0, *, density: bool = False):
         return self._split_apply(x, log0, density, inverse=True)
 
+    def hack(self, x, log0=0.0):
+        """The forward pass's parts: ``[(x_mean, log0), (y_mf, logj_mf),
+        (y_fft, logj_fft), (y, log0 + logJ)]``."""
+        rvol = float(math.prod(x.shape[1:])) ** 0.5
+        x_mean = torch.mean(x, dim=tuple(range(1, x.dim())), keepdim=True)
+        y_mf, logj_mf = self.mfnet.forward(x_mean, rvol=rvol)
+        y_fft, logj_fft = self.fftnet.forward(x - x_mean)
+        return [(x_mean, log0), (y_mf, logj_mf), (y_fft, logj_fft),
+                (y_mf + y_fft, log0 + logj_mf + logj_fft)]
+
+    _hack = hack  # the reference's spelling
+
     def _split_apply(self, x, log0, density, inverse):
         dims = tuple(range(1, x.dim()))
         rvol = float(math.prod(x.shape[1:])) ** 0.5

@@ -1,15 +1,16 @@
 """Flow networks under the reference's names (``normflow__tpu/nn``).
 
 The reference's trailing-underscore names are aliases of the port's
-classes, so that scripts written against it port mechanically.  The
-controlled couplings (``Cntr*``) are not ported yet, and their names are
-not here.
+classes, so that scripts written against it port mechanically.
 """
 
 from ..models.core import (Flow, FlowList, Frozen, InvisibilityMaskWrapper,
                            MultiChannelFlow, MultiOutChannelFlow, freeze,
                            unfreeze)
-from ..models.couplings import (AffineCoupling, Coupling,
+from ..models.couplings import (AffineCoupling, CntrAffineCoupling,
+                                CntrCoupling, CntrMultiRQSplineCoupling,
+                                CntrRQSplineCoupling, CntrShiftCoupling,
+                                Coupling, DirectCntrCoupling,
                                 MultiRQSplineCoupling, RQSplineCoupling,
                                 ShiftCoupling)
 from ..models.elementwise import (ArcTanh, Clone, DistConvertor, Expit,
@@ -53,6 +54,12 @@ ShiftCoupling_ = ShiftCoupling
 AffineCoupling_ = AffineCoupling
 RQSplineCoupling_ = RQSplineCoupling
 MultiRQSplineCoupling_ = MultiRQSplineCoupling
+DirectCntrCoupling_ = DirectCntrCoupling
+CntrCoupling_ = CntrCoupling
+CntrShiftCoupling_ = CntrShiftCoupling
+CntrAffineCoupling_ = CntrAffineCoupling
+CntrRQSplineCoupling_ = CntrRQSplineCoupling
+CntrMultiRQSplineCoupling_ = CntrMultiRQSplineCoupling
 FFTNet_ = FFTFlow
 MeanFieldNet_ = MeanFieldFlow
 PSDBlock_ = PSDBlock

@@ -1,7 +1,10 @@
 """The reference's ``nn.scalar`` modules, each re-exporting the port's
-classes under the reference's names (``normflow__tpu/nn/scalar``).  The
-controlled couplings (``cntr_couplings_``) are not ported yet."""
+classes under the reference's names (``normflow__tpu/nn/scalar``)."""
 
+from .cntr_couplings_ import (CntrAffineCoupling_, CntrCoupling_,
+                              CntrMultiRQSplineCoupling_,
+                              CntrRQSplineCoupling_, CntrShiftCoupling_,
+                              DirectCntrCoupling_)
 from .convNd import Conv4d, ConvNd
 from .couplings_ import (AffineCoupling_, Coupling_, MultiRQSplineCoupling_,
                          RQSplineCoupling_, ShiftCoupling_)

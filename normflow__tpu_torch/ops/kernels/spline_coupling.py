@@ -37,7 +37,6 @@ import math
 import torch
 from torch.autograd.function import once_differentiable
 
-from ...models.elementwise import softplus_log2
 from . import _lib
 
 __all__ = ["rqs_coupling", "rqs_coupling_plain", "rqs_coupling_bwd",
@@ -75,6 +74,9 @@ def _coords(ws, lo, width, zero):
 def _knots(x, out, xlim, ylim, left, right):
     """The K = m + (left linear) + (right linear) knots of every site, as
     lists of tensors shaped like ``x``."""
+    # imported here: the models package imports this module
+    from ...models.elementwise import softplus_log2
+
     m = (out.shape[1] + 2) // 3
     ch = out.unbind(1)
     zero = torch.zeros_like(x)

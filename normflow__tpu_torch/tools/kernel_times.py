@@ -36,7 +36,8 @@ differs (cases that only one file holds are left out).  :func:`warm_ms`,
 :func:`cold_ms`, :func:`event_floor_ms`, :func:`bound_ms`, :func:`work`,
 :func:`card_peaks`, :func:`device_window` and :func:`device_launches`
 serve ``chip_smoke.py`` and the ``gpu`` tests too, and
-:func:`profiled_window` ``tools/profiler_windows.py``.
+:func:`profiled_window` ``tools/profiler_windows.py`` and
+``utils.profiling.trace``.
 """
 
 from __future__ import annotations
@@ -150,6 +151,8 @@ MARKER_CYCLES = 1 << 12
 WINDOW_PAD_S = 0.01
 HEAD_NODES = 2048  # one-element kernels that open a window
 HEAD_LOSSES = []  # the head activities each device_window lost, in order
+CLOSE_LOSSES = []  # the windows (indices into HEAD_LOSSES) that lost their
+# closing marker
 _HEADS = {}
 
 
@@ -160,6 +163,8 @@ def _head(nodes):
     while the graph still writes it."""
     import torch
 
+    from normflow__tpu_torch.utils.graphs import gc_paused
+
     key = (nodes, torch.cuda.current_device())
     if key not in _HEADS:
         x = torch.zeros(1, device="cuda")
@@ -169,7 +174,7 @@ def _head(nodes):
             x.add_(1.0)
         torch.cuda.current_stream().wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        with gc_paused(), torch.cuda.graph(graph):
             for _ in range(nodes):
                 x.add_(1.0)
         _HEADS[key] = graph, x
@@ -189,7 +194,8 @@ def profiled_window(pad_s=WINDOW_PAD_S, head=HEAD_NODES):
     profiler's start on the same clock.  The raw
     events are read: the profiler's event tree takes minutes to build for
     a thousand replayed steps.  (A window that traces the device alone saw
-    no events on the card.)"""
+    no events on the card.)  ``prof``, the closed profiler, exports the
+    window (``utils.profiling.trace``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -206,6 +212,7 @@ def profiled_window(pad_s=WINDOW_PAD_S, head=HEAD_NODES):
         yield window
         torch.cuda._sleep(MARKER_CYCLES)
         torch.cuda.synchronize()
+    window.prof = prof
     cuda = torch.autograd.DeviceType.CUDA
     results = prof.profiler.kineto_results
     window.start_ns = results.trace_start_ns()
@@ -226,16 +233,29 @@ def device_window():
     activities of every later window.  So the window opens with
     :data:`WINDOW_PAD_S` of pause and :data:`HEAD_NODES` one-element
     kernels that may be lost, and only the activities that start between
-    the two marker kernels count; if the profiler reports either marker
-    missing, the window lost more than its head, and this raises rather
-    than return counts short of what ran.  What each head lost is kept in
-    :data:`HEAD_LOSSES`."""
+    the two marker kernels count.  A window whose one marker is followed
+    by other activities lost its closing marker (nothing runs after that
+    one): the body is everything after the opening one, and the window is
+    kept in :data:`CLOSE_LOSSES`.  If the profiler reports the opening
+    marker missing, the window lost more than its head, and this raises
+    rather than return counts short of what ran.  What each head lost is
+    kept in :data:`HEAD_LOSSES`."""
     events = []
     with profiled_window() as window:
         yield events
-    dev = [(t, n, us) for t, n, us, _, on_device in window.events
-           if on_device]
+    events.extend(window_body([(t, n, us) for t, n, us, _, on_device
+                               in window.events if on_device]))
+
+
+def window_body(dev):
+    """``(name, microseconds)`` of the body's activities among a window's
+    device activities ``dev``, ``(start, name, microseconds)`` sorted by
+    start (see :func:`device_window`); appends to :data:`HEAD_LOSSES` and
+    :data:`CLOSE_LOSSES`, and raises if the opening marker is missing."""
     marks = [t for t, n, _ in dev if MARKER_RE.search(n)]
+    if len(marks) == 1 and any(t > marks[0] for t, _, _ in dev):
+        CLOSE_LOSSES.append(len(HEAD_LOSSES))
+        marks.append(math.inf)
     if len(marks) < 2:
         raise RuntimeError(
             f"the profiler reported {len(marks)} of the 2 marker kernels of "
@@ -244,7 +264,7 @@ def device_window():
             "counts would be short")
     first, last = marks[-2:]
     HEAD_LOSSES.append(HEAD_NODES - sum(t < first for t, _, _ in dev))
-    events.extend((n, us) for t, n, us in dev if first < t < last)
+    return [(n, us) for t, n, us in dev if first < t < last]
 
 
 def device_launches(fn):

@@ -1,1 +1,9 @@
-"""The ``Model`` wrapper, its posterior sampler and its fitter."""
+"""Training: ``Model``, ``Posterior``, ``Fitter``, the losses and the
+snapshots, exported as in ``normflow__tpu/training``."""
+
+from . import checkpoint, losses
+from .fitter import Fitter
+from .model import Model, Posterior, backward_sanitychecker
+
+__all__ = ["Model", "Posterior", "Fitter", "backward_sanitychecker",
+           "losses", "checkpoint"]

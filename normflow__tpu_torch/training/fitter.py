@@ -51,7 +51,15 @@ global loss only for a batch mean: a fit over more than one rank takes
 ``calc_kl_mean`` alone.  Rank 0 alone prints, saves snapshots and keeps the
 history, the metric batch gathered from every rank first.
 
-Not ported yet: per-step control variates (``Cntr*`` flows).
+A net with controlled couplings (``models.couplings.CntrCoupling`` with a
+control generator; ``has_controls`` is read once per ``fit``) trains as the
+JAX step does (``fitter.py:137-142, 231-240``): ``fit`` draws every control
+before the optimizer state and the capture, at this rank's share of the
+batch, and the training body draws fresh ones from the model's generator
+before its prior draw, into the same buffers, so every replay of the
+captured step trains on new controls.  The metrics' evaluation draws its
+own at the print batch and puts the training controls back after it;
+sampling uses the stored controls and never draws.
 """
 
 from __future__ import annotations
@@ -63,6 +71,8 @@ import warnings
 import numpy as np
 import torch
 
+from ..models.couplings import _cntr_couplings, has_controls, \
+    refresh_controls
 from ..ops.stats import estimate_logz, fmt_val_err
 from ..utils.graphs import GraphCache, capture
 from . import losses, optim
@@ -100,6 +110,7 @@ class Fitter:
                                       device=model.device)
         self._graphs = GraphCache()
         self._keyed = None  # (model.action, its keyed training action)
+        self._has_controls = False
 
     # ------------------------------------------------------------------ #
     def __call__(self, n_epochs=1000, save_every=None, batch_size=64,
@@ -153,6 +164,12 @@ class Fitter:
                 "the global loss only for calc_kl_mean; got "
                 f"{getattr(self.loss_fn, '__name__', self.loss_fn)!r}")
 
+        # the controls exist, at this rank's batch, before the optimizer
+        # state is built and the step captured
+        self._has_controls = has_controls(self._model.net_)
+        if self._has_controls:
+            refresh_controls(self._model.net_, self._model.generator,
+                             dh.batch_sharder()(batch_size))
         # the trainable mask is requires_grad
         self.params = [p for p in self._model.net_.parameters()
                        if p.requires_grad]
@@ -289,6 +306,8 @@ class Fitter:
         replays on a CUDA model."""
         model = self._model
         local = model.device_handler.batch_sharder()(self.train_batch_size)
+        if self._has_controls:
+            refresh_controls(model.net_, model.generator, local)
         x, logr = self._draw(local, model.generator)
         return self._step(x, logr)
 
@@ -301,8 +320,8 @@ class Fitter:
         model = self._model
         if model.device.type != "cuda":
             return None
-        stamp = (model.net_, model.prior, model.action, model.generator,
-                 self.optimizer, self.loss_fn, self.grad_estimator,
+        stamp = (*model.graph_stamp(), model.generator, self.optimizer,
+                 self.loss_fn, self.grad_estimator,
                  *(p.data_ptr() for p in self.params))
         return self._graphs.get(
             (self.train_batch_size, model.prior.dtype), stamp,
@@ -425,12 +444,21 @@ class Fitter:
         if not cd["print_stride"]:  # None or 0: evals disabled
             return
         if epoch == 1 or epoch == 10 or epoch % cd["print_stride"] == 0:
-            with torch.no_grad():
-                x, logr = model.prior.sample_(
-                    dh.batch_sharder()(cd["print_batch_size"]),
-                    model.generator)
-                y, logj = model.net_.forward(x)
-                logq, logp = dh.gather_rows(logr - logj, -model.action(y))
+            local = dh.batch_sharder()(cd["print_batch_size"])
+            # controls of the print batch, the training ones put back after
+            saved = [(c, c.control) for c in _cntr_couplings(model.net_)] \
+                if self._has_controls else []
+            try:
+                with torch.no_grad():
+                    if saved:
+                        refresh_controls(model.net_, model.generator, local)
+                    x, logr = model.prior.sample_(local, model.generator)
+                    y, logj = model.net_.forward(x)
+                    logq, logp = dh.gather_rows(logr - logj,
+                                                -model.action(y))
+            finally:
+                for c, control in saved:
+                    c.control = control
             if dh.rank == 0:
                 self._append_to_train_history(logq, logp)
                 self.print_fit_status(epoch,

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import torch
 
+from ..models.nets import ConvNet
 from ..parallel.mesh import ModelDeviceHandler, fold_seed
 from ..utils.graphs import GraphCache, capture
 from .fitter import Fitter
@@ -65,11 +66,16 @@ class Model:
     def graph_stamp(self) -> tuple:
         """What a captured graph of this model holds to without seeing it
         at replay (``utils.graphs.GraphCache``): the net, the prior, the
-        action, and the addresses of the weights and the prior's
-        buffers."""
+        action, the addresses of the weights and of the net's and the
+        prior's buffers (a ``CntrCoupling``'s control among them), and
+        each ``ConvNet``'s compute dtype and ``fuse_out_cast``, which a
+        caller may set on the same module."""
         return (self.net_, self.prior, self.action,
                 *(t.data_ptr() for t in (*self.net_.parameters(),
-                                         *self.prior.buffers())))
+                                         *self.net_.buffers(),
+                                         *self.prior.buffers())),
+                *((m.compute_dtype, m.fuse_out_cast)
+                  for m in self.net_.modules() if isinstance(m, ConvNet)))
 
 
 class Posterior:

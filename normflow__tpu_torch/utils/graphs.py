@@ -12,7 +12,8 @@ eagerly on the CPU.
 :func:`capture` warms the body up on a side stream (cuDNN picks its
 algorithms, cuFFT its plans, the allocator its blocks), puts back the
 generators' states and the tensors the body writes in place, so that the
-warm-up leaves no trace, and captures one run under ``torch.cuda.graph``.
+warm-up leaves no trace, and captures one run under ``torch.cuda.graph``
+with Python's garbage collector paused (:func:`gc_paused`).
 The body draws from explicit ``torch.Generator``s: each is registered with
 the graph (``CUDAGraph.register_generator_state``), so a replay reads the
 generator's seed and offset when it starts and advances the offset as the
@@ -28,11 +29,13 @@ profiler names each replayed kernel (``tools/kernel_times.KERNEL_RE``).
 
 from __future__ import annotations
 
+import contextlib
+import gc
 from typing import Callable, NamedTuple
 
 import torch
 
-__all__ = ["WARMUP", "Captured", "capture", "GraphCache"]
+__all__ = ["WARMUP", "Captured", "capture", "gc_paused", "GraphCache"]
 
 WARMUP = 2  # eager runs of the body on a side stream before the capture
 
@@ -78,9 +81,26 @@ def capture(body: Callable[[], tuple], *, generators=(),
     graph = torch.cuda.CUDAGraph()
     for g in generators:
         graph.register_generator_state(g)
-    with torch.cuda.graph(graph):
+    with gc_paused(), torch.cuda.graph(graph):
         outputs = body()
     return Captured(graph, tuple(outputs))
+
+
+@contextlib.contextmanager
+def gc_paused():
+    """Python's cyclic garbage collector off inside the block, after one
+    collection.  A dead graph that a collection frees during a capture
+    resets its CUDA graph there, which CUDA refuses while a stream
+    captures, and the capture fails ("operation not permitted when stream
+    is capturing")."""
+    gc.collect()
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
 
 
 class GraphCache:

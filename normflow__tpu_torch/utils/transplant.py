@@ -6,6 +6,17 @@ it into the port's parameters, in the JAX package's leaf order;
 ``jax_leaf_grads(net)`` goes the other way for the gradients, so that they
 compare leaf by leaf with ``leaves_of(jax_grads)``.  The numpy dict is the
 only interface: this module imports nothing of JAX.
+
+A JAX ``CntrCoupling`` holds its control as a ``Const`` leaf after its
+nets; the port's keeps it as a buffer, named last in its ``leaf_order``.
+The control leaf is copied (not skipped) when both sides have one: the
+port's coupling must have drawn its control at the JAX control's shape
+first (``refresh_control``), and a coupling without a control on either
+side has no such leaf.  Its gradient is zero on both sides.  A
+``ConvNet``'s ``compute_dtype`` and ``fuse_out_cast`` are settings, not
+leaves (static fields in JAX): they go to the port's constructor or
+attribute (``zoo.with_conv_compute_dtype``) under the same names, and the
+weights load the same either way.
 """
 
 from __future__ import annotations
@@ -19,16 +30,19 @@ __all__ = ["jax_leaf_order", "load_jax_leaves", "jax_leaf_grads"]
 
 
 def jax_leaf_order(module):
-    """``(owner, name, parameter)`` for every parameter of ``module``, in
+    """``(owner, name, tensor)`` for every parameter of ``module``, in
     the JAX package's leaf order: a module's parameters, then its children,
     each in registration order, except where a module names its own order
-    (``leaf_order``)."""
+    (``leaf_order``), which may name a buffer that holds a JAX leaf (a
+    ``CntrCoupling``'s control, where it is set)."""
     names = getattr(module, "leaf_order", None)
-    if names is None:
+    listed = names is not None
+    if not listed:
         names = [*module._parameters, *module._modules]
     for name in names:
         value = getattr(module, name)
-        if isinstance(value, torch.nn.Parameter):
+        if isinstance(value, torch.nn.Parameter) or (
+                listed and isinstance(value, torch.Tensor)):
             yield module, name, value
         elif isinstance(value, torch.nn.Module):
             yield from jax_leaf_order(value)

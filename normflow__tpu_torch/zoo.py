@@ -19,10 +19,14 @@ its effective-mass initialisation.
 The U(1) model (:func:`build_u1_model`) is ``models.gauge``'s plaquette
 coupling flow over a uniform prior on the link angles, with the Wilson
 action on angles.
+
+:func:`with_conv_compute_dtype` gives a trained flow bf16 conditioners for
+sampling (``normflow__tpu/zoo.py:35-48``).
 """
 
 from __future__ import annotations
 
+import copy
 import math
 
 import torch
@@ -33,13 +37,29 @@ from .models.couplings import RQSplineCoupling
 from .models.elementwise import DistConvertor
 from .models.gauge import U1AngleAction, build_u1_gauge_flow
 from .models.masks import EvenOddMask, PackedEvenOddMask
-from .models.nets import ConvNet, RowParityFeature
+from .models.nets import ConvNet, RowParityFeature, _as_dtype
 from .models.priors import NormalPrior, UniformPrior
 from .models.spectral import FFTFlow, MeanFieldFlow, PSDBlock
 from .training.model import Model
 from .utils.device import resolve_device
 
-__all__ = ["build_phi4_model", "build_u1_model"]
+__all__ = ["build_phi4_model", "build_u1_model", "with_conv_compute_dtype"]
+
+
+def with_conv_compute_dtype(net_, dtype):
+    """A copy of the flow ``net_`` with every ``ConvNet``'s compute dtype
+    set to ``dtype`` (``torch.bfloat16`` or ``'bfloat16'``; ``None`` for
+    the weights' own), sharing ``net_``'s parameters and buffers: the
+    modules are new, the tensors the same, so training ``net_`` moves both
+    and neither's graph replays for the other (``Model.graph_stamp``).
+    The flow's log-Jacobian comes from the conditioners' cast-back
+    outputs, so ``logq`` and the sample still come from one map."""
+    shared = {id(t): t for t in (*net_.parameters(), *net_.buffers())}
+    new = copy.deepcopy(net_, memo=shared)
+    for m in new.modules():
+        if isinstance(m, ConvNet):
+            m.compute_dtype = _as_dtype(dtype)
+    return new
 
 
 def build_phi4_model(lat_shape=(32, 32), *, kappa=0.6, m_sq=-2.4, lambd=0.5,

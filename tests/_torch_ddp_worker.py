@@ -163,3 +163,18 @@ def failing_rank():
     if dist.get_rank() == 1:
         raise RuntimeError("rank 1 fails on purpose")
     return dist.get_rank()
+
+
+def affine_rank(n_epochs):
+    """``examples.scalar_affine.main(n_devices=2)`` on the CPU in this
+    rank's group, a small net: the rank, its parameters flattened and its
+    loss history (rank 0's alone is kept)."""
+    from normflow__tpu_torch.examples import scalar_affine
+
+    model = scalar_affine.main(n_epochs=n_epochs, batch_size=8, n_devices=2,
+                               print_stride=None, n_layers=2,
+                               hidden_sizes=(2,), device="cpu")
+    flat = torch.cat([p.detach().reshape(-1)
+                      for p in model.net_.parameters()])
+    return (dist.get_rank(), model.device_handler.nranks, flat.numpy(),
+            list(model.fit.train_history["loss"]))

@@ -285,9 +285,10 @@ def test_bench_reps_draw_from_distinct_seeds(tiny):
 
     bench._timed_stream = keep
     try:
-        times, last = bench.time_reps(tiny, 2, 4, seeds)
+        times, last = bench.time_reps({"arm": tiny}, 2, 4, seeds)
     finally:
         bench._timed_stream = orig
+    times, last = times["arm"], last["arm"]
     assert len(times) == 3 and torch.equal(last, streams[-1][1])
     timed = streams[1:]  # after the warm-up
     assert [s for s, _ in timed] == seeds

@@ -20,6 +20,9 @@ def test_import_leaves_jax_out():
     code = ("import sys, normflow__tpu_torch, normflow__tpu_torch.zoo\n"
             "import normflow__tpu_torch.parallel.dryrun\n"
             "import normflow__tpu_torch.examples.scalar_64x64_distributed\n"
+            "import normflow__tpu_torch.examples.scalar_zerodim\n"
+            "import normflow__tpu_torch.utils.profiling\n"
+            "import normflow__tpu_torch.nn.scalar.cntr_couplings_\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'optax', 'normflow__tpu'))\n"
             "assert not bad, bad\n")
@@ -38,6 +41,7 @@ def test_sources_import_no_jax():
               ROOT / "tests" / "test_torch_cuda_zoo.py",
               ROOT / "tests" / "test_torch_cuda_gauge.py",
               ROOT / "tests" / "test_torch_cuda_distributed.py",
+              ROOT / "tests" / "test_torch_cuda_bf16_cntr.py",
               ROOT / "tests" / "_torch_ddp_worker.py",
               ROOT / "normflow__tpu_torch" / "parallel" / "mesh.py",
               ROOT / "normflow__tpu_torch" / "parallel" / "dryrun.py",
@@ -48,7 +52,14 @@ def test_sources_import_no_jax():
               ROOT / "normflow__tpu_torch" / "models" / "gauge.py",
               ROOT / "normflow__tpu_torch" / "models" / "fermions.py",
               ROOT / "normflow__tpu_torch" / "examples" / "u1_gauge.py",
-              ROOT / "normflow__tpu_torch" / "examples" / "schwinger.py"]
+              ROOT / "normflow__tpu_torch" / "examples" / "schwinger.py",
+              ROOT / "normflow__tpu_torch" / "examples" / "scalar_zerodim.py",
+              ROOT / "normflow__tpu_torch" / "utils" / "profiling.py",
+              ROOT / "normflow__tpu_torch" / "models" / "couplings.py",
+              ROOT / "normflow__tpu_torch" / "models" / "nets.py",
+              ROOT / "normflow__tpu_torch" / "nn" / "scalar"
+              / "cntr_couplings_.py",
+              ROOT / "normflow__tpu_torch" / "bench.py"]
     assert len(files) > 10
     offenders = [str(f.relative_to(ROOT)) for f in files
                  if FORBIDDEN.search(f.read_text())]
@@ -66,12 +77,13 @@ def test_forbidden_pattern_catches_jax_imports():
 
 
 def test_default_device_is_the_gpu():
-    from normflow__tpu_torch.examples import schwinger, u1_gauge
+    from normflow__tpu_torch.examples import (scalar_zerodim, schwinger,
+                                              u1_gauge)
     from normflow__tpu_torch.zoo import build_phi4_model, build_u1_model
 
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is usable")
     for entry in (build_phi4_model, build_u1_model, u1_gauge.main,
-                  schwinger.main):
+                  schwinger.main, scalar_zerodim.main):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             entry()
