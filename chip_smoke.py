@@ -146,7 +146,29 @@ use) and imports nothing of JAX.  Phases, each of which raises on failure:
     set to 0 just before (8 / 8 / 1 / 1 per step, all tiled), the loss
     finite and falling; two replays drawing different controls into one
     buffer; 10 replayed steps against 10 eager bodies bit for bit under
-    cuDNN's deterministic algorithms; where a replayed step's time goes.
+    cuDNN's deterministic algorithms; where a replayed step's time goes;
+21. lattice (space) sharding.  Step 1 (with the kernel checks of phase
+    2): the slab variants of the action and its force
+    (``phi4_action_slab``, ``phi4_action_slab_grad``) on two slabs of a
+    (1024, 32, 32) and of a (1024, 64, 64) field with halos built by hand,
+    summed and stacked, against the whole-lattice tiled kernels and the
+    plain slab versions (``PHI4_REL_TOL``, ``FORCE_*``), on the tiled
+    kernels, the general ones at 1-D, (128, 8, 8) and 3-D, the tiled force
+    bit for bit against the general one; timed with phase 12.  Step 2
+    (last): two processes on the one card in a gloo group of two (NCCL
+    refuses two ranks on one device), ``use_mesh(axes={"data": 1,
+    "space": 2})``, the kernels built by the parent first: the full-width
+    flagship's logq and logp of a fed batch of 1024 (seeded perturbed
+    weights) against the unsharded flagship on the card, ``N_STEPS``
+    eager steps of the bench protocol on fed draws from the fresh weights
+    against the unsharded eager fit (step 1 to ``LOGQ_REL_TOL``, the rest
+    to ``SPACE_LOSS_TOL`` or ``SPACE_FLOOR`` times the unsharded fit's own
+    spread), 8 / 8 / 1 / 1 wrapper launches per step (``rqs_coupling``,
+    ``rqs_coupling_bwd``, ``phi4_action_slab``, ``phi4_action_slab_grad``,
+    all tiled) and ``sample_chain(4, 1024)`` at 4 / 1 / 1 per round, with
+    the counters set to 0 just before and read just after each; rates and
+    the phase's wall time (gloo stages every collective through the host:
+    no speed claim).
 
 The gauge paths' rates (eager bodies against graphed entry points, in
 turns) are taken in a phase of their own right after phase 3's, before any
@@ -179,6 +201,11 @@ Kernels 1 and 2 are read cold (the training backward finds ``out`` cold:
 it was written during the forward, and the other conditioners' outputs
 came after it), kernels 3 and 4 warm (their input is the flow output just
 written); ``headline`` in the kernels' record says which.
+
+Phase 21's sharded runs are eager (a gloo collective cannot sit in a CUDA
+graph) and are counted by the wrappers in each rank's process: 8 / 8 / 1 /
+1 per step, the slab kernels in place of kernels 3 and 4; the record's
+``launches_by_path`` sum the two ranks.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits non-zero
@@ -2194,6 +2221,145 @@ def check_phi4_tiles(torch, kernels, peaks, lat, seed):
     return time_it
 
 
+def split_slabs(torch, cfgs, n=2):
+    """``n`` slabs of ``cfgs`` ``(B, L0, *rest)`` and their halos ``(B, 2,
+    *rest)`` cut by hand: the row before each slab and the row after it,
+    periodic over the lattice, as ``parallel/space.edge_rows`` exchanges
+    them."""
+    l0 = cfgs.shape[1]
+    rows = l0 // n
+    return [(cfgs[:, r * rows:(r + 1) * rows].contiguous(),
+             torch.stack([cfgs[:, (r * rows - 1) % l0],
+                          cfgs[:, ((r + 1) * rows) % l0]], 1).contiguous())
+            for r in range(n)]
+
+
+def slab_counters():
+    from normflow__tpu_torch.ops.kernels import phi4
+
+    return {"phi4_action_slab": phi4.phi4_action_slab,
+            "phi4_action_slab_grad": phi4.phi4_action_slab_grad}
+
+
+def hold_slabs(torch, cfgs, g, w, n=2):
+    """The slab action and force of ``n`` slabs of ``cfgs``: the summed
+    actions against the whole-lattice kernel and the slab plain versions
+    (max |dS| / max(1, |S|)), the stacked forces against both (``FORCE_*``
+    element by element).  Returns ``(rel, max |dforce|, ok)``."""
+    from normflow__tpu_torch.ops.kernels import phi4
+
+    act, plain_act, force, plain_force = 0, 0, [], []
+    for slab, halo in split_slabs(torch, cfgs, n):
+        act = act + phi4.phi4_action_slab(slab, halo, *w)
+        plain_act = plain_act + phi4.phi4_action_slab_plain(slab, halo, *w)
+        force.append(phi4.phi4_action_slab_grad(slab, halo, g, *w))
+        plain_force.append(phi4.phi4_action_slab_grad_plain(slab, halo, g,
+                                                            *w))
+    force, plain_force = torch.cat(force, 1), torch.cat(plain_force, 1)
+    whole = phi4.phi4_action(cfgs, *w)
+    whole_force = phi4.phi4_action_grad(cfgs, g, *w)
+    torch.cuda.synchronize()
+    rel = max(float(((act - want).abs() / want.abs().clamp(min=1.0)).max())
+              for want in (whole, plain_act))
+    dforce = max(float((force - want).abs().max())
+                 for want in (whole_force, plain_force))
+    ok = all(bool(((force - want).abs()
+                   <= FORCE_ATOL + FORCE_RTOL * want.abs()).all())
+             for want in (whole_force, plain_force))
+    return rel, dforce, ok and rel <= PHI4_REL_TOL
+
+
+def check_slab_kernels(torch, kernels, peaks, rng, action):
+    """Phase 21, step 1: the slab variants of the action and its force
+    (``phi4_action_slab``, ``phi4_action_slab_grad``) on two slabs of a
+    field with hand-built halos, held against the whole-lattice kernels and
+    their plain slab versions: (1024, 32, 32) as two (1024, 16, 32) slabs
+    and config 4's (1024, 64, 64) as two of 32 rows, on the tiled kernels;
+    the general kernels at 1-D, (128, 8, 8) and 3-D; the tiled force bit
+    for bit against the general one.  Returns the function that times
+    them at the flagship's slab."""
+    from normflow__tpu_torch.ops.kernels import phi4
+
+    counters = slab_counters()
+    worst = {k: 0.0 for k in counters}
+    for shape, variant in (((BATCH, *LAT), "tiled"),
+                           ((BATCH, 64, 64), "tiled"),
+                           ((BATCH, 64), "general"),
+                           ((128, 8, 8), "general"),
+                           ((64, 8, 8, 8), "general")):
+        cfgs = torch.tensor(rng.standard_normal(shape), dtype=torch.float32,
+                            device="cuda")
+        g = torch.tensor(rng.standard_normal(shape[0]), dtype=torch.float32,
+                         device="cuda")
+        w = action.get_coef(len(shape) - 1)
+        reset_counts(counters)
+        rel, dforce, ok = hold_slabs(torch, cfgs, g, w)
+        tiled = {k: (c.launches, c.tiled_launches)
+                 for k, c in counters.items()}
+        want = 2 if variant == "tiled" else 0
+        print(f"slab kernels on 2 slabs of {shape} ({variant}): summed "
+              f"action max rel {rel:.3e} (tol {PHI4_REL_TOL}), stacked "
+              f"force max abs {dforce:.3e} (rtol {FORCE_RTOL}, atol "
+              f"{FORCE_ATOL}) against the whole-lattice kernels and the "
+              f"plain slab versions: {'ok' if ok else 'FAILED'}; "
+              f"(launches, tiled) {tiled}")
+        if not ok or any(t != (2, want) for t in tiled.values()):
+            raise AssertionError(f"a slab kernel disagrees or missed its "
+                                 f"variant at {shape}")
+        worst["phi4_action_slab"] = max(worst["phi4_action_slab"], rel)
+        worst["phi4_action_slab_grad"] = max(worst["phi4_action_slab_grad"],
+                                             dforce)
+    # the tiled force against the general kernel on an offset copy
+    cfgs = torch.tensor(rng.standard_normal((BATCH, *LAT)),
+                        dtype=torch.float32, device="cuda")
+    g = torch.tensor(rng.standard_normal(BATCH), dtype=torch.float32,
+                     device="cuda")
+    w = action.get_coef(2)
+    slab, halo = split_slabs(torch, cfgs)[0]
+    tiled = phi4.phi4_action_slab_grad(slab, halo, g, *w)
+    general = phi4.phi4_action_slab_grad(offset_copy(torch, slab), halo, g,
+                                         *w)
+    torch.cuda.synchronize()
+    same = same_bits(torch, (tiled,), (general,))
+    print(f"slab force at {tuple(slab.shape)}: tiled vs general kernel "
+          f"{'bit for bit' if same else 'NOT bit-identical'}")
+    if not same:
+        raise AssertionError("the tiled slab force departs from the general "
+                             "one")
+    for name, line in (("phi4_action_slab", 30), ("phi4_action_slab_grad",
+                                                  49)):
+        kernels[name] = dict(
+            name=name, route="cuda",
+            source="normflow__tpu_torch/csrc/phi4_action.cu",
+            replaces=f"normflow__tpu/ops/kernels/phi4.py:{line}",
+            max_abs_err=worst[name], library_ms=None,
+            launches_by_path={}, replay_launches_per_unit={})
+
+    def time_it():
+        """Both slab kernels at the flagship's slab (1024, 16, 32), read
+        warm, as the whole-lattice ones; config 4's under ``variants``."""
+        big = torch.tensor(rng.standard_normal((BATCH, 64, 64)),
+                           dtype=torch.float32, device="cuda")
+        for field, what in ((cfgs, None), (big, "(1024, 32, 64) tiled")):
+            s, h = split_slabs(torch, field)[0]
+            for name, fn, plain in (
+                    ("phi4_action_slab",
+                     lambda: phi4.phi4_action_slab(s, h, *w),
+                     lambda: phi4.phi4_action_slab_plain(s, h, *w)),
+                    ("phi4_action_slab_grad",
+                     lambda: phi4.phi4_action_slab_grad(s, h, g, *w),
+                     lambda: phi4.phi4_action_slab_grad_plain(s, h, g,
+                                                              *w))):
+                t = kernel_times(name, fn, plain, plain_reps=5)
+                if what is None:
+                    report(name, t, tuple(s.shape), peaks, kernels, "warm")
+                else:
+                    record_variant(name, what, t, tuple(s.shape), peaks,
+                                   kernels)
+
+    return time_it
+
+
 def mean_loss_per_site(torch, model, n_batches=8):
     """``(mean of logq - logp per site, ESS)`` over ``n_batches`` x
     ``C4_CHAINS`` fresh draws."""
@@ -2419,6 +2585,285 @@ def c4_rates(torch, model, card):
                  f"one replayed config 4 parallel round of {C4_CHAINS}")
 
 
+# --------------------------------------------------------------------- #
+# Phase 21: lattice (space) sharding, two processes on the one card
+# --------------------------------------------------------------------- #
+SPACE_AXES = {"data": 1, "space": 2}
+SPACE_SEED = 20261021
+SPACE_ROUNDS = 4  # sample_chain(SPACE_ROUNDS, BATCH) on the sharded model
+# The sharded fit's loss against the unsharded eager fit on the same draws,
+# max |dl| / max(1, |l|) over the N_STEPS steps.  Both run in float32 and
+# the sharded one sums in another order (the totals over two slabs, the
+# gradients over two ranks, the volume mean), and N_STEPS Adam steps carry
+# such differences far: on the CPU, the unsharded fit of the 16x16 flagship
+# (batch 64, the bench protocol) moved by up to 2e-3 between 1 and 8
+# threads.  So the bar is the larger of SPACE_LOSS_TOL and SPACE_FLOOR
+# times the unsharded fit's own spread on the card, its loss against a
+# second unsharded fit whose draws are nudged by one float32 ulp; the first
+# step, before any update, must agree to LOGQ_REL_TOL.
+SPACE_LOSS_TOL, SPACE_FLOOR = 1e-4, 10.0
+SPACE_TIMEOUT = 600.0  # seconds the parent waits for the two ranks
+
+
+def space_draw(seed, k, shape):
+    """Draw ``k`` of phase 21: the same numpy normals in every process."""
+    return np.random.default_rng([seed, k + 1]).standard_normal(
+        shape).astype(np.float32)
+
+
+def space_rank(rank, init_method, states, seed, queue):
+    """One of phase 21's two processes: joins a gloo group of two on the
+    one card (NCCL refuses two ranks on one device; gloo stages CUDA
+    tensors through the host), runs :func:`space_run` and puts ``(rank,
+    (failed, result or traceback))`` on ``queue``."""
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    try:
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", init_method=init_method, rank=rank,
+                                world_size=2)
+        try:
+            queue.put((rank, (False, space_run(torch, states, seed))))
+        finally:
+            dist.destroy_process_group()
+    except BaseException:  # reported to the parent, which raises
+        queue.put((rank, (True, traceback.format_exc())))
+        raise
+
+
+def space_run(torch, states, seed):
+    """The full-width flagship on ``SPACE_AXES``: this rank's slab of the
+    fed batch through ``posterior.sample__`` with the perturbed weights
+    ``states[0]``, then ``N_STEPS`` eager steps of the bench protocol on
+    fed draws from the fresh weights ``states[1]``, with every launch
+    counter set to 0 just before and read just after, and
+    ``sample_chain(SPACE_ROUNDS, BATCH)`` likewise."""
+    import torch.distributed as dist
+
+    from normflow__tpu_torch.ops.kernels.accept_scan import accept_scan
+    from normflow__tpu_torch.zoo import build_phi4_model
+
+    torch.set_num_threads(1)  # two processes share the host's cores
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = build_phi4_model(LAT, seed=0)
+    model.net_.load_state_dict({k: torch.from_numpy(v)
+                                for k, v in states[0].items()})
+    dh = model.device_handler
+    dh.use_mesh(axes=SPACE_AXES)
+    dh.replicate_params()
+    slab = dh.slab
+    if dist.get_backend(dh.group) != "gloo" or dh.captures():
+        raise AssertionError("the two-process phase must run eagerly over "
+                             "gloo")
+
+    def cut(a):
+        rows = a[:, slab.row0:slab.row0 + slab.rows]
+        return torch.from_numpy(np.ascontiguousarray(rows)).cuda()
+
+    xs = cut(space_draw(seed, -1, (BATCH, *LAT)))
+    y, logq, logp = model.posterior.sample__(
+        BATCH, preprocess_func=lambda x, logr: (xs, model.prior.log_prob(xs)))
+    with torch.no_grad():
+        for p, v in zip(model.net_.state_dict().values(), states[1].values()):
+            p.copy_(torch.from_numpy(v))
+
+    steps = iter(range(N_STEPS))
+
+    def _draw(batch_size, generator):
+        x = cut(space_draw(seed, next(steps), (batch_size, *LAT)))
+        return x, model.prior.log_prob(x)
+
+    model.fit._draw = _draw
+    counters = {**_counters(), **slab_counters(), "accept_scan": accept_scan}
+    runs = {}
+    for path, fn in (("space fit", lambda: fit_protocol(model, N_STEPS)),
+                     ("space chain", lambda: model.mcmc.sample_chain(
+                         SPACE_ROUNDS, BATCH))):
+        reset_counts(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        runs[path] = (out, time.perf_counter() - t0, {
+            k: (c.launches, getattr(c, "tiled_launches", 0))
+            for k, c in counters.items()})
+    hist, chain = runs["space fit"][0], runs["space chain"][0]
+    return dict(
+        rank=dist.get_rank(), slab=(slab.rank, slab.row0, slab.rows),
+        y_shape=tuple(y.shape), logq=logq.cpu().numpy(),
+        logp=logp.cpu().numpy(), loss=list(hist["loss"]),
+        chain_shape=tuple(chain["logq"].shape),
+        chain_finite=bool(torch.isfinite(chain["logq"] - chain["logp"])
+                          .all()),
+        accept=chain["accept_rate"].cpu().numpy().tolist(),
+        seconds={k: v[1] for k, v in runs.items()},
+        counts={k: v[2] for k, v in runs.items()})
+
+
+def run_ranks(target, n, args, timeout):
+    """``target(rank, *args, queue)`` in ``n`` spawned processes; their
+    results in rank order.  Raises with a rank's traceback if one failed,
+    and stops every process it started."""
+    import queue as queue_mod
+
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    procs = [ctx.Process(target=target, args=(r, *args, queue))
+             for r in range(n)]
+    for p in procs:
+        p.start()
+    results, deadline = {}, time.perf_counter() + timeout
+    try:
+        while len(results) < n and time.perf_counter() < deadline:
+            try:
+                r, out = queue.get(timeout=1.0)
+                results[r] = out
+            except queue_mod.Empty:
+                if any(p.exitcode for p in procs):
+                    break
+    finally:
+        for p in procs:
+            p.join(timeout=30 if len(results) == n else 1)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    failed = {r: out[1] for r, out in results.items() if out[0]}
+    failed.update({r: "no result" for r in range(n) if r not in results})
+    if failed:
+        raise AssertionError("phase 21's ranks failed:" + "".join(
+            f"\n--- rank {r} ---\n{tb}" for r, tb in sorted(failed.items())))
+    return [results[r][1] for r in range(n)]
+
+
+def run_space(torch, kernels, card):
+    """Phase 21, step 2: the full-width flagship (``zoo.build_phi4_model()``,
+    packed, its PSD block, seeded perturbed weights) over a 2-rank space
+    group on the one card (:func:`space_rank`), held against the
+    unsharded flagship on the card on the same fed draws: logq and logp of
+    one batch of ``BATCH`` (``LOGQ_REL_TOL``, phase 4's bar against the
+    CPU), and the loss of ``N_STEPS`` eager steps of the bench protocol
+    from the fresh seeded weights, as phase 5 trains (the perturbed ones
+    make a float32 trajectory chaotic; ``SPACE_LOSS_TOL``, ``SPACE_FLOOR``);
+    8 / 8 / 1 / 1 launches per step of
+    ``rqs_coupling`` / ``rqs_coupling_bwd`` / ``phi4_action_slab`` /
+    ``phi4_action_slab_grad`` on each rank, all tiled, and none of the
+    whole-lattice action; ``sample_chain(SPACE_ROUNDS, BATCH)`` at 4 / 1 /
+    1 per round.  Rates are gloo-bound (every halo, gather and sum goes
+    through the host), not a speed claim."""
+    from normflow__tpu_torch.parallel import free_port
+    from normflow__tpu_torch.zoo import build_phi4_model
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SPACE_SEED)
+    ref = build_phi4_model(LAT, seed=0)
+    states = [{k: v.detach().cpu().numpy().copy()
+               for k, v in ref.net_.state_dict().items()}]
+    perturb_(ref.net_, rng)
+    states.insert(0, {k: v.detach().cpu().numpy()
+                      for k, v in ref.net_.state_dict().items()})
+    t0 = time.perf_counter()
+    ranks = run_ranks(space_rank, 2, (f"tcp://localhost:{free_port()}",
+                                      states, SPACE_SEED), SPACE_TIMEOUT)
+    wall = time.perf_counter() - t0
+
+    # the unsharded flagship on the card, on the same draws, eagerly
+    x = torch.from_numpy(space_draw(SPACE_SEED, -1, (BATCH, *LAT))).cuda()
+    y, logq, logp = ref.posterior.sample__(
+        BATCH, preprocess_func=lambda _x, _l: (x, ref.prior.log_prob(x)))
+    fits = {}
+    for nudge in (1.0, 1.0 + 2.0 ** -23):  # the draws, then nudged by an ulp
+        model = build_phi4_model(LAT, seed=0)  # the fresh weights
+        steps = iter(range(N_STEPS))
+
+        def _draw(batch_size, generator, model=model, steps=steps,
+                  nudge=nudge):
+            xk = torch.from_numpy(space_draw(SPACE_SEED, next(steps),
+                                             (batch_size, *LAT))).cuda()
+            xk = xk * nudge
+            return xk, model.prior.log_prob(xk)
+
+        model.fit._draw = _draw
+        model.fit.step_graph = lambda: None  # the eager body, as over gloo
+        t0 = time.perf_counter()
+        fits[nudge] = np.asarray(fit_protocol(model, N_STEPS)["loss"])
+        torch.cuda.synchronize()
+        ref_s = time.perf_counter() - t0
+    want, nudged = fits.values()
+
+    def rel(a, b):
+        return np.abs(a - b) / np.maximum(1.0, np.abs(b))
+
+    floor = float(rel(nudged, want).max())
+    bar = max(SPACE_LOSS_TOL, SPACE_FLOOR * floor)
+    print(f"unsharded eager fits on the card: the draws nudged by one "
+          f"float32 ulp move the loss by up to {floor:.3e} relative over "
+          f"{N_STEPS} steps; the sharded fit's bar {bar:.3e}")
+
+    n_layers = len(ref.net_[2].nets)
+    per_unit = {
+        "space fit": {"rqs_coupling": 2 * n_layers,
+                      "rqs_coupling_bwd": 2 * n_layers,
+                      "phi4_action_slab": 1, "phi4_action_slab_grad": 1},
+        "space chain": {"rqs_coupling": n_layers, "phi4_action_slab": 1,
+                        "accept_scan": 1}}
+    units = {"space fit": N_STEPS, "space chain": SPACE_ROUNDS}
+    lq, lp = logq.cpu().numpy(), logp.cpu().numpy()
+    for r in ranks:
+        rel_q = float(np.max(np.abs(r["logq"] - lq)
+                             / np.maximum(1.0, np.abs(lq))))
+        rel_p = float(np.max(np.abs(r["logp"] - lp)
+                             / np.maximum(1.0, np.abs(lp))))
+        loss = np.asarray(r["loss"]) if r["rank"] == 0 else want
+        dloss, dfirst = float(rel(loss, want).max()), float(rel(loss, want)[0])
+        print(f"space rank {r['rank']} (slab rank, first row, rows "
+              f"{r['slab']}): sample__ {r['y_shape']}; logq max rel "
+              f"{rel_q:.3e}, logp max rel {rel_p:.3e} against the unsharded "
+              f"flagship on the card (tol {LOGQ_REL_TOL}); loss of step 1 "
+              f"rel {dfirst:.3e} (tol {LOGQ_REL_TOL}), over {N_STEPS} steps "
+              f"max rel {dloss:.3e} (tol {bar:.3e}); chain "
+              f"{r['chain_shape']} accept {r['accept']}")
+        if not (rel_q <= LOGQ_REL_TOL and rel_p <= LOGQ_REL_TOL
+                and dfirst <= LOGQ_REL_TOL and dloss <= bar
+                and r["y_shape"] == (BATCH, *LAT)
+                and r["chain_shape"] == (SPACE_ROUNDS, BATCH)
+                and r["chain_finite"]):
+            raise AssertionError("the space-sharded flagship departs from "
+                                 "the unsharded one")
+        for path, want_per in per_unit.items():
+            got = {k: v for k, v in r["counts"][path].items() if v[0]}
+            wanted = {k: (v * units[path],
+                          v * units[path] if k != "accept_scan" else 0)
+                      for k, v in want_per.items()}
+            print(f"  {path}: launches by wrapper (launches, tiled) {got}, "
+                  f"want {wanted}")
+            if got != wanted:
+                raise AssertionError(f"{path}: wrapper launches {got}, want "
+                                     f"{wanted}")
+    first, last = float(want[:10].mean()), float(want[-10:].mean())
+    if not np.isfinite(want).all() or not last < first:
+        raise AssertionError("the reference fit's loss is not falling")
+    for path, want_per in per_unit.items():
+        for k in want_per:
+            kernels[k].setdefault("launches_by_path", {})[path] = sum(
+                r["counts"][path][k][0] for r in ranks)
+    for r in ranks:
+        s = r["seconds"]
+        print(f"space rank {r['rank']}: {N_STEPS / s['space fit']:.2f} "
+              f"eager steps/s at batch {TRAIN_BATCH}, "
+              f"{SPACE_ROUNDS * BATCH / s['space chain']:.1f} chain "
+              f"proposals/s (gloo through the host: not a speed claim) on "
+              f"{card}")
+    print(f"unsharded eager reference: {N_STEPS / ref_s:.2f} steps/s; the "
+          f"two ranks' processes {wall:.1f} s wall, start-up included; "
+          f"phase 21 {time.perf_counter() - t_phase:.1f} s on {card}")
+
+
 # each kernel's device functions, the path's first, as ptxas and the
 # profiler name them; the flagship's template instance (m = 8, linear
 # tails, as mangled: the inverse flag follows)
@@ -2430,6 +2875,10 @@ DEVICE_FUNCTIONS = {
     "phi4_action_grad": ("phi4_action_grad_tiled_kernel",
                          "phi4_action_grad_kernel"),
     "accept_scan": ("accept_scan_kernel",),
+    "phi4_action_slab": ("phi4_action_slab_tiled_kernel",
+                         "phi4_action_slab_kernel"),
+    "phi4_action_slab_grad": ("phi4_action_grad_slab_tiled_kernel",
+                              "phi4_action_grad_slab_kernel"),
 }
 FLAGSHIP_INSTANCE = "ILi8ELb1ELb1E"
 
@@ -3163,7 +3612,10 @@ def main() -> int:
               phase("check the coupling kernels at S = 1024",
                     check_coupling_at, torch, kernels, peaks, LAT, 20261018),
               phase("check the phi4 kernels at (128, 8, 8)",
-                    check_phi4_general, torch, kernels, peaks)]
+                    check_phi4_general, torch, kernels, peaks),
+              phase("check the slab kernels", check_slab_kernels, torch,
+                    kernels, peaks, np.random.default_rng(20261020),
+                    action)]
     # before the main path's runs, which are profiled: the rates are taken
     # with no profiler run in the process
     phase("rates in turns", rates_in_turns, torch, card)
@@ -3207,6 +3659,7 @@ def main() -> int:
     phase("Schwinger example", run_schwinger, torch, kernels, card)
     phase("stochastic log-det", run_stochastic, torch, kernels, card)
     phase("config 4", run_config4, torch, kernels, peaks, card)
+    phase("space sharding", run_space, torch, kernels, card)
     print("phase seconds: " + ", ".join(f"{n} {t:.1f}" for n, t in phases))
     from normflow__tpu_torch.tools.kernel_times import (CLOSE_LOSSES,
                                                          HEAD_LOSSES,

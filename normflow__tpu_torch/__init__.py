@@ -16,7 +16,7 @@ building blocks) and ``zoo``; ``normflow__tpu_torch.examples`` holds the
 ported examples.
 """
 
-from . import mcmc, nn, ops, zoo
+from . import mcmc, models, nn, ops, parallel, training, zoo
 from .models import actions as action
 from .models import masks as mask
 from .models import priors as prior
@@ -45,5 +45,5 @@ __all__ = [
     "calc_kl_mean", "calc_kl_var", "calc_corrcoef", "calc_direct_kl_mean",
     "calc_kl_mean_includelogz", "calc_least_squares", "calc_minus_logz",
     "calc_minus_ess", "cosine_decay_schedule", "nn", "zoo", "prior",
-    "action", "mask", "lib",
+    "action", "mask", "lib", "models", "parallel", "training",
 ]

@@ -40,6 +40,21 @@
 //   division and a modulo per dimension.
 // The two sum each site's neighbours in the same order and return the
 // same bits.
+//
+// The slab variants (phi4_action_slab_f32, phi4_action_slab_tiled_f32,
+// phi4_action_grad_slab_f32, phi4_action_grad_slab_tiled_f32) are what the
+// two become under lattice (space) sharding, normflow__tpu_torch/parallel/
+// space.py: the field is a rank's slab (B, l0, L1, L2) of each sample's
+// rows and `halo` (B, 2, L1, L2) holds the row before the slab and the row
+// after it.  Along the first axis nothing wraps: a neighbour across the
+// slab's first row comes from halo row 0, across its last row (the force
+// only) from halo row 1; the other axes stay periodic.  They port no Pallas
+// kernel of their own (the JAX package's sharded action is XLA's roll with
+// the partitioner's halos) and share the whole-lattice kernels' bodies,
+// instantiated with kSlab = true, so each does the same work per site and
+// reads one more row per sample; the bounds are those above.  Plain
+// versions: normflow__tpu_torch/ops/kernels/phi4.py::phi4_action_slab_plain
+// and ::phi4_action_slab_grad_plain.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -50,14 +65,19 @@ namespace {
 
 constexpr int kThreads = 256;
 
-__global__ void __launch_bounds__(kThreads)
-phi4_action_kernel(const float* __restrict__ cfgs, float* __restrict__ act,
-                   int V, int nd, int L0, int L1, int L2, float w0, float w2,
-                   float w4) {
+// One block per sample; on a slab (kSlab) the backward neighbour across
+// row 0 comes from halo row 0 (the site's offset in its row, i < L1 L2).
+template <bool kSlab>
+__device__ __forceinline__ void action_general(
+    const float* __restrict__ cfgs, const float* __restrict__ halo,
+    float* __restrict__ act, int V, int nd, int L0, int L1, int L2, float w0,
+    float w2, float w4) {
   const float* phi = cfgs + (long long)blockIdx.x * V;
   // row-major strides of the (up to) three lattice axes
   const int dims[3] = {L0, L1, L2};
   const int strides[3] = {L1 * L2, L2, 1};
+  const float* before =
+      kSlab ? halo + (long long)blockIdx.x * 2 * strides[0] : nullptr;
 
   float acc = 0.0f;
   for (int i = threadIdx.x; i < V; i += kThreads) {
@@ -70,9 +90,13 @@ phi4_action_kernel(const float* __restrict__ cfgs, float* __restrict__ act,
       for (int mu = 0; mu < 3; ++mu) {
         if (mu < nd) {
           const int c = (i / strides[mu]) % dims[mu];
-          const int j = c == 0 ? i + (dims[mu] - 1) * strides[mu]
-                               : i - strides[mu];
-          neigh += __ldg(phi + j);
+          if (kSlab && mu == 0 && c == 0) {
+            neigh += __ldg(before + i);
+          } else {
+            const int j = c == 0 ? i + (dims[mu] - 1) * strides[mu]
+                                 : i - strides[mu];
+            neigh += __ldg(phi + j);
+          }
         }
       }
       a -= w0 * p * neigh;
@@ -98,10 +122,27 @@ phi4_action_kernel(const float* __restrict__ cfgs, float* __restrict__ act,
 }
 
 __global__ void __launch_bounds__(kThreads)
-phi4_action_grad_kernel(const float* __restrict__ cfgs,
-                        const float* __restrict__ g, float* __restrict__ grad,
-                        long long n, int V, int nd, int L0, int L1, int L2,
-                        float w0, float w2, float w4) {
+phi4_action_kernel(const float* __restrict__ cfgs, float* __restrict__ act,
+                   int V, int nd, int L0, int L1, int L2, float w0, float w2,
+                   float w4) {
+  action_general<false>(cfgs, nullptr, act, V, nd, L0, L1, L2, w0, w2, w4);
+}
+
+__global__ void __launch_bounds__(kThreads)
+phi4_action_slab_kernel(const float* __restrict__ cfgs,
+                        const float* __restrict__ halo,
+                        float* __restrict__ act, int V, int nd, int L0,
+                        int L1, int L2, float w0, float w2, float w4) {
+  action_general<true>(cfgs, halo, act, V, nd, L0, L1, L2, w0, w2, w4);
+}
+
+// One thread per (sample, site); on a slab (kSlab) the neighbours across
+// row 0 and row L0 - 1 come from halo rows 0 and 1.
+template <bool kSlab>
+__device__ __forceinline__ void grad_general(
+    const float* __restrict__ cfgs, const float* __restrict__ halo,
+    const float* __restrict__ g, float* __restrict__ grad, long long n, int V,
+    int nd, int L0, int L1, int L2, float w0, float w2, float w4) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const long long b = i / V;
@@ -118,10 +159,20 @@ phi4_action_grad_kernel(const float* __restrict__ cfgs,
       if (mu < nd) {
         const int c = (s / strides[mu]) % dims[mu];
         const int wrap = (dims[mu] - 1) * strides[mu];
-        const int jm = c == 0 ? s + wrap : s - strides[mu];
-        const int jp = c == dims[mu] - 1 ? s - wrap : s + strides[mu];
-        neigh = neigh + __ldg(phi + jm);  // roll(phi, 1, mu)
-        neigh = neigh + __ldg(phi + jp);  // roll(phi, -1, mu)
+        float down, up;
+        if (kSlab && mu == 0) {
+          const float* rows = halo + b * 2 * strides[0];
+          down = c == 0 ? __ldg(rows + s) : __ldg(phi + s - strides[0]);
+          up = c == dims[0] - 1 ? __ldg(rows + strides[0] + s - wrap)
+                                : __ldg(phi + s + strides[0]);
+        } else {
+          const int jm = c == 0 ? s + wrap : s - strides[mu];
+          const int jp = c == dims[mu] - 1 ? s - wrap : s + strides[mu];
+          down = __ldg(phi + jm);
+          up = __ldg(phi + jp);
+        }
+        neigh = neigh + down;  // roll(phi, 1, mu)
+        neigh = neigh + up;    // roll(phi, -1, mu)
       }
     }
     dv = dv - w0 * neigh;
@@ -129,6 +180,24 @@ phi4_action_grad_kernel(const float* __restrict__ cfgs,
   grad[i] = dv * __ldg(g + b);
 }
 
+__global__ void __launch_bounds__(kThreads)
+phi4_action_grad_kernel(const float* __restrict__ cfgs,
+                        const float* __restrict__ g, float* __restrict__ grad,
+                        long long n, int V, int nd, int L0, int L1, int L2,
+                        float w0, float w2, float w4) {
+  grad_general<false>(cfgs, nullptr, g, grad, n, V, nd, L0, L1, L2, w0, w2,
+                      w4);
+}
+
+__global__ void __launch_bounds__(kThreads)
+phi4_action_grad_slab_kernel(const float* __restrict__ cfgs,
+                             const float* __restrict__ halo,
+                             const float* __restrict__ g,
+                             float* __restrict__ grad, long long n, int V,
+                             int nd, int L0, int L1, int L2, float w0,
+                             float w2, float w4) {
+  grad_general<true>(cfgs, halo, g, grad, n, V, nd, L0, L1, L2, w0, w2, w4);
+}
 
 // The tiled action for 2-D lattices with L1 % 4 == 0 and L0 * L1 / 4 a
 // multiple of 32, at most 1024: a block of (L0 L1 / 4, P) threads takes P
@@ -139,10 +208,13 @@ phi4_action_grad_kernel(const float* __restrict__ cfgs,
 // registers.  Per site the terms are those of phi4_action_kernel in its
 // order; the thread's four sites are summed in order, then the warp's by
 // shuffles, then each sample's warps by its first warp.
-__global__ void __launch_bounds__(1024)
-phi4_action_tiled_kernel(const float* __restrict__ cfgs,
-                         float* __restrict__ act, long long B, int L0,
-                         int L1, float w0, float w2, float w4) {
+// On a slab (kSlab) the up neighbours of row 0 come from halo row 0, one
+// float4 per thread of that row (16-byte aligned: L1 % 4 == 0).
+template <bool kSlab>
+__device__ __forceinline__ void action_tiled(
+    const float* __restrict__ cfgs, const float* __restrict__ halo,
+    float* __restrict__ act, long long B, int L0, int L1, float w0, float w2,
+    float w4) {
   const int G = blockDim.x;  // float4 groups per sample
   const int g = threadIdx.x;
   const int p = threadIdx.y;
@@ -162,8 +234,15 @@ phi4_action_tiled_kernel(const float* __restrict__ cfgs,
   float ups[4] = {0.0f, 0.0f, 0.0f, 0.0f};
   float lefts[4] = {0.0f, v.x, v.y, v.z};
   if (w0 != 0.0f) {
-    const float4 u = reinterpret_cast<const float4*>(
-        f + (r == 0 ? L0 - 1 : r - 1) * L1)[c >> 2];
+    float4 u;
+    if (kSlab && r == 0) {
+      u = b < B ? __ldg(reinterpret_cast<const float4*>(halo) + b * 2 * q +
+                        (c >> 2))
+                : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    } else {
+      u = reinterpret_cast<const float4*>(
+          f + (r == 0 ? L0 - 1 : r - 1) * L1)[c >> 2];
+    }
     ups[0] = u.x;
     ups[1] = u.y;
     ups[2] = u.z;
@@ -203,6 +282,21 @@ phi4_action_tiled_kernel(const float* __restrict__ cfgs,
   }
 }
 
+__global__ void __launch_bounds__(1024)
+phi4_action_tiled_kernel(const float* __restrict__ cfgs,
+                         float* __restrict__ act, long long B, int L0,
+                         int L1, float w0, float w2, float w4) {
+  action_tiled<false>(cfgs, nullptr, act, B, L0, L1, w0, w2, w4);
+}
+
+__global__ void __launch_bounds__(1024)
+phi4_action_slab_tiled_kernel(const float* __restrict__ cfgs,
+                              const float* __restrict__ halo,
+                              float* __restrict__ act, long long B, int L0,
+                              int L1, float w0, float w2, float w4) {
+  action_tiled<true>(cfgs, halo, act, B, L0, L1, w0, w2, w4);
+}
+
 // The tiled force, on the tiled action's lattices and blocks: thread
 // (g, p) loads sites 4g..4g+3 of sample p (row r, columns c..c+3) as one
 // float4 into shared memory, then takes the rows above and below as
@@ -211,11 +305,13 @@ phi4_action_tiled_kernel(const float* __restrict__ cfgs,
 // its own registers; it reads g[b] once and stores its four forces as one
 // float4.  Per site the terms are those of phi4_action_grad_kernel in its
 // order: 0 + phi[x-e0] + phi[x+e0] + phi[x-e1] + phi[x+e1].
-__global__ void __launch_bounds__(1024)
-phi4_action_grad_tiled_kernel(const float* __restrict__ cfgs,
-                              const float* __restrict__ g,
-                              float* __restrict__ grad, long long B, int L0,
-                              int L1, float w0, float w2, float w4) {
+// On a slab (kSlab) the rows above row 0 and below row L0 - 1 come from
+// halo rows 0 and 1, one float4 per thread.
+template <bool kSlab>
+__device__ __forceinline__ void grad_tiled(
+    const float* __restrict__ cfgs, const float* __restrict__ halo,
+    const float* __restrict__ g, float* __restrict__ grad, long long B,
+    int L0, int L1, float w0, float w2, float w4) {
   const int G = blockDim.x;  // float4 groups per sample
   const int gr = threadIdx.x;
   const int p = threadIdx.y;
@@ -240,10 +336,17 @@ phi4_action_grad_tiled_kernel(const float* __restrict__ cfgs,
     force[k] = (2.0f * w2) * ph + (4.0f * w4) * (ph * ph) * ph;
   }
   if (w0 != 0.0f) {
-    const float4 u = reinterpret_cast<const float4*>(
-        f + (r == 0 ? L0 - 1 : r - 1) * L1)[c >> 2];
-    const float4 d = reinterpret_cast<const float4*>(
-        f + (r == L0 - 1 ? 0 : r + 1) * L1)[c >> 2];
+    const float4* rows = reinterpret_cast<const float4*>(halo) + b * 2 * q;
+    const float4 u =
+        kSlab && r == 0
+            ? __ldg(rows + (c >> 2))
+            : reinterpret_cast<const float4*>(
+                  f + (r == 0 ? L0 - 1 : r - 1) * L1)[c >> 2];
+    const float4 d =
+        kSlab && r == L0 - 1
+            ? __ldg(rows + q + (c >> 2))
+            : reinterpret_cast<const float4*>(
+                  f + (r == L0 - 1 ? 0 : r + 1) * L1)[c >> 2];
     const float ups[4] = {u.x, u.y, u.z, u.w};
     const float downs[4] = {d.x, d.y, d.z, d.w};
     const float lefts[4] = {f[r * L1 + (c == 0 ? L1 - 1 : c - 1)], v.x, v.y,
@@ -263,6 +366,24 @@ phi4_action_grad_tiled_kernel(const float* __restrict__ cfgs,
   const float gb = __ldg(g + b);
   reinterpret_cast<float4*>(grad)[b * G + gr] =
       make_float4(force[0] * gb, force[1] * gb, force[2] * gb, force[3] * gb);
+}
+
+__global__ void __launch_bounds__(1024)
+phi4_action_grad_tiled_kernel(const float* __restrict__ cfgs,
+                              const float* __restrict__ g,
+                              float* __restrict__ grad, long long B, int L0,
+                              int L1, float w0, float w2, float w4) {
+  grad_tiled<false>(cfgs, nullptr, g, grad, B, L0, L1, w0, w2, w4);
+}
+
+__global__ void __launch_bounds__(1024)
+phi4_action_grad_slab_tiled_kernel(const float* __restrict__ cfgs,
+                                   const float* __restrict__ halo,
+                                   const float* __restrict__ g,
+                                   float* __restrict__ grad, long long B,
+                                   int L0, int L1, float w0, float w2,
+                                   float w4) {
+  grad_tiled<true>(cfgs, halo, g, grad, B, L0, L1, w0, w2, w4);
 }
 
 }  // namespace
@@ -348,5 +469,93 @@ extern "C" int phi4_action_grad_tiled_f32(const void* cfgs, const void* g,
                                   static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(cfgs), static_cast<const float*>(g),
       static_cast<float*>(grad), B, L0, L1, w0, w2, w4);
+  return (int)cudaGetLastError();
+}
+
+// The slab action (see the note at the top): cfgs (B, L0, L1, L2) float32
+// contiguous with nd lattice dims, the unused trailing extents 1; halo
+// (B, 2, L1, L2); act (B,).  Returns cudaGetLastError() after the launch.
+extern "C" int phi4_action_slab_f32(const void* cfgs, const void* halo,
+                                    void* act, long long B, int nd, int L0,
+                                    int L1, int L2, float w0, float w2,
+                                    float w4, void* stream) {
+  const long long V = (long long)L0 * L1 * L2;
+  if (nd < 1 || nd > 3 || B > 2147483647LL || V > 2147483647LL)
+    return (int)cudaErrorInvalidValue;
+  phi4_action_slab_kernel<<<(unsigned int)B, kThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(cfgs), static_cast<const float*>(halo),
+      static_cast<float*>(act), (int)V, nd, L0, L1, L2, w0, w2, w4);
+  return (int)cudaGetLastError();
+}
+
+// The slab force: cfgs and grad (B, L0, L1, L2), halo (B, 2, L1, L2), g
+// (B,), float32 contiguous.  Returns cudaGetLastError() after the launch.
+extern "C" int phi4_action_grad_slab_f32(const void* cfgs, const void* halo,
+                                         const void* g, void* grad,
+                                         long long B, int nd, int L0, int L1,
+                                         int L2, float w0, float w2, float w4,
+                                         void* stream) {
+  const long long V = (long long)L0 * L1 * L2;
+  const long long n = B * V;
+  const long long blocks = (n + kThreads - 1) / kThreads;
+  if (nd < 1 || nd > 3 || V > 2147483647LL || blocks > 2147483647LL)
+    return (int)cudaErrorInvalidValue;
+  phi4_action_grad_slab_kernel<<<(unsigned int)blocks, kThreads, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(cfgs), static_cast<const float*>(halo),
+      static_cast<const float*>(g), static_cast<float*>(grad), n, (int)V, nd,
+      L0, L1, L2, w0, w2, w4);
+  return (int)cudaGetLastError();
+}
+
+// The tiled slab action: the slab on the tiled action's lattices and
+// blocks, halo (B, 2, L1) 16-byte aligned.  Returns cudaErrorInvalidValue
+// for what it does not take, else cudaGetLastError() after the launch.
+extern "C" int phi4_action_slab_tiled_f32(const void* cfgs, const void* halo,
+                                          void* act, long long B, int L0,
+                                          int L1, int samples, float w0,
+                                          float w2, float w4, void* stream) {
+  const long long G = (long long)L0 * L1 / 4;
+  if (B < 1 || L0 < 1 || L1 < 4 || L1 % 4 || G % 32 || G > 1024 ||
+      samples < 1 || G * samples > 1024 ||
+      reinterpret_cast<uintptr_t>(cfgs) % 16 ||
+      reinterpret_cast<uintptr_t>(halo) % 16)
+    return (int)cudaErrorInvalidValue;
+  const long long blocks = (B + samples - 1) / samples;
+  if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
+  const dim3 block((unsigned int)G, (unsigned int)samples);
+  phi4_action_slab_tiled_kernel<<<(unsigned int)blocks, block,
+                                  (size_t)samples * G * sizeof(float4),
+                                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(cfgs), static_cast<const float*>(halo),
+      static_cast<float*>(act), B, L0, L1, w0, w2, w4);
+  return (int)cudaGetLastError();
+}
+
+// The tiled slab force: cfgs and grad (B, L0, L1), halo (B, 2, L1), all
+// 16-byte aligned, g (B,), on the tiled action's lattices and blocks.
+// Returns cudaErrorInvalidValue for what it does not take, else
+// cudaGetLastError() after the launch.
+extern "C" int phi4_action_grad_slab_tiled_f32(
+    const void* cfgs, const void* halo, const void* g, void* grad,
+    long long B, int L0, int L1, int samples, float w0, float w2, float w4,
+    void* stream) {
+  const long long G = (long long)L0 * L1 / 4;
+  if (B < 1 || L0 < 1 || L1 < 4 || L1 % 4 || G % 32 || G > 1024 ||
+      samples < 1 || G * samples > 1024 ||
+      reinterpret_cast<uintptr_t>(cfgs) % 16 ||
+      reinterpret_cast<uintptr_t>(halo) % 16 ||
+      reinterpret_cast<uintptr_t>(grad) % 16)
+    return (int)cudaErrorInvalidValue;
+  const long long blocks = (B + samples - 1) / samples;
+  if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
+  const dim3 block((unsigned int)G, (unsigned int)samples);
+  phi4_action_grad_slab_tiled_kernel<<<(unsigned int)blocks, block,
+                                       (size_t)samples * G * sizeof(float4),
+                                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(cfgs), static_cast<const float*>(halo),
+      static_cast<const float*>(g), static_cast<float*>(grad), B, L0, L1, w0,
+      w2, w4);
   return (int)cudaGetLastError();
 }

@@ -30,6 +30,17 @@ chain.  ``sample_parallel_chains`` runs ``n_chains / nranks`` chains on each
 rank with no collective inside a round and gathers its outputs along the
 chains' axis after the last round.  The blocked sampler is not sharded, as
 in the JAX package.
+
+Under a space axis (``parallel/space.py``) each rank draws its slab of its
+share and runs the flow and the action on it with its slab current; the
+proposals' ``logq`` and ``logp`` are the totals over the space ranks, and
+the log uniforms come from the data rank's own generator
+(``ModelDeviceHandler.uniform_generator``), so every space rank of a data
+rank takes the same decisions and holds the slab of the same chain.  The
+samplers return the whole lattices, gathered over both axes, and keep the
+chain's reference ``_ref`` whole.  Rounds are captured only where the group
+is NCCL (``ModelDeviceHandler.captures``).  The blocked sampler runs on the
+whole lattice on every rank with no slab current.
 """
 
 from __future__ import annotations
@@ -41,6 +52,7 @@ import torch
 
 from ..ops.kernels.accept_scan import accept_scan
 from ..ops.stats import Resampler, estimate_logz, fmt_val_err
+from ..parallel import space
 from ..utils.graphs import GraphCache, capture
 
 __all__ = [
@@ -219,26 +231,49 @@ class MCMCSampler:
     def _draws(self, batch_size, generator):
         """A round's random numbers, in this order: the prior's draw ``(x,
         log r(x))``, then ``batch_size`` log uniforms (``log u`` with ``u``
-        in [0, 1): ``-inf`` accepts, as JAX's ``log(uniform)``)."""
+        in [0, 1): ``-inf`` accepts, as JAX's ``log(uniform)``; under a
+        space axis from the data rank's generator)."""
         x, logr = self._model.prior.sample_(batch_size, generator)
-        lrand = torch.log(torch.rand(batch_size, generator=generator,
+        ugen = self._model.device_handler.uniform_generator(generator)
+        lrand = torch.log(torch.rand(batch_size, generator=ugen,
                                      dtype=logr.dtype, device=logr.device))
         return x, logr, lrand
 
     def _propose(self, x, logr):
-        """``(y, logq, logp)`` of the flow's proposals for ``x``."""
+        """``(y, logq, logp)`` of the flow's proposals for ``x`` (on a
+        slab: the slab's ``y`` and the totals)."""
         m = self._model
         y, logj = m.net_.forward(x)
-        return y, logr - logj, -m.action(y)
+        return (y, *space.totals(m.device_handler.slab, logr - logj,
+                                 -m.action(y)))
 
     def _proposals(self, batch_size, generator):
         """A chain round's proposals ``(y, logq, logp)`` and log uniforms:
         this rank's share drawn and pushed through the flow, then gathered
-        from every rank (``ModelDeviceHandler.gather_rows``)."""
+        from every rank of the batch axis
+        (``ModelDeviceHandler.gather_rows``)."""
         dh = self._model.device_handler
-        x, logr, lrand = self._draws(dh.batch_sharder()(batch_size),
-                                     generator)
-        return dh.gather_rows(*self._propose(x, logr), lrand)
+        with dh.sharded():
+            x, logr, lrand = self._draws(dh.batch_sharder()(batch_size),
+                                         generator)
+            return dh.gather_rows(*self._propose(x, logr), lrand)
+
+    def _generators(self, generator):
+        """The generators a round draws from, for its capture."""
+        ugen = self._model.device_handler.uniform_generator(generator)
+        return (generator,) if ugen is generator else (generator, ugen)
+
+    def _local_ref(self):
+        """``_ref`` with this rank's slab of its sample."""
+        ref_y, ref_logq, ref_logp = self._ref
+        return (self._model.device_handler.local_rows(ref_y, 0), ref_logq,
+                ref_logp)
+
+    def _keep_ref(self, ref_y, ref_logq, ref_logp):
+        """Keep a chain's reference (``ref_y`` a slab) whole in ``_ref``."""
+        dh = self._model.device_handler
+        self._ref = (dh.whole_rows(ref_y, 0).clone(), ref_logq.clone(),
+                     ref_logp.clone())
 
     @torch.no_grad()
     def sample__(self, batch_size=1, generator=None, bookkeeping=False):
@@ -250,9 +285,11 @@ class MCMCSampler:
         if bookkeeping:
             self.history.bookkeeping(raw_logq=logq, raw_logp=logp)
         if self._ref is None:
-            self._ref = (y[0], logq[0], logp[0])
-        y, logq, logp, accept = accept_reject(y, logq, logp, lrand, self._ref)
-        self._ref = (y[-1], logq[-1], logp[-1])
+            self._keep_ref(y[0], logq[0], logp[0])
+        y, logq, logp, accept = accept_reject(y, logq, logp, lrand,
+                                              self._local_ref())
+        self._keep_ref(y[-1], logq[-1], logp[-1])
+        y = m.device_handler.whole_rows(y)
 
         self.history.bookkeeping(
             accept_rate=float(accept.to(logq.dtype).mean()))
@@ -294,7 +331,7 @@ class MCMCSampler:
             carry = self._zero_carry(())
             return capture(
                 lambda: (*self.chain_body(batch_size, gen, carry), *carry),
-                generators=(gen,), keep=carry)
+                generators=self._generators(gen), keep=carry)
 
         return self._graphs.get(("chain", batch_size, m.prior.dtype, gen),
                                 m.graph_stamp(), make)
@@ -302,10 +339,14 @@ class MCMCSampler:
     def _zero_carry(self, batch):
         """Zero ``(ref_y, ref_logq, ref_logp)`` of batch shape ``batch``;
         ``ref_y`` has the prior's shape, which every flow of the port
-        keeps."""
+        keeps (its slab's under a space axis)."""
         m = self._model
         kw = dict(dtype=m.prior.dtype, device=m.device)
-        return (torch.zeros((*batch, *m.prior.shape), **kw),
+        shape = m.prior.shape
+        slab = m.device_handler.slab
+        if slab is not None:
+            shape = (slab.rows, *shape[1:])
+        return (torch.zeros((*batch, *shape), **kw),
                 torch.zeros(batch, **kw), torch.zeros(batch, **kw))
 
     @torch.no_grad()
@@ -327,12 +368,14 @@ class MCMCSampler:
         host copies the seed into the graph's carry before the first
         replay, each round's outputs into a row of the output tensors
         (allocated at the first round) after it, and reads the device once
-        at the end for :attr:`history`.  On the CPU
-        :meth:`chain_body` runs eagerly.  With a process group each rank
-        draws its share of every round's proposals (module docstring)."""
+        at the end for :attr:`history`.  On the CPU (and under a space
+        axis over gloo) :meth:`chain_body` runs eagerly.  With a process
+        group each rank draws its share of every round's proposals (module
+        docstring)."""
         m = self._model
+        dh = m.device_handler
         gen = m.generator if generator is None else generator
-        if m.device.type == "cuda":
+        if dh.captures():
             graph, outs = self.chain_graph(batch_size, gen)
             carry = outs[-3:]
         else:
@@ -342,7 +385,7 @@ class MCMCSampler:
             carry[1].fill_(math.inf)
             carry[2].zero_()
         else:
-            for t, v in zip(carry, self._ref):
+            for t, v in zip(carry, self._local_ref()):
                 t.copy_(v)
         rows = _Rows(n_batches)
         for i in range(n_batches):
@@ -357,7 +400,7 @@ class MCMCSampler:
             if bookkeeping:
                 rows.put(i, raw_logq=raw_logq, raw_logp=raw_logp,
                          accept_seq=accept)
-        self._ref = tuple(t.clone() for t in carry)
+        self._keep_ref(*carry)
 
         for r in rows["accept_rate"].tolist():
             self.history.bookkeeping(accept_rate=r)
@@ -365,7 +408,7 @@ class MCMCSampler:
             self._book_rounds(rows, n_batches, indices=True)
         out = {k: rows[k] for k in ("logq", "logp", "accept_rate")}
         if collect_samples:
-            out["samples"] = rows["samples"]
+            out["samples"] = dh.whole_rows(rows["samples"], 2)
         return out
 
     def _book_rounds(self, rows, n, indices):
@@ -395,8 +438,9 @@ class MCMCSampler:
         round's corrected states.  Returns ``(accept_seq, raw_logq,
         raw_logp)``."""
         ref_y, ref_lq, ref_lp = carry
-        x, logr, lrand = self._draws(n_chains, generator)
-        y, logq, logp = self._propose(x, logr)
+        with self._model.device_handler.sharded():
+            x, logr, lrand = self._draws(n_chains, generator)
+            y, logq, logp = self._propose(x, logr)
         accept = lrand < (ref_lq - ref_lp) - (logq - logp)
         torch.where(accept.view((-1,) + (1,) * (y.dim() - 1)), y, ref_y,
                     out=ref_y)
@@ -416,7 +460,7 @@ class MCMCSampler:
             carry = self._zero_carry((n_chains,))
             return capture(
                 lambda: (*carry, *self.parallel_body(n_chains, gen, carry)),
-                generators=(gen,), keep=carry)
+                generators=self._generators(gen), keep=carry)
 
         return self._graphs.get(("parallel", n_chains, m.prior.dtype, gen),
                                 m.graph_stamp(), make)
@@ -435,14 +479,16 @@ class MCMCSampler:
         ``logq``/``logp`` ``(n_rounds, n_chains)``, the ``final_samples``
         and, with ``collect_samples``, every round's ``samples``.  On a
         CUDA model every round is a replay of :meth:`parallel_graph`; on
-        the CPU :meth:`parallel_body` runs eagerly.  With a process group
-        each rank runs ``n_chains / nranks`` of the chains and the outputs
-        are gathered along the chains' axis after the run."""
+        the CPU (and under a space axis over gloo) :meth:`parallel_body`
+        runs eagerly.  With a process group each rank runs ``n_chains /
+        n_data`` of the chains and the outputs are gathered along the
+        chains' axis (and the samples over the space axis) after the
+        run."""
         m = self._model
         gen = m.generator if generator is None else generator
         dh = m.device_handler
         n_chains = dh.batch_sharder()(n_chains)
-        if m.device.type == "cuda":
+        if dh.captures():
             graph, outs = self.parallel_graph(n_chains, gen)
             carry = outs[:3]
         else:
@@ -463,9 +509,11 @@ class MCMCSampler:
                 rows.put(i, samples=carry[0])
             if bookkeeping:
                 rows.put(i, raw_logq=raw_logq, raw_logp=raw_logp)
+        if collect_samples:  # (rounds, chains, rows, ...): whole lattices
+            rows["samples"] = dh.whole_rows(rows["samples"], 2)
         for k in rows:  # (rounds, chains, ...): every rank's chains
             rows[k] = dh.all_gather_into_tensor(rows[k], dim=1)
-        final = dh.all_gather_into_tensor(carry[0].clone())
+        final = dh.all_gather_into_tensor(dh.whole_rows(carry[0], 1).clone())
 
         accept_rate = np.mean(_to_numpy(rows["accept_seq"]), axis=1)
         for r in accept_rate:
@@ -517,9 +565,12 @@ class BlockedMCMCSampler(MCMCSampler):
     sample.  A loop over samples and blocks, eager on both devices, with no
     read from the host inside: each accept is a device bool applied with
     ``torch.where``.  As in the JAX package it is not sharded: each block
-    update conditions on the current state of every other block."""
+    update conditions on the current state of every other block.  Under a
+    space axis every rank runs it on the whole lattice with no slab
+    current."""
 
     @torch.no_grad()
+    @space.active(None)
     def sample__(self, batch_size=1, n_blocks=1, generator=None,
                  bookkeeping=False):
         """``(cfgs, logq, logp)`` of ``batch_size`` samples, each after a
@@ -570,6 +621,7 @@ class BlockedMCMCSampler(MCMCSampler):
         return proposals.reshape(batch_size, n_blocks, -1), lrand
 
     @torch.no_grad()
+    @space.active(None)
     def sweep(self, x, logqp_ref, has_ref, proposals, lrand):
         """The sweeps of :meth:`sample__` from the latent state ``x``
         ``(1, *shape)`` given every block proposal ``(batch, n_blocks,

@@ -23,7 +23,8 @@ import math
 
 import torch
 
-from ..ops.kernels.phi4 import phi4_action
+from ..ops.kernels.phi4 import phi4_action, phi4_action_slab
+from ..parallel import space
 
 __all__ = [
     "ScalarPhi4Action", "GaugeAction", "U1GaugeAction", "MatrixAction",
@@ -51,7 +52,15 @@ class ScalarPhi4Action:
         return self.action(cfgs)
 
     def action(self, cfgs):
-        return phi4_action(cfgs, *self.get_coef(cfgs.dim() - 1))
+        """Per-sample action; on a slab (``parallel/space.py``) the slab's
+        part, through the slab kernel with the neighbours' edge rows
+        (``ops.kernels.phi4.phi4_action_slab``, whose docstring says why
+        the halo goes in detached)."""
+        w = self.get_coef(cfgs.dim() - 1)
+        slab = space.current()
+        if slab is None:
+            return phi4_action(cfgs, *w)
+        return phi4_action_slab(cfgs, space.edge_rows(cfgs, slab), *w)
 
     def action_density(self, cfgs):
         """Per-site density with a symmetric, positive kinetic term; it

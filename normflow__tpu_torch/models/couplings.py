@@ -222,6 +222,16 @@ class RQSplineCoupling(Coupling):
     ``'anti'``, ``'anti-periodic'`` or ``'periodic'``.  See the module
     docstring for the route."""
 
+    @classmethod
+    def build(cls, nets, *, mask, xlim=(0.0, 1.0), ylim=(0.0, 1.0),
+              knots_x=None, knots_y=None, extrap=None, backend="xla",
+              label="rqs_coupling_"):
+        """The JAX package's factory.  ``backend`` chose the JAX package's
+        route; the port's route follows the coupling (module docstring),
+        and ``label`` is not kept."""
+        return cls(nets, mask=mask, xlim=xlim, ylim=ylim, knots_x=knots_x,
+                   knots_y=knots_y, extrap=extrap)
+
     def __init__(self, nets, *, mask, xlim=(0.0, 1.0), ylim=(0.0, 1.0),
                  knots_x=None, knots_y=None, extrap=None):
         super().__init__(nets, mask=mask)
@@ -276,6 +286,14 @@ class MultiRQSplineCoupling(Coupling):
     carries ``num_splines`` trailing channels, ``(B, *lat, c)``; the net
     takes the frozen partition with those channels on axis 1, and its
     output channels split evenly into one knot group per spline."""
+
+    @classmethod
+    def build(cls, nets, *, mask, xlims=((0.0, 1.0), (0.0, 1.0)),
+              ylims=((0.0, 1.0), (0.0, 1.0)), knots_x=None, knots_y=None,
+              extraps=None, label="multi_rqs_coupling_"):
+        """The JAX package's factory (``label`` is not kept)."""
+        return cls(nets, mask=mask, xlims=xlims, ylims=ylims,
+                   knots_x=knots_x, knots_y=knots_y, extraps=extraps)
 
     def __init__(self, nets, *, mask, xlims=((0.0, 1.0), (0.0, 1.0)),
                  ylims=((0.0, 1.0), (0.0, 1.0)), knots_x=None, knots_y=None,

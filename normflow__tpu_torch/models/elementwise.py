@@ -77,6 +77,12 @@ class Scale(Flow):
     """Global positive scaling ``y = w x`` with ``w = softplus_log2(weight)``
     (zero weight gives the identity)."""
 
+    @classmethod
+    def build(cls, dtype=None, label="scale_", *, device=None):
+        """The JAX package's factory (``label`` names a JAX leaf group;
+        the port's flows carry none)."""
+        return cls(dtype=dtype, device=device)
+
     def __init__(self, *, dtype=None, device=None):
         super().__init__()
         self.w = _weights((1,), dtype=dtype, device=device)
@@ -174,6 +180,12 @@ class Pade11(_ChannelFlow):
     r"""Pade 1/1 bijection of [0, 1], ``f(x) = x / (x + (1 - x) d_1)``, with
     ``d_1 = softplus_log2(w1)`` per channel."""
 
+    @classmethod
+    def build(cls, n_channels=1, channels_axis=-1, dtype=None,
+              label="pade11", *, device=None):
+        """The JAX package's factory (``label`` is not kept)."""
+        return cls(n_channels, channels_axis, dtype=dtype, device=device)
+
     def __init__(self, n_channels=1, channels_axis=-1, *, dtype=None,
                  device=None):
         super().__init__()
@@ -197,6 +209,13 @@ class Pade22(_ChannelFlow):
     r"""Pade 2/2 bijection of [0, 1],
     ``f(x) = x (x + d_0 (1 - x)) / (1 + (d_1 + d_0 - 2) x (1 - x))`` with
     per-channel ``d_0, d_1 > 0``; ``symmetric=True`` ties ``d_1 = d_0``."""
+
+    @classmethod
+    def build(cls, n_channels=1, channels_axis=-1, symmetric=False,
+              dtype=None, label="pade22", *, device=None):
+        """The JAX package's factory (``label`` is not kept)."""
+        return cls(n_channels, channels_axis, symmetric, dtype=dtype,
+                   device=device)
 
     def __init__(self, n_channels=1, channels_axis=-1, symmetric=False, *,
                  dtype=None, device=None):
@@ -243,6 +262,12 @@ class Pade32(_ChannelFlow):
     ``f(x) = x (a + x^2) / (1 + a x^2)``, ``a = 3 sigmoid(w0)`` per channel;
     the inverse runs ``newton_iters`` Newton steps from ``x = y``."""
 
+    @classmethod
+    def build(cls, n_channels=1, channels_axis=-1, dtype=None,
+              label="pade32", *, device=None):
+        """The JAX package's factory (``label`` is not kept)."""
+        return cls(n_channels, channels_axis, dtype=dtype, device=device)
+
     def __init__(self, n_channels=1, channels_axis=-1, newton_iters=24, *,
                  dtype=None, device=None):
         super().__init__()
@@ -282,6 +307,14 @@ class SgnBias(Flow):
     only as the first layer of a flow.  ``w`` starts at 0.05, or uniform
     on [0, 0.1) from ``generator``."""
 
+    @classmethod
+    def build(cls, key=None, size=(1,), dtype=None, label="sgnbias_", *,
+              device=None):
+        """The JAX package's factory: ``key`` is a ``torch.Generator``
+        here (``None``: the weight starts at 0.05); ``label`` is not
+        kept."""
+        return cls(size, generator=key, dtype=dtype, device=device)
+
     def __init__(self, size=(1,), *, generator=None, dtype=None,
                  device=None):
         super().__init__()
@@ -314,6 +347,17 @@ class SplineFlow(Flow):
     data (the weights carry those leading axes); ``kind`` is ``'rqs'``
     (rational quadratic) or ``'rls'`` (rational linear); ``extrap`` augments
     the knots (``ops.spline.augment_knots``)."""
+
+    @classmethod
+    def build(cls, knots_len, xlim=(0.0, 1.0), ylim=(0.0, 1.0),
+              knots_x=None, knots_y=None, knots_d=None, spline_shape=(),
+              smooth=False, extrap=None, kind="rqs", dtype=None,
+              label="spline_", *, device=None):
+        """The JAX package's factory (``label`` is not kept)."""
+        return cls(knots_len, xlim=xlim, ylim=ylim, knots_x=knots_x,
+                   knots_y=knots_y, knots_d=knots_d,
+                   spline_shape=spline_shape, smooth=smooth, extrap=extrap,
+                   kind=kind, dtype=dtype, device=device)
 
     def __init__(self, knots_len, *, xlim=(0.0, 1.0), ylim=(0.0, 1.0),
                  knots_x=None, knots_y=None, knots_d=None, spline_shape=(),
@@ -401,6 +445,11 @@ class UnityDistConvertor(SplineFlow):
     """Density convertor for variables in [0, 1]; ``symmetric=True`` puts
     the spline on [0.5, 1] with an odd reflection on the left."""
 
+    @classmethod
+    def build(cls, knots_len, symmetric=False, label=None, **kwargs):
+        """The JAX package's factory (``label`` is not kept)."""
+        return cls(knots_len, symmetric, **kwargs)
+
     def __init__(self, knots_len, symmetric=False, **kwargs):
         if symmetric:
             kwargs.setdefault("xlim", (0.5, 1.0))
@@ -412,6 +461,12 @@ class UnityDistConvertor(SplineFlow):
 class PhaseDistConvertor(SplineFlow):
     """Density convertor for phases in [-pi, pi]; ``symmetric=True`` puts
     the spline on [0, pi] with an odd reflection on the left."""
+
+    @classmethod
+    def build(cls, knots_len, symmetric=False, label="phase-dc_",
+              **kwargs):
+        """The JAX package's factory (``label`` is not kept)."""
+        return cls(knots_len, symmetric, **kwargs)
 
     def __init__(self, knots_len, symmetric=False, **kwargs):
         lim = (0.0, math.pi) if symmetric else (-math.pi, math.pi)
@@ -434,6 +489,17 @@ class DistConvertor(FlowList):
     the JAX package assembles passes it (``DistConvertor.build(...,
     symmetric=True)``), whose own default is ``False``.  ``symmetric=False``
     puts it on [0, 1].  Other keywords go to the spline."""
+
+    @classmethod
+    def build(cls, knots_len, symmetric=False, label="dc_", sgnbias=False,
+              initial_scale=False, final_scale=False, key=None, dtype=None,
+              **kwargs):
+        """The JAX package's factory, with its default ``symmetric=False``;
+        ``key`` is a ``torch.Generator`` here (the ``SgnBias`` weight's),
+        ``label`` is not kept."""
+        return cls(knots_len, symmetric=symmetric, sgnbias=sgnbias,
+                   initial_scale=initial_scale, final_scale=final_scale,
+                   generator=key, dtype=dtype, **kwargs)
 
     def __init__(self, knots_len, *, symmetric=True, smooth=False,
                  sgnbias=False, initial_scale=False, final_scale=False,

@@ -11,6 +11,9 @@ holds no copy from the host (the first, eager call builds it).
 ``PackedEvenOddMask`` returns the even and odd sublattices as dense
 ``(B, L1, L2/2)`` arrays, packed with the same row-parity skew as the JAX
 package, so conditioner weights transplant exactly.
+
+Under a space axis (``parallel/space.py``) the multiplicative masks take
+the slab's rows of their tensor and ``PackedEvenOddMask`` packs the slab.
 """
 
 from __future__ import annotations
@@ -20,6 +23,8 @@ from typing import Any
 
 import numpy as np
 import torch
+
+from ..parallel import space
 
 __all__ = ["Mask", "EvenOddMask", "AlongAxesEvenOddMask", "DummyMask",
            "DoubleMask", "PackedEvenOddMask", "GaugeLinksDoubleMask",
@@ -63,16 +68,21 @@ class _MultiplicativeMask:
 
     def _pair(self, x):
         """``(m, 1 - m)`` on ``x``'s device and dtype, with singleton axes
-        for ``x``'s trailing channel axes."""
+        for ``x``'s trailing channel axes; on a slab (``parallel/space.py``)
+        the slab's rows of the mask."""
         extra = x.dim() - 1 - len(self.shape)
+        slab = space.current()
+        rows = None if slab is None else (slab.row0, slab.rows)
 
         def make():
-            m = torch.as_tensor(self.make_mask(), dtype=x.dtype,
-                                device=x.device)
+            m = self.make_mask()
+            if rows is not None:
+                m = m[rows[0]:rows[0] + rows[1]]
+            m = torch.as_tensor(m, dtype=x.dtype, device=x.device)
             m = m.reshape(m.shape + (1,) * max(extra, 0))
             return m, 1 - m
 
-        return _cached(self._cache, (x.device, x.dtype, extra), make)
+        return _cached(self._cache, (x.device, x.dtype, extra, rows), make)
 
     def split(self, x):
         m, mc = self._pair(x)
@@ -245,7 +255,10 @@ class MatrixMask:
 @dataclasses.dataclass(frozen=True)
 class PackedEvenOddMask:
     """Row ``r`` of a packed partition holds the sites ``(r, c)`` with
-    ``c = (r + parity) % 2 + 2j``.  2-D, even extents only."""
+    ``c = (r + parity) % 2 + 2j``.  2-D, even extents only.  On a slab
+    (``parallel/space.py``) it packs the slab's rows, which start at an
+    even global row when the slab's height is even, as it must be (else
+    ``ValueError``: the JAX package would pad)."""
 
     shape: tuple
     parity: int = 0
@@ -256,16 +269,27 @@ class PackedEvenOddMask:
         if l1 % 2 or l2 % 2:
             raise ValueError("packed mask needs even dims")
 
+    def _rows(self):
+        """The rows this rank packs: the lattice's, or its slab's."""
+        slab = space.current()
+        if slab is None:
+            return self.shape[0]
+        if slab.rows % 2:
+            raise ValueError(f"a packed checkerboard needs slabs of even "
+                             f"height: {self.shape[0]} rows over "
+                             f"{slab.size} ranks give {slab.rows}")
+        return slab.rows
+
     def _pack(self, x, parity):
         b = x.shape[0]
-        l1, l2 = self.shape
+        l1, l2 = self._rows(), self.shape[1]
         e = x[:, 0::2, parity::2]
         o = x[:, 1::2, (1 - parity)::2]
         return torch.stack([e, o], dim=2).reshape(b, l1, l2 // 2)
 
     def _unpack_into(self, out, packed, parity):
         b = packed.shape[0]
-        l1, l2 = self.shape
+        l1, l2 = self._rows(), self.shape[1]
         rows = packed.reshape(b, l1 // 2, 2, l2 // 2)
         out[:, 0::2, parity::2] = rows[:, :, 0]
         out[:, 1::2, (1 - parity)::2] = rows[:, :, 1]
@@ -275,8 +299,8 @@ class PackedEvenOddMask:
         return self._pack(x, p), self._pack(x, 1 - p)
 
     def cat(self, x0, x1):
-        out = torch.empty((x0.shape[0], *self.shape), dtype=x0.dtype,
-                          device=x0.device)
+        out = torch.empty((x0.shape[0], self._rows(), self.shape[1]),
+                          dtype=x0.dtype, device=x0.device)
         self._unpack_into(out, x0, self.parity)
         self._unpack_into(out, x1, 1 - self.parity)
         return out

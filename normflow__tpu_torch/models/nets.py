@@ -9,6 +9,12 @@ weights; ``utils.transplant`` converts).  A 4-D conv is the sum of 3-D
 convs of the input rolled along the first lattice axis, as in the JAX
 package (neither cuDNN nor XLA has a native 4-D conv).
 
+Under a space axis (``parallel/space.py``) a conv on a slab reads
+``dilation (k - 1) / 2`` rows of each neighbouring slab along the first
+lattice axis (``space.halo``, whose backward returns their cotangents) in
+place of the periodic wrap, and ``RowParityFeature`` takes the parity of
+the global row.
+
 The conv nets and ``LinearNet`` have ``zeroed()`` (every weight zero),
 ``zeroed_final()`` (the last layer zero: the net outputs zeros, so a
 coupling on it is the identity, while the hidden layers keep their weights
@@ -40,6 +46,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.lattice import neighbor_mean
+from ..parallel import space
 
 __all__ = ["ACTIVATIONS", "CircularConv", "ConvNet", "RowParityFeature",
            "Dense", "PlusBias", "LinearNet"]
@@ -115,6 +122,15 @@ class CircularConv(nn.Module):
     Weights start Kaiming-uniform with bound ``1/sqrt(fan_in)``, PyTorch's
     conv default and the JAX package's init (``nets.py:49-61``)."""
 
+    @classmethod
+    def build(cls, key, in_channels, out_channels, kernel_size, conv_dim=2,
+              bias=True, dtype=None, dilation=1, *, device=None):
+        """The JAX package's factory; ``key`` is the ``torch.Generator``
+        the weights are drawn from."""
+        return cls(in_channels, out_channels, kernel_size, conv_dim=conv_dim,
+                   bias=bias, dilation=dilation, generator=key, dtype=dtype,
+                   device=device)
+
     def __init__(self, in_channels, out_channels, kernel_size, *, conv_dim=2,
                  bias=True, dilation=1, generator=None, dtype=None,
                  device=None):
@@ -130,26 +146,38 @@ class CircularConv(nn.Module):
         self.conv_dim = conv_dim
         self.dilation = int(dilation)
 
-    def _convnd(self, x, w, bias=None):
+    def _convnd(self, x, w, bias=None, slab=None):
         # periodic 'same' padding of the dilated extent e = (k-1) d + 1,
         # split ((e-1)//2, e//2) as in the JAX package; F.pad lists the
-        # last spatial dim first
+        # last spatial dim first.  On a slab (parallel/space.py) the first
+        # lattice axis takes its neighbours' rows instead of wrapping
         d = self.dilation
         pad = []
         for k in reversed(w.shape[2:]):
             pad += [((k - 1) * d) // 2, ((k - 1) * d + 1) // 2]
+        if slab is not None:
+            x = space.halo(x, 2, pad[-2], pad[-1], slab)
+            pad[-2:] = [0, 0]
         x = F.pad(x, pad, mode="circular")
         return _CONV[w.dim() - 2](x, w, bias, dilation=d)
 
-    def _conv4d(self, x, w):
+    def _conv4d(self, x, w, slab=None):
         # sum over the first kernel axis of 3-D convs of the input rolled
-        # along the first lattice axis, which goes into the batch
+        # along the first lattice axis, which goes into the batch; on a
+        # slab the roll reads the halo rows
         b, c, l0, *rest = x.shape
         k0 = w.shape[2]
+        shifts = [(i - (k0 - 1) // 2) * self.dilation for i in range(k0)]
+        if slab is not None:
+            lo, hi = -min(shifts), max(shifts)
+            xp = space.halo(x, 2, lo, hi, slab)
         y = 0.0
-        for i in range(k0):
-            shift = (i - (k0 - 1) // 2) * self.dilation
-            xi = torch.roll(x, -shift, dims=2).transpose(1, 2)
+        for i, shift in enumerate(shifts):
+            if slab is None:
+                xi = torch.roll(x, -shift, dims=2)
+            else:
+                xi = xp.narrow(2, lo + shift, l0)
+            xi = xi.transpose(1, 2)
             yi = self._convnd(xi.reshape(b * l0, c, *rest), w[:, :, i])
             y = y + yi.reshape(b, l0, *yi.shape[1:]).transpose(1, 2)
         return y
@@ -162,18 +190,19 @@ class CircularConv(nn.Module):
         operands (see the module docstring)."""
         w = self.weight.to(x.dtype)
         b = None if self.bias is None else self.bias.to(x.dtype)
+        slab = space.current()
         if x.dtype == self.weight.dtype and out_dtype is None:
             if self.conv_dim < 4:
-                return self._convnd(x, w, b)
-            y = self._conv4d(x, w)
+                return self._convnd(x, w, b, slab)
+            y = self._conv4d(x, w, slab)
             return y if b is None else y + b.reshape(-1, 1, 1, 1, 1)
         if out_dtype is not None:
             x, w = x.to(out_dtype), w.to(out_dtype)
             b = None if b is None else b.to(out_dtype)
         with _no_tf32() if out_dtype is not None else \
                 contextlib.nullcontext():
-            y = self._convnd(x, w) if self.conv_dim < 4 \
-                else self._conv4d(x, w)
+            y = self._convnd(x, w, slab=slab) if self.conv_dim < 4 \
+                else self._conv4d(x, w, slab)
         if b is None:
             return y
         return y + b.reshape(-1, *([1] * (y.dim() - 2)))
@@ -214,6 +243,19 @@ class ConvNet(_Transferable, nn.Module):
     layer) and a ``compute_dtype`` (``None``: the weights' own), with
     ``fuse_out_cast`` (default ``False``, as in JAX) for the last layer
     (see the module docstring)."""
+
+    @classmethod
+    def build(cls, key, in_channels, out_channels, kernel_size, conv_dim=2,
+              hidden_sizes=(), acts=(None,), pre_act=None, bias=True,
+              dtype=None, compute_dtype=None, dilations=None, *,
+              device=None):
+        """The JAX package's factory; ``key`` is the ``torch.Generator``
+        the weights are drawn from."""
+        return cls(in_channels, out_channels, kernel_size, conv_dim=conv_dim,
+                   hidden_sizes=hidden_sizes, acts=acts, pre_act=pre_act,
+                   bias=bias, dilations=dilations,
+                   compute_dtype=compute_dtype, generator=key, dtype=dtype,
+                   device=device)
 
     def __init__(self, in_channels, out_channels, kernel_size, *, conv_dim=2,
                  hidden_sizes=(), acts=(None,), pre_act=None, bias=True,
@@ -262,7 +304,9 @@ class RowParityFeature(_Transferable, nn.Module):
         self.net = net
 
     def forward(self, x):
-        rows = torch.arange(x.shape[2], device=x.device)
+        slab = space.current()  # the global row index on a slab
+        row0 = 0 if slab is None else slab.row0
+        rows = torch.arange(row0, row0 + x.shape[2], device=x.device)
         par = (2.0 * (rows % 2) - 1.0).to(x.dtype)
         shape = [1, 1, x.shape[2]] + [1] * (x.dim() - 3)
         plane = par.reshape(shape).expand(x.shape[0], 1, *x.shape[2:])
@@ -272,6 +316,13 @@ class RowParityFeature(_Transferable, nn.Module):
 class Dense(nn.Module):
     """One linear layer on the last axis, weight ``(out, in)``; PyTorch's
     ``Linear`` init, uniform with bound ``1/sqrt(in_features)``."""
+
+    @classmethod
+    def build(cls, key, in_features, out_features, bias=True, dtype=None, *,
+              device=None):
+        """The JAX package's factory; ``key`` is a ``torch.Generator``."""
+        return cls(in_features, out_features, bias, generator=key,
+                   dtype=dtype, device=device)
 
     def __init__(self, in_features, out_features, bias=True, *,
                  generator=None, dtype=None, device=None):
@@ -287,6 +338,11 @@ class Dense(nn.Module):
 
 class PlusBias(nn.Module):
     """A bias add on the last axis, the bias drawn from N(0, 1)."""
+
+    @classmethod
+    def build(cls, key, out_features, dtype=None, *, device=None):
+        """The JAX package's factory; ``key`` is a ``torch.Generator``."""
+        return cls(out_features, generator=key, dtype=dtype, device=device)
 
     def __init__(self, out_features, *, generator=None, dtype=None,
                  device=None):
@@ -304,6 +360,16 @@ class LinearNet(_Transferable, nn.Module):
     """Stack of ``Dense`` layers with activations on the features axis
     ``features_axis``, an optional ``pre_act`` and an optional final
     ``PlusBias``."""
+
+    @classmethod
+    def build(cls, key, in_features, out_features, hidden_sizes=(),
+              acts=(None,), pre_act=None, final_bias=False,
+              features_axis=-1, bias=True, dtype=None, *, device=None):
+        """The JAX package's factory; ``key`` is a ``torch.Generator``."""
+        return cls(in_features, out_features, hidden_sizes=hidden_sizes,
+                   acts=acts, pre_act=pre_act, final_bias=final_bias,
+                   features_axis=features_axis, bias=bias, generator=key,
+                   dtype=dtype, device=device)
 
     def __init__(self, in_features, out_features, *, hidden_sizes=(),
                  acts=(None,), pre_act=None, final_bias=False,

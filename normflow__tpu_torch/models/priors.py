@@ -4,7 +4,9 @@ Counterpart of ``normflow__tpu/models/priors.py``: ``Prior``,
 ``NormalPrior`` and ``UniformPrior`` with ``chopped`` for blocked
 proposals, and ``PriorList``.  Where the JAX package threads
 ``jax.random`` keys, the port takes a generator on the prior's device;
-``PriorList`` draws its priors in order from the one generator.
+``PriorList`` draws its priors in order from the one generator.  Under a
+space axis (``parallel/space.py``) a prior draws the slab's rows of its
+lattice and its ``log_prob`` sums over the slab (a partial sum).
 """
 
 from __future__ import annotations
@@ -13,6 +15,8 @@ import math
 
 import torch
 from torch import nn
+
+from ..parallel import space
 
 __all__ = ["Prior", "NormalPrior", "UniformPrior", "PriorList"]
 
@@ -58,6 +62,15 @@ class Prior(nn.Module):
     def nvar(self) -> int:
         return math.prod(self.shape)
 
+    @staticmethod
+    def _local(t):
+        """A per-site parameter ``t`` ``(*shape)``, or its slab's rows
+        under a space axis (``parallel/space.py``)."""
+        slab = space.current()
+        if slab is None:
+            return t
+        return t.narrow(0, slab.row0, slab.rows)
+
     @property
     def device(self) -> torch.device:
         """The device of the prior's first buffer."""
@@ -83,6 +96,12 @@ class NormalPrior(Prior):
     """Independent normal prior with per-site ``loc``/``scale`` buffers;
     ``NormalPrior(shape=...)`` is the standard normal."""
 
+    @classmethod
+    def build(cls, loc=None, scale=None, shape=None, dtype=None, *,
+              device=None):
+        """The JAX package's factory."""
+        return cls(loc, scale, shape=shape, dtype=dtype, device=device)
+
     def __init__(self, loc=None, scale=None, *, shape=None, dtype=None,
                  device=None):
         super().__init__()
@@ -92,13 +111,15 @@ class NormalPrior(Prior):
         self.shape = tuple(loc.shape)
 
     def sample(self, batch_size: int = 1, generator=None):
-        z = torch.randn((batch_size, *self.shape), generator=generator,
-                        dtype=self.loc.dtype, device=self.loc.device)
-        return self.loc + self.scale * z
+        loc, scale = self._local(self.loc), self._local(self.scale)
+        z = torch.randn((batch_size, *loc.shape), generator=generator,
+                        dtype=loc.dtype, device=loc.device)
+        return loc + scale * z
 
     def log_prob_density(self, x):
-        z = (x - self.loc) / self.scale
-        return -0.5 * (z * z + _LOG_2PI) - torch.log(self.scale)
+        loc, scale = self._local(self.loc), self._local(self.scale)
+        z = (x - loc) / scale
+        return -0.5 * (z * z + _LOG_2PI) - torch.log(scale)
 
     def chopped(self, block_len: int) -> "NormalPrior":
         """A flattened prior over the first ``block_len`` sites, for
@@ -113,6 +134,12 @@ class UniformPrior(Prior):
     """Uniform prior on ``[low, high]`` per site;
     ``UniformPrior(shape=...)`` is uniform on ``[0, 1]``."""
 
+    @classmethod
+    def build(cls, low=None, high=None, shape=None, dtype=None, *,
+              device=None):
+        """The JAX package's factory."""
+        return cls(low, high, shape=shape, dtype=dtype, device=device)
+
     def __init__(self, low=None, high=None, *, shape=None, dtype=None,
                  device=None):
         super().__init__()
@@ -122,13 +149,15 @@ class UniformPrior(Prior):
         self.shape = tuple(low.shape)
 
     def sample(self, batch_size: int = 1, generator=None):
-        u = torch.rand((batch_size, *self.shape), generator=generator,
-                       dtype=self.low.dtype, device=self.low.device)
-        return self.low + (self.high - self.low) * u
+        low, high = self._local(self.low), self._local(self.high)
+        u = torch.rand((batch_size, *low.shape), generator=generator,
+                       dtype=low.dtype, device=low.device)
+        return low + (high - low) * u
 
     def log_prob_density(self, x):
-        inside = (x >= self.low) & (x <= self.high)
-        d = -torch.log(self.high - self.low)
+        low, high = self._local(self.low), self._local(self.high)
+        inside = (x >= low) & (x <= high)
+        d = -torch.log(high - low)
         return torch.where(inside, d, -math.inf)
 
     def chopped(self, block_len: int) -> "UniformPrior":

@@ -11,6 +11,12 @@ rfft redundancy correction.
 FFT flow to another lattice and spacing: the IPSD's log-scales absorb the
 spacing's powers (``IPSD.apply_scale``) and the flow takes the new
 ``lat_shape``, from which its momentum grid is built at every call.
+
+Under a space axis (``parallel/space.py``) the FFT flow gathers each
+sample's whole lattice on every rank, transforms it and keeps the slab's
+rows (an all-to-all FFT is later work), and the volume mean is the space
+group's sum of the slabs' sums; the constant log-Jacobians of the FFT and
+of the mean-field flow count once, on space rank 0.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import torch
 from torch import nn
 
 from ..ops.lattice import rfft_lattice_k2
+from ..parallel import space
 from .core import Flow
 from .elementwise import DistConvertor, SplineFlow
 
@@ -36,6 +43,14 @@ class IPSD(nn.Module):
 
     # transplant order of the JAX leaves: the spline's weights, then logy
     leaf_order = ("spline", "logy")
+
+    @classmethod
+    def build(cls, knots_len, *, logy, ignore_zeromode=False, smooth=False,
+              dtype=None, device=None, **spline_kwargs):
+        """The JAX package's factory."""
+        return cls(knots_len, logy=logy, ignore_zeromode=ignore_zeromode,
+                   smooth=smooth, dtype=dtype, device=device,
+                   **spline_kwargs)
 
     def __init__(self, knots_len, *, logy, ignore_zeromode=False,
                  dtype=None, device=None, **spline_kwargs):
@@ -85,6 +100,13 @@ class IPSDNoZeroMode(nn.Module):
 
     leaf_order = ("spline", "logy")
 
+    @classmethod
+    def build(cls, knots_len, *, logy, smooth=False, dtype=None,
+              device=None, **kwargs):
+        """The JAX package's factory."""
+        return cls(knots_len, logy=logy, smooth=smooth, dtype=dtype,
+                   device=device, **kwargs)
+
     def __init__(self, knots_len, *, logy, dtype=None, device=None,
                  **spline_kwargs):
         super().__init__()
@@ -133,6 +155,16 @@ class FFTFlow(Flow):
     give a smooth 2-knot spline.  ``ipsd_net`` replaces the IPSD (an
     ``IPSDNoZeroMode``, say); other keywords go to the IPSD's spline."""
 
+    @classmethod
+    def build(cls, lat_shape, knots_len=10, eff_mass2=1.0, eff_kappa=1.0,
+              a=1.0, ignore_zeromode=False, dtype=None, *, device=None,
+              **ipsd_kwargs):
+        """The JAX package's factory (the constructor initialises the
+        IPSD as it does)."""
+        return cls(lat_shape, knots_len, eff_mass2=eff_mass2,
+                   eff_kappa=eff_kappa, a=a, ignore_zeromode=ignore_zeromode,
+                   dtype=dtype, device=device, **ipsd_kwargs)
+
     def __init__(self, lat_shape, knots_len=10, *, eff_mass2=1.0,
                  eff_kappa=1.0, a=1.0, ignore_zeromode=False, ipsd_net=None,
                  dtype=None, device=None, **ipsd_kwargs):
@@ -179,23 +211,36 @@ class FFTFlow(Flow):
 
     def forward(self, x, log0=0.0, *, density: bool = False):
         w = self._weight(x)
-        dims = self._fft_dims
-        y = torch.fft.irfftn(torch.fft.rfftn(x, dim=dims) * w,
-                             s=self.lat_shape, dim=dims)
+        y = self._multiply(x, lambda k: k * w)
         return y, log0 + self.log_jacobian(w, density)
 
     def backward(self, x, log0=0.0, *, density: bool = False):
         w = self._weight(x)
-        dims = self._fft_dims
-        y = torch.fft.irfftn(torch.fft.rfftn(x, dim=dims) / w,
-                             s=self.lat_shape, dim=dims)
+        y = self._multiply(x, lambda k: k / w)
         return y, log0 - self.log_jacobian(w, density)
+
+    def _multiply(self, x, fn):
+        """``irfftn(fn(rfftn(x)))`` over the lattice axes.  On a slab
+        (``parallel/space.py``) every rank gathers each sample's whole
+        lattice, transforms it and keeps its slab's rows (the JAX
+        package's layout on the CPU, ``docs/DISTRIBUTED.md:50-52``)."""
+        dims = self._fft_dims
+        slab = space.current()
+        if slab is None:
+            return torch.fft.irfftn(fn(torch.fft.rfftn(x, dim=dims)),
+                                    s=self.lat_shape, dim=dims)
+        axis = x.dim() - len(self.lat_shape)
+        whole = space.gather_rows(x, axis, slab)
+        y = torch.fft.irfftn(fn(torch.fft.rfftn(whole, dim=dims)),
+                             s=self.lat_shape, dim=dims)
+        return y.narrow(axis, slab.row0, slab.rows)
 
     def log_jacobian(self, w, density: bool = False):
         """log|det| of the spectral multiply.  Every rfft mode appears twice
         (k and -k) except the planes that are their own conjugate: the
         k_last = 0 plane always, the Nyquist plane only when the last extent
-        is even."""
+        is even.  On a slab the per-sample value counts on space rank 0
+        only, and the density covers the slab's sites."""
         dims = self._fft_dims
 
         def sumlog(a):
@@ -204,10 +249,11 @@ class FFTFlow(Flow):
         logj = 2 * sumlog(w) - sumlog(w[..., 0:1])
         if self.lat_shape[-1] % 2 == 0:
             logj = logj - sumlog(w[..., -1:])
+        slab = space.current()
         if not density:
-            return logj
+            return space.once(logj, slab)
         n = math.prod(self.lat_shape)
-        return (logj / n).expand(self.lat_shape)
+        return (logj / n).expand(_local_shape(self.lat_shape, slab))
 
 
 class MeanFieldFlow(Flow):
@@ -217,6 +263,13 @@ class MeanFieldFlow(Flow):
     scaled back.  Without ``rvol`` it takes the whole field, converts its
     mean and leaves the fluctuation as it is; its log-Jacobian density is
     then spread over the lattice."""
+
+    @classmethod
+    def build(cls, knots_len=10, dtype=None, *, device=None, **kwargs):
+        """The JAX package's factory, whose ``DistConvertor.build`` takes
+        ``symmetric=False`` unless it is given."""
+        kwargs.setdefault("symmetric", False)
+        return cls(knots_len, dtype=dtype, device=device, **kwargs)
 
     def __init__(self, knots_len=10, *, dtype=None, device=None, **kwargs):
         super().__init__()
@@ -234,18 +287,45 @@ class MeanFieldFlow(Flow):
         if rvol is not None:
             y_scaled, log0 = fn(x * rvol, log0, density=density)
             return y_scaled / rvol, log0
-        dims = tuple(range(1, x.dim()))
-        rvol = float(math.prod(x.shape[1:])) ** 0.5
-        x_mean = torch.mean(x, dim=dims, keepdim=True)
+        slab = space.current()
+        rvol = float(_volume(x.shape[1:], slab)) ** 0.5
+        x_mean = _lattice_mean(x, slab)
         y_scaled, logj = fn(x_mean * rvol, 0.0, density=False)
         if density:
-            logj = _spread_density(logj, x.shape[1:])
+            logj = _spread_density(logj, x.shape[1:], slab)
+        else:
+            logj = space.once(logj, slab)
         return x + (y_scaled / rvol - x_mean), log0 + logj
 
 
-def _spread_density(logj, lat_shape):
-    """Spread a per-sample logJ uniformly over the lattice as a density."""
-    n = math.prod(lat_shape)
+def _local_shape(lat_shape, slab):
+    """The lattice's shape, or its slab's."""
+    if slab is None:
+        return tuple(lat_shape)
+    return (slab.rows, *lat_shape[1:])
+
+
+def _volume(local_shape, slab):
+    """The whole lattice's sites, from the local lattice's shape."""
+    n = math.prod(local_shape)
+    return n if slab is None else n * slab.size
+
+
+def _lattice_mean(x, slab):
+    """Each sample's mean over the lattice, ``(B, 1, ...)``: on a slab,
+    the slabs' sums summed over the space group (``space.psum``)."""
+    dims = tuple(range(1, x.dim()))
+    if slab is None:
+        return torch.mean(x, dim=dims, keepdim=True)
+    total = space.psum(torch.sum(x, dim=dims, keepdim=True), slab)
+    return total / _volume(x.shape[1:], slab)
+
+
+def _spread_density(logj, lat_shape, slab=None):
+    """Spread a per-sample logJ uniformly over the lattice as a density
+    (``lat_shape`` the local lattice's: on a slab, the whole lattice's
+    share of each of the slab's sites)."""
+    n = _volume(lat_shape, slab)
     logj = logj.reshape(logj.shape[0], -1).sum(dim=1)
     return (logj / n).reshape(-1, *([1] * len(lat_shape))).expand(
         -1, *lat_shape)
@@ -287,13 +367,15 @@ class PSDBlock(Flow):
     _hack = hack  # the reference's spelling
 
     def _split_apply(self, x, log0, density, inverse):
-        dims = tuple(range(1, x.dim()))
-        rvol = float(math.prod(x.shape[1:])) ** 0.5
-        x_mean = torch.mean(x, dim=dims, keepdim=True)
+        slab = space.current()
+        rvol = float(_volume(x.shape[1:], slab)) ** 0.5
+        x_mean = _lattice_mean(x, slab)
         mf = self.mfnet.backward if inverse else self.mfnet.forward
         fft = self.fftnet.backward if inverse else self.fftnet.forward
         y_mf, logj_mf = mf(x_mean, rvol=rvol, density=False)
         if density:
-            logj_mf = _spread_density(logj_mf, x.shape[1:])
+            logj_mf = _spread_density(logj_mf, x.shape[1:], slab)
+        else:
+            logj_mf = space.once(logj_mf, slab)
         y_fft, logj_fft = fft(x - x_mean, density=density)
         return y_mf + y_fft, log0 + logj_mf + logj_fft

@@ -62,6 +62,15 @@ _SIGNATURES = {
     # cfgs, g, grad, B, L0, L1, samples, w0, w2, w4, stream
     "phi4_action_grad_tiled_f32": (_P, _P, _P, _L, _I, _I, _I, _F, _F, _F,
                                    _P),
+    # the slab variants: the halo after the field
+    "phi4_action_slab_f32": (_P, _P, _P, _L, _I, _I, _I, _I, _F, _F, _F,
+                             _P),
+    "phi4_action_slab_tiled_f32": (_P, _P, _P, _L, _I, _I, _I, _F, _F, _F,
+                                   _P),
+    "phi4_action_grad_slab_f32": (_P, _P, _P, _P, _L, _I, _I, _I, _I, _F,
+                                  _F, _F, _P),
+    "phi4_action_grad_slab_tiled_f32": (_P, _P, _P, _P, _L, _I, _I, _I, _F,
+                                        _F, _F, _P),
     # lrand, logqp, ref, accept, indices, n, stream
     "accept_scan_f32": (_P, _P, _P, _P, _P, _L, _P),
 }

@@ -22,6 +22,19 @@ wrapper's ``launches``.  As for the coupling's wrappers, the counts grow
 where the wrapper launches from the host: once per capture under a CUDA
 graph, not once per replay (``tools/kernel_times.device_launches`` counts
 a replay's launches by kernel name).
+
+The slab variants (:func:`phi4_action_slab`, :func:`phi4_action_slab_grad`)
+are what kernels 3 and 4 become under lattice sharding
+(``parallel/space.py``): a rank holds the rows ``(B, l0, *rest)`` of each
+sample and the ``halo`` ``(B, 2, *rest)``, the row before its slab and the
+row after it.  Along the first lattice axis nothing wraps: the action sums
+its slab's sites and reads the row before the slab for the first row's
+backward neighbour (the row after is the next slab's to pair with), the
+force on the slab's sites reads both.  The other axes are periodic.  They
+port no Pallas kernel of their own (the JAX package's sharded action is
+XLA's roll with the partitioner's halos), and each has its plain version
+beside it, its launch counters and its tiled variant on the whole
+lattice's rule applied to the slab.
 """
 
 from __future__ import annotations
@@ -32,7 +45,9 @@ from torch.autograd.function import once_differentiable
 from . import _lib
 
 __all__ = ["phi4_action", "phi4_action_plain", "phi4_action_grad",
-           "phi4_action_grad_plain", "action_plan", "action_variant"]
+           "phi4_action_grad_plain", "action_plan", "action_variant",
+           "phi4_action_slab", "phi4_action_slab_plain",
+           "phi4_action_slab_grad", "phi4_action_slab_grad_plain"]
 
 # threads per block of the tiled action kernel, filled with whole samples
 # (one sample where a sample alone has more)
@@ -164,6 +179,165 @@ def phi4_action_grad(cfgs, g, w0, w2, w4):
     return grad
 
 
+def phi4_action_slab_plain(cfgs, halo, w0, w2, w4):
+    """Plain PyTorch version of the slab action: the sum over the slab
+    ``cfgs`` ``(B, l0, *rest)`` of ``w2 phi^2 + w4 phi^4 - w0 phi_x
+    sum_mu phi_{x - mu}``, the backward neighbours of row 0 along the first
+    axis from ``halo[:, 0]``, in :func:`phi4_action_plain`'s order."""
+    dims = tuple(range(1, cfgs.dim()))
+    phi2 = cfgs * cfgs
+    act = torch.sum(w2 * phi2 + w4 * phi2 * phi2, dim=dims)
+    if w0 != 0.0:
+        for mu in dims:
+            act = act - w0 * torch.sum(cfgs * _back(cfgs, halo, mu),
+                                       dim=dims)
+    return act
+
+
+def phi4_action_slab_grad_plain(cfgs, halo, g, w0, w2, w4):
+    """Plain PyTorch version of the slab force times ``g`` ``(B,)``: the
+    force on the slab's sites, the neighbours across its first and last
+    rows from ``halo``, in :func:`phi4_action_grad_plain`'s order."""
+    dv = (2.0 * w2) * cfgs + (4.0 * w4) * (cfgs * cfgs) * cfgs
+    if w0 != 0.0:
+        neigh = 0.0
+        for mu in range(1, cfgs.dim()):
+            neigh = (neigh + _back(cfgs, halo, mu)
+                     + _fore(cfgs, halo, mu))
+        dv = dv - w0 * neigh
+    return dv * g.reshape((-1,) + (1,) * (cfgs.dim() - 1))
+
+
+def _back(cfgs, halo, mu):
+    """``phi_{x - mu}``: ``roll(cfgs, 1, mu)``, along axis 1 from the row
+    before the slab."""
+    if mu != 1:
+        return torch.roll(cfgs, 1, mu)
+    return torch.cat([halo[:, :1], cfgs[:, :-1]], 1)
+
+
+def _fore(cfgs, halo, mu):
+    """``phi_{x + mu}``, along axis 1 from the row after the slab."""
+    if mu != 1:
+        return torch.roll(cfgs, -1, mu)
+    return torch.cat([cfgs[:, 1:], halo[:, 1:]], 1)
+
+
+def _check_slab(name, cfgs, halo):
+    if halo.shape != (cfgs.shape[0], 2, *cfgs.shape[2:]):
+        raise ValueError(f"{name}: halo {tuple(halo.shape)} for the slab "
+                         f"{tuple(cfgs.shape)}")
+    if cfgs.device.type == "cpu" and halo.device.type == "cpu":
+        return None
+    lat = _check_cuda(name, cfgs)
+    if halo.device != cfgs.device or halo.dtype != torch.float32 \
+            or not halo.is_contiguous():
+        raise ValueError(f"{name}: the halo must be a contiguous float32 "
+                         "tensor on the slab's device")
+    return lat
+
+
+def _action_slab(cfgs, halo, w0, w2, w4):
+    lat = _check_slab("phi4_action_slab", cfgs, halo)
+    if lat is None:
+        return phi4_action_slab_plain(cfgs, halo, w0, w2, w4)
+    b = cfgs.shape[0]
+    if not cfgs.numel():
+        return cfgs.new_zeros(b)
+    act = torch.empty(b, dtype=cfgs.dtype, device=cfgs.device)
+    lib = _lib.library()
+    w = (float(w0), float(w2), float(w4))
+    with torch.cuda.device(cfgs.device):
+        stream = torch.cuda.current_stream(cfgs.device).cuda_stream
+        tiled = action_variant(cfgs.shape[1:], cfgs.data_ptr(),
+                               halo.data_ptr()) == "tiled"
+        if tiled:
+            _, samples = action_plan(cfgs.shape[1:])
+            err = lib.phi4_action_slab_tiled_f32(
+                cfgs.data_ptr(), halo.data_ptr(), act.data_ptr(), b,
+                *lat[:2], samples, *w, stream)
+        else:
+            err = lib.phi4_action_slab_f32(
+                cfgs.data_ptr(), halo.data_ptr(), act.data_ptr(), b,
+                cfgs.dim() - 1, *lat, *w, stream)
+    _lib.check(err, "phi4_action_slab")
+    phi4_action_slab.launches += 1
+    phi4_action_slab.tiled_launches += tiled
+    return act
+
+
+def phi4_action_slab_grad(cfgs, halo, g, w0, w2, w4):
+    """``g[b] * dS_b/dcfgs`` on the slab's sites (``S`` the whole
+    lattice's action): :func:`phi4_action_slab_grad_plain` for CPU
+    tensors; CUDA tensors (float32, contiguous, 1-3 lattice dims) launch
+    the kernel or raise."""
+    if g.shape != cfgs.shape[:1]:
+        raise ValueError(f"phi4_action_slab_grad: cotangent "
+                         f"{tuple(g.shape)} for the slab "
+                         f"{tuple(cfgs.shape)}")
+    lat = _check_slab("phi4_action_slab_grad", cfgs, halo)
+    if lat is None and g.device.type == "cpu":
+        return phi4_action_slab_grad_plain(cfgs, halo, g, w0, w2, w4)
+    if lat is None or g.device != cfgs.device \
+            or g.dtype != torch.float32 or not g.is_contiguous():
+        raise ValueError("phi4_action_slab_grad: the cotangent must be a "
+                         "contiguous float32 tensor on the slab's device")
+    grad = torch.empty_like(cfgs)
+    if cfgs.numel():
+        lib = _lib.library()
+        ptrs = (cfgs.data_ptr(), halo.data_ptr(), g.data_ptr(),
+                grad.data_ptr())
+        b, w = cfgs.shape[0], (float(w0), float(w2), float(w4))
+        tiled = action_variant(cfgs.shape[1:], ptrs[0], ptrs[1],
+                               ptrs[3]) == "tiled"
+        with torch.cuda.device(cfgs.device):
+            stream = torch.cuda.current_stream(cfgs.device).cuda_stream
+            if tiled:
+                _, samples = action_plan(cfgs.shape[1:])
+                err = lib.phi4_action_grad_slab_tiled_f32(
+                    *ptrs, b, *lat[:2], samples, *w, stream)
+            else:
+                err = lib.phi4_action_grad_slab_f32(
+                    *ptrs, b, cfgs.dim() - 1, *lat, *w, stream)
+        _lib.check(err, "phi4_action_slab_grad")
+        phi4_action_slab_grad.launches += 1
+        phi4_action_slab_grad.tiled_launches += tiled
+    return grad
+
+
+class _Phi4ActionSlab(torch.autograd.Function):
+    """The slab action with the slab force as its backward.  The halo goes
+    in detached: the force on the slab's sites is the derivative of the
+    whole lattice's action, the neighbour slabs' terms that read this
+    slab's rows included, so the halo rows need no cotangent of their own.
+    That is the gradient of the loss only where each space rank's cotangent
+    of its partial action is the same, the cotangent of the whole action:
+    ``space.totals``'s identity backward, with the loss computed alike on
+    every rank from the totals, gives exactly that."""
+
+    @staticmethod
+    def forward(ctx, cfgs, halo, w0, w2, w4):
+        ctx.save_for_backward(cfgs, halo)
+        ctx.coef = (w0, w2, w4)
+        return _action_slab(cfgs, halo, w0, w2, w4)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        cfgs, halo = ctx.saved_tensors
+        return (phi4_action_slab_grad(cfgs, halo, g.contiguous(),
+                                      *ctx.coef), None, None, None, None)
+
+
+def phi4_action_slab(cfgs, halo, w0, w2, w4):
+    """This slab's part of the per-sample phi^4 action (module docstring),
+    differentiable in ``cfgs``: CPU tensors take
+    :func:`phi4_action_slab_plain`, CUDA tensors (float32, contiguous,
+    1-3 lattice dims) launch the kernel or raise; the gradient goes
+    through :func:`phi4_action_slab_grad`."""
+    return _Phi4ActionSlab.apply(cfgs, halo.detach(), w0, w2, w4)
+
+
 class _Phi4Action(torch.autograd.Function):
     """The action with the force as its backward; the input is the only
     residual, as in the JAX package's ``_phi4_fwd``."""
@@ -194,3 +368,7 @@ phi4_action.launches = 0
 phi4_action.tiled_launches = 0
 phi4_action_grad.launches = 0
 phi4_action_grad.tiled_launches = 0
+phi4_action_slab.launches = 0
+phi4_action_slab.tiled_launches = 0
+phi4_action_slab_grad.launches = 0
+phi4_action_slab_grad.tiled_launches = 0

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["knot_coords", "searchsorted_last", "rqs", "rls",
+__all__ = ["knot_coords", "searchsorted_last", "segment_gather", "rqs", "rls",
            "smooth_derivatives_rq", "smooth_derivatives_rl", "augment_knots"]
 
 
@@ -39,6 +39,16 @@ def searchsorted_last(knots, x):
     k = knots.shape[-1]
     idx = torch.sum(x.unsqueeze(-1) > knots, dim=-1)
     return torch.clamp(idx, 1, k - 1) - 1
+
+
+def segment_gather(params, idx, offset: int, k: int):
+    """``params[..., idx + offset]`` for segment indices ``idx`` of ``k - 1``
+    segments (``ops/spline.py:70`` of the JAX package, which selects by a
+    one-hot contraction to avoid a dynamic gather on the TPU; here a
+    gather).  ``params`` broadcasts against ``idx.shape + (k,)``."""
+    window = params[..., offset:offset + k - 1]
+    window = window.expand(*idx.shape, k - 1)
+    return torch.gather(window, -1, idx.unsqueeze(-1)).squeeze(-1)
 
 
 def _gather_segment_params(x, kx, ky, kd, lookup):

@@ -1,7 +1,9 @@
-"""Data parallelism over ``torch.distributed`` (``normflow__tpu/parallel``)."""
+"""Data and lattice (``space``) parallelism over ``torch.distributed``
+(``normflow__tpu/parallel``)."""
 
-from .mesh import (ModelDeviceHandler, fold_key, fold_seed, free_port,
-                   init_distributed, make_mesh)
+from . import space
+from .mesh import (Mesh, ModelDeviceHandler, batch_axis, fold_key, fold_seed,
+                   free_port, init_distributed, make_mesh)
 
 __all__ = ["ModelDeviceHandler", "make_mesh", "init_distributed", "fold_key",
-           "fold_seed", "free_port"]
+           "fold_seed", "free_port", "Mesh", "batch_axis", "space"]

@@ -21,23 +21,44 @@ gloo for a CPU one.
   gathers along axis 0 (``all_gather_into_tensor``) and spawns one process
   per rank (``spawnprocesses``).
 
-Lattice (``space``) sharding with halo exchange is not ported.
+Lattice (``space``) sharding: ``make_mesh(axes={"data": n, "space": m})``
+lays the default group's ``n m`` ranks out as a :class:`Mesh`, row-major
+in the dict's order as the JAX package's device grid is, and forms one
+``torch.distributed`` subgroup per row and column (every rank calls
+``new_group`` for every one, in the same order).  Attached with
+``use_mesh(axes=...)``, a batch is sharded over the data axis and the
+first lattice axis over ``space``: each rank holds ``(B / n, L0 / m, L1,
+...)``, its :class:`~.space.Slab`, and the model's entry points run their
+bodies with that slab current (``parallel/space.py`` has the collectives).
+The batch axis follows JAX's rule (``normflow__tpu/parallel/mesh.py:
+121-135``): ``axis`` where ``axes`` names it, else the first axis that is
+not ``space``; ``{"space": 8}`` raises.  The space ranks of one data rank
+draw their prior slabs from generators of their own (the rank's
+:func:`fold_seed`) and the Metropolis uniforms, which must agree over the
+slabs of one sample, from one generator per data rank.  The training step
+sums the gradients over ``space`` and averages them over ``data`` in its
+one flat bucket.  A space axis on CUDA tensors captures the step and the
+samplers' rounds in CUDA graphs only over NCCL: a gloo collective cannot
+sit in a graph, so over gloo the bodies run eagerly (``captures``).
 """
 
 from __future__ import annotations
 
+import math
 import os
 import queue as queue_mod
 import socket
 import traceback
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 from ..utils.device import resolve_device
+from . import space
 
-__all__ = ["ModelDeviceHandler", "make_mesh", "init_distributed",
-           "fold_key", "fold_seed", "free_port"]
+__all__ = ["ModelDeviceHandler", "Mesh", "make_mesh", "init_distributed",
+           "fold_key", "fold_seed", "free_port", "batch_axis"]
 
 RANK_SEED_STRIDE = 1 << 32
 
@@ -87,12 +108,68 @@ def init_distributed(*, rank=None, world_size=None, init_method=None,
     return dist.group.WORLD
 
 
-def make_mesh(n_devices=None):
+def batch_axis(axes, axis="data") -> str:
+    """The batch axis of a mesh with axes ``axes`` (names or a dict): JAX's
+    rule, ``axis`` where ``axes`` names it, else the first axis that is not
+    ``space``.  Raises ``ValueError`` where there is none, and where an
+    axis is neither the batch axis nor ``space`` (the port shards a batch
+    and the first lattice axis, nothing else)."""
+    names = tuple(axes)
+    if axis in names:
+        data = axis
+    else:
+        others = [k for k in names if k != "space"]
+        if not others:
+            raise ValueError("axes needs a batch axis besides 'space'")
+        data = others[0]
+    extra = set(names) - {data, "space"}
+    if extra:
+        raise ValueError(f"axes {sorted(extra)}: the port shards over one "
+                         "batch axis and 'space'")
+    return data
+
+
+class Mesh:
+    """The default group's ranks on a grid of named axes (``axes``, e.g.
+    ``{"data": 2, "space": 2}``), row-major in the dict's order: rank
+    ``r`` has the coordinates ``unravel(r, sizes)``.  ``groups[name]`` is
+    this rank's subgroup along ``name`` (the ranks that share every other
+    coordinate), ``coords[name]`` its coordinate there; ``group`` is the
+    default group."""
+
+    def __init__(self, axes: dict):
+        self.axis_names = tuple(axes)
+        self.shape = {k: int(v) for k, v in axes.items()}
+        sizes = tuple(self.shape.values())
+        self.size = math.prod(sizes)
+        world = dist.get_world_size()
+        if self.size != world:
+            raise ValueError(f"a mesh of {self.shape} ({self.size} ranks) "
+                             f"in a group of {world} processes: the port "
+                             "runs one process per device")
+        self.group = dist.group.WORLD
+        rank = dist.get_rank()
+        grid = np.arange(self.size).reshape(sizes)
+        self.coords = {k: int(c) for k, c in zip(
+            self.axis_names, np.unravel_index(rank, sizes))}
+        self.groups = {}
+        for a, name in enumerate(self.axis_names):
+            lines = np.moveaxis(grid, a, -1).reshape(-1, sizes[a]).tolist()
+            for ranks in lines:  # on every rank, in the same order
+                group = dist.new_group(ranks)
+                if rank in ranks:
+                    self.groups[name] = group
+
+
+def make_mesh(n_devices=None, axes=None):
     """The process group that carries the ``data`` axis: the default
-    group, which must have ``n_devices`` ranks where that is given."""
+    group, which must have ``n_devices`` ranks where that is given; with
+    ``axes``, a :class:`Mesh` of the default group's ranks."""
     if not dist.is_initialized():
         raise RuntimeError("no process group: call init_distributed first "
                            "(or run under torchrun)")
+    if axes:
+        return Mesh(axes)
     size = dist.get_world_size()
     if n_devices is not None and n_devices != size:
         raise ValueError(f"a data axis of {n_devices} devices in a group of "
@@ -104,6 +181,13 @@ def make_mesh(n_devices=None):
 def fold_seed(seed: int, rank: int) -> int:
     """Rank ``rank``'s seed for the model seed ``seed``."""
     return (int(seed) + RANK_SEED_STRIDE * int(rank)) % (1 << 64)
+
+
+def uniform_seed(seed: int, data_rank: int) -> int:
+    """The seed of data rank ``data_rank``'s Metropolis uniforms under a
+    space axis: :func:`fold_seed` moved by 2**63, so that it meets no
+    rank's prior stream."""
+    return (fold_seed(seed, data_rank) + (1 << 63)) % (1 << 64)
 
 
 def fold_key(generator: torch.Generator, rank=None) -> torch.Generator:
@@ -120,14 +204,20 @@ def fold_key(generator: torch.Generator, rank=None) -> torch.Generator:
 class ModelDeviceHandler:
     """Data parallelism of one model over a process group (see the module
     docstring).  Nothing is sharded until :meth:`use_mesh` attaches the
-    group; from then on the ``Fitter`` trains on ``batch_size / nranks``
-    draws per rank with the gradients averaged over the group, the
-    posterior draws this rank's share, and the production samplers split
-    their proposals or chains over the ranks."""
+    group; from then on the ``Fitter`` trains on ``batch_size / n_data``
+    draws per rank with the gradients averaged over the data axis (and
+    summed over ``space``), the posterior draws this rank's share, and the
+    production samplers split their proposals or chains over the ranks."""
 
     def __init__(self, model):
         self._model = model
-        self.group = None
+        self.group = None       # the group of the whole mesh
+        self.mesh = None        # a Mesh, where use_mesh had axes
+        self.data_axis = "data"
+        self.space_axis = None
+        self.data_group = None  # the batch axis's group
+        self.slab = None        # this rank's space.Slab under a space axis
+        self._uniform = None    # the data rank's generator of uniforms
 
     # -- topology ------------------------------------------------------ #
     @property
@@ -148,30 +238,75 @@ class ModelDeviceHandler:
             return self.nranks
         return torch.cuda.device_count() if torch.cuda.is_available() else 1
 
+    @property
+    def n_data(self) -> int:
+        """The ranks along the batch axis (1 with no group)."""
+        if self.data_group is None:
+            return 1
+        return dist.get_world_size(self.data_group)
+
+    @property
+    def data_rank(self) -> int:
+        if self.data_group is None:
+            return 0
+        return dist.get_rank(self.data_group)
+
     # -- setup --------------------------------------------------------- #
-    def use_mesh(self, mesh=None, n_devices=None):
-        """Attach the process group ``mesh`` (default: :func:`make_mesh`
-        of ``n_devices``); rank ``r > 0`` reseeds the model's generator
-        with :func:`fold_seed` of the model's seed, rank 0 keeps its
-        stream.  The model's graphs are captured anew at their next use."""
-        self.group = mesh if mesh is not None else make_mesh(n_devices)
+    def use_mesh(self, mesh=None, n_devices=None, axis="data", axes=None):
+        """Attach the process group or :class:`Mesh` ``mesh`` (default:
+        :func:`make_mesh` of ``n_devices`` or ``axes``); rank ``r > 0``
+        reseeds the model's generator with :func:`fold_seed` of the
+        model's seed, rank 0 keeps its stream.  ``axes={"data": n,
+        "space": m}`` also splits the first lattice axis into ``m`` slabs
+        (module docstring); the batch axis is ``axis`` where ``axes`` names
+        it, else its first axis other than ``space``.  The model's graphs
+        are captured anew at their next use."""
+        if axes:
+            batch_axis(axes, axis)  # raises before any group is formed
+        if mesh is None:
+            mesh = make_mesh(n_devices, axes=axes)
         model = self._model
+        self.slab = None
+        if isinstance(mesh, Mesh):
+            self.data_axis = batch_axis(mesh.axis_names, axis)
+            self.space_axis = ("space" if "space" in mesh.axis_names
+                               else None)
+            self.group, self.mesh = mesh.group, mesh
+            self.data_group = mesh.groups[self.data_axis]
+            m = mesh.shape.get("space", 1)
+            if m > 1:
+                self.slab = space.slab_of(
+                    mesh.groups["space"], mesh.coords["space"], m,
+                    model.prior.shape[0])
+                self._uniform = torch.Generator(device=model.device)
+        else:
+            self.data_axis, self.space_axis = axis, None
+            self.group = self.data_group = mesh
+            self.mesh = None
         if self.rank:
             model.seed(model.base_seed)
+        else:
+            self.seed_uniforms(model.base_seed)
         for service in (model.posterior, model.mcmc, model.blocked_mcmc,
                         model.fit):
             service._graphs.clear()
-        return self.group
+        return mesh
 
     def distribute(self):
         """Shorthand: attach the default group."""
         return self.use_mesh()
 
+    def seed_uniforms(self, seed):
+        """Seed the data rank's generator of Metropolis uniforms
+        (:func:`uniform_seed`), where a space axis has one."""
+        if self.slab is not None:
+            self._uniform.manual_seed(uniform_seed(seed, self.data_rank))
+
     def batch_sharder(self):
         """A function from a global batch size to this rank's share.
-        Raises ``ValueError`` unless the size divides by the ranks
+        Raises ``ValueError`` unless the size divides by the data ranks
         (``docs/DISTRIBUTED.md``'s rule); the identity with no group."""
-        n = self.nranks if self.group is not None else 1
+        n = self.n_data if self.group is not None else 1
 
         def shard(batch_size):
             if batch_size % n:
@@ -190,32 +325,81 @@ class ModelDeviceHandler:
             for p in self._model.net_.parameters():
                 dist.broadcast(p.data, src, group=self.group)
 
+    # -- the space axis ------------------------------------------------- #
+    def sharded(self):
+        """A context in which this rank's slab is current
+        (``space.active``); no slab with no space axis."""
+        return space.active(self.slab)
+
+    def local_rows(self, x, dim=1):
+        """This rank's slab of the whole lattices ``x`` (lattice axis 0 at
+        ``dim``); ``x`` with no space axis."""
+        if self.slab is None:
+            return x
+        return x.narrow(dim, self.slab.row0, self.slab.rows)
+
+    def whole_rows(self, x, dim=1):
+        """The whole lattices from this rank's slabs ``x`` (lattice axis 0
+        at ``dim``), gathered over the space axis; ``x`` with no space
+        axis."""
+        if self.slab is None:
+            return x
+        return space.gather_rows(x, dim, self.slab)
+
+    def uniform_generator(self, generator):
+        """The generator of a round's Metropolis uniforms: ``generator``,
+        or under a space axis the data rank's own, so that every slab of a
+        sample accepts alike."""
+        return generator if self.slab is None else self._uniform
+
+    def captures(self) -> bool:
+        """Whether the model's bodies run as CUDA graphs: on a CUDA model,
+        except under a space axis whose group is not NCCL (a gloo
+        collective cannot sit in a graph; the bodies then run eagerly)."""
+        if self._model.device.type != "cuda":
+            return False
+        return self.slab is None or dist.get_backend(self.group) == "nccl"
+
     # -- collectives ---------------------------------------------------- #
     def all_reduce_mean(self, tensors):
-        """The mean over the group of each tensor of ``tensors``, summed in
-        one flat bucket by one all-reduce (a copy with no group)."""
+        """Each tensor of ``tensors`` summed over the group and divided by
+        the data ranks in one flat bucket by one all-reduce (a copy with no
+        group): the mean over the batch axis of the space ranks' sums, the
+        mean over the group with no space axis."""
         flat = torch.cat([t.reshape(-1) for t in tensors])
         if self.group is not None:
             dist.all_reduce(flat, group=self.group)
-            flat = flat / self.nranks
+            flat = flat / self.n_data
         return [part.view_as(t) for part, t in
                 zip(flat.split([t.numel() for t in tensors]), tensors)]
 
+    def reduce_step(self, loss, grads):
+        """A training step's loss and gradients of the group, in one
+        bucket (:meth:`all_reduce_mean`): the gradients summed over the
+        space axis, where each rank holds its slab's part, and averaged over
+        the data axis; the loss, the same on every space rank, averaged over
+        the data axis."""
+        if self.slab is not None:
+            loss = loss / self.slab.size
+        loss, *grads = self.all_reduce_mean([loss, *grads])
+        return loss, grads
+
     def all_gather_into_tensor(self, x, dim=0):
-        """``x`` of every rank concatenated along ``dim`` in rank order
-        (``x`` itself with no group)."""
+        """``x`` of every rank of the batch axis concatenated along ``dim``
+        in rank order (``x`` itself with no group)."""
         if self.group is None:
             return x
+        n = self.n_data
         xs = x.movedim(dim, 0).contiguous()
-        out = xs.new_empty((self.nranks * xs.shape[0], *xs.shape[1:]))
-        dist.all_gather(list(out.chunk(self.nranks)), xs, group=self.group)
+        out = xs.new_empty((n * xs.shape[0], *xs.shape[1:]))
+        dist.all_gather(list(out.chunk(n)), xs, group=self.data_group)
         return out.movedim(0, dim)
 
     def gather_rows(self, *tensors):
         """Each of ``tensors`` (one dtype, batch axis first) of every rank
-        concatenated along axis 0, by one gather of the rows packed side
-        by side, each returned contiguous; the tensors themselves with no
-        group."""
+        of the batch axis concatenated along axis 0, by one gather of the
+        rows packed side by side, each returned contiguous; the tensors
+        themselves with no group."""
         if self.group is None:
             return tensors
         b = tensors[0].shape[0]

@@ -330,6 +330,14 @@ def work(name, shape):
         # per proposal; a subtract and a compare each
         n = shape[0]
         return n * (4 + 4 + 1 + 8) + 4, 2 * n
+    if name in ("phi4_action_slab", "phi4_action_slab_grad"):
+        # a slab (B, l0, *rest) and its halo rows: the action reads the row
+        # before the slab, the force both; the same work per site
+        b, row = shape[0], math.prod(shape[2:])
+        sites = math.prod(shape)
+        if name == "phi4_action_slab":
+            return 4 * (sites + b * row) + 4 * b, sites * (6 + 3 * 2)
+        return 4 * (2 * sites + 2 * b * row) + 4 * b, sites * (5 + 2 * 2 + 3)
     b, sites = shape[0], math.prod(shape)
     if name == "phi4_action":  # phi^2, phi^4 terms, 2 neighbour products
         return 4 * sites + 4 * b, sites * (6 + 3 * 2)

@@ -60,6 +60,17 @@ before its prior draw, into the same buffers, so every replay of the
 captured step trains on new controls.  The metrics' evaluation draws its
 own at the print batch and puts the training controls back after it;
 sampling uses the stored controls and never draws.
+
+Under a space axis (``parallel/space.py``) the training body draws this
+rank's slab and runs the loss with the slab current: ``logq`` and ``logp``
+are the space ranks' partial sums turned into totals by one all-reduce
+whose backward is the identity (every space rank computes the same loss
+from the same totals, so its cotangent is the whole one), and the bucket
+sums the gradients over ``space`` and averages them over ``data``
+(``ModelDeviceHandler.reduce_step``).  The loss is exact on every space
+rank, so only a data axis of more than one rank restricts the loss to
+``calc_kl_mean``.  The step is captured only where the group is NCCL
+(``ModelDeviceHandler.captures``); over gloo it runs eagerly.
 """
 
 from __future__ import annotations
@@ -74,6 +85,7 @@ import torch
 from ..models.couplings import _cntr_couplings, has_controls, \
     refresh_controls
 from ..ops.stats import estimate_logz, fmt_val_err
+from ..parallel import space
 from ..utils.graphs import GraphCache, capture
 from . import losses, optim
 from .checkpoint import load_snapshot, save_snapshot, snapshot_path_for_epoch
@@ -157,7 +169,7 @@ class Fitter:
                 stacklevel=2)
         self._keyed = None  # the training action, keyed anew in this call
         dh = self._model.device_handler
-        if (dh.group is not None and dh.nranks > 1
+        if (dh.group is not None and dh.n_data > 1
                 and self.loss_fn is not losses.calc_kl_mean):
             raise ValueError(
                 "a data-parallel fit averages the ranks' losses, which is "
@@ -240,20 +252,23 @@ class Fitter:
         couplings' conditioners too)."""
         model = self._model
         net = model.net_
-        y, logj = net.forward(x)
-        if self.grad_estimator == "path":
-            live = [p for p in net.parameters() if p.requires_grad]
-            try:
-                for p in live:
-                    p.requires_grad_(False)
-                x_inv, mlogj = net.backward(y)
-            finally:
-                for p in live:
-                    p.requires_grad_(True)
-            logq = model.prior.log_prob(x_inv) + mlogj
-        else:
-            logq = logr - logj
-        logp = -self._training_action()(y)
+        dh = model.device_handler
+        with dh.sharded():
+            y, logj = net.forward(x)
+            if self.grad_estimator == "path":
+                live = [p for p in net.parameters() if p.requires_grad]
+                try:
+                    for p in live:
+                        p.requires_grad_(False)
+                    x_inv, mlogj = net.backward(y)
+                finally:
+                    for p in live:
+                        p.requires_grad_(True)
+                logq = model.prior.log_prob(x_inv) + mlogj
+            else:
+                logq = logr - logj
+            logp = -self._training_action()(y)
+            logq, logp = space.totals(dh.slab, logq, logp)
         return self.loss_fn(logq, logp), logq, logp
 
     def _training_action(self):
@@ -278,7 +293,7 @@ class Fitter:
         loss = loss.detach()
         dh = self._model.device_handler
         if dh.group is not None:  # the loss and gradients of the group
-            loss, *grads = dh.all_reduce_mean([loss, *grads])
+            loss, grads = dh.reduce_step(loss, grads)
         updates, new_state = self.optimizer.update(list(grads),
                                                    self.opt_state,
                                                    self.params)
@@ -305,20 +320,23 @@ class Fitter:
         share of the batch), run eagerly: the body that :meth:`step`
         replays on a CUDA model."""
         model = self._model
-        local = model.device_handler.batch_sharder()(self.train_batch_size)
+        dh = model.device_handler
+        local = dh.batch_sharder()(self.train_batch_size)
         if self._has_controls:
             refresh_controls(model.net_, model.generator, local)
-        x, logr = self._draw(local, model.generator)
-        return self._step(x, logr)
+        with dh.sharded():
+            x, logr = self._draw(local, model.generator)
+            return self._step(x, logr)
 
     def step_graph(self):
         """The captured training step of a CUDA model at the current batch
-        size (``None`` on the CPU): a ``utils.graphs.Captured`` whose
+        size (``None`` on the CPU and under a space axis over gloo,
+        ``ModelDeviceHandler.captures``): a ``utils.graphs.Captured`` whose
         outputs are the step's loss and ``logq - logp``.  Captured at first
         use in each ``model.fit`` call; the warm-up leaves the parameters,
         the optimizer state and the generator as it found them."""
         model = self._model
-        if model.device.type != "cuda":
+        if not model.device_handler.captures():
             return None
         stamp = (*model.graph_stamp(), model.generator, self.optimizer,
                  self.loss_fn, self.grad_estimator,
@@ -449,13 +467,13 @@ class Fitter:
             saved = [(c, c.control) for c in _cntr_couplings(model.net_)] \
                 if self._has_controls else []
             try:
-                with torch.no_grad():
+                with torch.no_grad(), dh.sharded():
                     if saved:
                         refresh_controls(model.net_, model.generator, local)
                     x, logr = model.prior.sample_(local, model.generator)
                     y, logj = model.net_.forward(x)
-                    logq, logp = dh.gather_rows(logr - logj,
-                                                -model.action(y))
+                    logq, logp = dh.gather_rows(*space.totals(
+                        dh.slab, logr - logj, -model.action(y)))
             finally:
                 for c, control in saved:
                     c.control = control

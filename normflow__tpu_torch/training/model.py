@@ -14,7 +14,11 @@ On a CUDA model ``Posterior.logqp_stream`` replays one captured batch
 model over a process group once one is attached: the posterior's entry
 points then draw this rank's share of the global batch from this rank's
 generator and return it (``logqp_stream`` captures one batch of that
-share per rank).
+share per rank).  Under a space axis (``parallel/space.py``) each rank
+draws its slab of that share and runs the flow on it with its slab
+current; ``logq`` and ``logp`` are the totals over the space ranks and
+``y`` the whole lattices, the same on every space rank of a data rank;
+``log_prob`` takes whole lattices.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from ..models.nets import ConvNet
+from ..parallel import space
 from ..parallel.mesh import ModelDeviceHandler, fold_seed
 from ..utils.graphs import GraphCache, capture
 from .fitter import Fitter
@@ -58,6 +63,7 @@ class Model:
         dh = self.device_handler
         self.generator.manual_seed(
             fold_seed(seed, dh.rank) if dh.group is not None else seed)
+        dh.seed_uniforms(seed)
 
     def transform(self, x):
         """The flow's output for ``x`` (no log-Jacobian)."""
@@ -94,27 +100,39 @@ class Posterior:
                 preprocess_func=None):
         """``(y, logq)``; ``preprocess_func(x, logr) -> (x, logr)`` acts on
         the prior's draw before the flow."""
-        m = self._model
-        gen = m.generator if generator is None else generator
-        x, logr = m.prior.sample_(m.device_handler.batch_sharder()(batch_size),
-                                  gen)
-        if preprocess_func is not None:
-            x, logr = preprocess_func(x, logr)
-        y, logj = m.net_.forward(x)
-        return y, logr - logj
+        return self._sample(batch_size, generator, preprocess_func, False)
 
     @torch.no_grad()
-    def sample__(self, batch_size: int = 1, generator=None, **kwargs):
+    def sample__(self, batch_size: int = 1, generator=None,
+                 preprocess_func=None):
         """``(y, logq, logp)``; ``logp`` is ``log(p z) = -S(y)``."""
-        y, logq = self.sample_(batch_size, generator, **kwargs)
-        return y, logq, -self._model.action(y)
+        return self._sample(batch_size, generator, preprocess_func, True)
+
+    def _sample(self, batch_size, generator, preprocess_func, with_logp):
+        """This rank's share (and slab) drawn and pushed through the flow:
+        ``(y, logq)``, and ``logp`` where asked, the totals over the space
+        axis and ``y`` the whole lattices (module docstring)."""
+        m = self._model
+        dh = m.device_handler
+        gen = m.generator if generator is None else generator
+        with dh.sharded():
+            x, logr = m.prior.sample_(dh.batch_sharder()(batch_size), gen)
+            if preprocess_func is not None:
+                x, logr = preprocess_func(x, logr)
+            y, logj = m.net_.forward(x)
+            out = [logr - logj] + ([-m.action(y)] if with_logp else [])
+            out = space.totals(dh.slab, *out)
+        return (dh.whole_rows(y), *out)
 
     @torch.no_grad()
     def log_prob(self, y):
-        """``log q(y)`` through the inverse flow."""
+        """``log q(y)`` through the inverse flow (``y`` whole lattices)."""
         m = self._model
-        x, minus_logj = m.net_.backward(y)
-        return m.prior.log_prob(x) + minus_logj
+        dh = m.device_handler
+        with dh.sharded():
+            x, minus_logj = m.net_.backward(dh.local_rows(y))
+            (logq,) = space.totals(dh.slab, m.prior.log_prob(x) + minus_logj)
+        return logq
 
     @torch.no_grad()
     def logqp_stream(self, n_batches: int, batch_size: int, generator=None):
@@ -122,7 +140,8 @@ class Posterior:
         ``(n_batches * batch_size,)``, for ESS and acceptance estimates.
 
         On a CUDA model each batch is a replay of one captured batch
-        (:meth:`batch_graph`); on the CPU the same body runs eagerly.  The
+        (:meth:`batch_graph`); on the CPU, and under a space axis over gloo
+        (``ModelDeviceHandler.captures``), the same body runs eagerly.  The
         draws are those of the eager body from the same generator state.
         With a process group attached each batch is this rank's share of
         ``batch_size``."""
@@ -131,7 +150,7 @@ class Posterior:
         batch_size = m.device_handler.batch_sharder()(batch_size)
         out = torch.empty((n_batches, batch_size), dtype=m.prior.dtype,
                           device=m.device)
-        if m.device.type != "cuda":
+        if not m.device_handler.captures():
             for row in out:
                 row.copy_(self.logqp_batch(batch_size, gen))
             return out.reshape(-1)
@@ -144,11 +163,14 @@ class Posterior:
     @torch.no_grad()
     def logqp_batch(self, batch_size: int, generator):
         """The body of one batch of :meth:`logqp_stream`: a prior draw,
-        the flow, ``logr - logj + S(y)``."""
+        the flow, ``logr - logj + S(y)`` (its total over the space axis)."""
         m = self._model
-        x, logr = m.prior.sample_(batch_size, generator)
-        y, logj = m.net_.forward(x)
-        return (logr - logj) + m.action(y)
+        dh = m.device_handler
+        with dh.sharded():
+            x, logr = m.prior.sample_(batch_size, generator)
+            y, logj = m.net_.forward(x)
+            (logqp,) = space.totals(dh.slab, (logr - logj) + m.action(y))
+        return logqp
 
     @torch.no_grad()
     def batch_graph(self, batch_size: int, generator=None):

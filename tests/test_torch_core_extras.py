@@ -6,8 +6,9 @@ package namespaces and the examples' devices, on the CPU.
 architecture; ``freeze_parameters`` / ``unfreeze_parameters`` return copies;
 ``DistConvertor``'s layer properties and ``inv_softplus_log2`` agree with
 JAX; ``profile_fn`` and ``Timer`` run on the CPU (``trace`` needs a card);
-``models``, ``training``, ``utils``, ``nn`` and ``nn.scalar`` export every
-name the JAX namespaces do, but the JAX-only ones listed here; the
+``models``, ``training``, ``utils``, ``nn``, ``nn.scalar``, the package
+top and ``ops`` / ``lib`` export every name the JAX namespaces do, but the
+JAX-only ones listed here, and ``segment_gather`` agrees with JAX; the
 zero-dim example trains on the CPU, and ``scalar_affine``'s
 ``n_devices=2`` runs in a 2-rank gloo group.
 """
@@ -17,7 +18,9 @@ import numpy as np
 import pytest
 import torch
 
+import normflow__tpu as jnf
 import normflow__tpu.models as jmodels
+import normflow__tpu.ops as jops
 import normflow__tpu.nn as jnn
 import normflow__tpu.nn.scalar as jnn_scalar
 import normflow__tpu.training as jtraining
@@ -27,6 +30,7 @@ import normflow__tpu_torch as nt
 import normflow__tpu_torch.models as tmodels
 import normflow__tpu_torch.nn as tnn
 import normflow__tpu_torch.nn.scalar as tnn_scalar
+import normflow__tpu_torch.ops as tops
 import normflow__tpu_torch.training as ttraining
 import normflow__tpu_torch.utils as tutils
 from normflow__tpu_torch.models import elementwise as te
@@ -42,7 +46,8 @@ TOL = 1e-10
 # JAX-only names: the flax leaf-dict helpers behind the JAX blob and
 # snapshot formats (the port's blob is its own torch.save of the
 # state_dict)
-JAX_ONLY = {"utils": {"serialization"}}
+JAX_ONLY = {"utils": {"serialization"},
+            "package": {"jax", "jnp", "np", "struct"}}
 
 
 def _close(got, want, tol=TOL):
@@ -206,8 +211,12 @@ def test_gc_paused_around_a_capture():
 @pytest.mark.parametrize("name,jax_mod,port_mod", [
     ("models", jmodels, tmodels), ("training", jtraining, ttraining),
     ("utils", jutils, tutils), ("nn", jnn, tnn),
-    ("nn.scalar", jnn_scalar, tnn_scalar)])
+    ("nn.scalar", jnn_scalar, tnn_scalar), ("package", jnf, nt),
+    ("ops", jops, tops), ("lib", jnf.lib, nt.lib)])
 def test_namespaces_export_the_jax_names(name, jax_mod, port_mod):
+    """Every public name of the JAX namespace but its JAX-only ones; the
+    same ``__all__``, which the package top extends with the port's own
+    entry names."""
     def public(mod):
         return {n for n in dir(mod) if not n.startswith("_")}
 
@@ -216,9 +225,32 @@ def test_namespaces_export_the_jax_names(name, jax_mod, port_mod):
     missing = want - public(port_mod) - jax_only
     assert not missing, missing
     if hasattr(jax_mod, "__all__"):
-        assert set(port_mod.__all__) == set(jax_mod.__all__) - jax_only
+        wanted = set(jax_mod.__all__) - jax_only
+        if name == "package":
+            assert wanted <= set(port_mod.__all__)
+        else:
+            assert set(port_mod.__all__) == wanted
     for n in jax_only:
         assert n in want and not hasattr(port_mod, n)
+
+
+def test_lib_names_resolve():
+    """``normflow__tpu_torch.lib.rqs`` and the other 14 names of the JAX
+    ``lib``, and ``segment_gather`` against the JAX one on numpy inputs."""
+    from normflow__tpu.ops import spline as jspline
+
+    for n in jnf.lib.__all__:
+        assert getattr(nt.lib, n) is getattr(tops, n)
+    assert nt.lib.rqs is nt.ops.spline.rqs
+    rng = np.random.default_rng(3)
+    params = rng.standard_normal((5, 7, 9))
+    idx = rng.integers(0, 7, (5, 7))
+    for offset in (0, 1):
+        want = jspline.segment_gather(jnp.asarray(params), jnp.asarray(idx),
+                                      offset, 8)
+        got = nt.lib.spline.segment_gather(torch.from_numpy(params),
+                                           torch.from_numpy(idx), offset, 8)
+        _close(got, want, tol=0.0)
 
 
 def test_cntr_names_everywhere():

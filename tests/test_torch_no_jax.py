@@ -19,6 +19,7 @@ FORBIDDEN = re.compile(
 def test_import_leaves_jax_out():
     code = ("import sys, normflow__tpu_torch, normflow__tpu_torch.zoo\n"
             "import normflow__tpu_torch.parallel.dryrun\n"
+            "import normflow__tpu_torch.parallel.space\n"
             "import normflow__tpu_torch.examples.scalar_64x64_distributed\n"
             "import normflow__tpu_torch.examples.scalar_zerodim\n"
             "import normflow__tpu_torch.utils.profiling\n"
@@ -43,6 +44,9 @@ def test_sources_import_no_jax():
               ROOT / "tests" / "test_torch_cuda_distributed.py",
               ROOT / "tests" / "test_torch_cuda_bf16_cntr.py",
               ROOT / "tests" / "_torch_ddp_worker.py",
+              ROOT / "tests" / "_torch_space_worker.py",
+              ROOT / "tests" / "test_torch_cuda_space.py",
+              ROOT / "normflow__tpu_torch" / "parallel" / "space.py",
               ROOT / "normflow__tpu_torch" / "parallel" / "mesh.py",
               ROOT / "normflow__tpu_torch" / "parallel" / "dryrun.py",
               ROOT / "normflow__tpu_torch" / "examples"

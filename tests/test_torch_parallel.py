@@ -26,7 +26,7 @@ import torch
 from normflow__tpu.training import losses as jlosses
 from normflow__tpu.utils.serialization import leaves_of, restore_into
 from normflow__tpu.zoo import build_phi4_model as jax_build
-from normflow__tpu_torch.parallel import (fold_key, fold_seed,
+from normflow__tpu_torch.parallel import (batch_axis, fold_key, fold_seed,
                                           init_distributed)
 from normflow__tpu_torch.parallel.dryrun import dryrun_multichip
 from normflow__tpu_torch.zoo import build_phi4_model
@@ -195,6 +195,17 @@ def test_handler_without_a_group():
     assert dh.gather_rows(x, x)[1] is x
     with pytest.raises(RuntimeError, match="init_distributed"):
         dh.use_mesh()
+    # JAX's axis-order rule (tests/test_parallel.py:304-315), checked
+    # before a group is needed
+    with pytest.raises(ValueError, match="batch axis"):
+        dh.use_mesh(axes={"space": 8})
+    with pytest.raises(ValueError, match="batch axis"):
+        dh.use_mesh(axes={"data": 2, "space": 2, "time": 2})
+    with pytest.raises(RuntimeError, match="init_distributed"):
+        dh.use_mesh(axes={"space": 2, "data": 4})
+    assert (dh.group, dh.slab, dh.space_axis) == (None, None, None)
+    assert batch_axis({"space": 2, "data": 4}) == "data"
+    assert batch_axis({"space": 2, "rows": 4}, axis="data") == "rows"
 
 
 def test_fold_key_rule():
@@ -207,9 +218,20 @@ def test_fold_key_rule():
 
 
 def test_dryrun_multichip_two_ranks():
+    """Pass 1 alone: two ranks are too few for the data x space mesh."""
     losses = dryrun_multichip(2, device="cpu")
-    assert len(losses) == 2 and losses[0] == losses[1]
-    assert np.isfinite(losses[0])
+    (dp0, dpsp0), (dp1, dpsp1) = losses
+    assert dp0 == dp1 and np.isfinite(dp0)
+    assert np.isnan(dpsp0) and np.isnan(dpsp1)
+
+
+def test_dryrun_multichip_four_ranks_runs_both_passes():
+    """Four ranks: pass 1 on the data axis, pass 2 on ``{"data": 2,
+    "space": 2}``."""
+    losses = dryrun_multichip(4, device="cpu")
+    assert len(losses) == 4
+    assert all(pair == losses[0] for pair in losses)
+    assert np.isfinite(losses[0]).all()
 
 
 def test_spawnprocesses_reports_a_failing_rank():
