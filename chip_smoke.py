@@ -15,6 +15,7 @@ use) and imports nothing of JAX.  Phases, each of which raises on failure:
    ``accept_scan`` bit for bit at lengths 1 to 10,000; the coupling and its
    VJP at the unpacked flagship's 1024 sites per sample (tiled), the
    action and its force at the affine example's (128, 8, 8) (general);
+   the coupling and the action on one sample, the blocked sampler's batch;
 3. rates in turns: raw samples/s and training steps/s of the eager bodies
    in a Python loop and of the graphed entry points, alternating, on
    flagships of their own, before any profiler has run in the process;
@@ -22,7 +23,8 @@ use) and imports nothing of JAX.  Phases, each of which raises on failure:
    ``sample_parallel_chains``; the packed against the unpacked flagship's
    graphed samples/s and steps/s; the float32 against the bf16
    conditioners' graphed samples/s, and the plain against the controlled
-   couplings' graphed steps/s;
+   couplings' graphed steps/s; the blocked sampler's block proposals/s,
+   eager against graphed sweeps on the same draws, at 4 and 16 blocks;
 4. the sampling path: the full-width 32x32 phi^4 flagship with seeded
    perturbed weights, compared GPU vs CPU, then ``logqp_stream`` -> ESS
    and acceptance, ``mcmc.sample__`` twice, ``backward_sanitychecker``,
@@ -34,7 +36,9 @@ use) and imports nothing of JAX.  Phases, each of which raises on failure:
    flagship's ``logq - logp``; observables of the samples),
    ``mcmc.sample_parallel_chains`` (32 rounds of 1024 chains, profiled;
    graphed against eager bit for bit) and ``blocked_mcmc.sample__(4,
-   n_blocks=4)``;
+   n_blocks=K)`` for K = 4 and 16 (its first call profiled; replayed
+   against the eager sweep on the same draws bit for bit; a warm call's
+   replays by profiler name, no wrapper call);
 5. the training path: one path-gradient loss and its gradients, GPU vs a
    CPU copy; then ``model.fit`` with the bench protocol's settings
    (``bench.py:278-286``) for ``N_STEPS`` steps on a fresh seeded
@@ -48,10 +52,15 @@ use) and imports nothing of JAX.  Phases, each of which raises on failure:
    against their eager bodies from one generator state, bit for bit, and
    10 replayed training steps against 10 eager bodies from one state, and
    10 eager bodies against 10 more from that state, within the tolerance
-   stated below;
+   stated below; then the protocol resumed (``tools/protocol_run``): 24 +
+   24 steps of the full-width flagship with the bench's settings in two
+   fresh ``Model``s, the second from the first's snapshot, against 48
+   unbroken steps, within the same tolerances, under cuDNN's
+   deterministic algorithms;
 8. replays alone, profiled: the launches of each path by kernel name, and
    the device idle share of one eager and one replayed batch and step and
-   of one replayed round of each graphed sampler;
+   of one replayed round of each graphed sampler and of one eager and one
+   replayed block step;
 9. the unpacked flagship (``build_phi4_model(packed=False)``, the
    reference's multiplicative checkerboard: the conditioners and the
    coupling kernel on all 1024 sites): logq against a float64 CPU copy,
@@ -79,7 +88,8 @@ use) and imports nothing of JAX.  Phases, each of which raises on failure:
     the least time the card could take (bytes or operations over the
     peak), with
     ``normflow__tpu_torch/tools/kernel_times.py``'s helpers; the new paths'
-    shapes under each kernel's ``variants``;
+    shapes under each kernel's ``variants`` (the coupling forward and the
+    action at B = 1 among them, the blocked sampler's);
 13. the U(1) gauge sector, BASELINE config 5 at full width
     (``zoo.build_u1_model()``: 32 plaquette couplings, 107,168
     parameters): the flow's angles (modulo 2 pi) and logq against a
@@ -166,9 +176,15 @@ use) and imports nothing of JAX.  Phases, each of which raises on failure:
     spread), 8 / 8 / 1 / 1 wrapper launches per step (``rqs_coupling``,
     ``rqs_coupling_bwd``, ``phi4_action_slab``, ``phi4_action_slab_grad``,
     all tiled) and ``sample_chain(4, 1024)`` at 4 / 1 / 1 per round, with
-    the counters set to 0 just before and read just after each; rates and
-    the phase's wall time (gloo stages every collective through the host:
-    no speed claim).
+    the counters set to 0 just before and read just after each; then, on
+    the perturbed weights, ``blocked_mcmc.sample__(2, n_blocks=K)`` for K
+    = 4 and 16 on each rank, captured over gloo (the whole lattice, no
+    collective inside): its replays against the eager sweep on the same
+    draws bit for bit, against the unsharded flagship's replays on the
+    same generator state (logq and logp to ``LOGQ_REL_TOL``, accepts
+    equal), and a warm call with no wrapper launch; rates and the phase's
+    wall time (gloo stages every collective through the host: no speed
+    claim).
 
 The gauge paths' rates (eager bodies against graphed entry points, in
 turns) are taken in a phase of their own right after phase 3's, before any
@@ -176,8 +192,9 @@ profiler has run in the process; their idle shares are 1 - the profiled
 device busy time / a wall time taken without the profiler, which slows
 the replay of a graph of thousands of short kernels.
 
-On a CUDA model ``logqp_stream``, ``model.fit``, ``mcmc.sample_chain`` and
-``mcmc.sample_parallel_chains`` replay a captured batch, step or round
+On a CUDA model ``logqp_stream``, ``model.fit``, ``mcmc.sample_chain``,
+``mcmc.sample_parallel_chains`` and ``blocked_mcmc.sample__`` replay a
+captured batch, step, round or block proposal
 (``normflow__tpu_torch/utils/graphs.py``).  The main path's runs (phases
 4, 5, 9, 10, 19 and 20) are profiled, and their launches are counted on the
 card by kernel name: the ``WARMUP`` eager bodies before the capture and every
@@ -187,8 +204,11 @@ round and 4 / 1 per parallel round, every one to the tiled kernel where
 the kernel has one (the variant that phase 12 times), and the capture
 launches nothing; the affine example's 8x8 lattice has no tile, so its
 1 / 1 per training step and 1 ``phi4_action`` / 1 ``accept_scan`` per
-chain round go to the general kernels.  The blocked sampler runs eagerly: one flow forward on
-one sample per block proposal.  The record's ``launches_by_path`` are
+chain round go to the general kernels.  The blocked sampler replays a
+captured start and a captured block step, one flow forward on one sample
+each (4 / 1 per forward: its first call shows 2 x ``WARMUP`` eager bodies,
+one start and one step per proposal by profiler name, and 2 x (``WARMUP``
++ 1) per wrapper).  The record's ``launches_by_path`` are
 these counts and ``launches`` their sum over the paths.  A wrapper's
 launch counter runs with the wrapper, so it counts the warm-up and the
 capture, ``WARMUP + 1`` calls per batch, step or round, not the replays:
@@ -239,11 +259,16 @@ SANITY_TOL = 1e-5       # mean per-site |x - backward(forward(x))|
 # too, but a few steep sites set its denominator, so it alone would pass
 # an adjoint wrong on every ordinary site.
 # VJP_RTOL holds the kernel against the plain VJP (the same formulas in the
-# same order); AUTOGRAD_RTOL against autograd of the plain forward, a
-# different float32 computation (for the inverse it differentiates the
-# citardauq root), which this check's printout shows departing from a
-# float64 reference by more than the kernel does.
+# same order).  That the hand-derived VJP is the derivative is held in
+# float64: the plain VJP against autograd of the plain forward, both on the
+# float64 copies of the same inputs, element by element within F64_VJP_TOL
+# (|d| <= F64_VJP_TOL (1 + |autograd|); they agree to about 1e-12 at the
+# steepest sites).  Autograd of the float32 forward is a different float32
+# computation (for the inverse it differentiates the citardauq root) whose
+# rounding at the steep sites depends on the draw: it is printed against
+# AUTOGRAD_RTOL, not gated.
 VJP_ATOL, VJP_RTOL, AUTOGRAD_RTOL = 2e-4, 2e-4, 1e-3
+F64_VJP_TOL = 1e-8
 FORCE_RTOL, FORCE_ATOL = 2e-4, 2e-5  # tests/test_kernels.py:36-37
 # GPU (float32, TF32 off) vs a float64 CPU copy, one path-gradient step at
 # batch 512: the loss, relative, and |g_gpu - g_cpu| / |g_cpu| per leaf.
@@ -266,8 +291,13 @@ FLOOR_FACTOR = 2.0
 # may sum in another order on every run, eager or replayed.
 REPLAY_LOSS_TOL = 1e-5
 REPLAY_PARAM_TOL = 1e-5
+# the protocol resumed on the card (tools/protocol_run): each piece's steps
+RESUME_STEPS = 24
 
 N_BATCHES, BATCH = 32, 1024
+# the blocked sampler: sweeps per sample__ call on the main path, and the
+# block proposals of each run that phase 3 times
+BLOCKED_BATCH, BLOCKED_PROPOSALS = 4, 256
 LAT = (32, 32)
 TRAIN_BATCH, N_STEPS = 512, 48  # the bench protocol's batch, a few steps
 UNPACKED_STEPS = 16  # the unpacked flagship's profiled fit
@@ -444,6 +474,22 @@ def check_rqs(torch, kernels, peaks, rng):
                 raise AssertionError("rqs_coupling disagrees with its plain "
                                      "version or its per-site kernel")
             worst = max(worst, dy, dg)
+    # one sample, the blocked sampler's batch
+    for inverse in (False, True):
+        kw = dict(xlim=(-4.0, 4.0), ylim=(-4.0, 4.0), left="linear",
+                  right="linear", inverse=inverse)
+        got = sc.rqs_coupling(x[:1], out[:1], **kw)
+        want = sc.rqs_coupling_plain(x[:1], out[:1], **kw)
+        torch.cuda.synchronize()
+        d = max(float((a - b_).abs().max()) for a, b_ in zip(got, want))
+        variant = sc.coupling_variant(math.prod(lat), [x.data_ptr(),
+                                                       out.data_ptr()])
+        print(f"rqs_coupling at B = 1 (the blocked sampler's), inverse="
+              f"{inverse}, {variant} kernel: max |d| {d:.3e} (tol {RQS_TOL})")
+        if not d <= RQS_TOL:
+            raise AssertionError("rqs_coupling disagrees with its plain "
+                                 "version at B = 1")
+        worst = max(worst, d)
 
     kernels["rqs_coupling"] = dict(
         name="rqs_coupling", route="cuda",
@@ -479,6 +525,15 @@ def check_rqs(torch, kernels, peaks, rng):
         report("rqs_coupling", times["forward"], tuple(out.shape), peaks,
                kernels, "cold")
         kernels["rqs_coupling"]["variants"] = times
+        kw = dict(xlim=(-4.0, 4.0), ylim=(-4.0, 4.0), left="linear",
+                  right="linear")
+        x1, o1 = x[:1], out[:1]
+        record_variant("rqs_coupling", "forward B=1 (blocked sampler)",
+                       kernel_times("rqs_coupling",
+                                    lambda: sc.rqs_coupling(x1, o1, **kw),
+                                    lambda: sc.rqs_coupling_plain(x1, o1,
+                                                                  **kw)),
+                       tuple(o1.shape), peaks, kernels)
 
     return time_it
 
@@ -518,12 +573,31 @@ def check_phi4(torch, kernels, peaks, rng, action):
     if phi4.action_variant(LAT, cfgs.data_ptr()) != "tiled":
         raise AssertionError("the flagship's field does not take the tiled "
                              "phi4_action kernel")
+    # one sample, the blocked sampler's batch (no draw of its own: the
+    # numpy stream of the later phases stays as it was)
+    one = cfgs[:1]
+    got = phi4.phi4_action(one, *w)
+    want = phi4.phi4_action_plain(one, *w)
+    torch.cuda.synchronize()
+    rel = float(((got - want).abs() / want.abs().clamp(min=1.0)).max())
+    print(f"phi4_action {tuple(one.shape)} (the blocked sampler's), "
+          f"{phi4.action_variant(LAT, one.data_ptr())} kernel: max rel "
+          f"{rel:.3e} (tol {PHI4_REL_TOL})")
+    if not rel <= PHI4_REL_TOL:
+        raise AssertionError("phi4_action disagrees with its plain version "
+                             "at B = 1")
 
     def time_it():
-        """Time the flagship's shape, (1024, 32, 32); read warm."""
+        """Time the flagship's shape, (1024, 32, 32), read warm, and the
+        blocked sampler's one sample under ``variants``."""
         t = kernel_times("phi4_action", lambda: phi4.phi4_action(cfgs, *w),
                          lambda: phi4.phi4_action_plain(cfgs, *w))
         report("phi4_action", t, tuple(cfgs.shape), peaks, kernels, "warm")
+        record_variant("phi4_action", "B=1 (blocked sampler)",
+                       kernel_times("phi4_action",
+                                    lambda: phi4.phi4_action(one, *w),
+                                    lambda: phi4.phi4_action_plain(one, *w)),
+                       tuple(one.shape), peaks, kernels)
 
     return time_it
 
@@ -811,35 +885,102 @@ def run_parallel_path(torch, kernels, model, card):
                              "eager bodies")
 
 
+def blocked_draws(model, batch, n_blocks, generator=None):
+    """``blocked_mcmc.sample__``'s start and draws from ``generator`` (the
+    model's by default), as it takes them: the prior's sample, then every
+    proposal and log uniform, on the whole lattice."""
+    from normflow__tpu_torch.parallel import space
+
+    prior = model.prior
+    gen = model.generator if generator is None else generator
+    with space.active(None):
+        x = prior.sample(1, gen)
+        return (x, *model.blocked_mcmc._block_draws(
+            prior.chopped(prior.nvar // n_blocks), batch, n_blocks, gen))
+
+
 def run_blocked(torch, kernels, model):
-    """``blocked_mcmc.sample__(4, n_blocks=4)`` on the flagship, eager, the
-    counters set to 0 just before and read just after: one flow forward on
-    one sample for the start and for each of the 16 block proposals.  An
-    eager path's wrapper counts are its launches."""
-    n_layers = len(model.net_[2].nets)
+    """``blocked_mcmc.sample__(4, n_blocks=K)`` on the flagship for K = 4
+    and 16, each block proposal one flow forward on one sample.  For each
+    K: the main path's run, its first call, which captures the start and
+    the block step, profiled with the counters set to 0 just before and
+    read just after (by profiler name the ``WARMUP`` eager bodies of each
+    capture, the start's replay and one replay per proposal; by the
+    wrappers the two warm-ups and captures); then a call from one
+    generator state against the eager sweep on the same draws, bit for
+    bit (samples, logq, logp, accepts); then, after ``reset()``, a warm
+    call's launches by profiler name: n_layers ``rqs_coupling`` and one
+    ``phi4_action`` per flow forward, no ``accept_scan``, no wrapper
+    call.  Which variant each kernel takes at B = 1 is recorded by
+    path."""
+    from normflow__tpu_torch.tools.kernel_times import device_launches
+    from normflow__tpu_torch.utils.graphs import WARMUP
+
+    bm = model.blocked_mcmc
+    per_fwd = {"rqs_coupling": len(model.net_[2].nets), "phi4_action": 1}
     counters = path_counters(("rqs_coupling", "phi4_action", "accept_scan"))
-    reset_counts(counters)
-    batch, n_blocks = 4, 4
-    cfgs, logq, logp = model.blocked_mcmc.sample__(batch, n_blocks=n_blocks)
-    torch.cuda.synchronize()
-    n = 1 + batch * n_blocks
-    want = {"rqs_coupling": n_layers * n, "phi4_action": n, "accept_scan": 0}
-    got = {k: c.launches for k, c in counters.items()}
-    tiled = {k: c.tiled_launches for k, c in counters.items()
-             if hasattr(c, "tiled_launches")}
-    print(f"blocked_mcmc.sample__({batch}, n_blocks={n_blocks}): wrapper "
-          f"launches {got} (tiled {tiled}), want {want}; accept rate "
-          f"{model.blocked_mcmc.history.accept_rate[-1]:.4f}")
-    if cfgs.shape != (batch, *LAT) or not all(
-            bool(torch.isfinite(t).all()) for t in (cfgs, logq, logp)):
-        raise AssertionError("the blocked sampler's output is not finite or "
-                             "has the wrong shape")
-    if got != want:
-        raise AssertionError("the blocked sampler's launches are not one "
-                             "flow forward per block proposal")
-    for k, n_ in tiled.items():
-        kernels[k]["launches_by_path"]["blocked"] = got[k]
-        kernels[k]["tiled_launches_by_path"]["blocked"] = n_
+    batch = BLOCKED_BATCH
+    for n_blocks in (4, 16):
+        path = "blocked" if n_blocks == 4 else f"blocked_{n_blocks}"
+        n = batch * n_blocks
+        bm.reset()
+        reset_counts(counters)
+        device, (cfgs, logq, logp) = device_launches(
+            lambda: bm.sample__(batch, n_blocks=n_blocks))
+        torch.cuda.synchronize()
+        wrapper = {k: c.launches for k, c in counters.items()}
+        tiled = {}
+        for k, c in counters.items():
+            if hasattr(c, "tiled_launches") and c.launches:
+                if c.tiled_launches not in (0, c.launches):
+                    raise AssertionError(f"{path}: {k} took both variants")
+                tiled[k] = c.tiled_launches == c.launches
+        want = {k: (v * (2 * WARMUP + 1 + n),
+                    v * (2 * WARMUP + 1 + n) if tiled[k] else 0)
+                for k, v in per_fwd.items()}
+        want_wrapper = {**{k: v * 2 * (WARMUP + 1)
+                           for k, v in per_fwd.items()}, "accept_scan": 0}
+        print(f"blocked_mcmc.sample__({batch}, n_blocks={n_blocks}), its "
+              f"first call (two captures): launches by profiler name "
+              f"(launches, tiled) {device}, want {want}; by the wrappers "
+              f"{wrapper}, want {want_wrapper}; at B = 1 the tiled kernel "
+              f"{tiled}; accept rate "
+              f"{bm.history.accept_rate[-1]:.4f}")
+        if cfgs.shape != (batch, *LAT) or not all(
+                bool(torch.isfinite(t).all()) for t in (cfgs, logq, logp)):
+            raise AssertionError("the blocked sampler's output is not "
+                                 "finite or has the wrong shape")
+        if device != want or wrapper != want_wrapper:
+            raise AssertionError(f"{path}: the blocked sampler's launches "
+                                 "are not one flow forward per proposal")
+        for k, (launches, n_tiled) in device.items():
+            kernels[k].setdefault("launches_by_path", {})[path] = launches
+            kernels[k].setdefault("tiled_launches_by_path", {})[path] = \
+                n_tiled
+
+        seed = 33 + n_blocks
+        bm.reset()
+        model.seed(seed)
+        got = bm.sample__(batch, n_blocks=n_blocks, bookkeeping=True)
+        model.seed(seed)
+        x, props, lrand = blocked_draws(model, batch, n_blocks)
+        eager = bm.sweep(x, 0.0, False, props, lrand)
+        same = same_bits(torch, got, eager[:3]) and np.array_equal(
+            bm.history.accept_seq[-1], eager[3].cpu().numpy().ravel())
+        print(f"blocked_mcmc.sample__({batch}, n_blocks={n_blocks}) "
+              f"replayed vs the eager sweep on the same draws: samples, "
+              f"logq, logp and accepts "
+              f"{'bit for bit' if same else 'NOT bit-identical'}")
+        if not same:
+            raise AssertionError("the replayed block steps differ from the "
+                                 "eager ones")
+
+        def warm():
+            bm.reset()
+            return bm.sample__(batch, n_blocks=n_blocks)
+
+        gate_replays(counters, kernels, path, per_fwd, 1 + n, warm,
+                     tiled=tiled)
 
 
 def exact_phi2(m_sq=-1.2, lambd=0.5):
@@ -910,14 +1051,22 @@ def vjp_excess(got, want, rtol):
     return worst
 
 
+def f64_excess(got, want):
+    """The largest ``|got - want| / (F64_VJP_TOL (1 + |want|))`` over
+    the pairs of tensors (at most 1 passes)."""
+    return max(float(((g - w).abs() / (F64_VJP_TOL * (1 + w.abs()))).max())
+               for g, w in zip(got, want))
+
+
 def check_rqs_bwd(torch, kernels, peaks, rng):
-    """rqs_coupling_bwd vs its plain version (the hand-derived VJP) and vs
-    autograd through the plain forward, at the training shape B=512,
-    K3=22, S=32x16, element by element.  A float64 run of the plain VJP
-    says which float32 side departs at the worst element, and a planted
-    wrong adjoint (the kernel's result plus 1% of each tensor's median
-    |plain| on every element) must fail the check.  Returns the function
-    that times the kernel."""
+    """rqs_coupling_bwd vs its plain version (the hand-derived VJP) at the
+    training shape B=512, K3=22, S=32x16, element by element, and the
+    plain VJP vs autograd through the plain forward, both in float64 on
+    the same inputs.  Autograd of the float32 forward is printed beside
+    them, and at the worst element a float64 run says which float32 side
+    departs.  A planted wrong adjoint (the result plus 1% of each tensor's
+    median |plain| on every element) must fail each gate.  Returns the
+    function that times the kernel."""
     from normflow__tpu_torch.ops.kernels import spline_coupling as sc
 
     m, b, lat = 8, TRAIN_BATCH, (LAT[0], LAT[1] // 2)
@@ -944,8 +1093,16 @@ def check_rqs_bwd(torch, kernels, peaks, rng):
                 (y * ybar).sum() + (logg * loggbar).sum(), (xa, oa))
             ref = sc.rqs_coupling_vjp_plain(
                 *(t.double() for t in (x, out, ybar, loggbar)), **kw)
+            x64, o64 = (t.double().requires_grad_() for t in (x, out))
+            y64, logg64 = sc.rqs_coupling_plain(x64, o64, **kw)
+            auto64 = torch.autograd.grad(
+                (y64 * ybar.double()).sum()
+                + (logg64 * loggbar.double()).sum(), (x64, o64))
             medians = [float(w.abs().median()) for w in vjp]
             plant = tuple(g + 0.01 * med for g, med in zip(got, medians))
+            f64 = f64_excess(ref, auto64)
+            f64_plant = f64_excess(tuple(r + 0.01 * med for r, med in
+                                         zip(ref, medians)), auto64)
             torch.cuda.synchronize()
             print(f"rqs_coupling_bwd extrap={extrap} inverse={inverse}: "
                   f"|plain| median {medians[0]:.3g} (xbar), "
@@ -954,7 +1111,8 @@ def check_rqs_bwd(torch, kernels, peaks, rng):
             excess = {}
             for what, cand, want, rtol in (
                     ("vs vjp_plain", got, vjp, VJP_RTOL),
-                    ("vs autograd of plain", got, auto, AUTOGRAD_RTOL),
+                    ("vs autograd of plain (printed, not gated)", got, auto,
+                     AUTOGRAD_RTOL),
                     ("planted wrong adjoint vs vjp_plain", plant, vjp,
                      VJP_RTOL)):
                 e = vjp_excess(cand, want, rtol)
@@ -980,14 +1138,21 @@ def check_rqs_bwd(torch, kernels, peaks, rng):
                       f"{vjp_excess(t, ref, AUTOGRAD_RTOL)[0]:.3e}"
                       for what, t in (("kernel", got), ("vjp_plain", vjp),
                                       ("autograd", auto))))
-            if not all(bool(torch.isfinite(g).all()) for g in got) or not all(
-                    ratio <= 1.0 and old <= VJP_ATOL for ratio, old in (
-                        excess["vs vjp_plain"],
-                        excess["vs autograd of plain"])):
+            print(f"  float64 vjp_plain vs float64 autograd of plain: worst "
+                  f"|d|/({F64_VJP_TOL:g}(1+|autograd|)) {f64:.3e}; a planted "
+                  f"wrong VJP {f64_plant:.3e} (must exceed 1)")
+            ratio, old = excess["vs vjp_plain"]
+            if not (all(bool(torch.isfinite(g).all()) for g in got)
+                    and ratio <= 1.0 and old <= VJP_ATOL):
                 raise AssertionError(
-                    f"rqs_coupling_bwd disagrees with its plain versions "
-                    f"(atol {VJP_ATOL}, rtol {VJP_RTOL} / {AUTOGRAD_RTOL})")
-            if not excess["planted wrong adjoint vs vjp_plain"][0] > 1.0:
+                    f"rqs_coupling_bwd disagrees with its plain version "
+                    f"(atol {VJP_ATOL}, rtol {VJP_RTOL})")
+            if not f64 <= 1.0:
+                raise AssertionError(
+                    "the plain VJP is not autograd's derivative in float64 "
+                    f"(tol {F64_VJP_TOL})")
+            if not (excess["planted wrong adjoint vs vjp_plain"][0] > 1.0
+                    and f64_plant > 1.0):
                 raise AssertionError("the check of rqs_coupling_bwd let a "
                                      "planted wrong adjoint pass")
             worst = max(worst, max(float((g - w).abs().max())
@@ -1183,11 +1348,12 @@ def gate_replays(counters, kernels, path, per_unit, n_units, fn,
     """``fn()`` replays ``n_units`` batches, steps or rounds: the
     profiler's launches by kernel name must be exactly ``per_unit`` per
     unit, every one tiled where there is a tiled kernel (none with
-    ``tiled=False``), and no wrapper may run."""
+    ``tiled=False``; ``tiled`` may also map each kernel to its flag), and
+    no wrapper may run."""
     from normflow__tpu_torch.tools.kernel_times import device_launches
 
-    want = {k: tiled_want(counters[k], v * n_units, tiled)
-            for k, v in per_unit.items()}
+    want = {k: tiled_want(counters[k], v * n_units, tiled[k] if isinstance(
+        tiled, dict) else tiled) for k, v in per_unit.items()}
     before = {k: c.launches for k, c in counters.items()}
     device = device_launches(fn)[0]
     print(f"launches of {n_units} replays on the {path} path by profiler "
@@ -1398,6 +1564,81 @@ def replayed_vs_eager_steps(torch, trained, what="", deterministic=False):
                 and (same or not deterministic)):
             raise AssertionError(f"{what}{a} training steps differ from "
                                  "the eager bodies")
+
+
+def run_resume(torch, card):
+    """The protocol resumed on the card: ``tools/protocol_run`` trains
+    ``RESUME_STEPS`` steps of the full-width flagship with the bench's
+    settings (the cosine over ``2 x RESUME_STEPS``) in one fresh ``Model``
+    and the next ``RESUME_STEPS`` in another from the snapshot the first
+    left, against ``2 x RESUME_STEPS`` unbroken steps of the bench's
+    training half; under cuDNN's deterministic algorithms, with the
+    wrapper counts set to 0 just before and read just after (each of the
+    three fits captures its step, each piece its ESS batch).  The losses,
+    parameters and optimizer state within phase 7's tolerances (bits
+    reported), the generator state equal."""
+    import tempfile
+
+    from normflow__tpu_torch import bench
+    from normflow__tpu_torch.tools import protocol_run
+    from normflow__tpu_torch.training import optim
+    from normflow__tpu_torch.utils.graphs import WARMUP
+
+    total = 2 * RESUME_STEPS
+    args = bench.parse_args(["--train_epochs", str(total),
+                             "--steps_per_call", "8"])
+    counters = _counters()
+    flag = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        reset_counts(counters)
+        t0 = time.perf_counter()
+        unbroken, _ = bench.train(args)
+        with tempfile.TemporaryDirectory() as d:
+            pieces = [protocol_run.train(d, args, total=total,
+                                         max_steps=RESUME_STEPS,
+                                         save_every=RESUME_STEPS)
+                      for _ in range(2)]
+            traj = protocol_run.read_trajectory(d)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        torch.backends.cudnn.deterministic = flag
+    model = pieces[1][0]
+    n_layers = len(model.net_[2].nets)
+    per_step = {"rqs_coupling": 2 * n_layers,
+                "rqs_coupling_bwd": 2 * n_layers, "phi4_action": 1,
+                "phi4_action_grad": 1}
+    per_batch = {"rqs_coupling": n_layers, "phi4_action": 1}
+    want = {k: (WARMUP + 1) * (3 * v + 2 * per_batch.get(k, 0))
+            for k, v in per_step.items()}
+    wrapper = {k: c.launches for k, c in counters.items()}
+    got = torch.tensor(sum((m.fit.train_history["loss"] for m, _ in pieces),
+                           []), dtype=torch.float64)
+    ref = torch.tensor(unbroken.fit.train_history["loss"],
+                       dtype=torch.float64)
+    live = [(a.detach(), b.detach()) for a, b in zip(
+        model.fit.params + optim.state_leaves(model.fit.opt_state),
+        unbroken.fit.params + optim.state_leaves(unbroken.fit.opt_state))]
+    same = all(torch.equal(a, b) for a, b in live) and torch.equal(got, ref)
+    dloss = float(((got - ref).abs() / ref.abs().clamp(min=1.0)).max())
+    dpar = max(float((a - b).abs().max()) for a, b in live)
+    gen_same = torch.equal(model.generator.get_state(),
+                           unbroken.generator.get_state())
+    print(f"protocol resumed, {RESUME_STEPS} + {RESUME_STEPS} steps in two "
+          f"fresh Models vs {total} unbroken, batch {TRAIN_BATCH}, cuDNN "
+          f"deterministic: {'bit for bit' if same else 'NOT bit-identical'};"
+          f" losses max rel {dloss:.3e} (tol {REPLAY_LOSS_TOL}), parameters "
+          f"and optimizer state max |d| {dpar:.3e} (tol {REPLAY_PARAM_TOL}),"
+          f" generator state {'equal' if gen_same else 'DIFFERS'}; wrapper "
+          f"launches {wrapper}, want {want}; trajectory "
+          f"{[(r['step'], round(r['ess'], 5), r['steps_per_s']) for r in traj]}"
+          f" (step, ESS, steps/s); {seconds:.1f} s on {card}")
+    if not (len(got) == total and dloss <= REPLAY_LOSS_TOL
+            and dpar <= REPLAY_PARAM_TOL and gen_same and wrapper == want
+            and [r["step"] for r in traj] == [RESUME_STEPS, total]):
+        raise AssertionError("the resumed protocol differs from the "
+                             "unbroken run")
 
 
 def record_variant(name, what, t, shape, peaks, kernels):
@@ -1842,6 +2083,18 @@ def rates_in_turns(torch, card):
              {"plain": graphed_steps,
               "controlled": lambda: [cntr.fit.step() for _ in range(10)]})):
         in_turns(torch, card, what, unit, n, fns)
+    bm = model.blocked_mcmc
+    for n_blocks in (4, 16):
+        sweeps = BLOCKED_PROPOSALS // n_blocks
+        model.seed(40 + n_blocks)
+        draws = blocked_draws(model, sweeps, n_blocks)
+        in_turns(torch, card, f"blocked sampler, {sweeps} sweeps of "
+                 f"{n_blocks} blocks from one latent state",
+                 "block proposals/s", BLOCKED_PROPOSALS,
+                 {"eager": lambda: bm.sweep(draws[0], 0.0, False,
+                                            *draws[1:]),
+                  "graphed": lambda: bm.sweep(draws[0], 0.0, False,
+                                              *draws[1:], graphed=True)})
 
 
 def replay_launches(torch, kernels, model, trained, zerodim):
@@ -1888,6 +2141,12 @@ def replay_launches(torch, kernels, model, trained, zerodim):
                  f"{TRAIN_BATCH}")
     profile_step(fit.step, f"one replayed training step at batch "
                  f"{TRAIN_BATCH}")
+    blocked = model.blocked_mcmc.block_graphs(model.prior.nvar // 4)
+    profile_step(lambda: model.blocked_mcmc.block_step(blocked.state,
+                                                       *blocked.inputs),
+                 "one eager block step (one flow forward at B = 1)")
+    profile_step(blocked.step.replay, "one replayed block step (one flow "
+                 "forward at B = 1)")
 
 
 # --------------------------------------------------------------------- #
@@ -2591,6 +2850,7 @@ def c4_rates(torch, model, card):
 SPACE_AXES = {"data": 1, "space": 2}
 SPACE_SEED = 20261021
 SPACE_ROUNDS = 4  # sample_chain(SPACE_ROUNDS, BATCH) on the sharded model
+SPACE_BLOCKED = 2  # blocked_mcmc.sample__(SPACE_BLOCKED, n_blocks=K) there
 # The sharded fit's loss against the unsharded eager fit on the same draws,
 # max |dl| / max(1, |l|) over the N_STEPS steps.  Both run in float32 and
 # the sharded one sums in another order (the totals over two slabs, the
@@ -2667,6 +2927,7 @@ def space_run(torch, states, seed):
     xs = cut(space_draw(seed, -1, (BATCH, *LAT)))
     y, logq, logp = model.posterior.sample__(
         BATCH, preprocess_func=lambda x, logr: (xs, model.prior.log_prob(xs)))
+    blocked = space_blocked(torch, model, seed)
     with torch.no_grad():
         for p, v in zip(model.net_.state_dict().values(), states[1].values()):
             p.copy_(torch.from_numpy(v))
@@ -2701,7 +2962,43 @@ def space_run(torch, states, seed):
                           .all()),
         accept=chain["accept_rate"].cpu().numpy().tolist(),
         seconds={k: v[1] for k, v in runs.items()},
-        counts={k: v[2] for k, v in runs.items()})
+        counts={k: v[2] for k, v in runs.items()}, blocked=blocked)
+
+
+def space_blocked(torch, model, seed):
+    """The blocked sampler of a model under a space axis, whatever its
+    process group (gloo here): for K = 4 and 16 blocks,
+    ``sample__(SPACE_BLOCKED, n_blocks=K)`` from a seeded generator (its
+    first call captures the start and the block step), the eager sweep on
+    the same draws, and a warm call after ``reset()`` with the wrappers'
+    counts set to 0 just before and read just after (a replay runs no
+    wrapper).  Returns, for each K, the replayed and the eager samples,
+    logq, logp and accepts (host numpy) and the warm call's wrapper
+    counts."""
+    bm = model.blocked_mcmc
+    gen = torch.Generator(device="cuda")
+    counters = _counters()
+    out = {}
+    for n_blocks in (4, 16):
+        bm.reset()
+        gen.manual_seed(seed + n_blocks)
+        got = bm.sample__(SPACE_BLOCKED, n_blocks=n_blocks, generator=gen,
+                          bookkeeping=True)
+        accept = bm.history.accept_seq[-1]
+        gen.manual_seed(seed + n_blocks)
+        x, props, lrand = blocked_draws(model, SPACE_BLOCKED, n_blocks, gen)
+        eager = bm.sweep(x, 0.0, False, props, lrand)
+        bm.reset()
+        reset_counts(counters)
+        bm.sample__(SPACE_BLOCKED, n_blocks=n_blocks, generator=gen)
+        torch.cuda.synchronize()
+        out[n_blocks] = dict(
+            graphed=[t.cpu().numpy() for t in got] + [accept],
+            eager=[t.cpu().numpy().reshape(-1) if i == 3 else
+                   t.cpu().numpy() for i, t in enumerate(eager)],
+            warm_wrapper={k: c.launches for k, c in counters.items()})
+    bm.reset()
+    return out
 
 
 def run_ranks(target, n, args, timeout):
@@ -2754,8 +3051,10 @@ def run_space(torch, kernels, card):
     ``rqs_coupling`` / ``rqs_coupling_bwd`` / ``phi4_action_slab`` /
     ``phi4_action_slab_grad`` on each rank, all tiled, and none of the
     whole-lattice action; ``sample_chain(SPACE_ROUNDS, BATCH)`` at 4 / 1 /
-    1 per round.  Rates are gloo-bound (every halo, gather and sum goes
-    through the host), not a speed claim."""
+    1 per round; ``blocked_mcmc.sample__`` captured on each rank
+    (:func:`space_blocked`) against its eager sweep, bit for bit, and the
+    unsharded flagship's replays.  Rates are gloo-bound (every halo,
+    gather and sum goes through the host), not a speed claim."""
     from normflow__tpu_torch.parallel import free_port
     from normflow__tpu_torch.zoo import build_phi4_model
 
@@ -2859,6 +3158,41 @@ def run_space(torch, kernels, card):
               f"{SPACE_ROUNDS * BATCH / s['space chain']:.1f} chain "
               f"proposals/s (gloo through the host: not a speed claim) on "
               f"{card}")
+    # the blocked sampler: replayed against eager on each rank, and
+    # against the unsharded flagship's replays on the same draws
+    gen = torch.Generator(device="cuda")
+    for n_blocks in (4, 16):
+        ref.blocked_mcmc.reset()
+        gen.manual_seed(SPACE_SEED + n_blocks)
+        want_b = [t.cpu().numpy() for t in ref.blocked_mcmc.sample__(
+            SPACE_BLOCKED, n_blocks=n_blocks, generator=gen,
+            bookkeeping=True)] + [ref.blocked_mcmc.history.accept_seq[-1]]
+        for r in ranks:
+            got_b = r["blocked"][n_blocks]
+            same_eager = all(np.array_equal(a, b) for a, b in
+                             zip(got_b["graphed"], got_b["eager"]))
+            same_ref = all(np.array_equal(a, b) for a, b in
+                           zip(got_b["graphed"], want_b))
+            dq = max(float(np.max(np.abs(a - b) / np.maximum(1.0, np.abs(b))))
+                     for a, b in zip(got_b["graphed"][1:3], want_b[1:3]))
+            warm = got_b["warm_wrapper"]
+            print(f"space rank {r['rank']}: blocked_mcmc.sample__("
+                  f"{SPACE_BLOCKED}, n_blocks={n_blocks}) captured over gloo,"
+                  f" replayed vs the eager sweep on the same draws "
+                  f"{'bit for bit' if same_eager else 'NOT bit-identical'};"
+                  f" vs the unsharded flagship's replays "
+                  f"{'bit for bit' if same_ref else 'NOT bit-identical'} "
+                  f"(logq, logp max rel {dq:.3e}, tol {LOGQ_REL_TOL}; "
+                  f"accepts {'equal' if np.array_equal(got_b['graphed'][3], want_b[3]) else 'DIFFER'}); "
+                  f"a warm call's wrapper launches {warm} (want none)")
+            if not (same_eager and dq <= LOGQ_REL_TOL
+                    and np.array_equal(got_b["graphed"][3], want_b[3])
+                    and not any(warm.values())):
+                raise AssertionError("the blocked sampler under a space axis "
+                                     "departs from its eager sweep or from "
+                                     "the unsharded flagship, or does not "
+                                     "replay")
+    ref.blocked_mcmc.reset()
     print(f"unsharded eager reference: {N_STEPS / ref_s:.2f} steps/s; the "
           f"two ranks' processes {wall:.1f} s wall, start-up included; "
           f"phase 21 {time.perf_counter() - t_phase:.1f} s on {card}")
@@ -3631,6 +3965,7 @@ def main() -> int:
     zerodim = phase("zero-dim fit", run_zerodim, torch)
     phase("zero-dim exactness", run_exactness, torch, card)
     phase("replay vs eager", replay_vs_eager, torch, model, trained)
+    phase("protocol resumed", run_resume, torch, card)
     phase("replay launches", replay_launches, torch, kernels, model,
           trained, zerodim)
     phase("bf16 sampling path", run_bf16_sampling, torch, kernels, model,

@@ -36,6 +36,12 @@ a small check on the CPU):
 7. the device's idle share over one profiled replay of each graph (the
    kept arm's batch).
 
+Steps 1-2 are the training half (:func:`train`, through
+:func:`build_flagship` and :func:`protocol_fit`), steps 3-7 the measuring
+half (:func:`measure`), which takes any trained flagship:
+``tools/protocol_run.py`` trains it over several calls from snapshots and
+then measures it.
+
 It prints one JSON line with root ``bench.py``'s keys (the Pallas arms
 stay out: the port has one route per kernel; no roofline, no TPU probe,
 no ``--rng_impl``), plus
@@ -63,7 +69,8 @@ from .training.optim import cosine_decay_schedule
 from .zoo import build_phi4_model, with_conv_compute_dtype
 
 __all__ = ["bootstrap_ess_err", "autotune_batch", "rep_seeds", "time_reps",
-           "idle_share", "main"]
+           "idle_share", "build_flagship", "protocol_fit", "train",
+           "measure", "main"]
 
 # The reference implementation's effective samples/s for the identical
 # 32x32 architecture on a CPU host, as root bench.py records it
@@ -193,50 +200,76 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def main(argv=None):
-    """Run the protocol; print and return its JSON record."""
-    args = parse_args(argv)
-    on_card = args.device == "cuda"
-    if on_card:
+def build_flagship(args):
+    """The flagship of ``args`` (``--lat``, ``--n_layers``, ``--knots``,
+    ``--hidden``, ``--seed``, ``--device``), float32; on the card TF32
+    off for the convolutions and matrix products."""
+    if args.device == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError("bench: no CUDA device (pass --device cpu "
                                "for a check on the CPU)")
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
-    model = build_phi4_model((args.lat, args.lat), knots=args.knots,
-                             hidden=tuple(args.hidden),
-                             n_layers=args.n_layers, seed=args.seed,
-                             device=args.device)
+    return build_phi4_model((args.lat, args.lat), knots=args.knots,
+                            hidden=tuple(args.hidden),
+                            n_layers=args.n_layers, seed=args.seed,
+                            device=args.device)
 
+
+def protocol_fit(model, args, n_epochs, decay_steps, save_every=None,
+                 snapshot_path=None):
+    """``n_epochs`` steps of ``model.fit`` with the protocol's settings
+    (AdamW lr 3e-3, weight decay 1e-4, cosine decay over ``decay_steps``
+    to 0.05, ``--train_batch``, ``--steps_per_call``,
+    ``--grad_estimator``, ``--clip``); with ``snapshot_path`` the fit
+    loads it where it exists and saves every ``save_every`` steps.
+    Returns the wall seconds, ending in a synchronise."""
     t0 = time.perf_counter()
-    model.fit(n_epochs=args.train_epochs, batch_size=args.train_batch,
+    model.fit(n_epochs=n_epochs, batch_size=args.train_batch,
+              save_every=save_every,
               hyperparam=dict(lr=3e-3, weight_decay=1e-4),
               scheduler=cosine_decay_schedule(
-                  1.0, decay_steps=max(args.train_epochs, 1), alpha=0.05),
+                  1.0, decay_steps=max(decay_steps, 1), alpha=0.05),
               steps_per_call=args.steps_per_call,
               grad_estimator=args.grad_estimator, clip_grad_norm=args.clip,
-              checkpoint_dict=dict(print_stride=None))
+              checkpoint_dict=dict(print_stride=None,
+                                   snapshot_path=snapshot_path))
     _synchronize(model)
-    train_time = time.perf_counter() - t0
+    return time.perf_counter() - t0
 
+
+def train(args):
+    """The training half: build the flagship and fit ``--train_epochs``
+    steps, the cosine over all of them.  Returns ``(model, seconds)``."""
+    model = build_flagship(args)
+    return model, protocol_fit(model, args, args.train_epochs,
+                               args.train_epochs)
+
+
+def measure(model, args, train_time):
+    """The measuring half on a trained ``model``: the sampling arms, the
+    autotuned batch (unless ``--batch`` pins it), the timed repetitions,
+    ESS and accept with their errors, the idle shares; prints and returns
+    the JSON record, which reports ``--train_epochs`` steps trained in
+    ``train_time`` seconds."""
+    on_card = args.device == "cuda"
     arms = {"cuda" if on_card else "cpu": model}
     if on_card:
         arms["cuda_bf16"] = Model(
             net_=with_conv_compute_dtype(model.net_, torch.bfloat16),
             prior=model.prior, action=model.action, seed=args.seed)
 
-    batch_table = None
-    if args.batch == 0:
-        args.batch, batch_table = autotune_batch(
+    batch, batch_table = args.batch, None
+    if batch == 0:
+        batch, batch_table = autotune_batch(
             arms.get("cuda_bf16", model), iters=args.sample_iters,
             seed=args.seed + 2)
-        print(f"[bench] autotuned sampling batch: {args.batch} "
+        print(f"[bench] autotuned sampling batch: {batch} "
               f"(raw/s {batch_table})", flush=True)
 
     seeds = rep_seeds(args.seed, args.reps)
-    times_by, logqp_by = time_reps(arms, args.sample_iters, args.batch,
-                                   seeds)
-    n_per_program = args.sample_iters * args.batch
+    times_by, logqp_by = time_reps(arms, args.sample_iters, batch, seeds)
+    n_per_program = args.sample_iters * batch
     med = {a: statistics.median(t) for a, t in times_by.items()}
     eff_by = {a: n_per_program / med[a] * float(calc_ess(logqp_by[a], 0.0))
               for a in arms}
@@ -256,7 +289,7 @@ def main(argv=None):
     idle = {"sample": None, "train": None}
     if on_card:
         idle = {"sample": idle_share(
-                    lambda: kept.posterior.logqp_stream(1, args.batch)),
+                    lambda: kept.posterior.logqp_stream(1, batch)),
                 "train": idle_share(model.fit.step)}
 
     out = {
@@ -282,7 +315,7 @@ def main(argv=None):
         "platform": args.device,
         "device": (torch.cuda.get_device_name(0) if on_card else "cpu"),
         "card": card_name_and_power() if on_card else None,
-        "sampling_batch": args.batch,
+        "sampling_batch": batch,
         "knots": args.knots,
         "rng_impl": "philox" if on_card else "mt19937",
         "rep_seeds": seeds,
@@ -302,6 +335,14 @@ def main(argv=None):
         out["batch_autotune_raw_per_s"] = batch_table
     print(json.dumps(out), flush=True)
     return out
+
+
+def main(argv=None):
+    """Run the protocol: :func:`train`, then :func:`measure`; print and
+    return its JSON record."""
+    args = parse_args(argv)
+    model, train_time = train(args)
+    return measure(model, args, train_time)
 
 
 if __name__ == "__main__":

@@ -16,7 +16,9 @@ the counterparts of the JAX package's scanned ``_chain_scan`` and
 ``_parallel_chains_scan``: the graph holds the prior draw, the flow, the
 action, the uniforms, the accept step and the carry of the chain's
 reference, written in place into tensors that live as long as the graph.
-On the CPU the same round body runs eagerly.
+The blocked sampler replays one captured block proposal, the counterpart of
+``_blocked_sweep_kernel``'s scanned ``block_step``.  On the CPU the same
+bodies run eagerly.
 
 With a process group attached to ``model.device_handler`` the production
 samplers split their work over the ranks (``normflow__tpu/mcmc/
@@ -40,12 +42,14 @@ rank takes the same decisions and holds the slab of the same chain.  The
 samplers return the whole lattices, gathered over both axes, and keep the
 chain's reference ``_ref`` whole.  Rounds are captured only where the group
 is NCCL (``ModelDeviceHandler.captures``).  The blocked sampler runs on the
-whole lattice on every rank with no slab current.
+whole lattice on every rank with no slab current and no collective, and
+replays its captured step on any CUDA model.
 """
 
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -556,18 +560,42 @@ class MCMCSampler:
         return -self._model.action(y) - action_logz
 
 
+class _BlockGraphs(NamedTuple):
+    """The captured start and block step of :class:`BlockedMCMCSampler`,
+    and the tensors they read and write in place: ``state = (x_flat, ref,
+    has, y_acc, logq_acc, logp_acc, accepts)`` and ``inputs = (proposal,
+    lrand, b)``."""
+
+    start: "torch.cuda.CUDAGraph"
+    step: "torch.cuda.CUDAGraph"
+    state: tuple
+    inputs: tuple
+
+
 class BlockedMCMCSampler(MCMCSampler):
     """Block-Gibbs MCMC in latent space.
 
     The latent configuration is updated block by block with proposals from
     the prior chopped to one block (``prior.chopped``, which requires a
     homogeneous prior); each block proposal costs one flow forward on one
-    sample.  A loop over samples and blocks, eager on both devices, with no
-    read from the host inside: each accept is a device bool applied with
-    ``torch.where``.  As in the JAX package it is not sharded: each block
-    update conditions on the current state of every other block.  Under a
-    space axis every rank runs it on the whole lattice with no slab
-    current."""
+    sample.  One block proposal is :meth:`block_step`, a body of
+    preallocated tensors with the block index a device tensor, as
+    ``_blocked_sweep_kernel``'s ``block_step`` takes a traced index
+    (``normflow__tpu/mcmc/metropolis.py:585-596``): so one captured step
+    serves every block.  On a CUDA model :meth:`sample__` replays it (and
+    a captured :meth:`block_start`, the first flow forward), ``batch_size
+    x n_blocks`` times; on the CPU the same bodies run eagerly.  Every
+    proposal and log uniform is drawn before the sweeps, outside the
+    graphs, so both paths consume the generator alike and give the same
+    bits; no read from the host sits inside the loop: each accept is a
+    device bool applied with ``torch.where``.  As in the JAX package it is
+    not sharded: each block update conditions on the current state of
+    every other block.  Under a space axis every rank runs it on the whole
+    lattice with no slab current and no collective, so the steps are
+    captured there too, over gloo as well (where the other samplers run
+    eagerly); ``chip_smoke.py``'s space phase holds those replays on two
+    gloo ranks bit for bit against the eager sweep and the unsharded
+    model."""
 
     @torch.no_grad()
     @space.active(None)
@@ -591,15 +619,15 @@ class BlockedMCMCSampler(MCMCSampler):
 
         if self._ref is None:
             x = prior.sample(1, gen)
-            logqp_ref, has_ref = torch.zeros((), dtype=x.dtype,
-                                             device=x.device), False
+            logqp_ref, has_ref = 0.0, False
         else:
             x = m.net_.backward(self._ref[0][None])[0]
             logqp_ref, has_ref = self._ref[1] - self._ref[2], True
         proposals, lrand = self._block_draws(chopped, batch_size, n_blocks,
                                              gen)
-        cfgs, logq, logp, accept = self.sweep(x, logqp_ref, has_ref,
-                                              proposals, lrand)
+        cfgs, logq, logp, accept = self.sweep(
+            x, logqp_ref, has_ref, proposals, lrand,
+            graphed=m.device.type == "cuda")
 
         self._ref = (cfgs[-1], logq[-1], logp[-1])
         self.history.bookkeeping(
@@ -620,49 +648,123 @@ class BlockedMCMCSampler(MCMCSampler):
                                      device=proposals.device))
         return proposals.reshape(batch_size, n_blocks, -1), lrand
 
+    def _evaluate(self, x_flat):
+        """``(y, logq, logp)`` of the flattened latent state, one sample."""
+        m = self._model
+        xs = x_flat.reshape(1, *m.prior.shape)
+        y, logj = m.net_.forward(xs)
+        return y[0], (m.prior.log_prob(xs) - logj)[0], -m.action(y)[0]
+
+    def _block_tensors(self, block_len):
+        """Zero ``state`` and ``inputs`` (:class:`_BlockGraphs`) for blocks
+        of ``block_len`` variables."""
+        m = self._model
+        kw = dict(dtype=m.prior.dtype, device=m.device)
+        flag = dict(dtype=torch.bool, device=m.device)
+        nvar = m.prior.nvar
+        state = (torch.zeros(nvar, **kw), torch.zeros((), **kw),
+                 torch.zeros((), **flag), torch.zeros(m.prior.shape, **kw),
+                 torch.zeros((), **kw), torch.zeros((), **kw),
+                 torch.zeros(nvar // block_len, **flag))
+        inputs = (torch.zeros(block_len, **kw), torch.zeros((), **kw),
+                  torch.zeros((), dtype=torch.int64, device=m.device))
+        return state, inputs
+
+    @torch.no_grad()
+    def block_start(self, state):
+        """The first flow forward of a sweep: ``(y, logq, logp)`` of the
+        latent state ``x_flat`` into ``(y_acc, logq_acc, logp_acc)``, in
+        place.  Returns ``state``."""
+        x_flat, _, _, *acc, _ = state
+        for t, v in zip(acc, self._evaluate(x_flat)):
+            t.copy_(v)
+        return state
+
+    @torch.no_grad()
+    def block_step(self, state, proposal, lrand, b):
+        """One block proposal, the body that the card replays: ``proposal``
+        ``(block_len,)`` written over block ``b`` (a device int64 scalar) of
+        ``x_flat`` at ``b * block_len + arange(block_len)``, the flow on the
+        one sample, the accept against ``ref`` with the log uniform
+        ``lrand`` (always, while ``has`` is false), and the carry updated in
+        place with ``torch.where``; the accept is written to ``accepts[b]``.
+        Returns ``state``."""
+        x_flat, ref, has, y_acc, logq_acc, logp_acc, accepts = state
+        n = proposal.shape[0]
+        x_new = x_flat.index_copy(
+            0, b * n + torch.arange(n, device=b.device), proposal)
+        y, logq, logp = self._evaluate(x_new)
+        logqp = logq - logp
+        accept = (lrand < ref - logqp) | ~has
+        torch.where(accept, x_new, x_flat, out=x_flat)
+        torch.where(accept, logqp, ref, out=ref)
+        torch.logical_or(has, accept, out=has)
+        torch.where(accept, y, y_acc, out=y_acc)
+        torch.where(accept, logq, logq_acc, out=logq_acc)
+        torch.where(accept, logp, logp_acc, out=logp_acc)
+        accepts.index_copy_(0, b.reshape(1), accept.reshape(1))
+        return state
+
     @torch.no_grad()
     @space.active(None)
-    def sweep(self, x, logqp_ref, has_ref, proposals, lrand):
+    def block_graphs(self, block_len):
+        """The captured :meth:`block_start` and :meth:`block_step` of a CUDA
+        model for blocks of ``block_len`` variables (:class:`_BlockGraphs`),
+        sharing their tensors, which live as long as the graphs.  Captured
+        at first use for each block length and dtype (``Model
+        .graph_stamp``)."""
+        m = self._model
+
+        def make():
+            state, inputs = self._block_tensors(block_len)
+            start = capture(lambda: self.block_start(state), keep=state)
+            step = capture(lambda: self.block_step(state, *inputs),
+                           keep=state)
+            return _BlockGraphs(start.graph, step.graph, state, inputs)
+
+        return self._graphs.get(("blocked", block_len, m.prior.dtype),
+                                m.graph_stamp(), make)
+
+    @torch.no_grad()
+    @space.active(None)
+    def sweep(self, x, logqp_ref, has_ref, proposals, lrand, graphed=False):
         """The sweeps of :meth:`sample__` from the latent state ``x``
         ``(1, *shape)`` given every block proposal ``(batch, n_blocks,
         block_len)`` and log uniform ``(batch, n_blocks)``: block ``b`` of
         the flattened state is replaced by its proposal and the flow is
         run on the one sample; without a reference yet (``has_ref``
         false) the first proposal is accepted.  Returns ``(cfgs, logq,
-        logp, accept_seq)`` of the accepted state after each sweep."""
-        m = self._model
-        shape = x.shape[1:]
-        block_len = proposals.shape[-1]
+        logp, accept_seq)`` of the accepted state after each sweep.
 
-        def evaluate(x_flat):
-            xs = x_flat.reshape(1, *shape)
-            y, logj = m.net_.forward(xs)
-            return y[0], (m.prior.log_prob(xs) - logj)[0], -m.action(y)[0]
-
-        x_flat = x.reshape(-1)
-        ref = torch.as_tensor(logqp_ref, dtype=x.dtype, device=x.device)
-        has = torch.tensor(bool(has_ref), device=x.device)
-        y_acc, logq_acc, logp_acc = evaluate(x_flat)
-        cfgs, logqs, logps, accepts = [], [], [], []
-        for props, lrs in zip(proposals, lrand):
-            for b, (proposal, lr) in enumerate(zip(props, lrs)):
-                x_new = x_flat.clone()
-                x_new[b * block_len:(b + 1) * block_len] = proposal
-                y, logq, logp = evaluate(x_new)
-                logqp = logq - logp
-                accept = (lr < ref - logqp) | ~has
-                x_flat = torch.where(accept, x_new, x_flat)
-                ref = torch.where(accept, logqp, ref)
-                has = has | accept
-                y_acc = torch.where(accept, y, y_acc)
-                logq_acc = torch.where(accept, logq, logq_acc)
-                logp_acc = torch.where(accept, logp, logp_acc)
-                accepts.append(accept)
-            cfgs.append(y_acc)
-            logqs.append(logq_acc)
-            logps.append(logp_acc)
-        return (torch.stack(cfgs), torch.stack(logqs), torch.stack(logps),
-                torch.stack(accepts).reshape(lrand.shape))
+        Each block proposal copies its draws and its index into the step's
+        inputs and runs :meth:`block_step`: eagerly, or with ``graphed`` a
+        replay of :meth:`block_graphs`' step (on a CUDA model); each
+        sweep's accepted state is copied into preallocated rows."""
+        batch, n_blocks, block_len = proposals.shape
+        if graphed:
+            g = self.block_graphs(block_len)
+            state, inputs = g.state, g.inputs
+            start, step = g.start.replay, g.step.replay
+        else:
+            state, inputs = self._block_tensors(block_len)
+            start = lambda: self.block_start(state)  # noqa: E731
+            step = lambda: self.block_step(state, *inputs)  # noqa: E731
+        x_flat, ref, has, y_acc, logq_acc, logp_acc, accepts = state
+        proposal, lr, b = inputs
+        x_flat.copy_(x.reshape(-1))
+        ref.copy_(torch.as_tensor(logqp_ref))
+        has.fill_(bool(has_ref))
+        start()
+        rows = _Rows(batch)
+        for i in range(batch):
+            for j in range(n_blocks):
+                proposal.copy_(proposals[i, j])
+                lr.copy_(lrand[i, j])
+                b.fill_(j)
+                step()
+            rows.put(i, cfgs=y_acc, logq=logq_acc, logp=logp_acc,
+                     accept=accepts)
+        return rows["cfgs"], rows["logq"], rows["logp"], rows["accept"]
 
 
 class MCMCHistory:

@@ -17,8 +17,13 @@ Held here, with TF32 off:
   collected samples included; a ``sample__`` between two chains;
 - the launches of replayed rounds by profiler name: 4 ``rqs_coupling``,
   1 ``phi4_action`` and 1 ``accept_scan`` per chain round, 4 / 1 / 0 per
-  parallel round, while the wrappers' counters do not move; the blocked
-  sampler's launches at B = 1.
+  parallel round, while the wrappers' counters do not move;
+- the blocked sampler's replayed block step against the eager one, bit
+  for bit, at 8x8 and 32x32 with 4 and 16 blocks, and ``sample__``
+  against the eager sweep from one generator state; a second call reuses
+  the captured step; a warm call's launches by profiler name, one flow
+  forward at B = 1 for the start and one per block proposal, while the
+  wrappers' counters do not move.
 """
 
 import math
@@ -171,10 +176,75 @@ def test_replayed_rounds_launch_by_profiler_name(cuda):
     assert [c.launches for c in counters] == before
 
 
+def _blocked_draws(model, batch, n_blocks):
+    """``sample__``'s start and draws from the model's generator: the
+    prior's sample, then every proposal and log uniform."""
+    prior, gen = model.prior, model.generator
+    x = prior.sample(1, gen)
+    return (x, *model.blocked_mcmc._block_draws(
+        prior.chopped(prior.nvar // n_blocks), batch, n_blocks, gen))
+
+
+@pytest.mark.parametrize("n_blocks", [4, 16])
+@pytest.mark.parametrize("lat", [(8, 8), (32, 32)])
+def test_blocked_replay_matches_eager_sweep(cuda, lat, n_blocks):
+    """The replayed block step against the eager one on the same draws,
+    bit for bit, with and without a reference; ``sample__`` (which
+    replays) against the eager sweep from the same generator state."""
+    model = _model(lat)
+    bm = model.blocked_mcmc
+    model.seed(13)
+    x, proposals, lrand = _blocked_draws(model, 3, n_blocks)
+    for ref, has in ((0.0, False), (1.5, True)):
+        got = bm.sweep(x, ref, has, proposals, lrand, graphed=True)
+        want = bm.sweep(x, ref, has, proposals, lrand)
+        torch.cuda.synchronize()
+        assert _same_bits(got, want)
+        assert got[3].shape == (3, n_blocks)
+    model.seed(14)
+    cfgs, logq, logp = bm.sample__(3, n_blocks=n_blocks)
+    model.seed(14)
+    x, proposals, lrand = _blocked_draws(model, 3, n_blocks)
+    want = bm.sweep(x, 0.0, False, proposals, lrand)
+    torch.cuda.synchronize()
+    assert _same_bits((cfgs, logq, logp), want[:3])
+    assert bool(torch.isfinite(logq).all())
+
+
+def test_blocked_second_call_replays_without_a_capture(cuda):
+    """A second ``sample__`` (from the carried reference: the inverse flow
+    runs eagerly, outside the graphs, as in the JAX package) reuses the
+    captured step; the wrappers' counters move only by that inverse."""
+    model = _model((32, 32))
+    bm = model.blocked_mcmc
+    bm.sample__(2, n_blocks=4)
+    graphs = bm.block_graphs(256)
+    assert len(bm._graphs) == 1
+    counters = (sc.rqs_coupling, phi4.phi4_action, accept_scan)
+    before = [c.launches for c in counters]
+    cfgs, logq, _ = bm.sample__(2, n_blocks=4)
+    torch.cuda.synchronize()
+    assert bm.block_graphs(256) is graphs and len(bm._graphs) == 1
+    n_layers = len(model.net_[2].nets)
+    assert [c.launches - b for c, b in zip(counters, before)] == \
+        [n_layers, 0, 0]
+    assert cfgs.shape == (2, 32, 32) and bool(torch.isfinite(logq).all())
+    bm.sample__(1, n_blocks=16)  # another block length: a second capture
+    assert len(bm._graphs) == 2
+
+
 def test_blocked_sampler_on_the_card(cuda):
+    """A warm call (it captures), ``reset()``, then a call profiled: its
+    launches by profiler name are one flow forward for the start and one
+    per block proposal, all replayed, and no wrapper runs."""
     model = _model((8, 8))
+    bm = model.blocked_mcmc
+    bm.sample__(2, n_blocks=4)
+    bm.reset()
+    counters = (sc.rqs_coupling, phi4.phi4_action, accept_scan)
+    before = [c.launches for c in counters]
     launches, (cfgs, logq, logp) = device_launches(
-        lambda: model.blocked_mcmc.sample__(2, n_blocks=4))
+        lambda: bm.sample__(2, n_blocks=4))
     torch.cuda.synchronize()
     assert cfgs.shape == (2, 8, 8) and bool(torch.isfinite(logq).all())
     # one flow forward for the start and one per block proposal
@@ -182,4 +252,5 @@ def test_blocked_sampler_on_the_card(cuda):
     assert launches["rqs_coupling"][0] == 4 * n
     assert launches["phi4_action"][0] == n
     assert "accept_scan" not in launches
+    assert [c.launches for c in counters] == before
     assert torch.allclose(logp, -model.action(cfgs))

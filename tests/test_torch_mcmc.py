@@ -6,7 +6,9 @@ unless stated): the recurrence ``accept_scan`` against ``_accept_scan_core``
 rounds carrying ``_ref`` (``sample__`` then ``sample_chain``), parallel
 chains and the blocked sweep on the transplanted 8x8 flagship, with the
 JAX draws re-made from the JAX keys and fed to the port (identical accepts,
-values to 1e-10); the host ``Metropolis`` helpers from one numpy seed;
+values to 1e-10; the blocked sweep's block step against the jitted
+``_blocked_sweep_kernel`` at 1, 4 and 16 blocks, and against the eager
+loop it replaced, bit for bit); the host ``Metropolis`` helpers from one numpy seed;
 ``UniformPrior``, ``PriorList``, ``chopped`` and ``nvar`` and every
 observable to 1e-12; the entry API.  A zero-dim model fitted once per
 module reproduces the quadrature <phi^2> through ``sample_chain``,
@@ -221,22 +223,108 @@ def _jax_sweep(jmodel, x, logqp_ref, has_ref, proposals, lrand):
         accepts, lrand.shape)
 
 
+def _jax_block_draws(jmodel, key, batch, n_blocks, block_len):
+    """Every proposal and log uniform that ``_blocked_sweep_kernel`` draws
+    from ``key`` (its ``sample_step``, ``normflow__tpu/mcmc/
+    metropolis.py:598-602``), as numpy ``(batch, n_blocks, block_len)``
+    and ``(batch, n_blocks)``."""
+    chopped = jmodel.prior.chopped(block_len)
+    props, lrs = [], []
+    for k in jax.random.split(key, batch):
+        kp, kr = jax.random.split(k)
+        p = chopped.sample(kp, n_blocks)
+        props.append(np.asarray(p))
+        lrs.append(np.asarray(jnp.log(jax.random.uniform(kr, (n_blocks,),
+                                                         p.dtype))))
+    return np.stack(props), np.stack(lrs)
+
+
+@pytest.mark.parametrize("n_blocks", [1, 4, 16])
 @pytest.mark.parametrize("has_ref", [False, True])
-def test_blocked_sweep_matches_jax_loop(rng, twins, has_ref):
+def test_blocked_sweep_matches_jax_loop(rng, twins, has_ref, n_blocks):
+    """The port's block step, driven eagerly by ``sweep`` on the JAX
+    package's own draws, against ``_blocked_sweep_kernel`` (the jitted
+    scan over samples and blocks) and against the same updates written as
+    a loop (:func:`_jax_sweep`): cfgs, logq, logp to 1e-10, the accept
+    sequence identical."""
     jmodel, model = twins
-    n_blocks, batch = 4, 3
+    batch, block_len = 3, 64 // n_blocks
     x = rng.standard_normal((1, 8, 8))
-    proposals = rng.standard_normal((batch, n_blocks, 16))
-    lrand = np.log(rng.random((batch, n_blocks)))
     ref = float(rng.standard_normal()) * 3
-    want = _jax_sweep(jmodel, x, ref, has_ref, proposals, lrand)
+    key = jax.random.key(40 + n_blocks)
+    want = jmcmc._blocked_sweep_kernel(
+        jmodel.net_, jmodel.prior, jmodel.action, key, jnp.asarray(x),
+        jnp.asarray(ref), has_ref, batch, n_blocks, block_len)
+    proposals, lrand = _jax_block_draws(jmodel, key, batch, n_blocks,
+                                        block_len)
+    loop = _jax_sweep(jmodel, x, ref, has_ref, proposals, lrand)
     got = model.blocked_mcmc.sweep(_t(x), torch.tensor(ref), has_ref,
                                    _t(proposals), _t(lrand))
-    for g, w in zip(got[:3], want[:3]):
-        _close(g, w)
-    np.testing.assert_array_equal(got[3].numpy(), want[3])
+    for w in (want, loop):
+        for g, v in zip(got[:3], w[:3]):
+            _close(g, v)
+        np.testing.assert_array_equal(got[3].numpy(), np.asarray(w[3]))
+    assert got[3].shape == (batch, n_blocks)
     if not has_ref:
         assert bool(got[3][0, 0])
+
+
+def _old_sweep(model, x, logqp_ref, has_ref, proposals, lrand):
+    """The blocked sweep as the port ran it before its block step: a
+    Python loop over samples and blocks, the proposal written by slice
+    assignment into a clone of the state."""
+    shape = x.shape[1:]
+    block_len = proposals.shape[-1]
+
+    def evaluate(x_flat):
+        xs = x_flat.reshape(1, *shape)
+        y, logj = model.net_.forward(xs)
+        return (y[0], (model.prior.log_prob(xs) - logj)[0],
+                -model.action(y)[0])
+
+    x_flat = x.reshape(-1)
+    ref = torch.as_tensor(logqp_ref, dtype=x.dtype)
+    has = torch.tensor(bool(has_ref))
+    y_acc, logq_acc, logp_acc = evaluate(x_flat)
+    cfgs, logqs, logps, accepts = [], [], [], []
+    for props, lrs in zip(proposals, lrand):
+        for b, (proposal, lr) in enumerate(zip(props, lrs)):
+            x_new = x_flat.clone()
+            x_new[b * block_len:(b + 1) * block_len] = proposal
+            y, logq, logp = evaluate(x_new)
+            logqp = logq - logp
+            accept = (lr < ref - logqp) | ~has
+            x_flat = torch.where(accept, x_new, x_flat)
+            ref = torch.where(accept, logqp, ref)
+            has = has | accept
+            y_acc = torch.where(accept, y, y_acc)
+            logq_acc = torch.where(accept, logq, logq_acc)
+            logp_acc = torch.where(accept, logp, logp_acc)
+            accepts.append(accept)
+        cfgs.append(y_acc)
+        logqs.append(logq_acc)
+        logps.append(logp_acc)
+    return (torch.stack(cfgs), torch.stack(logqs), torch.stack(logps),
+            torch.stack(accepts).reshape(lrand.shape))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n_blocks", [1, 4, 16])
+def test_block_step_equals_the_old_loop(rng, dtype, n_blocks):
+    """``sweep`` through the block step gives the old loop's output bit
+    for bit, both with a reference and without one."""
+    model = twin_models(rng, jnp.float64, dtype)[1]
+    batch, block_len = 3, 64 // n_blocks
+    x = torch.tensor(rng.standard_normal((1, 8, 8)), dtype=dtype)
+    proposals = torch.tensor(rng.standard_normal((batch, n_blocks,
+                                                  block_len)), dtype=dtype)
+    lrand = torch.tensor(np.log(rng.random((batch, n_blocks))), dtype=dtype)
+    for ref, has_ref in ((0.0, False), (float(rng.standard_normal()), True)):
+        with torch.no_grad():
+            want = _old_sweep(model, x, ref, has_ref, proposals, lrand)
+        got = model.blocked_mcmc.sweep(x, ref, has_ref, proposals, lrand)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g, w)
 
 
 def test_blocked_sample__draws_and_restores_ref(twins):

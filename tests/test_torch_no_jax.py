@@ -24,6 +24,7 @@ def test_import_leaves_jax_out():
             "import normflow__tpu_torch.examples.scalar_zerodim\n"
             "import normflow__tpu_torch.utils.profiling\n"
             "import normflow__tpu_torch.nn.scalar.cntr_couplings_\n"
+            "import normflow__tpu_torch.tools.protocol_run\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'optax', 'normflow__tpu'))\n"
             "assert not bad, bad\n")
@@ -63,7 +64,8 @@ def test_sources_import_no_jax():
               ROOT / "normflow__tpu_torch" / "models" / "nets.py",
               ROOT / "normflow__tpu_torch" / "nn" / "scalar"
               / "cntr_couplings_.py",
-              ROOT / "normflow__tpu_torch" / "bench.py"]
+              ROOT / "normflow__tpu_torch" / "bench.py",
+              ROOT / "normflow__tpu_torch" / "tools" / "protocol_run.py"]
     assert len(files) > 10
     offenders = [str(f.relative_to(ROOT)) for f in files
                  if FORBIDDEN.search(f.read_text())]

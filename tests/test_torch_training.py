@@ -10,6 +10,10 @@ the JAX fitter's loss (``fitter.py:250-268``) to 1e-10 in the loss and
 mirrors ``tests/test_model_fit.py`` on the port's ``Fitter``.
 """
 
+import contextlib
+import io
+import json
+import math
 import os
 import shutil
 
@@ -23,11 +27,13 @@ import torch
 from normflow__tpu.training import losses as jlosses
 from normflow__tpu.utils.serialization import leaves_of
 import normflow__tpu_torch as nt
+from normflow__tpu_torch import bench
 from normflow__tpu_torch.models.actions import ScalarPhi4Action
 from normflow__tpu_torch.models.core import FlowList
 from normflow__tpu_torch.models.elementwise import DistConvertor, Scale
 from normflow__tpu_torch.models.priors import NormalPrior
 from normflow__tpu_torch.training import losses, optim
+from normflow__tpu_torch.tools import protocol_run
 from normflow__tpu_torch.training.checkpoint import snapshot_path_for_epoch
 from normflow__tpu_torch.utils.transplant import jax_leaf_grads
 from test_torch_flagship import twin_models
@@ -389,3 +395,110 @@ def test_rewind_lr_backoff_shrinks_updates():
         deltas.append([a - b for a, b in zip(_params(model), start[0])])
     for d1, dh in zip(*deltas):
         torch.testing.assert_close(dh, 0.5 * d1, rtol=1e-12, atol=1e-15)
+
+
+# --------------------------------------------------------------------- #
+# the bench's halves and the protocol run in pieces
+# --------------------------------------------------------------------- #
+def _bench_args(*extra):
+    """The bench's settings for the 8x8 flagship at its widths (4
+    couplings, 8 knots, hidden 24, 24) on the CPU, batch 16."""
+    return bench.parse_args(["--device", "cpu", "--lat", "8",
+                             "--train_batch", "16", "--steps_per_call", "8",
+                             *extra])
+
+
+def test_protocol_run_resumes_bit_for_bit(tmp_path):
+    """``tools/protocol_run`` cut into 2 x 24 steps, each piece in a fresh
+    ``Model`` from the snapshot the other left, against 48 unbroken steps
+    of the bench's training half (cosine over the 48, path gradient, clip
+    25): the losses, parameters, optimizer state and generator state bit
+    for bit."""
+    unbroken, _ = bench.train(_bench_args("--train_epochs", "48"))
+    d = str(tmp_path / "protocol")
+    pieces = [protocol_run.train(d, _bench_args(), total=48, max_steps=24,
+                                 save_every=24, stream=(1, 16))
+              for _ in range(2)]
+    assert [n for _, n in pieces] == [24, 48]
+    model = pieces[1][0]
+    assert model is not pieces[0][0]
+    losses = sum((m.fit.train_history["loss"] for m, _ in pieces), [])
+    assert losses == unbroken.fit.train_history["loss"]
+    assert len(losses) == 48
+    for a, b in zip(_params(model), _params(unbroken)):
+        assert torch.equal(a, b)
+    got, want = (optim.state_leaves(m.fit.opt_state)
+                 for m in (model, unbroken))
+    assert len(got) == len(want) and all(
+        torch.equal(a, b) for a, b in zip(got, want))
+    assert float(optim.state_leaves(model.fit.opt_state)[0]) == 48
+    assert torch.equal(model.generator.get_state(),
+                       unbroken.generator.get_state())
+    traj = protocol_run.read_trajectory(d)
+    assert [(r["step"], r["steps"], r["call"]) for r in traj] == \
+        [(24, 24, 1), (48, 24, 2)]
+    assert all(0 < r["ess"] <= 1 and r["steps_per_s"] > 0 for r in traj)
+    assert protocol_run.newest_snapshot(d) == (
+        os.path.join(d, "flagship.E48.pt"), 48)
+    # the count reached: a third call trains nothing
+    assert protocol_run.train(d, _bench_args(), total=48,
+                              save_every=24)[1] == 48
+
+
+def test_protocol_run_pieces_fit_the_budget():
+    piece = protocol_run._piece
+    # to the next multiple of save_every, within the total and the cap
+    assert piece(0, 96000, 4000, 1000, None, math.inf, 96000) == 4000
+    assert piece(1000, 96000, 4000, 1000, 40.0, math.inf, 96000) == 3000
+    assert piece(94000, 96000, 4000, 1000, None, math.inf, 96000) == 2000
+    assert piece(0, 48, 24, 8, None, math.inf, 24) == 24
+    # a budget: one segment while the rate is unknown, then whole
+    # segments that fit at the measured rate
+    assert piece(0, 96000, 4000, 1000, None, 3600.0, 96000) == 1000
+    assert piece(1000, 96000, 4000, 1000, 44.0, 50.0, 96000) == 2000
+    assert piece(4000, 96000, 4000, 1000, 44.0, 20.0, 96000) == 0
+    assert protocol_run.newest_snapshot("/nonexistent") == (None, 0)
+    with pytest.raises(ValueError, match="multiple"):
+        protocol_run.train("/nonexistent", _bench_args(), save_every=12)
+
+
+def test_bench_measuring_half_gives_mains_keys():
+    """The bench split in two: ``measure`` on a trained ``device="cpu"``
+    model gives the record ``main`` gives, key for key."""
+    small = ("--n_layers", "2", "--knots", "4", "--hidden", "4",
+             "--train_epochs", "3", "--sample_iters", "2", "--batch", "8",
+             "--reps", "2")
+    with contextlib.redirect_stdout(io.StringIO()):
+        whole = bench.main(["--device", "cpu", "--lat", "8",
+                            "--train_batch", "8", *small])
+        args = _bench_args(*small)
+        model, seconds = bench.train(args)
+        out = bench.measure(model, args, seconds)
+    assert set(out) == set(whole)
+    assert out["train_epochs"] == 3 and out["platform"] == "cpu"
+    assert 0 < out["ess"] <= 1 and out["sampling_batch"] == 8
+
+
+def test_protocol_run_main_measures_when_done(tmp_path, monkeypatch):
+    """The tool's command line at a small size on the CPU (the protocol's
+    length cut to 8 steps), after a first call that trained half of it:
+    it trains the rest from the snapshot, runs the samplers and prints
+    the bench's record last."""
+    monkeypatch.setattr(protocol_run, "TOTAL", 8)
+    d = str(tmp_path / "p")
+    argv = ["--dir", d, "--device", "cpu", "--lat", "8",
+            "--n_layers", "2", "--knots", "4", "--hidden", "4",
+            "--train_batch", "8", "--steps_per_call", "4",
+            "--sample_iters", "2", "--batch", "8", "--reps", "2"]
+    own, args = protocol_run.parse_args(argv)
+    with contextlib.redirect_stdout(io.StringIO()):
+        protocol_run.train(d, args, total=8, max_steps=4, save_every=4,
+                           stream=(1, 8))
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = protocol_run.main(argv)
+    lines = buf.getvalue().strip().splitlines()
+    assert json.loads(lines[-1]) == out and out["train_epochs"] == 8
+    assert any("accept rates on the trained weights" in l for l in lines)
+    assert "blocked_mcmc" in "".join(lines)
+    assert [r["step"] for r in protocol_run.read_trajectory(d)] == [4, 8]
