@@ -184,7 +184,26 @@ use) and imports nothing of JAX.  Phases, each of which raises on failure:
     same generator state (logq and logp to ``LOGQ_REL_TOL``, accepts
     equal), and a warm call with no wrapper launch; rates and the phase's
     wall time (gloo stages every collective through the host: no speed
-    claim).
+    claim);
+22. the channels-last route (``build_phi4_model(coupling_backend=
+    "pallas_reg")``, the JAX package's ``pallas_reg`` backend), last, on a
+    numpy stream of its own (``CL_SEED``): the channels-last coupling
+    kernels and VJPs at S = 512 and 1024 bit for bit against the NCHW
+    kernels on the same values and against their plain versions (the
+    element-by-element VJP bar on ``check_coupling_at``'s inputs), an
+    ``out`` of other strides refused; the full-width flagship on the route
+    against a float64 CPU copy, ``logqp_stream(32, 1024)`` profiled with
+    its counters set to 0 just before (4 channels-last couplings and 1
+    tiled action per batch, no NCHW coupling), replays bit for bit with
+    eager bodies and by name, ``mcmc.sample__``; phase 5's training step
+    on the route against float64, ``CL_STEPS`` steps of ``model.fit``
+    profiled likewise (8 / 8 / 1 / 1 per step, couplings and VJPs
+    channels-last), 10 replayed steps against eager ones bit for bit under
+    cuDNN's deterministic algorithms; the bf16 copy on the route; then,
+    printed only, samples/s and steps/s against the NCHW
+    route in turns, where a replayed batch's (float32 and bf16) and step's
+    time goes on both routes, and the channels-last kernels' times with
+    the NCHW ones on the same values.
 
 The gauge paths' rates (eager bodies against graphed entry points, in
 turns) are taken in a phase of their own right after phase 3's, before any
@@ -215,7 +234,10 @@ capture, ``WARMUP + 1`` calls per batch, step or round, not the replays:
 it must show exactly that too, every call to the tiled kernel where
 there is one.  Phase 8 profiles replays alone, which
 must launch the same per batch or step with no wrapper call
-(``replay_launches_per_unit`` in the record).
+(``replay_launches_per_unit`` in the record).  Phase 22's runs count the
+channels-last kernels (records ``rqs_coupling_cl`` and
+``rqs_coupling_bwd_cl``; the wrappers' ``cl_launches``) in the couplings'
+place, none tiled, and no NCHW coupling kernel.
 
 Kernels 1 and 2 are read cold (the training backward finds ``out`` cold:
 it was written during the forward, and the other conditioners' outputs
@@ -1366,11 +1388,12 @@ def gate_replays(counters, kernels, path, per_unit, n_units, fn,
         kernels[k].setdefault("replay_launches_per_unit", {})[path] = v
 
 
-def check_train_grads(torch, model, rng, packed=True):
+def check_train_grads(torch, model, rng, packed=True, backend="xla"):
     """The full-width path-gradient loss and its gradients on one numpy
     draw at batch 512: the card (float32, TF32 off) against a float64 CPU
     copy, with a float32 CPU copy beside them to show the float32 floor,
-    which sets the unpacked flagship's per-leaf bars (``FLOOR_FACTOR``)."""
+    which sets the unpacked flagship's per-leaf bars (``FLOOR_FACTOR``);
+    the copies' couplings on ``model``'s route ``backend``."""
     from normflow__tpu_torch.zoo import build_phi4_model
 
     x = rng.standard_normal((TRAIN_BATCH, *LAT))
@@ -1380,7 +1403,7 @@ def check_train_grads(torch, model, rng, packed=True):
         m = model
         if key != "gpu":
             m = build_phi4_model(LAT, seed=0, device="cpu", dtype=dtype,
-                                 packed=packed)
+                                 packed=packed, coupling_backend=backend)
             m.net_.load_state_dict({k: v.to(dtype) for k, v in
                                     model.net_.state_dict().items()})
         m.fit.grad_estimator = "path"
@@ -1395,7 +1418,8 @@ def check_train_grads(torch, model, rng, packed=True):
         return loss, [float((p - q).norm()) / max(float(q.norm()), 1e-30)
                       for p, q in zip(res[a][1], res[b][1])]
 
-    what = "packed" if packed else "unpacked"
+    what = ("packed" if packed else "unpacked") + (
+        "" if backend == "xla" else f" {backend}")
     for a, b in (("gpu", "cpu"), ("gpu", "cpu64"), ("cpu", "cpu64")):
         loss, leaves = rel(a, b)
         print(f"{what} path-gradient step, batch {TRAIN_BATCH}, {a} vs {b}: "
@@ -1654,6 +1678,9 @@ def record_variant(name, what, t, shape, peaks, kernels):
           f"({bms / t['ms']:.3f} of bound), cold {t['ms_cold']:.5f} ms "
           f"({bms / t['ms_cold']:.3f}); plain {t['plain_ms']:.5f} ms; bound "
           f"{bms:.5f} ms ({by}: {nbytes / 1e6:.2f} MB)")
+
+
+COUPLING_AT_SEED = 20261018  # check_coupling_at's numpy stream at S = 1024
 
 
 def check_coupling_at(torch, kernels, peaks, lat, seed):
@@ -3213,6 +3240,8 @@ DEVICE_FUNCTIONS = {
                          "phi4_action_slab_kernel"),
     "phi4_action_slab_grad": ("phi4_action_grad_slab_tiled_kernel",
                               "phi4_action_grad_slab_kernel"),
+    "rqs_coupling_cl": ("rqs_coupling_cl_kernel",),
+    "rqs_coupling_bwd_cl": ("rqs_coupling_bwd_cl_kernel",),
 }
 FLAGSHIP_INSTANCE = "ILi8ELb1ELb1E"
 
@@ -3864,6 +3893,467 @@ def run_stochastic(torch, kernels, card):
         raise AssertionError("the stochastic model's sampling is not exact")
 
 
+# --------------------------------------------------------------------- #
+# The channels-last route (backend="pallas_reg"): the conditioners run
+# NHWC into the channels-last coupling kernels
+# --------------------------------------------------------------------- #
+CL_SEED = 20261022  # the phase's own numpy stream
+CL_STEPS = 16  # the profiled fit's steps
+# transposes between NCHW and NHWC that cuDNN wraps around a conv, by name
+TRANSPOSE_RE = re.compile(r"nchwToNhwc|nhwcToNchw|transpose", re.IGNORECASE)
+
+
+def cl_counters():
+    """The counters of the channels-last route's kernels by record name:
+    the coupling wrappers count their channels-last launches in
+    ``cl_launches``."""
+    from normflow__tpu_torch.ops.kernels import phi4, spline_coupling as sc
+
+    return {"rqs_coupling_cl": sc.rqs_coupling,
+            "rqs_coupling_bwd_cl": sc.rqs_coupling_bwd,
+            "phi4_action": phi4.phi4_action,
+            "phi4_action_grad": phi4.phi4_action_grad}
+
+
+def reset_cl_counts():
+    """Every launch count of the four wrappers set to 0, the tiled and the
+    channels-last shares too."""
+    for c in cl_counters().values():
+        c.launches = c.tiled_launches = 0
+        if hasattr(c, "cl_launches"):
+            c.cl_launches = 0
+
+
+def gate_cl_path(kernels, path, per_unit, n_units, device):
+    """The channels-last route's run on ``path`` (:func:`gate_path`'s
+    rule): by profiler name ``per_unit`` launches per warm-up body and
+    replay of each kernel, the couplings' all to their channels-last
+    kernels (no NCHW coupling kernel in ``device``), the action's tiled;
+    by the wrappers ``per_unit`` per warm-up body and capture, every
+    coupling launch channels-last and none tiled."""
+    from normflow__tpu_torch.utils.graphs import WARMUP
+
+    counters = cl_counters()
+    want = {k: (v * (WARMUP + n_units),
+                0 if k.endswith("_cl") else v * (WARMUP + n_units))
+            for k, v in per_unit.items()}
+    print(f"launches over the {path} path's run by profiler name "
+          f"(launches, tiled): {device}, want {want}")
+    if device != want:
+        raise AssertionError(f"{path}: launches on the card {device}, want "
+                             f"{want}")
+    got = {k: (counters[k].launches, counters[k].tiled_launches,
+               getattr(counters[k], "cl_launches", 0)) for k in per_unit}
+    want = {k: (v * (WARMUP + 1),) + ((0, v * (WARMUP + 1))
+                                      if k.endswith("_cl")
+                                      else (v * (WARMUP + 1), 0))
+            for k, v in per_unit.items()}
+    print(f"  by the wrappers (launches, tiled, channels-last): {got} "
+          f"(warm-up and capture; want {want})")
+    if got != want:
+        raise AssertionError(f"{path}: wrapper launch counts {got}, want "
+                             f"{want}")
+    for k, (n, tiled) in device.items():
+        kernels[k].setdefault("launches_by_path", {})[path] = n
+        kernels[k].setdefault("tiled_launches_by_path", {})[path] = tiled
+
+
+def check_cl_kernels(torch, kernels, rng):
+    """The channels-last kernels at the flagship's shapes: ``rqs_coupling``
+    forward and inverse at B = 1024 and ``rqs_coupling_bwd`` at B = 512,
+    on S = 32x16 and 32x32 sites, both tail kinds, from ``rng``: each bit
+    for bit against the NCHW kernels on the same values
+    (``out.contiguous()``), the forward within ``RQS_TOL`` of its plain
+    version, the VJP within ``VJP_ATOL`` of it over the tensor, ``outbar``
+    in ``out``'s layout; the VJP's element-by-element reading against the
+    plain version is printed with where the float64 plain VJP puts each
+    float32 side.  Then the inputs of :func:`check_coupling_at` (its seed,
+    its draws) channels-last: every gate that function holds the NCHW
+    kernels to, the element-by-element VJP bar with its planted wrong
+    adjoint among them.  An ``out`` with other strides raises.  Returns
+    the tensors the times take."""
+    from normflow__tpu_torch.ops.kernels import spline_coupling as sc
+
+    m = 8
+    worst = {"rqs_coupling_cl": 0.0, "rqs_coupling_bwd_cl": 0.0}
+    kept = {}
+
+    def hold(x, out, cot, kw, tag):
+        """One call of either kernel on channels-last ``out``: the gates
+        above; returns max |d| against the plain version."""
+        bwd = bool(cot)
+        name = "rqs_coupling_bwd_cl" if bwd else "rqs_coupling_cl"
+        counter = sc.rqs_coupling_bwd if bwd else sc.rqs_coupling
+        fn, plain_fn = ((sc.rqs_coupling_bwd, sc.rqs_coupling_vjp_plain)
+                        if bwd else (sc.rqs_coupling, sc.rqs_coupling_plain))
+        before = counter.cl_launches
+        got = fn(x, out, *cot, **kw)
+        ref = fn(x, out.contiguous(), *cot, **kw)
+        plain = plain_fn(x, out, *cot, **kw)
+        torch.cuda.synchronize()
+        same = same_bits(torch, got, ref)
+        err = max(float((g - p).abs().max()) for g, p in zip(got, plain))
+        line = (f"{name} {tag} inverse={kw['inverse']}: vs the NCHW kernel "
+                f"{'bit for bit' if same else 'NOT bit-identical'}; max |d| "
+                f"vs plain {err:.3e}")
+        ok = same and counter.cl_launches == before + 1 and all(
+            bool(torch.isfinite(g).all()) for g in got)
+        if not bwd:
+            print(f"{line} (tol {RQS_TOL})")
+            ok = ok and err <= RQS_TOL
+        else:
+            ratio, _, _, k, i = vjp_excess(got, plain, VJP_RTOL)
+            whole = err / max(1.0, *(float(p.abs().max()) for p in plain))
+            ref64 = sc.rqs_coupling_vjp_plain(
+                *(t.double() for t in (x, out, *cot)), **kw)
+            off = [abs(float(t[k].flatten()[i])
+                       - float(ref64[k].flatten()[i])) for t in (got, plain)]
+            print(f"{line}, max|d|/max(1,max|plain|) {whole:.3e} (tol "
+                  f"{VJP_ATOL}); outbar strides {got[1].stride()}; worst "
+                  f"|d|/(atol+{VJP_RTOL:g}|plain|) {ratio:.3e} "
+                  f"({('xbar', 'outbar')[k]}; there float64 puts the kernel "
+                  f"{off[0]:.3e} off, the plain version {off[1]:.3e})")
+            ok = ok and whole <= VJP_ATOL and got[1].stride() == out.stride()
+        if not ok:
+            raise AssertionError(f"{name} disagrees with the NCHW kernel or "
+                                 "its plain version, or launched another "
+                                 "kernel")
+        worst[name] = max(worst[name], err)
+        return got, plain
+
+    for lat in ((LAT[0], LAT[1] // 2), LAT):
+        for b, bwd in ((BATCH, False), (TRAIN_BATCH, True)):
+            out = torch.tensor(rng.standard_normal((b, *lat, 3 * m - 2)),
+                               dtype=torch.float32, device="cuda")
+            out = out.movedim(-1, 1)  # (B, 3m-2, *lat), channels-last
+            if (sc.coupling_layout(out),
+                    sc.coupling_layout(out.contiguous())) != (
+                        "channels_last", "nchw"):
+                raise AssertionError("coupling_layout misreads a layout")
+            cot = [torch.tensor(rng.standard_normal((b, *lat)),
+                                dtype=torch.float32, device="cuda")
+                   for _ in range(2)] if bwd else []
+            for extrap in (None, "linear"):
+                x_np = (rng.uniform(-3.6, 3.6, (b, *lat)) if extrap is None
+                        else rng.standard_normal((b, *lat)))
+                x = torch.tensor(x_np, dtype=torch.float32, device="cuda")
+                for inverse in (False, True):
+                    hold(x, out, cot, dict(
+                        xlim=(-4.0, 4.0), ylim=(-4.0, 4.0), left=extrap,
+                        right=extrap, inverse=inverse),
+                         f"S={math.prod(lat)} B={b} extrap={extrap}")
+            if lat != LAT:
+                kept[bwd] = (x, out, cot)
+
+    # check_coupling_at's inputs and gates, channels-last
+    crng = np.random.default_rng(COUPLING_AT_SEED)
+
+    def f32(shape):
+        return torch.tensor(crng.standard_normal(shape), dtype=torch.float32,
+                            device="cuda")
+
+    x, out = f32((BATCH, *LAT)), f32((BATCH, 22, *LAT))
+    out = out.contiguous(memory_format=torch.channels_last)
+    cot = [f32((TRAIN_BATCH, *LAT)), f32((TRAIN_BATCH, *LAT))]
+    kw = dict(xlim=(-4.0, 4.0), ylim=(-4.0, 4.0), left="linear",
+              right="linear")
+    for b in (BATCH, TRAIN_BATCH):
+        for inverse in (False, True):
+            hold(x[:b], out[:b], [], dict(kw, inverse=inverse),
+                 f"S={math.prod(LAT)} B={b} (check_coupling_at's inputs)")
+    for inverse in (False, True):
+        got, plain = hold(x[:TRAIN_BATCH], out[:TRAIN_BATCH], cot,
+                          dict(kw, inverse=inverse),
+                          f"S={math.prod(LAT)} B={TRAIN_BATCH} "
+                          "(check_coupling_at's inputs)")
+        medians = [float(w.abs().median()) for w in plain]
+        plant = tuple(g + 0.01 * med for g, med in zip(got, medians))
+        ratio = vjp_excess(got, plain, VJP_RTOL)[0]
+        planted = vjp_excess(plant, plain, VJP_RTOL)[0]
+        print(f"  there: worst |d|/(atol+{VJP_RTOL:g}|plain|) {ratio:.3e} "
+              f"(gated as check_coupling_at gates the NCHW kernel); a "
+              f"planted wrong adjoint {planted:.3e} (must exceed 1)")
+        if not (ratio <= 1.0 and planted > 1.0):
+            raise AssertionError("rqs_coupling_bwd_cl fails check_coupling_"
+                                 "at's gates on its inputs")
+
+    # other strides: a channels-last tensor with a gap between its sites
+    x, out, cot = kept[True]
+    wide = torch.zeros((*out.shape[:-1], 2 * out.shape[-1]),
+                       device="cuda").contiguous(
+                           memory_format=torch.channels_last)[..., ::2]
+    for what, call in (("rqs_coupling", lambda: sc.rqs_coupling(
+            x, wide, xlim=(-4.0, 4.0), ylim=(-4.0, 4.0))),
+                       ("rqs_coupling_bwd", lambda: sc.rqs_coupling_bwd(
+                           x, wide, *cot, xlim=(-4.0, 4.0),
+                           ylim=(-4.0, 4.0)))):
+        try:
+            call()
+        except ValueError as e:
+            print(f"{what} on strides {wide.stride()}: raises ({e})")
+        else:
+            raise AssertionError(f"{what} took an out with strides "
+                                 f"{wide.stride()}")
+    for name, replaces, src in (
+            ("rqs_coupling_cl", 121, "rqs_coupling.cu"),
+            ("rqs_coupling_bwd_cl", 133, "rqs_coupling_bwd.cu")):
+        kernels[name] = dict(
+            name=name, route="cuda", source=f"normflow__tpu_torch/csrc/{src}",
+            replaces=f"normflow__tpu/ops/kernels/spline_coupling.py:"
+                     f"{replaces}",
+            max_abs_err=worst[name], library_ms=None)
+    return kept
+
+
+def time_cl_kernels(torch, kernels, peaks, kept):
+    """Warm and cold times of the channels-last kernels at the flagship's
+    shapes, with linear tails (the forward at B = 1024, read cold as the
+    NCHW kernel is; the VJP at B = 512, the mean of forward and inverse),
+    each followed by the NCHW kernel on the same values
+    (``nchw_ms``, ``nchw_ms_cold``)."""
+    from normflow__tpu_torch.ops.kernels import spline_coupling as sc
+    from normflow__tpu_torch.tools.kernel_times import cold_ms, warm_ms
+
+    times = {}
+    for name, bwd in (("rqs_coupling_cl", False),
+                      ("rqs_coupling_bwd_cl", True)):
+        x, out, cot = kept[bwd]
+        nchw = out.contiguous()
+        fn, plain = ((sc.rqs_coupling_bwd, sc.rqs_coupling_vjp_plain) if bwd
+                     else (sc.rqs_coupling, sc.rqs_coupling_plain))
+        times[name] = {}
+        for what, inverse in (("forward", False), ("inverse", True)):
+            kw = dict(xlim=(-4.0, 4.0), ylim=(-4.0, 4.0), left="linear",
+                      right="linear", inverse=inverse)
+            t = times[name][what] = kernel_times(
+                name, lambda: fn(x, out, *cot, **kw),
+                lambda: plain(x, out, *cot, **kw))
+            twin = lambda: fn(x, nchw, *cot, **kw)  # noqa: E731
+            t["nchw_ms"], t["nchw_ms_cold"] = warm_ms(twin), cold_ms(twin)
+            print(f"{name} {what} at {tuple(out.shape)}: warm "
+                  f"{t['ms']:.5f} ms, cold {t['ms_cold']:.5f} ms; the NCHW "
+                  f"kernel on the same values right after: warm "
+                  f"{t['nchw_ms']:.5f} ms, cold {t['nchw_ms_cold']:.5f} ms")
+    report("rqs_coupling_cl", times["rqs_coupling_cl"]["forward"],
+           tuple(kept[False][1].shape), peaks, kernels, "cold")
+    bwd = times["rqs_coupling_bwd_cl"]
+    report("rqs_coupling_bwd_cl",
+           {k: (bwd["forward"][k] + bwd["inverse"][k]) / 2
+            for k in bwd["forward"]}, tuple(kept[True][1].shape), peaks,
+           kernels, "cold")
+    for name, t in times.items():
+        kernels[name]["variants"] = t
+
+
+def hold_cl_on_path(torch, kernels, arm, x):
+    """:func:`hold_on_path` on the channels-last route: the first
+    coupling's active partition and its conditioner's output as the route
+    hands it over (channels-last, no copy), kernels 1 and 3 against their
+    plain versions (``RQS_TOL``, ``PHI4_REL_TOL``)."""
+    from normflow__tpu_torch.ops.kernels import phi4, spline_coupling as sc
+
+    net = arm.net_
+    cpl = net[2]
+    with torch.no_grad():
+        h = net[1].forward(*net[0].forward(x))[0]
+        x_act, x_frz = cpl.mask.split(h)[:2]
+        out = cpl.nets[0](cpl._net_input(x_frz))
+        y = net.forward(x)[0]
+    if out.dtype != torch.float32 or \
+            sc.coupling_layout(out) != "channels_last":
+        raise AssertionError(f"the conditioner returned {out.dtype}, "
+                             f"strides {out.stride()}")
+    kw = dict(xlim=cpl.xlim, ylim=cpl.ylim, left="linear", right="linear")
+    got = sc.rqs_coupling(x_act, out, **kw)
+    want = sc.rqs_coupling_plain(x_act, out, **kw)
+    w = arm.action.get_coef(2)
+    s_got, s_want = phi4.phi4_action(y, *w), phi4.phi4_action_plain(y, *w)
+    torch.cuda.synchronize()
+    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    diff = (s_got - s_want).abs()
+    rel = float((diff / s_want.abs().clamp(min=1.0)).max())
+    print(f"{out.dtype} path's inputs via {cpl.nets[0].net.compute_dtype} "
+          f"conditioners: rqs_coupling_cl {tuple(out.shape)} strides "
+          f"{out.stride()} vs plain max |d| {err:.3e} (tol {RQS_TOL}); "
+          f"phi4_action vs plain max rel {rel:.3e} (tol {PHI4_REL_TOL})")
+    if not (err <= RQS_TOL and rel <= PHI4_REL_TOL):
+        raise AssertionError("a kernel disagrees with its plain version at "
+                             "the channels-last bf16 path's inputs")
+    kernels["rqs_coupling_cl"]["max_abs_err"] = max(
+        kernels["rqs_coupling_cl"]["max_abs_err"], err)
+
+
+def layout_profile(fn, what, reps=4):
+    """The conv kernels' share of ``fn``'s device time, the ms per call of
+    the transposes between NCHW and NHWC (:data:`TRANSPOSE_RE`) and of the
+    eight kernels that take the most, printed; ``fn`` run ``reps`` times in
+    a profiled window."""
+    dev = device_profile(fn, reps)[1]
+    busy = sum(us for _, us in dev)
+    conv = sum(us for n, us in dev if CONV_RE.search(n))
+    tr = [(n, us) for n, us in dev if TRANSPOSE_RE.search(n)]
+    print(f"{what}: device time {busy / reps / 1e3:.4f} ms, conv kernels "
+          f"{conv / reps / 1e3:.4f} ms (share {conv / busy:.4f}), "
+          f"{len(tr) // reps} NCHW<->NHWC transposes "
+          f"{sum(us for _, us in tr) / reps / 1e3:.4f} ms per call")
+    by_name: dict = {}
+    for n, us in dev:
+        count, total = by_name.get(n, (0, 0.0))
+        by_name[n] = (count + 1, total + us)
+    for n, (count, us) in sorted(by_name.items(),
+                                 key=lambda kv: -kv[1][1])[:8]:
+        print(f"  {us / reps / 1e3:9.4f} ms {count // reps:4d}x "
+              f"{n[:100]}")
+
+
+def run_channels_last(torch, kernels, peaks, card, model4, step_rng):
+    """The channels-last route (``coupling_backend="pallas_reg"``) at the
+    flagship's widths, on a numpy stream of its own, after every other
+    phase: the kernels (:func:`check_cl_kernels`); the sampling flagship
+    (seeded perturbed weights) against a float64 CPU copy, its
+    ``logqp_stream(32, 1024)`` profiled with the counters set to 0 just
+    before (4 channels-last couplings and 1 tiled action per batch, no
+    NCHW coupling), 3 replayed batches bit for bit with their eager bodies
+    (cuDNN's deterministic algorithms), replays alone by name,
+    ``mcmc.sample__``; one path-gradient step against a float64 CPU copy
+    on the inputs of phase 5's (``model4``, phase 4's flagship, on the
+    route, and the draw of ``step_rng``, the numpy stream's state before
+    phase 5 took it), ``CL_STEPS`` steps of ``model.fit`` profiled
+    likewise (8 / 8 / 1 / 1
+    per step, the VJPs channels-last), 10 replayed steps against 10 eager
+    bodies bit for bit under cuDNN's deterministic algorithms (and within
+    ``REPLAY_*``) and replays alone by name; the bf16 copy on the
+    route (kernels at its inputs, replays by name); then, printed and not
+    gated, raw samples/s against the NCHW route in turns, and where a
+    replayed batch's time goes (the conv kernels, cuDNN's layout
+    transposes, the costliest kernels), for both routes in float32 and
+    bf16; and the kernels' times."""
+    from normflow__tpu_torch import Model, calc_ess
+    from normflow__tpu_torch.tools.kernel_times import device_launches
+    from normflow__tpu_torch.zoo import (build_phi4_model,
+                                         with_conv_compute_dtype,
+                                         with_coupling_backend)
+
+    rng = np.random.default_rng(CL_SEED)
+    kept = check_cl_kernels(torch, kernels, rng)
+
+    model = build_phi4_model(LAT, seed=0, coupling_backend="pallas_reg")
+    perturb_(model.net_, rng)
+    cpu = build_phi4_model(LAT, seed=0, device="cpu", dtype=torch.float64,
+                           coupling_backend="pallas_reg")
+    cpu.net_.load_state_dict({k: v.double().cpu() for k, v in
+                              model.net_.state_dict().items()})
+    x = rng.standard_normal((BATCH, *LAT))
+    with torch.no_grad():
+        xg = torch.tensor(x, dtype=torch.float32, device="cuda")
+        logq = (model.prior.log_prob(xg) - model.net_.forward(xg)[1]).cpu()
+        x64 = torch.tensor(x, dtype=torch.float64)
+        want = cpu.prior.log_prob(x64) - cpu.net_.forward(x64)[1]
+    rel = float(((logq.double() - want).abs() / want.abs().clamp(min=1.0))
+                .max())
+    print(f"channels-last flagship, GPU vs a float64 CPU copy: max rel logq "
+          f"{rel:.3e} (tol {LOGQ_REL_TOL})")
+    if not rel <= LOGQ_REL_TOL:
+        raise AssertionError("the channels-last flagship disagrees with its "
+                             "float64 CPU copy")
+
+    per_batch = {"rqs_coupling_cl": len(model.net_[2].nets), "phi4_action": 1}
+    reset_cl_counts()
+    device, logqp = device_launches(
+        lambda: model.posterior.logqp_stream(N_BATCHES, BATCH))
+    gate_cl_path(kernels, "channels-last sample", per_batch, N_BATCHES,
+                 device)
+    if logqp.shape != (N_BATCHES * BATCH,) or not bool(
+            torch.isfinite(logqp).all()):
+        raise AssertionError("the channels-last logqp stream is not finite "
+                             "or has the wrong shape")
+    print(f"channels-last logqp_stream({N_BATCHES}, {BATCH}): ESS "
+          f"{float(calc_ess(logqp)):.5f} (perturbed weights)")
+    post = model.posterior
+    flag = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    post._graphs.clear()  # captured anew with these algorithms
+    try:
+        model.seed(21)
+        got = post.logqp_stream(3, BATCH)
+        model.seed(21)
+        want = torch.cat([post.logqp_batch(BATCH, model.generator)
+                          for _ in range(3)])
+    finally:
+        torch.backends.cudnn.deterministic = flag
+        post._graphs.clear()
+    same = same_bits(torch, (got,), (want,))
+    print(f"channels-last replayed vs eager batch, 3 x {BATCH}, cuDNN "
+          f"deterministic: {'bit for bit' if same else 'NOT bit-identical'}")
+    if not same:
+        raise AssertionError("a channels-last replayed batch differs from "
+                             "its eager body")
+    post.logqp_stream(1, BATCH)  # captured outside the profiled window
+    gate_replays(cl_counters(), kernels, "channels-last sample", per_batch,
+                 4, lambda: post.logqp_stream(4, BATCH),
+                 tiled={"rqs_coupling_cl": False, "phi4_action": True})
+    y, lq, lp = model.mcmc.sample__(BATCH)
+    torch.cuda.synchronize()
+    if y.shape != (BATCH, *LAT) or not all(
+            bool(torch.isfinite(t).all()) for t in (y, lq, lp)):
+        raise AssertionError("channels-last MCMC output not finite or wrong "
+                             "shape")
+    print(f"channels-last mcmc.sample__({BATCH}): accept rate "
+          f"{model.mcmc.history.accept_rate}")
+
+    check_train_grads(torch, Model(
+        net_=with_coupling_backend(model4.net_, "pallas_reg"),
+        prior=model4.prior, action=model4.action, seed=0), step_rng,
+                      backend="pallas_reg")
+    trained = build_phi4_model(LAT, seed=0, coupling_backend="pallas_reg")
+    n = len(trained.net_[2].nets)
+    per_step = {"rqs_coupling_cl": 2 * n, "rqs_coupling_bwd_cl": 2 * n,
+                "phi4_action": 1, "phi4_action_grad": 1}
+    reset_cl_counts()
+    device, hist = device_launches(lambda: fit_protocol(trained, CL_STEPS))
+    gate_cl_path(kernels, "channels-last train", per_step, CL_STEPS, device)
+    loss = np.asarray(hist["loss"])
+    print(f"channels-last model.fit, {CL_STEPS} steps: loss {loss[0]:.3f} "
+          f"-> {loss[-1]:.3f}")
+    if loss.shape != (CL_STEPS,) or not np.isfinite(loss).all():
+        raise AssertionError("channels-last training loss not finite")
+    # cuDNN's NHWC float32 weight gradients sum in another order from run to
+    # run (losses 1.1e-05 apart over 10 steps on some cards): bits under its
+    # deterministic algorithms, as phases 13-20 hold theirs
+    replayed_vs_eager_steps(torch, trained, what="channels-last: ",
+                            deterministic=True)
+    trained.fit.step()  # captured anew outside the profiled window
+    gate_replays(cl_counters(), kernels, "channels-last train", per_step, 4,
+                 lambda: [trained.fit.step() for _ in range(4)],
+                 tiled={k: not k.endswith("_cl") for k in per_step})
+
+    arms = {"float32 NCHW": Model(
+                net_=with_coupling_backend(model.net_, "xla"),
+                prior=model.prior, action=model.action, seed=0),
+            "float32 channels-last": model}
+    for what in ("NCHW", "channels-last"):
+        arms[f"bf16 {what}"] = Model(
+            net_=with_conv_compute_dtype(arms[f"float32 {what}"].net_,
+                                         torch.bfloat16),
+            prior=model.prior, action=model.action, seed=0)
+    bf16 = arms["bf16 channels-last"]
+    xd = torch.tensor(rng.standard_normal((BATCH, *LAT)),
+                      dtype=torch.float32, device="cuda")
+    hold_cl_on_path(torch, kernels, bf16, xd)
+    bf16.posterior.logqp_stream(1, BATCH)
+    gate_replays(cl_counters(), kernels, "channels-last bf16 sample",
+                 per_batch, 4, lambda: bf16.posterior.logqp_stream(4, BATCH),
+                 tiled={"rqs_coupling_cl": False, "phi4_action": True})
+    in_turns(torch, card, "NCHW vs channels-last conditioners, sampling, "
+             "graphed", "raw samples/s", N_BATCHES * BATCH,
+             {k: (lambda m=m: m.posterior.logqp_stream(N_BATCHES, BATCH))
+              for k, m in arms.items()})
+    for what, m in arms.items():
+        layout_profile(lambda m=m: m.posterior.logqp_stream(1, BATCH),
+                       f"one replayed {what} sampled batch of {BATCH}")
+    time_cl_kernels(torch, kernels, peaks, kept)
+
+
 def profile_step(fn, what, reps=4):
     """Where the device time of ``fn`` goes: busy, wall, idle share and the
     top kernels; returns the busy seconds per call."""
@@ -3884,6 +4374,22 @@ def profile_step(fn, what, reps=4):
         print(f"  {us / reps / 1e3:9.4f} ms {us / 1e6 / busy:7.2%}  "
               f"{kname[:90]}")
     return busy / reps
+
+
+def print_windows(card):
+    """What the profiled windows so far lost at their edges
+    (``kernel_times.device_window``)."""
+    from normflow__tpu_torch.tools.kernel_times import (CLOSE_LOSSES,
+                                                         HEAD_LOSSES,
+                                                         HEAD_NODES,
+                                                         TAIL_LOSSES,
+                                                         TAIL_NODES)
+    print(f"profiled windows: {len(HEAD_LOSSES)}, the most head activities "
+          f"one lost {max(HEAD_LOSSES, default=0)} of {HEAD_NODES}; "
+          f"{sum(n > 0 for n in TAIL_LOSSES)} lost tail activities, the most "
+          f"{max(TAIL_LOSSES, default=0)} of {TAIL_NODES} (the last window: "
+          f"{TAIL_LOSSES[-1:]}); {len(CLOSE_LOSSES)} lost the closing marker "
+          f"on {card}", flush=True)
 
 
 def main() -> int:
@@ -3929,7 +4435,11 @@ def main() -> int:
 
     def phase(name, fn, *args):
         t = time.perf_counter()
-        out = fn(*args)
+        try:
+            out = fn(*args)
+        except BaseException:
+            print_windows(card)
+            raise
         phases.append((name, time.perf_counter() - t))
         return out
 
@@ -3944,7 +4454,8 @@ def main() -> int:
               phase("check accept_scan", check_accept_scan, torch, kernels,
                     peaks),
               phase("check the coupling kernels at S = 1024",
-                    check_coupling_at, torch, kernels, peaks, LAT, 20261018),
+                    check_coupling_at, torch, kernels, peaks, LAT,
+                    COUPLING_AT_SEED),
               phase("check the phi4 kernels at (128, 8, 8)",
                     check_phi4_general, torch, kernels, peaks),
               phase("check the slab kernels", check_slab_kernels, torch,
@@ -3959,6 +4470,8 @@ def main() -> int:
     phase("parallel chains path", run_parallel_path, torch, kernels, model,
           card)
     phase("blocked sampler", run_blocked, torch, kernels, model)
+    # phase 22 holds the channels-last route's step on this step's inputs
+    step_rng = copy.deepcopy(rng)
     phase("GPU vs CPU training step", check_train_grads, torch, model, rng)
     trained = phase("training path", run_training_path, torch, kernels,
                     card)
@@ -3995,13 +4508,10 @@ def main() -> int:
     phase("stochastic log-det", run_stochastic, torch, kernels, card)
     phase("config 4", run_config4, torch, kernels, peaks, card)
     phase("space sharding", run_space, torch, kernels, card)
+    phase("channels-last route", run_channels_last, torch, kernels, peaks,
+          card, model, step_rng)
     print("phase seconds: " + ", ".join(f"{n} {t:.1f}" for n, t in phases))
-    from normflow__tpu_torch.tools.kernel_times import (CLOSE_LOSSES,
-                                                         HEAD_LOSSES,
-                                                         HEAD_NODES)
-    print(f"profiled windows: {len(HEAD_LOSSES)}, the most head activities "
-          f"one lost {max(HEAD_LOSSES, default=0)} of {HEAD_NODES}; "
-          f"{len(CLOSE_LOSSES)} lost the closing marker on {card}")
+    print_windows(card)
 
     for kname, rec in kernels.items():
         fns = DEVICE_FUNCTIONS[kname]

@@ -14,12 +14,16 @@ a small check on the CPU):
    gradient, gradient-norm clip 25, ``--steps_per_call`` steps per
    segment) through ``model.fit``, which replays one captured training
    step;
-3. the sampling arms, root ``bench.py``'s ``xla`` / ``xla_bf16``
-   (l.289-352): ``cuda``, the trained flow, and ``cuda_bf16``, the same
-   weights with bf16 conditioners (``zoo.with_conv_compute_dtype``), each
-   on a ``Model`` of its own so that each keeps its captured batches; on
-   the CPU the one arm ``cpu`` (root ``bench.py`` runs bf16 on its
-   accelerator only);
+3. the sampling arms (:func:`sampling_arms`), root ``bench.py``'s
+   ``xla`` / ``xla_bf16`` / ``pallas_reg`` (l.289-352): ``cuda``, the
+   trained flow, ``cuda_bf16``, the same weights with bf16 conditioners
+   (``zoo.with_conv_compute_dtype``), and ``cuda_reg``, the same weights
+   with float32 conditioners on the channels-last route
+   (``zoo.with_coupling_backend(net_, "pallas_reg")``), each on a
+   ``Model`` of its own so that each keeps its captured batches; on the
+   CPU the one arm ``cpu`` (root ``bench.py`` runs its other arms on its
+   accelerator only); root ``bench.py``'s ``pallas`` arm, the NCHW layout
+   of the same kernels, is the ``cuda`` arm's route already;
 4. pick the sampling batch from 128/256/512/1024 by raw rate at the
    official ``--sample_iters`` on the bf16 arm where there is one
    (:func:`autotune_batch`), unless ``--batch`` pins it;
@@ -42,9 +46,8 @@ half (:func:`measure`), which takes any trained flagship:
 ``tools/protocol_run.py`` trains it over several calls from snapshots and
 then measures it.
 
-It prints one JSON line with root ``bench.py``'s keys (the Pallas arms
-stay out: the port has one route per kernel; no roofline, no TPU probe,
-no ``--rng_impl``), plus
+It prints one JSON line with root ``bench.py``'s keys (no roofline, no
+TPU probe, no ``--rng_impl``), plus
 ``platform``, the card's name and power limit as ``nvidia-smi`` gives
 them, ``train_steps_per_s`` (``model.fit``'s steps over its wall time,
 the capture included) and the idle shares.  It keeps its own copies of
@@ -66,11 +69,12 @@ from .mcmc.metropolis import estimate_accept_rate
 from .ops.stats import calc_ess
 from .training.model import Model
 from .training.optim import cosine_decay_schedule
-from .zoo import build_phi4_model, with_conv_compute_dtype
+from .zoo import (build_phi4_model, with_conv_compute_dtype,
+                  with_coupling_backend)
 
 __all__ = ["bootstrap_ess_err", "autotune_batch", "rep_seeds", "time_reps",
            "idle_share", "build_flagship", "protocol_fit", "train",
-           "measure", "main"]
+           "sampling_arms", "measure", "main"]
 
 # The reference implementation's effective samples/s for the identical
 # 32x32 architecture on a CPU host, as root bench.py records it
@@ -246,6 +250,25 @@ def train(args):
                                args.train_epochs)
 
 
+def sampling_arms(model, on_card, seed):
+    """The sampling arms of a trained flagship ``model``, by name: on the
+    card ``cuda`` (``model`` itself), ``cuda_bf16`` and ``cuda_reg``, each
+    copy a ``Model`` of its own on ``model``'s weights, seeded with
+    ``seed``; on the CPU ``cpu`` alone."""
+    if not on_card:
+        return {"cpu": model}
+
+    def arm(net_):
+        return Model(net_=net_, prior=model.prior, action=model.action,
+                     seed=seed)
+
+    return {"cuda": model,
+            "cuda_bf16": arm(with_conv_compute_dtype(model.net_,
+                                                     torch.bfloat16)),
+            "cuda_reg": arm(with_coupling_backend(model.net_,
+                                                  "pallas_reg"))}
+
+
 def measure(model, args, train_time):
     """The measuring half on a trained ``model``: the sampling arms, the
     autotuned batch (unless ``--batch`` pins it), the timed repetitions,
@@ -253,11 +276,7 @@ def measure(model, args, train_time):
     the JSON record, which reports ``--train_epochs`` steps trained in
     ``train_time`` seconds."""
     on_card = args.device == "cuda"
-    arms = {"cuda" if on_card else "cpu": model}
-    if on_card:
-        arms["cuda_bf16"] = Model(
-            net_=with_conv_compute_dtype(model.net_, torch.bfloat16),
-            prior=model.prior, action=model.action, seed=args.seed)
+    arms = sampling_arms(model, on_card, args.seed)
 
     batch, batch_table = args.batch, None
     if batch == 0:

@@ -26,7 +26,7 @@ __device__ __forceinline__ float softplus_log2(float w) {
 
 // Where a kernel reads the conditioner's values: global memory through the
 // read-only cache (the per-site kernels), or a shared-memory stage (the
-// tiled kernels).
+// tiled and the channels-last kernels).
 struct FromGlobal {
   static __device__ __forceinline__ float at(const float* p) {
     return __ldg(p);
@@ -67,19 +67,19 @@ __device__ __forceinline__ void coords(const float* __restrict__ w,
 }
 
 // All K = M + LEFT + RIGHT knots of one site; `o` points at channel 0 of
-// the site, channels `S` apart.
-template <int M, bool LEFT, bool RIGHT>
+// the site, channels `S` apart, read through `From`.
+template <int M, bool LEFT, bool RIGHT, typename From = FromGlobal>
 __device__ __forceinline__ void knots(const float* __restrict__ o,
                                       long long S, float xlo, float xw,
                                       float ylo, float yw, float* kx,
                                       float* ky, float* kd) {
   constexpr int L = LEFT ? 1 : 0;
   constexpr int K = M + L + (RIGHT ? 1 : 0);
-  coords<M>(o, S, xlo, xw, kx + L);
-  coords<M>(o + (long long)(M - 1) * S, S, ylo, yw, ky + L);
+  coords<M, From>(o, S, xlo, xw, kx + L);
+  coords<M, From>(o + (long long)(M - 1) * S, S, ylo, yw, ky + L);
 #pragma unroll
   for (int j = 0; j < M; ++j)
-    kd[L + j] = softplus_log2(__ldg(o + (long long)(2 * (M - 1) + j) * S));
+    kd[L + j] = softplus_log2(From::at(o + (long long)(2 * (M - 1) + j) * S));
 
   // linear boundary knots (ops.spline.augment_knots, 'linear')
   if (LEFT) {

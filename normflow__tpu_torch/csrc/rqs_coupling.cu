@@ -20,8 +20,8 @@
 // derivative (an expf, a log1pf and a division), half a dozen divisions
 // and a logf.  Computing all m derivatives, as the per-site kernel does,
 // that is about a thousand SASS instructions per site, whose issue alone
-// takes as long as the bytes (0.0153 ms).  Two variants, chosen by the
-// wrapper by shape and alignment:
+// takes as long as the bytes (0.0153 ms).  Two variants for the NCHW
+// layout, (B, 3m-2, S), chosen by the wrapper by shape and alignment:
 // - the tiled kernel (rqs_coupling_tiled_f32, the path's): persistent
 //   blocks stage tiles of kTileSites sites through a ring of shared-memory
 //   stages with bulk copies (bulk_copy.cuh), the next tiles arriving while
@@ -34,10 +34,15 @@
 //   off 16 bytes, which the bulk copies cannot take: one thread per
 //   (sample, site), per-channel loads coalesced across neighbouring
 //   threads, no shared memory.
-// In both, m is a template parameter and the knot loops are unrolled, so
-// the knot arrays live in registers and the segment "gather" is a chain of
-// selects with static indices (as the Pallas kernel unrolled the knot
-// axis).  The two return the same bits.
+// and one for the channels-last layout, (B, S, 3m-2), a conv's NHWC output
+// as the Pallas kernel's `channels_last=True` reads it (the `pallas_reg`
+// route), which the wrapper takes for a channels-last `out`
+// (rqs_coupling_cl_f32): the per-site kernel with a site's channels one
+// contiguous run.
+// In all three, m is a template parameter and the knot loops are unrolled,
+// so the knot arrays live in registers and the segment "gather" is a chain
+// of selects with static indices (as the Pallas kernel unrolled the knot
+// axis).  The three return the same bits.
 
 #include "bulk_copy.cuh"
 #include "rqs_common.cuh"
@@ -70,6 +75,22 @@ __device__ __forceinline__ void rq_map(float xv, const Segment& sg, float& y,
   lg = INVERSE ? -l : l;
 }
 
+// Site i of a per-site kernel: its 3m-2 conditioner values start at `o`,
+// `cs` floats apart (S in NCHW, 1 channels-last).
+template <int M, bool LEFT, bool RIGHT, bool INVERSE>
+__device__ __forceinline__ void site_map(const float* __restrict__ x,
+                                         const float* __restrict__ o,
+                                         long long cs, long long i,
+                                         float* __restrict__ y,
+                                         float* __restrict__ logg, float xlo,
+                                         float xw, float ylo, float yw) {
+  constexpr int K = M + (LEFT ? 1 : 0) + (RIGHT ? 1 : 0);
+  float kx[K], ky[K], kd[K];
+  knots<M, LEFT, RIGHT>(o, cs, xlo, xw, ylo, yw, kx, ky, kd);
+  const float xv = __ldg(x + i);
+  rq_map<INVERSE>(xv, segment<K, INVERSE>(xv, kx, ky, kd), y[i], logg[i]);
+}
+
 template <int M, bool LEFT, bool RIGHT, bool INVERSE>
 __global__ void __launch_bounds__(256)
 rqs_coupling_kernel(const float* __restrict__ x, const float* __restrict__ out,
@@ -77,19 +98,30 @@ rqs_coupling_kernel(const float* __restrict__ x, const float* __restrict__ out,
                     long long n_sites, long long S, float xlo, float xw,
                     float ylo, float yw) {
   constexpr int K3 = 3 * M - 2;
-  constexpr int L = LEFT ? 1 : 0;
-  constexpr int K = M + L + (RIGHT ? 1 : 0);
-
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n_sites) return;
   const long long b = i / S;
   const long long s = i - b * S;
-  const float* o = out + b * (long long)K3 * S + s;
+  site_map<M, LEFT, RIGHT, INVERSE>(x, out + b * (long long)K3 * S + s, S, i,
+                                    y, logg, xlo, xw, ylo, yw);
+}
 
-  float kx[K], ky[K], kd[K];
-  knots<M, LEFT, RIGHT>(o, S, xlo, xw, ylo, yw, kx, ky, kd);
-  const float xv = __ldg(x + i);
-  rq_map<INVERSE>(xv, segment<K, INVERSE>(xv, kx, ky, kd), y[i], logg[i]);
+// The channels-last kernel: `out` is (B, S, 3m-2), a site's values one
+// contiguous run.  The per-site kernel's arithmetic on the same values, so
+// the same bits.  A warp's loads are 4 bytes at a stride of 4(3m-2) bytes:
+// each line comes from memory once, then from L1 (staging a block's run
+// through shared memory measured slower on an H100: PERF.md, PR 14).
+template <int M, bool LEFT, bool RIGHT, bool INVERSE>
+__global__ void __launch_bounds__(256)
+rqs_coupling_cl_kernel(const float* __restrict__ x,
+                       const float* __restrict__ out, float* __restrict__ y,
+                       float* __restrict__ logg, long long n_sites,
+                       float xlo, float xw, float ylo, float yw) {
+  constexpr int K3 = 3 * M - 2;
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_sites) return;
+  site_map<M, LEFT, RIGHT, INVERSE>(x, out + i * K3, 1, i, y, logg, xlo, xw,
+                                    ylo, yw);
 }
 
 // The arguments of both C entry points.
@@ -109,6 +141,17 @@ int launch_sites(Inst<M, LEFT, RIGHT, INVERSE>, const Args& a) {
   rqs_coupling_kernel<M, LEFT, RIGHT, INVERSE>
       <<<(unsigned int)blocks, threads, 0, a.stream>>>(
           a.x, a.out, a.y, a.logg, n, a.S, a.xlo, a.xw, a.ylo, a.yw);
+  return (int)cudaGetLastError();
+}
+
+template <int M, bool LEFT, bool RIGHT, bool INVERSE>
+int launch_cl(Inst<M, LEFT, RIGHT, INVERSE>, const Args& a) {
+  const int threads = 256;
+  const long long n = a.B * a.S;
+  const long long blocks = (n + threads - 1) / threads;
+  rqs_coupling_cl_kernel<M, LEFT, RIGHT, INVERSE>
+      <<<(unsigned int)blocks, threads, 0, a.stream>>>(
+          a.x, a.out, a.y, a.logg, n, a.xlo, a.xw, a.ylo, a.yw);
   return (int)cudaGetLastError();
 }
 
@@ -343,4 +386,19 @@ extern "C" int rqs_coupling_tiled_f32(const void* x, const void* out, void* y,
   const Args a = args_of(x, out, y, logg, B, S, xlo, xw, ylo, yw, stream);
   return visit(m, left_linear, right_linear, inverse,
                [&](auto inst) { return launch_tiled(inst, a); });
+}
+
+// The channels-last kernel: x, y and logg (B, S), out (B, S, 3m-2), the
+// layout of a conv's channels-last output; all float32, contiguous.
+// Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue for
+// a knot count without a template instance.
+extern "C" int rqs_coupling_cl_f32(const void* x, const void* out, void* y,
+                                   void* logg, long long B, long long S,
+                                   int m, float xlo, float xw, float ylo,
+                                   float yw, int left_linear,
+                                   int right_linear, int inverse,
+                                   void* stream) {
+  const Args a = args_of(x, out, y, logg, B, S, xlo, xw, ylo, yw, stream);
+  return visit(m, left_linear, right_linear, inverse,
+               [&](auto inst) { return launch_cl(inst, a); });
 }

@@ -40,9 +40,15 @@
 //   neighbouring threads, no shared memory.  Its knot arrays live only
 //   until the segment is gathered; the coordinate weights are read again
 //   for the transposition rather than held.
-// In both, m is a template parameter with unrolled loops so the knot arrays
-// and the adjoint selects use static indices and stay in registers, and
-// each site owns its outbar (no atomics).  The two compute the same
+// For a channels-last `out`, (B, S, 3m-2) (the `pallas_reg` route, the
+// Pallas kernel's `channels_last=True`), a third variant
+// (rqs_coupling_bwd_cl_f32), outbar in the same layout: a block's sites
+// are one contiguous run of out and of outbar, staged through shared memory
+// by coalesced loads and stores, each site's VJP taken as the per-site
+// kernel takes it.
+// In all three, m is a template parameter with unrolled loops so the knot
+// arrays and the adjoint selects use static indices and stay in registers,
+// and each site owns its outbar (no atomics).  The three compute the same
 // float32 operations in the same order and return the same bits.
 
 #include "bulk_copy.cuh"
@@ -105,18 +111,19 @@ __device__ __forceinline__ float knot_adj(int j, int idx, float b0,
 }
 
 // Transpose lo + width * c_j through the softmax + cumsum of the M-1
-// weights at `w` (stride `stride`); writes their adjoints to `wb`.
-template <int M, bool LEFT, bool RIGHT>
+// weights at `w` (stride `stride`, read through `From`); writes their
+// adjoints to `wb`.
+template <int M, bool LEFT, bool RIGHT, typename From = FromGlobal>
 __device__ __forceinline__ void coords_adjoint(const float* __restrict__ w,
                                                float* __restrict__ wb,
                                                long long stride, float width,
                                                int idx, float b0, float b1) {
   float e[M - 1];
-  float mx = __ldg(w);
+  float mx = From::at(w);
   e[0] = mx;
 #pragma unroll
   for (int j = 1; j < M - 1; ++j) {
-    e[j] = __ldg(w + j * stride);
+    e[j] = From::at(w + j * stride);
     mx = fmaxf(mx, e[j]);
   }
   float tot = 0.0f;
@@ -143,31 +150,23 @@ __device__ __forceinline__ void coords_adjoint(const float* __restrict__ w,
   }
 }
 
-template <int M, bool LEFT, bool RIGHT, bool INVERSE>
-__global__ void __launch_bounds__(256)
-rqs_coupling_bwd_kernel(const float* __restrict__ x,
-                        const float* __restrict__ out,
-                        const float* __restrict__ ybar,
-                        const float* __restrict__ loggbar,
-                        float* __restrict__ xbar, float* __restrict__ outbar,
-                        long long n_sites, long long S, float xlo, float xw,
-                        float ylo, float yw) {
-  constexpr int K3 = 3 * M - 2;
+// Site i of a per-site kernel: its 3m-2 values of out start at `o` and of
+// outbar at `ob`, `S` floats apart (S in NCHW, 1 in a channels-last
+// stage), `o` read through `From`.
+template <int M, bool LEFT, bool RIGHT, bool INVERSE,
+          typename From = FromGlobal>
+__device__ __forceinline__ void site_vjp(
+    const float* __restrict__ x, const float* __restrict__ o,
+    const float* __restrict__ ybar, const float* __restrict__ loggbar,
+    float* __restrict__ xbar, float* __restrict__ ob, long long S,
+    long long i, float xlo, float xw, float ylo, float yw) {
   constexpr int K = M + (LEFT ? 1 : 0) + (RIGHT ? 1 : 0);
-
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_sites) return;
-  const long long b = i / S;
-  const long long s = i - b * S;
-  const long long site = b * (long long)K3 * S + s;
-  const float* o = out + site;
-  float* ob = outbar + site;
 
   const float xv = __ldg(x + i);
   Segment sg;
   {
     float kx[K], ky[K], kd[K];
-    knots<M, LEFT, RIGHT>(o, S, xlo, xw, ylo, yw, kx, ky, kd);
+    knots<M, LEFT, RIGHT, From>(o, S, xlo, xw, ylo, yw, kx, ky, kd);
     sg = segment<K, INVERSE>(xv, kx, ky, kd);
   }
   const int idx = sg.idx;
@@ -216,10 +215,10 @@ rqs_coupling_bwd_kernel(const float* __restrict__ x,
   const float y1b = dyb;
   const float y0b = a.y0 - dyb;
 
-  coords_adjoint<M, LEFT, RIGHT>(o, ob, S, xw, idx, x0b, x1b);
-  coords_adjoint<M, LEFT, RIGHT>(o + (long long)(M - 1) * S,
-                                 ob + (long long)(M - 1) * S, S, yw, idx, y0b,
-                                 y1b);
+  coords_adjoint<M, LEFT, RIGHT, From>(o, ob, S, xw, idx, x0b, x1b);
+  coords_adjoint<M, LEFT, RIGHT, From>(o + (long long)(M - 1) * S,
+                                       ob + (long long)(M - 1) * S, S, yw,
+                                       idx, y0b, y1b);
   // derivatives: kd = softplus_log2(w), dkd/dw = sigmoid(w ln2); the
   // boundary y knots ky[0] - kd[0] and ky[-1] + kd[-1] add -y0b / +y1b
 #pragma unroll
@@ -228,9 +227,65 @@ rqs_coupling_bwd_kernel(const float* __restrict__ x,
     if (LEFT && j == 0) kdb += idx == 0 ? -y0b : 0.0f;
     if (RIGHT && j == M - 1) kdb += idx == K - 2 ? y1b : 0.0f;
     const long long c = (long long)(2 * (M - 1) + j) * S;
-    const float z = __ldg(o + c) * kLn2;
+    const float z = From::at(o + c) * kLn2;
     ob[c] = kdb * (1.0f / (1.0f + expf(-z)));
   }
+}
+
+template <int M, bool LEFT, bool RIGHT, bool INVERSE>
+__global__ void __launch_bounds__(256)
+rqs_coupling_bwd_kernel(const float* __restrict__ x,
+                        const float* __restrict__ out,
+                        const float* __restrict__ ybar,
+                        const float* __restrict__ loggbar,
+                        float* __restrict__ xbar, float* __restrict__ outbar,
+                        long long n_sites, long long S, float xlo, float xw,
+                        float ylo, float yw) {
+  constexpr int K3 = 3 * M - 2;
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_sites) return;
+  const long long b = i / S;
+  const long long s = i - b * S;
+  const long long site = b * (long long)K3 * S + s;
+  site_vjp<M, LEFT, RIGHT, INVERSE>(x, out + site, ybar, loggbar, xbar,
+                                    outbar + site, S, i, xlo, xw, ylo, yw);
+}
+
+// The channels-last kernel: out and outbar are (B, S, 3m-2), so the
+// kClSites sites of a block are one contiguous run of kClSites (3m-2)
+// floats in each.  The block copies out's run into a shared-memory stage
+// with coalesced loads; each thread takes its site's VJP from its column
+// (stride 1) into the same column of a second stage; the block stores that
+// stage to outbar with coalesced stores.  The per-site kernel's arithmetic
+// on the same values, so the same bits.
+constexpr int kClSites = 128;  // sites per block, one thread each
+
+template <int M, bool LEFT, bool RIGHT, bool INVERSE>
+__global__ void __launch_bounds__(kClSites)
+rqs_coupling_bwd_cl_kernel(const float* __restrict__ x,
+                           const float* __restrict__ out,
+                           const float* __restrict__ ybar,
+                           const float* __restrict__ loggbar,
+                           float* __restrict__ xbar,
+                           float* __restrict__ outbar, long long n_sites,
+                           float xlo, float xw, float ylo, float yw) {
+  constexpr int K3 = 3 * M - 2;
+  __shared__ float stage[kClSites * K3];
+  __shared__ float stage_bar[kClSites * K3];
+  const long long first = (long long)blockIdx.x * kClSites;
+  const int n = (int)(n_sites - first < kClSites ? n_sites - first
+                                                 : kClSites);
+  const int t = threadIdx.x;
+  for (int k = t; k < n * K3; k += kClSites)
+    stage[k] = __ldg(out + first * K3 + k);
+  __syncthreads();
+  if (t < n)
+    site_vjp<M, LEFT, RIGHT, INVERSE, FromShared>(
+        x, stage + t * K3, ybar, loggbar, xbar, stage_bar + t * K3, 1,
+        first + t, xlo, xw, ylo, yw);
+  __syncthreads();
+  for (int k = t; k < n * K3; k += kClSites)
+    outbar[first * K3 + k] = stage_bar[k];
 }
 
 // The arguments of both C entry points.
@@ -251,6 +306,17 @@ int launch_sites(Inst<M, LEFT, RIGHT, INVERSE>, const Args& a) {
       <<<(unsigned int)blocks, threads, 0, a.stream>>>(
           a.x, a.out, a.ybar, a.loggbar, a.xbar, a.outbar, n, a.S, a.xlo,
           a.xw, a.ylo, a.yw);
+  return (int)cudaGetLastError();
+}
+
+template <int M, bool LEFT, bool RIGHT, bool INVERSE>
+int launch_cl(Inst<M, LEFT, RIGHT, INVERSE>, const Args& a) {
+  const long long n = a.B * a.S;
+  const long long blocks = (n + kClSites - 1) / kClSites;
+  rqs_coupling_bwd_cl_kernel<M, LEFT, RIGHT, INVERSE>
+      <<<(unsigned int)blocks, kClSites, 0, a.stream>>>(
+          a.x, a.out, a.ybar, a.loggbar, a.xbar, a.outbar, n, a.xlo, a.xw,
+          a.ylo, a.yw);
   return (int)cudaGetLastError();
 }
 
@@ -580,4 +646,21 @@ extern "C" int rqs_coupling_bwd_tiled_f32(
                          ylo, yw, stream);
   return visit(m, left_linear, right_linear, inverse,
                [&](auto inst) { return launch_tiled(inst, a); });
+}
+
+// The channels-last kernel: x, ybar, loggbar, xbar (B, S); out, outbar
+// (B, S, 3m-2); all float32, contiguous.  Returns cudaGetLastError() after
+// the launch, or cudaErrorInvalidValue for a knot count without a template
+// instance.
+extern "C" int rqs_coupling_bwd_cl_f32(const void* x, const void* out,
+                                       const void* ybar, const void* loggbar,
+                                       void* xbar, void* outbar, long long B,
+                                       long long S, int m, float xlo,
+                                       float xw, float ylo, float yw,
+                                       int left_linear, int right_linear,
+                                       int inverse, void* stream) {
+  const Args a = args_of(x, out, ybar, loggbar, xbar, outbar, B, S, xlo, xw,
+                         ylo, yw, stream);
+  return visit(m, left_linear, right_linear, inverse,
+               [&](auto inst) { return launch_cl(inst, a); });
 }

@@ -14,7 +14,16 @@ straight to the fused coupling kernel's wrapper (``ops.kernels.
 rqs_coupling``, which dispatches on the tensor's device and raises on the
 card for a knot count it was not built for); fixed knots and the
 reflecting extrapolations take the plain ``ops.spline.rqs`` on either
-device, as the JAX package's XLA branch does.
+device, as the JAX package's XLA branch does.  Its ``backend``, fixed at
+construction as in the JAX package, picks the layout: ``"xla"`` (the
+default) and ``"pallas"`` run the conditioners NCHW, whose output takes
+the NCHW kernels; ``"pallas_reg"`` (JAX: the kernels read the conv's
+channels-last output and transpose in registers) hands the conditioner
+the frozen partition channels-last, a view with no copy, which the conv
+stack keeps (``models/nets.py``), and its output goes to the wrapper as it
+comes, which takes the channels-last kernels.  That route needs a 2-D
+lattice (the conv stack keeps the layout of 4-D activations only); another
+rank raises ``ValueError``.
 
 The controlled couplings (``couplings.py:356-531``): a
 :class:`DirectCntrCoupling` maps ``(x, control)``, its first layer
@@ -222,23 +231,36 @@ class RQSplineCoupling(Coupling):
     ``'anti'``, ``'anti-periodic'`` or ``'periodic'``.  See the module
     docstring for the route."""
 
+    BACKENDS = ("xla", "pallas", "pallas_reg")
+
     @classmethod
     def build(cls, nets, *, mask, xlim=(0.0, 1.0), ylim=(0.0, 1.0),
               knots_x=None, knots_y=None, extrap=None, backend="xla",
               label="rqs_coupling_"):
-        """The JAX package's factory.  ``backend`` chose the JAX package's
-        route; the port's route follows the coupling (module docstring),
-        and ``label`` is not kept."""
+        """The JAX package's factory (``label`` is not kept)."""
         return cls(nets, mask=mask, xlim=xlim, ylim=ylim, knots_x=knots_x,
-                   knots_y=knots_y, extrap=extrap)
+                   knots_y=knots_y, extrap=extrap, backend=backend)
 
     def __init__(self, nets, *, mask, xlim=(0.0, 1.0), ylim=(0.0, 1.0),
-                 knots_x=None, knots_y=None, extrap=None):
+                 knots_x=None, knots_y=None, extrap=None, backend="xla"):
         super().__init__(nets, mask=mask)
+        if backend not in self.BACKENDS:
+            raise ValueError(f"backend {backend!r}: one of {self.BACKENDS}")
+        shape = getattr(mask, "shape", None)
+        if backend == "pallas_reg" and shape is not None and len(shape) != 2:
+            _rank_error(len(shape))
         self.xlim, self.ylim = tuple(xlim), tuple(ylim)
         self.extrap = dict(extrap or {})
         self.knots_x, self.knots_y = knots_x, knots_y
+        self._backend = backend
         self._knots = {}
+
+    @property
+    def backend(self):
+        """``"xla"``, ``"pallas"`` or ``"pallas_reg"``, fixed at
+        construction (module docstring): a captured graph of one route
+        never replays for another."""
+        return self._backend
 
     def _can_fuse(self):
         """Whether the fused kernel's wrapper takes this coupling."""
@@ -257,12 +279,23 @@ class RQSplineCoupling(Coupling):
             fixed_y=_fixed(self._knots, "y", self.knots_y, out),
             extrap=self.extrap)
 
+    def _net_input(self, x_frozen):
+        """The conditioner's input: :meth:`preprocess_fz`, or on the
+        ``pallas_reg`` route the same values channels-last, strides
+        ``(H W, 1, W, 1)``, a view of the contiguous partition."""
+        if self._backend != "pallas_reg":
+            return self.preprocess_fz(x_frozen)
+        if x_frozen.dim() != 3:
+            _rank_error(x_frozen.dim() - 1)
+        return x_frozen.contiguous().unsqueeze(-1).movedim(-1, 1)
+
     def _transform(self, x_active, x_frozen, parity, net, inverse):
-        out = net(self.preprocess_fz(x_frozen))
+        out = net(self._net_input(x_frozen))
         if self._can_fuse():
             fx, logg = rqs_coupling(
-                x_active.contiguous(), out.contiguous(), xlim=self.xlim,
-                ylim=self.ylim, left=self.extrap.get("left"),
+                x_active.contiguous(),
+                out if self._backend == "pallas_reg" else out.contiguous(),
+                xlim=self.xlim, ylim=self.ylim, left=self.extrap.get("left"),
                 right=self.extrap.get("right"), inverse=inverse)
         else:
             fx, g = sp.rqs(x_active, *self.make_knots(out), inverse=inverse)
@@ -279,6 +312,12 @@ class RQSplineCoupling(Coupling):
                         density):
         fx, logg = self._transform(x_active, x_frozen, parity, net, True)
         return fx, log0 + sum_density(logg, density)
+
+
+def _rank_error(rank):
+    raise ValueError(f"the pallas_reg route runs the conditioners "
+                     f"channels-last on a 2-D lattice only, not on a "
+                     f"{rank}-D one")
 
 
 class MultiRQSplineCoupling(Coupling):

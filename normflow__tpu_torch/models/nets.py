@@ -9,6 +9,16 @@ weights; ``utils.transplant`` converts).  A 4-D conv is the sum of 3-D
 convs of the input rolled along the first lattice axis, as in the JAX
 package (neither cuDNN nor XLA has a native 4-D conv).
 
+Channels-last data (each site's channels one contiguous run, strides
+``(H W C, 1, W C, C)``: the ``pallas_reg`` route of ``models/couplings.py``,
+which hands the conditioner its input so) stays channels-last through
+``CircularConv`` and ``RowParityFeature`` on a 2-D lattice: the periodic
+pad is copied into a channels-last tensor as ATen pads NCHW data, the
+parity plane concatenated on the NHWC view (``F.pad``'s circular mode and
+``torch.cat`` return NCHW), and cuDNN's convs, the activations and the
+dtype casts keep the layout of their input; the weights keep their own
+(OIHW) layout.
+
 Under a space axis (``parallel/space.py``) a conv on a slab reads
 ``dilation (k - 1) / 2`` rows of each neighbouring slab along the first
 lattice axis (``space.halo``, whose backward returns their cotangents) in
@@ -45,7 +55,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.lattice import neighbor_mean
+from ..ops.lattice import channels_last, neighbor_mean
 from ..parallel import space
 
 __all__ = ["ACTIVATIONS", "CircularConv", "ConvNet", "RowParityFeature",
@@ -71,6 +81,31 @@ ACTIVATIONS = {
 }
 
 _CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+
+
+def _circular_pad_channels_last(x, pad):
+    """``F.pad(x, pad, mode="circular")`` of channels-last ``x``, returned
+    channels-last (``pad`` lists the last lattice axis first, as ``F.pad``
+    does), as ATen pads NCHW data: ``x`` copied into the middle of a new
+    tensor, then each axis's wraps copied from inside it, each over the
+    whole extent of the other axes."""
+    n_pad = len(pad) // 2
+    dims = range(x.dim() - 1, x.dim() - 1 - n_pad, -1)
+    shape = list(x.shape)
+    for i, d in enumerate(dims):
+        shape[d] += pad[2 * i] + pad[2 * i + 1]
+    out = x.new_empty([shape[0], *shape[2:], shape[1]]).movedim(-1, 1)
+    middle = out
+    for i, d in enumerate(dims):
+        middle = middle.narrow(d, pad[2 * i], x.shape[d])
+    middle.copy_(x)
+    for i, d in enumerate(dims):
+        lo, hi, n = pad[2 * i], pad[2 * i + 1], x.shape[d]
+        if lo:
+            out.narrow(d, 0, lo).copy_(out.narrow(d, n, lo))
+        if hi:
+            out.narrow(d, lo + n, hi).copy_(out.narrow(d, lo, hi))
+    return out
 
 
 def _uniform(shape, bound, generator, dtype, device):
@@ -158,7 +193,10 @@ class CircularConv(nn.Module):
         if slab is not None:
             x = space.halo(x, 2, pad[-2], pad[-1], slab)
             pad[-2:] = [0, 0]
-        x = F.pad(x, pad, mode="circular")
+        if channels_last(x):
+            x = _circular_pad_channels_last(x, pad)
+        else:
+            x = F.pad(x, pad, mode="circular")
         return _CONV[w.dim() - 2](x, w, bias, dilation=d)
 
     def _conv4d(self, x, w, slab=None):
@@ -310,6 +348,9 @@ class RowParityFeature(_Transferable, nn.Module):
         par = (2.0 * (rows % 2) - 1.0).to(x.dtype)
         shape = [1, 1, x.shape[2]] + [1] * (x.dim() - 3)
         plane = par.reshape(shape).expand(x.shape[0], 1, *x.shape[2:])
+        if channels_last(x):  # concatenated on the NHWC view, kept so
+            return self.net(torch.cat(
+                [x.movedim(1, -1), plane.movedim(1, -1)], -1).movedim(-1, 1))
         return self.net(torch.cat([x, plane], dim=1))
 
 

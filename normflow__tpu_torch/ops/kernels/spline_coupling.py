@@ -2,7 +2,7 @@ r"""Fused RQ-spline coupling transform: knots + transform + log-gradient.
 
 Counterpart of ``normflow__tpu/ops/kernels/spline_coupling.py``
 (``rqs_transform_fused``, Pallas kernel ``_rqs_kernel``).  Given the
-conditioner output ``out`` with ``3m - 2`` channels per site, laid out
+conditioner output ``out`` with ``3m - 2`` channels per site, shaped
 ``(B, 3m-2, *lat)`` as ``F.conv2d`` emits it, and the active field ``x``
 ``(B, *lat)``: build the per-site monotone knots (softmax + cumsum
 coordinates in the ``xlim``/``ylim`` box, ``softplus_log2`` derivatives,
@@ -19,9 +19,17 @@ site (``csrc/rqs_coupling_bwd.cu``, plain version
 variants, chosen by shape and alignment (:func:`coupling_variant`): the
 tiled kernel, whose persistent blocks stage tiles of 128 sites through
 shared memory with bulk copies, and the per-site kernel for the shapes the
-bulk copies cannot take; the two return the same bits.
+bulk copies cannot take; the two return the same bits.  Those take ``out``
+NCHW-contiguous.  A channels-last ``out`` (each site's ``3m - 2`` values
+one contiguous run, the NHWC output of a conv fed channels-last data: the
+``pallas_reg`` route, the Pallas kernels' ``channels_last=True``) takes a
+third kernel of each direction (the forward per site, the VJP staging a
+block's run through shared memory), with the same bits again; the VJP's
+``outbar`` comes back in ``out``'s layout.  :func:`coupling_layout`
+makes that choice and refuses other strides.
 ``rqs_coupling.tiled_launches`` and ``rqs_coupling_bwd.tiled_launches``
-count the tiled kernels' share of each wrapper's ``launches``.  The counts
+count the tiled kernels' share of each wrapper's ``launches``,
+``.cl_launches`` the channels-last kernels' share.  The counts
 grow where the wrapper launches its kernel from the host: under a CUDA
 graph (``utils.graphs``) that is the warm-up and the capture, once per
 capture, not once per replay; a replay's launches are counted by kernel
@@ -37,10 +45,12 @@ import math
 import torch
 from torch.autograd.function import once_differentiable
 
+from ..lattice import channels_last
 from . import _lib
 
 __all__ = ["rqs_coupling", "rqs_coupling_plain", "rqs_coupling_bwd",
-           "rqs_coupling_vjp_plain", "SUPPORTED_KNOTS", "coupling_variant"]
+           "rqs_coupling_vjp_plain", "SUPPORTED_KNOTS", "coupling_variant",
+           "coupling_layout"]
 
 SUPPORTED_KNOTS = (4, 6, 8, 12)  # template instances of the CUDA kernel
 _EXTRAP = (None, "linear")
@@ -238,7 +248,8 @@ def rqs_coupling_vjp_plain(x, out, ybar, loggbar, *, xlim, ylim, left=None,
                            right=None, inverse=False):
     """Plain PyTorch version of the backward kernel: the hand-derived VJP
     of :func:`rqs_coupling_plain`, ``(xbar, outbar)`` with ``outbar``
-    shaped like ``out``, ``(B, 3m-2, *lat)``, in the formulas and order of
+    shaped like ``out``, ``(B, 3m-2, *lat)``, and channels-last where
+    ``out`` is (:func:`coupling_layout`), in the formulas and order of
     ``csrc/rqs_coupling_bwd.cu``.  It recomputes the forward per site; the
     inverse's theta is differentiated in the implicit-function form."""
     m = (out.shape[1] + 2) // 3
@@ -297,6 +308,8 @@ def rqs_coupling_vjp_plain(x, out, ybar, loggbar, *, xlim, ylim, left=None,
         if right == "linear" and j == m - 1:
             kdb = kdb + torch.where(idx == k - 2, y1b, zero)
         wd.append(kdb * (1.0 / (1.0 + torch.exp(-(w * _LN2)))))
+    if _layout(out) == "channels_last":
+        return xbar, torch.stack(wx + wy + wd, dim=-1).movedim(-1, 1)
     return xbar, torch.stack(wx + wy + wd, dim=1)
 
 
@@ -312,23 +325,51 @@ def _check(x, out, left, right):
                          "(B, 3m-2, *lat)")
 
 
+def _layout(out):
+    """``"nchw"``, ``"channels_last"`` or ``None``
+    (:func:`coupling_layout`)."""
+    if out.is_contiguous():
+        return "nchw"
+    if channels_last(out):
+        return "channels_last"
+    return None
+
+
+def coupling_layout(out):
+    """Which kernels of either direction take the conditioner output
+    ``out``, shaped ``(B, 3m-2, *lat)``: ``"nchw"`` where it is contiguous,
+    ``"channels_last"`` where each site's ``3m - 2`` values are one
+    contiguous run and the sites follow in order
+    (``ops.lattice.channels_last``, any lattice rank: a conv's output on
+    channels-last data); NCHW where both hold (one site per sample).  Raises ``ValueError`` for any other strides: the wrappers
+    copy nothing into a layout."""
+    layout = _layout(out)
+    if layout is None:
+        raise ValueError(f"conditioner output of shape {tuple(out.shape)} "
+                         f"and strides {out.stride()}: the kernels take it "
+                         "NCHW-contiguous or channels-last")
+    return layout
+
+
 def _check_cuda(name, x, out, *site_tensors):
-    """Raise unless the kernel takes these tensors; returns ``m``."""
+    """Raise unless a kernel takes these tensors; returns ``m`` and the
+    layout of ``out`` (:func:`coupling_layout`)."""
     if x.device.type != "cuda" or any(t.device != x.device
                                       for t in (out, *site_tensors)):
         raise ValueError(f"{name}: no kernel for tensors on {x.device} / "
                          f"{out.device}")
     if any(t.dtype != torch.float32 for t in (x, out, *site_tensors)):
         raise TypeError(f"{name}: the CUDA kernel takes float32")
-    if not all(t.is_contiguous() for t in (x, out, *site_tensors)):
+    if not all(t.is_contiguous() for t in (x, *site_tensors)):
         raise ValueError(f"{name}: inputs must be contiguous")
+    layout = coupling_layout(out)
     if any(t.shape != x.shape for t in site_tensors):
         raise ValueError(f"{name}: cotangents must be shaped like x")
     m = (out.shape[1] + 2) // 3
     if m not in SUPPORTED_KNOTS:
         raise ValueError(f"{name}: m={m} knots, kernel built for "
                          f"{SUPPORTED_KNOTS}")
-    return m
+    return m, layout
 
 
 def _limits(xlim, ylim, left, right, inverse):
@@ -340,27 +381,32 @@ def _limits(xlim, ylim, left, right, inverse):
 def _forward(x, out, cfg):
     if x.device.type == "cpu" and out.device.type == "cpu":
         return rqs_coupling_plain(x, out, **cfg)
-    m = _check_cuda("rqs_coupling", x, out)
+    m, layout = _check_cuda("rqs_coupling", x, out)
     b, s = x.shape[0], math.prod(x.shape[1:])
     y = torch.empty_like(x)
     logg = torch.empty_like(x)
     if b * s:
         lib = _lib.library()
         ptrs = [t.data_ptr() for t in (x, out, y, logg)]
-        tiled = coupling_variant(s, ptrs) == "tiled"
-        launch = lib.rqs_coupling_tiled_f32 if tiled else lib.rqs_coupling_f32
+        cl = layout == "channels_last"
+        tiled = not cl and coupling_variant(s, ptrs) == "tiled"
+        launch = (lib.rqs_coupling_cl_f32 if cl else
+                  lib.rqs_coupling_tiled_f32 if tiled
+                  else lib.rqs_coupling_f32)
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
             err = launch(*ptrs, b, s, m, *_limits(**cfg), stream)
         _lib.check(err, "rqs_coupling")
         rqs_coupling.launches += 1
         rqs_coupling.tiled_launches += tiled
+        rqs_coupling.cl_launches += cl
     return y, logg
 
 
 def coupling_variant(s, ptrs):
-    """Which kernel of either direction takes ``s`` sites per sample with
-    tensors at the addresses ``ptrs``: ``"tiled"`` where the bulk copies
+    """Which kernel of either direction takes ``s`` sites per sample of an
+    NCHW ``out`` with tensors at the addresses ``ptrs``: ``"tiled"`` where
+    the bulk copies
     can move every tile row (16-byte aligned, a multiple of 16 bytes long:
     ``s % 4 == 0`` and every address a multiple of 16), ``"sites"``
     otherwise."""
@@ -371,10 +417,11 @@ def coupling_variant(s, ptrs):
 def rqs_coupling_bwd(x, out, ybar, loggbar, *, xlim, ylim, left=None,
                      right=None, inverse=False):
     """``(xbar, outbar)``, the VJP of :func:`rqs_coupling` at ``(x, out)``
-    for the cotangents ``(ybar, loggbar)``.  CPU tensors take
-    :func:`rqs_coupling_vjp_plain`; CUDA tensors (float32, contiguous,
-    ``m`` in :data:`SUPPORTED_KNOTS`) launch the backward kernel
-    (``csrc/rqs_coupling_bwd.cu``) or raise."""
+    for the cotangents ``(ybar, loggbar)``, ``outbar`` in ``out``'s
+    layout.  CPU tensors take :func:`rqs_coupling_vjp_plain`; CUDA tensors
+    (float32, contiguous but ``out``, which may be channels-last instead
+    (:func:`coupling_layout`), ``m`` in :data:`SUPPORTED_KNOTS`) launch the
+    backward kernel (``csrc/rqs_coupling_bwd.cu``) or raise."""
     _check(x, out, left, right)
     cfg = dict(xlim=xlim, ylim=ylim, left=left, right=right,
                inverse=inverse)
@@ -383,15 +430,17 @@ def rqs_coupling_bwd(x, out, ybar, loggbar, *, xlim, ylim, left=None,
             raise ValueError("rqs_coupling_bwd: cotangents must be shaped "
                              "like x")
         return rqs_coupling_vjp_plain(x, out, ybar, loggbar, **cfg)
-    m = _check_cuda("rqs_coupling_bwd", x, out, ybar, loggbar)
+    m, layout = _check_cuda("rqs_coupling_bwd", x, out, ybar, loggbar)
     b, s = x.shape[0], math.prod(x.shape[1:])
     xbar = torch.empty_like(x)
-    outbar = torch.empty_like(out)
+    outbar = torch.empty_like(out)  # in out's layout
     if b * s:
         lib = _lib.library()
         ptrs = [t.data_ptr() for t in (x, out, ybar, loggbar, xbar, outbar)]
-        tiled = coupling_variant(s, ptrs) == "tiled"
-        launch = (lib.rqs_coupling_bwd_tiled_f32 if tiled
+        cl = layout == "channels_last"
+        tiled = not cl and coupling_variant(s, ptrs) == "tiled"
+        launch = (lib.rqs_coupling_bwd_cl_f32 if cl else
+                  lib.rqs_coupling_bwd_tiled_f32 if tiled
                   else lib.rqs_coupling_bwd_f32)
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -399,6 +448,7 @@ def rqs_coupling_bwd(x, out, ybar, loggbar, *, xlim, ylim, left=None,
         _lib.check(err, "rqs_coupling_bwd")
         rqs_coupling_bwd.launches += 1
         rqs_coupling_bwd.tiled_launches += tiled
+        rqs_coupling_bwd.cl_launches += cl
     return xbar, outbar
 
 
@@ -430,10 +480,11 @@ def rqs_coupling(x, out, *, xlim, ylim, left=None, right=None,
     """``(y, logg)`` of the per-site RQ spline that ``out`` parameterises,
     differentiable in ``x`` and ``out``.
 
-    CPU tensors take :func:`rqs_coupling_plain`; CUDA tensors launch the
-    kernel (float32, contiguous, ``m`` in :data:`SUPPORTED_KNOTS`) or
-    raise.  The gradient goes through :func:`rqs_coupling_bwd` on the same
-    device."""
+    CPU tensors take :func:`rqs_coupling_plain`; CUDA tensors launch a
+    kernel (float32, ``x`` contiguous, ``out`` NCHW-contiguous or
+    channels-last (:func:`coupling_layout`), ``m`` in
+    :data:`SUPPORTED_KNOTS`) or raise.  The gradient goes through
+    :func:`rqs_coupling_bwd` on the same device."""
     _check(x, out, left, right)
     return _RQSCoupling.apply(x, out, dict(xlim=xlim, ylim=ylim, left=left,
                                            right=right, inverse=inverse))
@@ -441,5 +492,7 @@ def rqs_coupling(x, out, *, xlim, ylim, left=None, right=None,
 
 rqs_coupling.launches = 0
 rqs_coupling.tiled_launches = 0
+rqs_coupling.cl_launches = 0
 rqs_coupling_bwd.launches = 0
 rqs_coupling_bwd.tiled_launches = 0
+rqs_coupling_bwd.cl_launches = 0

@@ -1,7 +1,7 @@
 """Lattice grids and neighbour stencils (``normflow__tpu/ops/lattice.py``).
 
-Index and momentum grids built from static shapes, and the nearest-neighbour
-mean by rolls.  The grids are made on the device they are asked for, so a
+Index and momentum grids built from static shapes, the nearest-neighbour
+mean by rolls, and the channels-last test of activations (:func:`channels_last`).  The grids are made on the device they are asked for, so a
 CUDA graph that builds one holds no copy from the host.
 """
 
@@ -83,3 +83,12 @@ def neighbor_mean(x, axes: Sequence[int] | None = None):
         n += 1
         y = y + torch.roll(x, 1, mu) + torch.roll(x, -1, mu)
     return y / (2 * max(n, 1))
+
+
+def channels_last(x):
+    """Whether ``x``, ``(N, C, *lat)``, is channels-last: each site's ``C``
+    values one contiguous run (a channel stride of 1), the sites in order.
+    A tensor with one channel or one site per sample can be NCHW-contiguous
+    as well; its channel stride decides."""
+    return x.dim() > 2 and x.stride(1) == 1 and \
+        x.movedim(1, -1).is_contiguous()

@@ -15,7 +15,9 @@ linear tails on the flagship's 32x16 sites and m = 8; ``phi4_action`` at
 (1024, 32, 32); ``phi4_action_grad`` at (512, 32, 32)), and at the
 unpacked flagship's and the 8x8 affine example's shapes (the coupling at
 32x32 = 1024 sites at B = 1024 and 512 and its VJP at B = 512; the action
-and its force at (128, 8, 8), which take the general kernels) it prints, each
+and its force at (128, 8, 8), which take the general kernels), and for the
+channels-last kernels (the ``pallas_reg`` route's) on the packed flagship's
+values channels-last, it prints, each
 line starting with ``LABEL``, the median device time per launch from CUDA
 events around each call, the device held behind a spin kernel so that the
 host is ahead, less what the events add around nothing (:func:`warm_ms`;
@@ -64,6 +66,9 @@ PEAKS = (("H100 NVL", 3.9e12, 60e12), ("H100 PCIe", 2.0e12, 51e12),
 KERNEL_RE = {
     "rqs_coupling": r"\brqs_coupling(_tiled)?_kernel\b",
     "rqs_coupling_bwd": r"\brqs_coupling_bwd(_tiled)?_kernel\b",
+    # the channels-last kernels (the pallas_reg route), counted apart
+    "rqs_coupling_cl": r"\brqs_coupling_cl_kernel\b",
+    "rqs_coupling_bwd_cl": r"\brqs_coupling_bwd_cl_kernel\b",
     "phi4_action": r"\bphi4_action(_tiled)?_kernel\b",
     "phi4_action_grad": r"\bphi4_action_grad(_tiled)?_kernel\b",
     "accept_scan": r"\baccept_scan_kernel\b",
@@ -150,15 +155,22 @@ MARKER_CYCLES = 1 << 12
 # times (a head of 2048 has held in every run of the smoke)
 WINDOW_PAD_S = 0.01
 HEAD_NODES = 2048  # one-element kernels that open a window
+# a window's close: on an H100 the profiler at times lost the last device
+# activities of a window, up to the final 65 of 152 replayed chain rounds,
+# so the window pauses after the closing marker for the profiler to take
+# them in, then runs a tail of one-element kernels that it may lose instead
+TAIL_PAD_S = 0.1
+TAIL_NODES = 2048
 HEAD_LOSSES = []  # the head activities each device_window lost, in order
+TAIL_LOSSES = []  # the tail activities each device_window lost, in order
 CLOSE_LOSSES = []  # the windows (indices into HEAD_LOSSES) that lost their
 # closing marker
 _HEADS = {}
 
 
 def _head(nodes):
-    """A CUDA graph of ``nodes`` one-element adds on the current card,
-    captured once per size and card.  The cache holds the tensor the graph
+    """A CUDA graph of ``nodes`` one-element adds on the current card (a
+    window's head or tail), captured once per size and card.  The cache holds the tensor the graph
     writes with the graph: freed, it would be handed to other tensors
     while the graph still writes it."""
     import torch
@@ -182,12 +194,15 @@ def _head(nodes):
 
 
 @contextlib.contextmanager
-def profiled_window(pad_s=WINDOW_PAD_S, head=HEAD_NODES):
+def profiled_window(pad_s=WINDOW_PAD_S, head=HEAD_NODES, tail=TAIL_NODES,
+                    tail_s=TAIL_PAD_S):
     """The mechanics of :func:`device_window`: a ``torch.profiler`` window
     (CPU and CUDA activities) that opens with a pause of ``pad_s`` seconds
     and a replay of ``head`` one-element kernels (none for 0), then
     synchronises and runs a marker spin, the body, a second marker and a
-    synchronise.  Yields a namespace whose ``events`` holds, once the
+    synchronise, and closes with a pause of ``tail_s`` seconds and a
+    replay of ``tail`` one-element kernels (none for 0) and a synchronise.
+    Yields a namespace whose ``events`` holds, once the
     window has closed, ``(start_ns, name, duration_us, correlation_id,
     on_device)`` of every event the profiler reported, sorted by start,
     the host's runtime calls among them, and whose ``start_ns`` is the
@@ -201,6 +216,7 @@ def profiled_window(pad_s=WINDOW_PAD_S, head=HEAD_NODES):
 
     window = types.SimpleNamespace(events=[], start_ns=None)
     graph = _head(head) if head else None
+    closing = _head(tail) if tail else None
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -212,6 +228,10 @@ def profiled_window(pad_s=WINDOW_PAD_S, head=HEAD_NODES):
         yield window
         torch.cuda._sleep(MARKER_CYCLES)
         torch.cuda.synchronize()
+        if closing is not None:
+            time.sleep(tail_s)
+            closing.replay()
+            torch.cuda.synchronize()
     window.prof = prof
     cuda = torch.autograd.DeviceType.CUDA
     results = prof.profiler.kineto_results
@@ -230,32 +250,40 @@ def device_window():
     The card's profiler has dropped device activities at a window's
     opening in two ways: now and then what started in its first few
     milliseconds, and, after a long profiled window, the first device
-    activities of every later window.  So the window opens with
-    :data:`WINDOW_PAD_S` of pause and :data:`HEAD_NODES` one-element
-    kernels that may be lost, and only the activities that start between
-    the two marker kernels count.  A window whose one marker is followed
-    by other activities lost its closing marker (nothing runs after that
-    one): the body is everything after the opening one, and the window is
-    kept in :data:`CLOSE_LOSSES`.  If the profiler reports the opening
-    marker missing, the window lost more than its head, and this raises
-    rather than return counts short of what ran.  What each head lost is
-    kept in :data:`HEAD_LOSSES`."""
+    activities of every later window; and now and then a window's last
+    ones.  So the window opens with :data:`WINDOW_PAD_S` of pause and
+    :data:`HEAD_NODES` one-element kernels that may be lost, closes with
+    :data:`TAIL_PAD_S` of pause and :data:`TAIL_NODES` such kernels, and
+    only the activities that start between the two marker kernels count.
+    A window whose one marker is followed by other activities lost its
+    closing marker: the body is everything after the opening one but the
+    last :data:`TAIL_NODES` (so a tail the profiler lost in part leaves
+    the counts short), and the window is kept in :data:`CLOSE_LOSSES`.  If
+    the profiler reports the opening marker missing, the window lost more
+    than its head, and this raises rather than return counts short of what
+    ran.  What each head and tail lost is kept in :data:`HEAD_LOSSES` and
+    :data:`TAIL_LOSSES`."""
     events = []
     with profiled_window() as window:
         yield events
     events.extend(window_body([(t, n, us) for t, n, us, _, on_device
-                               in window.events if on_device]))
+                               in window.events if on_device], TAIL_NODES))
 
 
-def window_body(dev):
+def window_body(dev, tail=0):
     """``(name, microseconds)`` of the body's activities among a window's
     device activities ``dev``, ``(start, name, microseconds)`` sorted by
-    start (see :func:`device_window`); appends to :data:`HEAD_LOSSES` and
-    :data:`CLOSE_LOSSES`, and raises if the opening marker is missing."""
+    start, the last ``tail`` of them run after the closing marker (see
+    :func:`device_window`); appends to :data:`HEAD_LOSSES`,
+    :data:`TAIL_LOSSES` and :data:`CLOSE_LOSSES`, and raises if the
+    opening marker is missing or cannot be told from the closing one (one
+    marker, followed by no more than ``tail`` activities)."""
     marks = [t for t, n, _ in dev if MARKER_RE.search(n)]
-    if len(marks) == 1 and any(t > marks[0] for t, _, _ in dev):
+    after = [t for t, _, _ in dev if marks and t > marks[0]]
+    if len(marks) == 1 and len(after) > tail:  # the opening marker's
         CLOSE_LOSSES.append(len(HEAD_LOSSES))
-        marks.append(math.inf)
+        marks.append(after[-tail] if tail else math.inf)
+        tail = 0
     if len(marks) < 2:
         raise RuntimeError(
             f"the profiler reported {len(marks)} of the 2 marker kernels of "
@@ -264,6 +292,8 @@ def window_body(dev):
             "counts would be short")
     first, last = marks[-2:]
     HEAD_LOSSES.append(HEAD_NODES - sum(t < first for t, _, _ in dev))
+    if tail:
+        TAIL_LOSSES.append(tail - sum(t > last for t, _, _ in dev))
     return [(n, us) for t, n, us in dev if first < t < last]
 
 
@@ -312,7 +342,9 @@ def cold_ms(fn, reps=30):
 def work(name, shape):
     """``(bytes, operations)`` one launch must move and do: each input read
     once and each output written once; the per-site operation counts of
-    ``chip_smoke.py``'s notes."""
+    ``chip_smoke.py``'s notes.  A channels-last kernel (``_cl``) does its
+    layout's twin's work; ``shape`` is ``out``'s, ``(B, 3m-2, *lat)``."""
+    name = name.removesuffix("_cl")
     if name in ("rqs_coupling", "rqs_coupling_bwd"):
         b, k3, *lat = shape
         m, sites, k = (k3 + 2) // 3, b * math.prod(lat), (k3 + 2) // 3 + 2
@@ -422,6 +454,18 @@ def inputs(torch, rng, w):
                 sc.rqs_coupling_bwd(xu2, outu2, ybaru, loggbaru,
                                     inverse=inverse, **LIM))
 
+    cl1, cl2 = (o.contiguous(memory_format=torch.channels_last)
+                for o in (out1, out2))
+
+    def cl(inverse):
+        return ("rqs_coupling_cl", tuple(cl1.shape), lambda sc, ph:
+                sc.rqs_coupling(x1, cl1, inverse=inverse, **LIM))
+
+    def cl_vjp(inverse):
+        return ("rqs_coupling_bwd_cl", tuple(cl2.shape), lambda sc, ph:
+                sc.rqs_coupling_bwd(x2, cl2, ybar, loggbar, inverse=inverse,
+                                    **LIM))
+
     return {
         "rqs_coupling forward": coupling(x1, out1, False),
         "rqs_coupling inverse": coupling(x1, out1, True),
@@ -452,6 +496,11 @@ def inputs(torch, rng, w):
         "phi4_action_grad (128, 8, 8)": (
             "phi4_action_grad", tuple(cfgs8.shape),
             lambda sc, ph: ph.phi4_action_grad(cfgs8, g8, *w)),
+        # the channels-last route's kernels on the same values
+        "rqs_coupling_cl forward": cl(False),
+        "rqs_coupling_cl inverse": cl(True),
+        "rqs_coupling_bwd_cl forward": cl_vjp(False),
+        "rqs_coupling_bwd_cl inverse": cl_vjp(True),
     }
 
 
@@ -480,6 +529,10 @@ def measure(src, label, path, cases=""):
                 torch, np.random.default_rng(20261016), w).items():
             if not re.search(cases, case):
                 continue
+            if name.endswith("_cl") and not hasattr(sc, "coupling_layout"):
+                print(f"{label}: {case} left out: this checkout has no "
+                      "channels-last kernels")
+                continue
             fn = lambda: call(sc, phi4)  # noqa: E731
             got = fn()
             torch.cuda.synchronize()
@@ -504,7 +557,9 @@ SASS_FUNCTIONS = (
     ("rqs_coupling_bwd_kernel", TRAIN_BATCH * LAT[0] * LAT[1] // 2),
     ("rqs_coupling_bwd_tiled_kernel", TRAIN_BATCH * LAT[0] * LAT[1] // 2),
     ("phi4_action_grad_kernel", TRAIN_BATCH * LAT[0] * LAT[1]),
-    ("phi4_action_grad_tiled_kernel", TRAIN_BATCH * LAT[0] * LAT[1] // 4))
+    ("phi4_action_grad_tiled_kernel", TRAIN_BATCH * LAT[0] * LAT[1] // 4),
+    ("rqs_coupling_cl_kernel", BATCH * LAT[0] * LAT[1] // 2),
+    ("rqs_coupling_bwd_cl_kernel", TRAIN_BATCH * LAT[0] * LAT[1] // 2))
 FLAGSHIP_INSTANCE = "ILi8ELb1ELb1E"  # m = 8, linear tails, as mangled
 
 

@@ -32,7 +32,7 @@ def trace(logdir: str):
     if not torch.cuda.is_available():
         raise RuntimeError("trace: no CUDA device")
     os.makedirs(logdir, exist_ok=True)
-    with profiled_window(head=0) as window:
+    with profiled_window(head=0, tail=0) as window:
         yield logdir
     window.prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
 

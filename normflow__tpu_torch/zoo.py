@@ -21,7 +21,12 @@ coupling flow over a uniform prior on the link angles, with the Wilson
 action on angles.
 
 :func:`with_conv_compute_dtype` gives a trained flow bf16 conditioners for
-sampling (``normflow__tpu/zoo.py:35-48``).
+sampling (``normflow__tpu/zoo.py:35-48``), :func:`with_coupling_backend`
+another coupling route (root ``bench.py:299-307``'s ``with_backend``),
+each a copy that shares the flow's weights.  ``build_phi4_model``'s
+``coupling_backend`` is the JAX builder's: ``"pallas_reg"`` runs the
+conditioners channels-last into the channels-last coupling kernels
+(``models/couplings.py``).
 """
 
 from __future__ import annotations
@@ -43,7 +48,8 @@ from .models.spectral import FFTFlow, MeanFieldFlow, PSDBlock
 from .training.model import Model
 from .utils.device import resolve_device
 
-__all__ = ["build_phi4_model", "build_u1_model", "with_conv_compute_dtype"]
+__all__ = ["build_phi4_model", "build_u1_model", "with_conv_compute_dtype",
+           "with_coupling_backend"]
 
 
 def with_conv_compute_dtype(net_, dtype):
@@ -54,23 +60,51 @@ def with_conv_compute_dtype(net_, dtype):
     and neither's graph replays for the other (``Model.graph_stamp``).
     The flow's log-Jacobian comes from the conditioners' cast-back
     outputs, so ``logq`` and the sample still come from one map."""
-    shared = {id(t): t for t in (*net_.parameters(), *net_.buffers())}
-    new = copy.deepcopy(net_, memo=shared)
+    new = _sharing_copy(net_)
     for m in new.modules():
         if isinstance(m, ConvNet):
             m.compute_dtype = _as_dtype(dtype)
     return new
 
 
+def with_coupling_backend(net_, backend):
+    """A copy of the flow ``net_`` whose every ``RQSplineCoupling`` is
+    built anew with ``backend`` (``"xla"``, ``"pallas"`` or
+    ``"pallas_reg"``) around the copy's conditioners, sharing ``net_``'s
+    parameters and buffers as :func:`with_conv_compute_dtype` does: run it
+    on a ``Model`` of its own."""
+    if backend not in RQSplineCoupling.BACKENDS:
+        raise ValueError(f"backend {backend!r}: one of "
+                         f"{RQSplineCoupling.BACKENDS}")
+    new = _sharing_copy(net_)
+    for name, m in list(new.named_modules()):
+        if isinstance(m, RQSplineCoupling):
+            m = RQSplineCoupling(
+                m.nets, mask=m.mask, xlim=m.xlim, ylim=m.ylim,
+                knots_x=m.knots_x, knots_y=m.knots_y, extrap=m.extrap,
+                backend=backend)
+            if not name:
+                return m
+            new.set_submodule(name, m)
+    return new
+
+
+def _sharing_copy(net_):
+    """New modules holding ``net_``'s parameter and buffer tensors."""
+    shared = {id(t): t for t in (*net_.parameters(), *net_.buffers())}
+    return copy.deepcopy(net_, memo=shared)
+
+
 def build_phi4_model(lat_shape=(32, 32), *, kappa=0.6, m_sq=-2.4, lambd=0.5,
                      knots=8, hidden=(24, 24), n_layers=4, dc_knots=16,
                      packed=True, parity_feature=None, kernel_size=3,
-                     seed=0, dtype=torch.float32, device=None,
-                     conv_dilations=None) -> Model:
+                     coupling_backend="xla", seed=0, dtype=torch.float32,
+                     device=None, conv_dilations=None) -> Model:
     """The flagship on ``device`` (``None`` means ``cuda``, and raises when
     no GPU is present).  ``parity_feature`` (default: ``packed``) adds the
-    row-parity input channel; ``conv_dilations`` are the conditioner
-    layers' dilations (``ConvNet``)."""
+    row-parity input channel; ``coupling_backend`` is the couplings'
+    route (``RQSplineCoupling``'s ``backend``); ``conv_dilations`` are the
+    conditioner layers' dilations (``ConvNet``)."""
     device = resolve_device(device)
     lat_shape = tuple(lat_shape)
     if parity_feature is None:
@@ -99,7 +133,8 @@ def build_phi4_model(lat_shape=(32, 32), *, kappa=0.6, m_sq=-2.4, lambd=0.5,
             [make_net() for _ in range(n_layers)],
             mask=mask,
             xlim=(-4.0, 4.0), ylim=(-4.0, 4.0),
-            extrap={"left": "linear", "right": "linear"}),
+            extrap={"left": "linear", "right": "linear"},
+            backend=coupling_backend),
         DistConvertor(dc_knots, smooth=True, **kw),
     ])
     prior = NormalPrior(shape=lat_shape, **kw)

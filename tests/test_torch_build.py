@@ -216,6 +216,33 @@ def test_build_matches_jax(rng, name):
         np.testing.assert_allclose(g, w, rtol=0, atol=1e-10)
 
 
+@pytest.mark.parametrize("backend", ["xla", "pallas", "pallas_reg"])
+def test_rqspline_build_keeps_the_backend(rng, backend):
+    """``RQSplineCoupling_.build(backend=...)`` keeps the backend, as the
+    JAX factory does, and the coupling computes the JAX one's map on every
+    route (the JAX side on ``xla``: its Pallas kernels run compiled only)."""
+    kw = dict(xlim=(-4.0, 4.0), ylim=(-4.0, 4.0),
+              extrap={"left": "linear", "right": "linear"})
+    assert nf.nn.RQSplineCoupling_.build(
+        conv_nets(True, 2, 1, 10), mask=nf.mask.EvenOddMask(shape=LAT),
+        backend=backend, **kw).backend == backend
+    jobj = nf.nn.RQSplineCoupling_.build(
+        conv_nets(True, 2, 1, 10), mask=nf.mask.EvenOddMask(shape=LAT), **kw)
+    pobj = nt.nn.RQSplineCoupling_.build(
+        conv_nets(False, 2, 1, 10), mask=nt.mask.EvenOddMask(shape=LAT),
+        backend=backend, **kw)
+    assert pobj.backend == backend
+    leaves = perturbed_leaves(jobj, rng, scale=0.2)
+    jobj = restore_into(jobj, leaves)
+    load_jax_leaves(pobj, leaves)
+    arr = real((3, *LAT))(rng)
+    want = _numpy(flow(jobj, jnp.asarray(arr)))
+    with torch.no_grad():
+        got = _numpy(flow(pobj, torch.from_numpy(arr)))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, rtol=0, atol=1e-10)
+
+
 def test_keyed_builds_take_a_generator():
     """Where the JAX ``build`` takes a key first, the port's takes a
     ``torch.Generator`` there: the same generator state, the same

@@ -1,0 +1,213 @@
+"""The channels-last route (``coupling_backend="pallas_reg"``) on the card.
+
+These tests need a CUDA card and ``nvcc``; without a card they skip.  They
+import nothing of JAX::
+
+    python -m pytest --noconftest -q -m gpu tests/test_torch_cuda_channels_last.py
+
+The channels-last coupling kernel and its VJP (``rqs_coupling_cl_f32``,
+``rqs_coupling_bwd_cl_f32``) at every knot count and tail flag, on a
+ragged number of sites and on tile-sized ones, bit for bit against the
+NCHW kernels on the same values (``out.contiguous()``; the per-site and
+the tiled one) and within ``chip_smoke.py``'s bars of their plain
+versions; the wrappers' refusal of other strides; and the route on a
+small flagship: the conditioners' output channels-last at every coupling
+(float32 and bf16), the launches by profiler name (channels-last
+couplings only), logq and one path-gradient step against a float64 CPU
+copy.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from normflow__tpu_torch.ops.kernels import spline_coupling as sc
+from normflow__tpu_torch.tools.kernel_times import device_launches
+from normflow__tpu_torch.zoo import build_phi4_model, with_conv_compute_dtype
+
+pytestmark = pytest.mark.gpu
+
+LIM = (-2.0, 2.0)
+RQS_TOL = 1e-4
+VJP_ATOL, VJP_RTOL = 2e-4, 2e-4  # as chip_smoke.py holds the same kernels
+SMALL = dict(knots=4, hidden=(4,), n_layers=2)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield torch.device("cuda")
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+
+
+@pytest.fixture
+def np_rng():
+    return np.random.default_rng(20261022)
+
+
+def _f32(a, device):
+    return torch.tensor(a, dtype=torch.float32, device=device)
+
+
+def _cl(a, device):
+    """``a``, ``(B, *lat, 3m-2)``, on the card as ``(B, 3m-2, *lat)``
+    channels-last."""
+    return _f32(a, device).movedim(-1, 1)
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+TAILS = ((None, None), ("linear", None), (None, "linear"),
+         ("linear", "linear"))
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("m", sc.SUPPORTED_KNOTS)
+def test_channels_last_kernels_match_nchw_bit_for_bit(cuda, np_rng, m,
+                                                      inverse):
+    """On 5x7 sites (the NCHW per-site kernel) and 12x22 (the tiled one),
+    B = 3, every tail flag: forward and VJP bit for bit against the NCHW
+    kernels, within the plain versions' bars, ``outbar`` channels-last,
+    one channels-last launch per call."""
+    for lat in ((5, 7), (12, 22)):
+        for left, right in TAILS:
+            out = _cl(np_rng.standard_normal((3, *lat, 3 * m - 2)), cuda)
+            x = np_rng.uniform(-1.9, 1.9, (3, *lat))
+            x = _f32(np.where((x < 0) & bool(left) | (x > 0) & bool(right),
+                              1.6 * x, x), cuda)
+            cot = [_f32(np_rng.standard_normal((3, *lat)), cuda)
+                   for _ in range(2)]
+            kw = dict(xlim=LIM, ylim=LIM, left=left, right=right,
+                      inverse=inverse)
+            assert sc.coupling_layout(out) == "channels_last"
+            before = (sc.rqs_coupling.cl_launches,
+                      sc.rqs_coupling_bwd.cl_launches)
+            got = sc.rqs_coupling(x, out, **kw)
+            gbar = sc.rqs_coupling_bwd(x, out, *cot, **kw)
+            assert (sc.rqs_coupling.cl_launches,
+                    sc.rqs_coupling_bwd.cl_launches) == (before[0] + 1,
+                                                         before[1] + 1)
+            ref = sc.rqs_coupling(x, out.contiguous(), **kw)
+            rbar = sc.rqs_coupling_bwd(x, out.contiguous(), *cot, **kw)
+            plain = sc.rqs_coupling_plain(x, out, **kw)
+            pbar = sc.rqs_coupling_vjp_plain(x, out, *cot, **kw)
+            torch.cuda.synchronize()
+            assert gbar[1].stride() == out.stride()
+            for g, r in zip((*got, *gbar), (*ref, *rbar)):
+                assert torch.equal(_bits(g), _bits(r))
+            for g, p in zip(got, plain):
+                torch.testing.assert_close(g, p, rtol=0, atol=RQS_TOL)
+            for g, p in zip(gbar, pbar):
+                assert bool(((g - p).abs()
+                             <= VJP_ATOL + VJP_RTOL * p.abs()).all())
+
+
+def test_flagship_shape_launches_the_channels_last_kernels(cuda, np_rng):
+    """At the flagship's (1024, 22, 32, 16) channels-last the wrappers
+    launch the channels-last kernels, by profiler name, and no NCHW
+    one."""
+    out = _cl(np_rng.standard_normal((1024, 32, 16, 22)), cuda)
+    x = _f32(np_rng.standard_normal((1024, 32, 16)), cuda)
+    cot = [_f32(np_rng.standard_normal((1024, 32, 16)), cuda)
+           for _ in range(2)]
+    kw = dict(xlim=(-4.0, 4.0), ylim=(-4.0, 4.0), left="linear",
+              right="linear")
+    sc.rqs_coupling(x, out, **kw)
+    torch.cuda.synchronize()
+    launches = device_launches(lambda: [
+        sc.rqs_coupling(x, out, **kw), sc.rqs_coupling(x, out, inverse=True,
+                                                       **kw),
+        sc.rqs_coupling_bwd(x, out, *cot, **kw)])[0]
+    assert launches == {"rqs_coupling_cl": (2, 0),
+                        "rqs_coupling_bwd_cl": (1, 0)}, launches
+
+
+def test_other_strides_raise_on_the_card(cuda):
+    x = torch.zeros((2, 4, 4), device=cuda)
+    wide = torch.zeros((2, 22, 4, 8), device=cuda).contiguous(
+        memory_format=torch.channels_last)[..., ::2]
+    with pytest.raises(ValueError, match="channels-last"):
+        sc.rqs_coupling(x, wide, xlim=LIM, ylim=LIM)
+    with pytest.raises(ValueError, match="channels-last"):
+        sc.rqs_coupling_bwd(x, wide, x, x, xlim=LIM, ylim=LIM)
+
+
+def _route(np_rng):
+    """The small flagship on the route, its weights plus seeded noise."""
+    model = build_phi4_model((8, 8), coupling_backend="pallas_reg",
+                             device="cuda", **SMALL)
+    with torch.no_grad():
+        for p in model.net_.parameters():
+            p.add_(_f32(np_rng.standard_normal(tuple(p.shape)) * 0.1,
+                        "cuda"))
+    return model
+
+
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16])
+def test_conditioner_output_is_channels_last(cuda, np_rng, dtype):
+    model = _route(np_rng)
+    net_ = model.net_ if dtype is None else \
+        with_conv_compute_dtype(model.net_, dtype)
+    seen = []
+    for net in net_[2].nets:
+        net.register_forward_hook(
+            lambda mod, inp, out: seen.append(sc.coupling_layout(out)))
+    with torch.no_grad():
+        net_.forward(_f32(np_rng.standard_normal((16, 8, 8)), cuda))
+    assert seen == ["channels_last"] * 2
+
+
+def test_route_matches_a_float64_cpu_copy(cuda, np_rng):
+    """logq per sample to 1e-5 relative, one path-gradient step's loss to
+    1e-5 and each leaf's gradient to 1e-3 (chip_smoke.py's bars)."""
+    model = _route(np_rng)
+    cpu = build_phi4_model((8, 8), coupling_backend="pallas_reg",
+                           device="cpu", dtype=torch.float64, **SMALL)
+    cpu.net_.load_state_dict({k: v.double().cpu() for k, v in
+                              model.net_.state_dict().items()})
+    x = np_rng.standard_normal((64, 8, 8))
+    res = {}
+    for key, m, dtype in (("gpu", model, torch.float32),
+                          ("cpu", cpu, torch.float64)):
+        xd = torch.tensor(x, dtype=dtype, device=m.device)
+        with torch.no_grad():
+            logq = m.prior.log_prob(xd) - m.net_.forward(xd)[1]
+        m.fit.grad_estimator = "path"
+        loss = m.fit.loss_of(xd, m.prior.log_prob(xd))[0]
+        grads = torch.autograd.grad(loss, list(m.net_.parameters()))
+        res[key] = (logq.cpu().double(), float(loss),
+                    [g.cpu().double() for g in grads])
+    (lq, loss, g), (lq64, loss64, g64) = res["gpu"], res["cpu"]
+    assert float(((lq - lq64).abs() / lq64.abs().clamp(min=1.0)).max()) \
+        <= 1e-5
+    assert abs(loss - loss64) / max(1.0, abs(loss64)) <= 1e-5
+    for a, b in zip(g, g64):
+        assert float((a - b).norm()) <= 1e-3 * float(b.norm())
+
+
+def test_replays_launch_channels_last_couplings_only(cuda, np_rng):
+    """The full-width flagship on the route: one replayed batch and one
+    replayed step by profiler name, the couplings all channels-last."""
+    model = build_phi4_model((32, 32), coupling_backend="pallas_reg")
+    model.fit(n_epochs=1, batch_size=512, grad_estimator="path",
+              checkpoint_dict=dict(print_stride=None))
+    post, fit = model.posterior, model.fit
+    post.logqp_stream(1, 1024)
+    fit.step()  # both captured
+    before = (sc.rqs_coupling.launches, sc.rqs_coupling_bwd.launches)
+    assert device_launches(lambda: post.logqp_stream(1, 1024))[0] == {
+        "rqs_coupling_cl": (4, 0), "phi4_action": (1, 1)}
+    assert device_launches(fit.step)[0] == {
+        "rqs_coupling_cl": (8, 0), "rqs_coupling_bwd_cl": (8, 0),
+        "phi4_action": (1, 1), "phi4_action_grad": (1, 1)}
+    assert (sc.rqs_coupling.launches, sc.rqs_coupling_bwd.launches) == before

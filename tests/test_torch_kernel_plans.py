@@ -273,3 +273,30 @@ def test_const_sweep_reads_registers_of_the_flagship_instances():
             ("rqs_coupling_bwd", "9rqs_coupling_bwd_kernel", 8, 0, 0, 80)))
     rows = const_sweep.registers(log, "rqs_coupling.cu")
     assert [(r, s) for _, r, s in rows] == [(50, 0), (54, 8)]
+
+
+def test_window_body_reads_past_a_tail():
+    """A window closes with ``tail`` one-element kernels after its closing
+    marker: the body lies between the markers and what the tail lost is
+    kept; a window that lost its closing marker counts all but the last
+    ``tail`` activities after its opening one, so a tail lost in part
+    leaves the body short rather than long; one marker followed by no more
+    than ``tail`` activities raises."""
+    mark = "void at::cuda::(anonymous namespace)::spin_kernel(long)"
+    head = [(t, "add", 1.0) for t in range(3)]
+    body = [(5, "rqs_coupling_tiled_kernel", 2.0), (6, "add", 3.0)]
+    tail = [(t, "add", 1.0) for t in range(8, 12)]
+    want = [(n, us) for _, n, us in body]
+    full = head + [(4, mark, 1.0)] + body + [(7, mark, 1.0)] + tail
+    assert kt.window_body(full, len(tail)) == want
+    assert kt.TAIL_LOSSES[-1] == 0
+    assert kt.window_body(full[:-3], len(tail)) == want
+    assert kt.TAIL_LOSSES[-1] == 3
+    closes = len(kt.CLOSE_LOSSES)
+    lost = head + [(4, mark, 1.0)] + body + tail
+    assert kt.window_body(lost, len(tail)) == want
+    assert kt.window_body(lost[:-1], len(tail)) == want[:1]
+    assert len(kt.CLOSE_LOSSES) == closes + 2
+    for opening_lost in (head + body + [(7, mark, 1.0)] + tail, lost[:-2]):
+        with pytest.raises(RuntimeError, match="marker kernels"):
+            kt.window_body(opening_lost, len(tail))
