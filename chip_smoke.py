@@ -237,7 +237,7 @@ must launch the same per batch or step with no wrapper call
 (``replay_launches_per_unit`` in the record).  Phase 22's runs count the
 channels-last kernels (records ``rqs_coupling_cl`` and
 ``rqs_coupling_bwd_cl``; the wrappers' ``cl_launches``) in the couplings'
-place, none tiled, and no NCHW coupling kernel.
+place, every one tiled, and no NCHW coupling kernel.
 
 Kernels 1 and 2 are read cold (the training backward finds ``out`` cold:
 it was written during the forward, and the other conditioners' outputs
@@ -291,6 +291,19 @@ SANITY_TOL = 1e-5       # mean per-site |x - backward(forward(x))|
 # AUTOGRAD_RTOL, not gated.
 VJP_ATOL, VJP_RTOL, AUTOGRAD_RTOL = 2e-4, 2e-4, 1e-3
 F64_VJP_TOL = 1e-8
+# The channels-last phase's fresh draws hold the kernel to the plain VJP
+# per element within max(VJP_ATOL + VJP_RTOL |plain|, VJP_FLOOR_FACTOR
+# |plain - plain64|), plain64 the float64 plain VJP on the same inputs: at
+# an ill-conditioned adjoint (the softmax transposition's suffix - A) no
+# float32 evaluation holds the relative bar (one outbar element once read
+# 1.686 of it, float64 putting the kernel 2.513e-3 and the plain version
+# 2.091e-3 off).  |got - plain| <= |got - plain64| + |plain - plain64|, and
+# two float32 evaluations of the same formulas err by amounts of one order
+# there, so a factor of 4 admits a kernel up to three times as far from
+# float64 as the plain version; on the ordinary sites the plain version is
+# float32-exact and the floor adds nothing, so a planted wrong adjoint (1%
+# of the median |plain| on every element) stays far above the bar.
+VJP_FLOOR_FACTOR = 4.0
 FORCE_RTOL, FORCE_ATOL = 2e-4, 2e-5  # tests/test_kernels.py:36-37
 # GPU (float32, TF32 off) vs a float64 CPU copy, one path-gradient step at
 # batch 512: the loss, relative, and |g_gpu - g_cpu| / |g_cpu| per leaf.
@@ -448,10 +461,11 @@ def report(name, t, shape, peaks, kernels, headline):
 
 
 def offset_copy(torch, t):
-    """A contiguous copy of ``t`` 4 bytes off 16-byte alignment, which the
-    wrappers send to their per-site or general kernel."""
+    """A copy of ``t``, dense in its strides (contiguous or channels-last),
+    4 bytes off 16-byte alignment, which the wrappers send to their
+    per-site or general kernel."""
     buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
-    view = buf[1:].view(t.shape)
+    view = buf[1:].as_strided(t.shape, t.stride())
     view.copy_(t)
     return view
 
@@ -1073,6 +1087,15 @@ def vjp_excess(got, want, rtol):
     return worst
 
 
+def floored_excess(got, want, want64):
+    """The largest ``|got - want| / max(VJP_ATOL + VJP_RTOL |want|,
+    VJP_FLOOR_FACTOR |want - want64|)`` over the pairs of tensors,
+    ``want64`` the float64 reference of ``want`` (at most 1 passes)."""
+    return max(float(((g - w).abs() / (VJP_ATOL + VJP_RTOL * w.abs()).maximum(
+        VJP_FLOOR_FACTOR * (w.double() - w64).abs().to(w.dtype))).max())
+               for g, w, w64 in zip(got, want, want64))
+
+
 def f64_excess(got, want):
     """The largest ``|got - want| / (F64_VJP_TOL (1 + |want|))`` over
     the pairs of tensors (at most 1 passes)."""
@@ -1388,12 +1411,16 @@ def gate_replays(counters, kernels, path, per_unit, n_units, fn,
         kernels[k].setdefault("replay_launches_per_unit", {})[path] = v
 
 
-def check_train_grads(torch, model, rng, packed=True, backend="xla"):
+def check_train_grads(torch, model, rng, packed=True, backend="xla",
+                      floor=False):
     """The full-width path-gradient loss and its gradients on one numpy
     draw at batch 512: the card (float32, TF32 off) against a float64 CPU
     copy, with a float32 CPU copy beside them to show the float32 floor,
-    which sets the unpacked flagship's per-leaf bars (``FLOOR_FACTOR``);
-    the copies' couplings on ``model``'s route ``backend``."""
+    which sets the per-leaf bars (``FLOOR_FACTOR``) of the unpacked
+    flagship and, with ``floor``, of a packed one on a fresh draw, where a
+    planted wrong step (every leaf's gradient times 1.05) must exceed
+    every leaf's bar; the copies' couplings on ``model``'s route
+    ``backend``."""
     from normflow__tpu_torch.zoo import build_phi4_model
 
     x = rng.standard_normal((TRAIN_BATCH, *LAT))
@@ -1427,16 +1454,28 @@ def check_train_grads(torch, model, rng, packed=True, backend="xla"):
               f" median {statistics.median(leaves):.3e}")
     loss, leaves = rel("gpu", "cpu64")
     bars = [TRAIN_GRAD_TOL] * len(leaves)
-    if not packed:
+    floored = floor or not packed
+    if floored:
         bars = [max(TRAIN_GRAD_TOL, FLOOR_FACTOR * f)
                 for f in rel("cpu", "cpu64")[1]]
     print(f"  loss " + ", ".join(f"{k} {v[0]:.6f}" for k, v in res.items())
           + "; gpu vs cpu64 per leaf: " + " ".join(f"{r:.1e}" for r in leaves)
-          + ("" if packed else "; bars " + " ".join(f"{b:.1e}" for b in bars)))
+          + ("; bars " + " ".join(f"{b:.1e}" for b in bars) if floored
+             else ""))
     if not (loss <= TRAIN_LOSS_TOL
             and all(r <= b for r, b in zip(leaves, bars))):
         raise AssertionError(f"GPU and CPU training steps disagree (tol "
                              f"{TRAIN_LOSS_TOL} / per-leaf bars above)")
+    if floor:
+        planted = [float((1.05 * p - q).norm()) / max(float(q.norm()), 1e-30)
+                   for p, q in zip(res["gpu"][1], res["cpu64"][1])]
+        print(f"  a planted wrong step (every gradient x 1.05) vs cpu64 per "
+              f"leaf: min excess over its bar "
+              f"{min(r / b for r, b in zip(planted, bars)):.3e} (must exceed "
+              f"1)")
+        if not all(r > b for r, b in zip(planted, bars)):
+            raise AssertionError("the per-leaf bars let a planted wrong "
+                                 "step pass")
 
 
 def fit_protocol(model, n_epochs):
@@ -3240,8 +3279,10 @@ DEVICE_FUNCTIONS = {
                          "phi4_action_slab_kernel"),
     "phi4_action_slab_grad": ("phi4_action_grad_slab_tiled_kernel",
                               "phi4_action_grad_slab_kernel"),
-    "rqs_coupling_cl": ("rqs_coupling_cl_kernel",),
-    "rqs_coupling_bwd_cl": ("rqs_coupling_bwd_cl_kernel",),
+    "rqs_coupling_cl": ("rqs_coupling_cl_tiled_kernel",
+                        "rqs_coupling_cl_kernel"),
+    "rqs_coupling_bwd_cl": ("rqs_coupling_bwd_cl_tiled_kernel",
+                            "rqs_coupling_bwd_cl_kernel"),
 }
 FLAGSHIP_INSTANCE = "ILi8ELb1ELb1E"
 
@@ -3272,8 +3313,8 @@ def ptxas_by_kernel(log):
             raise AssertionError(f"ptxas built no instance of {fn}")
         regs = [r for _, r, _ in rows]
         flag = [("inverse " if i.split(FLAGSHIP_INSTANCE)[1].startswith("Lb1")
-                 else "forward ") + str(r)
-                for i, r, _ in rows if FLAGSHIP_INSTANCE in i]
+                 else "forward ") + f"{r} ({sp} B spilled)"
+                for i, r, sp in rows if FLAGSHIP_INSTANCE in i]
         print(f"ptxas {fn}: {len(rows)} instances, {min(regs)}-{max(regs)} "
               f"registers" + (f" (flagship m=8 linear: {', '.join(flag)})"
                               if flag else "")
@@ -3927,16 +3968,14 @@ def reset_cl_counts():
 def gate_cl_path(kernels, path, per_unit, n_units, device):
     """The channels-last route's run on ``path`` (:func:`gate_path`'s
     rule): by profiler name ``per_unit`` launches per warm-up body and
-    replay of each kernel, the couplings' all to their channels-last
-    kernels (no NCHW coupling kernel in ``device``), the action's tiled;
+    replay of each kernel, every one tiled, the couplings' all to their
+    channels-last tiled kernels (no NCHW coupling kernel in ``device``);
     by the wrappers ``per_unit`` per warm-up body and capture, every
-    coupling launch channels-last and none tiled."""
+    launch tiled and every coupling launch channels-last."""
     from normflow__tpu_torch.utils.graphs import WARMUP
 
     counters = cl_counters()
-    want = {k: (v * (WARMUP + n_units),
-                0 if k.endswith("_cl") else v * (WARMUP + n_units))
-            for k, v in per_unit.items()}
+    want = {k: (v * (WARMUP + n_units),) * 2 for k, v in per_unit.items()}
     print(f"launches over the {path} path's run by profiler name "
           f"(launches, tiled): {device}, want {want}")
     if device != want:
@@ -3944,9 +3983,8 @@ def gate_cl_path(kernels, path, per_unit, n_units, device):
                              f"{want}")
     got = {k: (counters[k].launches, counters[k].tiled_launches,
                getattr(counters[k], "cl_launches", 0)) for k in per_unit}
-    want = {k: (v * (WARMUP + 1),) + ((0, v * (WARMUP + 1))
-                                      if k.endswith("_cl")
-                                      else (v * (WARMUP + 1), 0))
+    want = {k: (v * (WARMUP + 1),) * 2 + (v * (WARMUP + 1)
+                                          if k.endswith("_cl") else 0,)
             for k, v in per_unit.items()}
     print(f"  by the wrappers (launches, tiled, channels-last): {got} "
           f"(warm-up and capture; want {want})")
@@ -3959,44 +3997,53 @@ def gate_cl_path(kernels, path, per_unit, n_units, device):
 
 
 def check_cl_kernels(torch, kernels, rng):
-    """The channels-last kernels at the flagship's shapes: ``rqs_coupling``
-    forward and inverse at B = 1024 and ``rqs_coupling_bwd`` at B = 512,
-    on S = 32x16 and 32x32 sites, both tail kinds, from ``rng``: each bit
-    for bit against the NCHW kernels on the same values
-    (``out.contiguous()``), the forward within ``RQS_TOL`` of its plain
-    version, the VJP within ``VJP_ATOL`` of it over the tensor, ``outbar``
-    in ``out``'s layout; the VJP's element-by-element reading against the
-    plain version is printed with where the float64 plain VJP puts each
-    float32 side.  Then the inputs of :func:`check_coupling_at` (its seed,
-    its draws) channels-last: every gate that function holds the NCHW
-    kernels to, the element-by-element VJP bar with its planted wrong
-    adjoint among them.  An ``out`` with other strides raises.  Returns
-    the tensors the times take."""
+    """The channels-last tiled kernels at the flagship's shapes:
+    ``rqs_coupling`` forward and inverse at B = 1024 and
+    ``rqs_coupling_bwd`` at B = 512, on S = 32x16 and 32x32 sites, both
+    tail kinds, from ``rng``: each bit for bit against the NCHW tiled
+    kernels on the same values (``out.contiguous()``), the forward within
+    ``RQS_TOL`` of its plain version, the VJP within ``VJP_ATOL`` of it
+    over the tensor and, element by element, within the float64-anchored
+    bar (:func:`floored_excess`), which a planted wrong adjoint must
+    exceed, ``outbar`` in ``out``'s layout; the plain relative bar's
+    reading is printed with where the float64 plain VJP puts each float32
+    side.  Then the per-site channels-last kernels on one ragged shape (B S
+    % 4 != 0) the same way, against the NCHW per-site kernels.  Then the
+    inputs of :func:`check_coupling_at` (its seed, its draws)
+    channels-last: every gate that function holds the NCHW kernels to, the
+    element-by-element VJP bar with its planted wrong adjoint among them.
+    An ``out`` with other strides raises.  Returns the tensors the times
+    take."""
     from normflow__tpu_torch.ops.kernels import spline_coupling as sc
 
     m = 8
     worst = {"rqs_coupling_cl": 0.0, "rqs_coupling_bwd_cl": 0.0}
     kept = {}
 
-    def hold(x, out, cot, kw, tag):
-        """One call of either kernel on channels-last ``out``: the gates
-        above; returns max |d| against the plain version."""
+    def hold(x, out, cot, kw, tag, tiled=True):
+        """One call of either kernel on channels-last ``out``, the tiled
+        kernel or (``tiled=False``) the per-site one: the gates above;
+        returns the outputs and the plain version's."""
         bwd = bool(cot)
         name = "rqs_coupling_bwd_cl" if bwd else "rqs_coupling_cl"
         counter = sc.rqs_coupling_bwd if bwd else sc.rqs_coupling
         fn, plain_fn = ((sc.rqs_coupling_bwd, sc.rqs_coupling_vjp_plain)
                         if bwd else (sc.rqs_coupling, sc.rqs_coupling_plain))
-        before = counter.cl_launches
+        before = (counter.cl_launches, counter.tiled_launches)
         got = fn(x, out, *cot, **kw)
+        launched = (counter.cl_launches - before[0],
+                    counter.tiled_launches - before[1])
         ref = fn(x, out.contiguous(), *cot, **kw)
         plain = plain_fn(x, out, *cot, **kw)
         torch.cuda.synchronize()
         same = same_bits(torch, got, ref)
         err = max(float((g - p).abs().max()) for g, p in zip(got, plain))
-        line = (f"{name} {tag} inverse={kw['inverse']}: vs the NCHW kernel "
+        what = "tiled" if tiled else "per-site"
+        line = (f"{name} {tag} inverse={kw['inverse']}: the {what} kernel "
+                f"vs the NCHW {what} kernel "
                 f"{'bit for bit' if same else 'NOT bit-identical'}; max |d| "
                 f"vs plain {err:.3e}")
-        ok = same and counter.cl_launches == before + 1 and all(
+        ok = same and launched == (1, int(tiled)) and all(
             bool(torch.isfinite(g).all()) for g in got)
         if not bwd:
             print(f"{line} (tol {RQS_TOL})")
@@ -4008,12 +4055,20 @@ def check_cl_kernels(torch, kernels, rng):
                 *(t.double() for t in (x, out, *cot)), **kw)
             off = [abs(float(t[k].flatten()[i])
                        - float(ref64[k].flatten()[i])) for t in (got, plain)]
+            floored = floored_excess(got, plain, ref64)
+            planted = floored_excess(
+                [g + 0.01 * float(p.abs().median())
+                 for g, p in zip(got, plain)], plain, ref64)
             print(f"{line}, max|d|/max(1,max|plain|) {whole:.3e} (tol "
                   f"{VJP_ATOL}); outbar strides {got[1].stride()}; worst "
                   f"|d|/(atol+{VJP_RTOL:g}|plain|) {ratio:.3e} "
                   f"({('xbar', 'outbar')[k]}; there float64 puts the kernel "
-                  f"{off[0]:.3e} off, the plain version {off[1]:.3e})")
-            ok = ok and whole <= VJP_ATOL and got[1].stride() == out.stride()
+                  f"{off[0]:.3e} off, the plain version {off[1]:.3e}); "
+                  f"worst |d|/max(atol+{VJP_RTOL:g}|plain|, "
+                  f"{VJP_FLOOR_FACTOR:g}|plain-plain64|) {floored:.3e}, a "
+                  f"planted wrong adjoint {planted:.3e} (must exceed 1)")
+            ok = (ok and whole <= VJP_ATOL and floored <= 1.0
+                  and planted > 1.0 and got[1].stride() == out.stride())
         if not ok:
             raise AssertionError(f"{name} disagrees with the NCHW kernel or "
                                  "its plain version, or launched another "
@@ -4044,6 +4099,21 @@ def check_cl_kernels(torch, kernels, rng):
                          f"S={math.prod(lat)} B={b} extrap={extrap}")
             if lat != LAT:
                 kept[bwd] = (x, out, cot)
+
+    # a ragged shape, B S % 4 != 0: the per-site channels-last kernels
+    lat, b = (5, 7), 3
+    out = torch.tensor(rng.standard_normal((b, *lat, 3 * m - 2)),
+                       dtype=torch.float32, device="cuda").movedim(-1, 1)
+    x = torch.tensor(rng.standard_normal((b, *lat)), dtype=torch.float32,
+                     device="cuda")
+    cot = [torch.tensor(rng.standard_normal((b, *lat)), dtype=torch.float32,
+                        device="cuda") for _ in range(2)]
+    for c in ([], cot):
+        for inverse in (False, True):
+            hold(x, out, c, dict(xlim=(-4.0, 4.0), ylim=(-4.0, 4.0),
+                                 left="linear", right="linear",
+                                 inverse=inverse),
+                 f"S={math.prod(lat)} B={b} (ragged)", tiled=False)
 
     # check_coupling_at's inputs and gates, channels-last
     crng = np.random.default_rng(COUPLING_AT_SEED)
@@ -4106,11 +4176,13 @@ def check_cl_kernels(torch, kernels, rng):
 
 
 def time_cl_kernels(torch, kernels, peaks, kept):
-    """Warm and cold times of the channels-last kernels at the flagship's
-    shapes, with linear tails (the forward at B = 1024, read cold as the
-    NCHW kernel is; the VJP at B = 512, the mean of forward and inverse),
-    each followed by the NCHW kernel on the same values
-    (``nchw_ms``, ``nchw_ms_cold``)."""
+    """Warm and cold times of the channels-last tiled kernels at the
+    flagship's shapes, with linear tails (the forward at B = 1024, read
+    cold as the NCHW kernel is; the VJP at B = 512, the mean of forward and
+    inverse), each followed by the NCHW tiled kernel on the same values
+    (``nchw_ms``, ``nchw_ms_cold``) and the per-site channels-last kernel on
+    a copy of them 4 bytes off alignment (``sites_ms``,
+    ``sites_ms_cold``)."""
     from normflow__tpu_torch.ops.kernels import spline_coupling as sc
     from normflow__tpu_torch.tools.kernel_times import cold_ms, warm_ms
 
@@ -4119,6 +4191,12 @@ def time_cl_kernels(torch, kernels, peaks, kept):
                       ("rqs_coupling_bwd_cl", True)):
         x, out, cot = kept[bwd]
         nchw = out.contiguous()
+        off = offset_copy(torch, out)
+        if sc.coupling_layout(off) != "channels_last" or sc.coupling_variant(
+                math.prod(out.shape[2:]), [off.data_ptr()], "channels_last",
+                out.shape[0]) != "sites":
+            raise AssertionError("the offset copy does not take the per-site "
+                                 "channels-last kernel")
         fn, plain = ((sc.rqs_coupling_bwd, sc.rqs_coupling_vjp_plain) if bwd
                      else (sc.rqs_coupling, sc.rqs_coupling_plain))
         times[name] = {}
@@ -4130,10 +4208,15 @@ def time_cl_kernels(torch, kernels, peaks, kept):
                 lambda: plain(x, out, *cot, **kw))
             twin = lambda: fn(x, nchw, *cot, **kw)  # noqa: E731
             t["nchw_ms"], t["nchw_ms_cold"] = warm_ms(twin), cold_ms(twin)
-            print(f"{name} {what} at {tuple(out.shape)}: warm "
-                  f"{t['ms']:.5f} ms, cold {t['ms_cold']:.5f} ms; the NCHW "
-                  f"kernel on the same values right after: warm "
-                  f"{t['nchw_ms']:.5f} ms, cold {t['nchw_ms_cold']:.5f} ms")
+            sites = lambda: fn(x, off, *cot, **kw)  # noqa: E731
+            t["sites_ms"], t["sites_ms_cold"] = warm_ms(sites), cold_ms(sites)
+            print(f"{name} {what} at {tuple(out.shape)}: the tiled kernel "
+                  f"warm {t['ms']:.5f} ms, cold {t['ms_cold']:.5f} ms; right "
+                  f"after, the NCHW tiled kernel on the same values: warm "
+                  f"{t['nchw_ms']:.5f} ms, cold {t['nchw_ms_cold']:.5f} ms; "
+                  f"the per-site channels-last kernel on them 4 bytes off: "
+                  f"warm {t['sites_ms']:.5f} ms, cold "
+                  f"{t['sites_ms_cold']:.5f} ms")
     report("rqs_coupling_cl", times["rqs_coupling_cl"]["forward"],
            tuple(kept[False][1].shape), peaks, kernels, "cold")
     bwd = times["rqs_coupling_bwd_cl"]
@@ -4218,16 +4301,20 @@ def run_channels_last(torch, kernels, peaks, card, model4, step_rng):
     ``mcmc.sample__``; one path-gradient step against a float64 CPU copy
     on the inputs of phase 5's (``model4``, phase 4's flagship, on the
     route, and the draw of ``step_rng``, the numpy stream's state before
-    phase 5 took it), ``CL_STEPS`` steps of ``model.fit`` profiled
-    likewise (8 / 8 / 1 / 1
-    per step, the VJPs channels-last), 10 replayed steps against 10 eager
+    phase 5 took it), and one on the sampling flagship's weights and a
+    fresh draw, its per-leaf bars at the float32 floor
+    (``check_train_grads(floor=True)``); ``CL_STEPS`` steps of
+    ``model.fit`` profiled likewise (8 / 8 / 1 / 1 per step, the couplings
+    and VJPs channels-last and tiled), 10 replayed steps against 10 eager
     bodies bit for bit under cuDNN's deterministic algorithms (and within
     ``REPLAY_*``) and replays alone by name; the bf16 copy on the
     route (kernels at its inputs, replays by name); then, printed and not
-    gated, raw samples/s against the NCHW route in turns, and where a
+    gated, raw samples/s against the NCHW route in turns, where a
     replayed batch's time goes (the conv kernels, cuDNN's layout
     transposes, the costliest kernels), for both routes in float32 and
-    bf16; and the kernels' times."""
+    bf16, and replayed float32 training steps/s against the NCHW route in
+    turns with where a replayed step's time goes on each; and the kernels'
+    times."""
     from normflow__tpu_torch import Model, calc_ess
     from normflow__tpu_torch.tools.kernel_times import device_launches
     from normflow__tpu_torch.zoo import (build_phi4_model,
@@ -4290,8 +4377,7 @@ def run_channels_last(torch, kernels, peaks, card, model4, step_rng):
                              "its eager body")
     post.logqp_stream(1, BATCH)  # captured outside the profiled window
     gate_replays(cl_counters(), kernels, "channels-last sample", per_batch,
-                 4, lambda: post.logqp_stream(4, BATCH),
-                 tiled={"rqs_coupling_cl": False, "phi4_action": True})
+                 4, lambda: post.logqp_stream(4, BATCH))
     y, lq, lp = model.mcmc.sample__(BATCH)
     torch.cuda.synchronize()
     if y.shape != (BATCH, *LAT) or not all(
@@ -4305,6 +4391,9 @@ def run_channels_last(torch, kernels, peaks, card, model4, step_rng):
         net_=with_coupling_backend(model4.net_, "pallas_reg"),
         prior=model4.prior, action=model4.action, seed=0), step_rng,
                       backend="pallas_reg")
+    # and on this phase's perturbed weights and a fresh draw, per-leaf bars
+    # at the float32 floor
+    check_train_grads(torch, model, rng, backend="pallas_reg", floor=True)
     trained = build_phi4_model(LAT, seed=0, coupling_backend="pallas_reg")
     n = len(trained.net_[2].nets)
     per_step = {"rqs_coupling_cl": 2 * n, "rqs_coupling_bwd_cl": 2 * n,
@@ -4324,8 +4413,7 @@ def run_channels_last(torch, kernels, peaks, card, model4, step_rng):
                             deterministic=True)
     trained.fit.step()  # captured anew outside the profiled window
     gate_replays(cl_counters(), kernels, "channels-last train", per_step, 4,
-                 lambda: [trained.fit.step() for _ in range(4)],
-                 tiled={k: not k.endswith("_cl") for k in per_step})
+                 lambda: [trained.fit.step() for _ in range(4)])
 
     arms = {"float32 NCHW": Model(
                 net_=with_coupling_backend(model.net_, "xla"),
@@ -4342,8 +4430,7 @@ def run_channels_last(torch, kernels, peaks, card, model4, step_rng):
     hold_cl_on_path(torch, kernels, bf16, xd)
     bf16.posterior.logqp_stream(1, BATCH)
     gate_replays(cl_counters(), kernels, "channels-last bf16 sample",
-                 per_batch, 4, lambda: bf16.posterior.logqp_stream(4, BATCH),
-                 tiled={"rqs_coupling_cl": False, "phi4_action": True})
+                 per_batch, 4, lambda: bf16.posterior.logqp_stream(4, BATCH))
     in_turns(torch, card, "NCHW vs channels-last conditioners, sampling, "
              "graphed", "raw samples/s", N_BATCHES * BATCH,
              {k: (lambda m=m: m.posterior.logqp_stream(N_BATCHES, BATCH))
@@ -4351,6 +4438,17 @@ def run_channels_last(torch, kernels, peaks, card, model4, step_rng):
     for what, m in arms.items():
         layout_profile(lambda m=m: m.posterior.logqp_stream(1, BATCH),
                        f"one replayed {what} sampled batch of {BATCH}")
+    nchw = build_phi4_model(LAT, seed=0)
+    fit_protocol(nchw, 8)
+    steps = {"NCHW": nchw, "channels-last": trained}
+    in_turns(torch, card, f"NCHW vs channels-last route, replayed float32 "
+             f"training steps at batch {TRAIN_BATCH} (after the profiler "
+             f"has run in this process)", "steps/s", 10,
+             {k: (lambda m=m: [m.fit.step() for _ in range(10)])
+              for k, m in steps.items()})
+    for what, m in steps.items():
+        layout_profile(m.fit.step, f"one replayed float32 {what} training "
+                       f"step at batch {TRAIN_BATCH}")
     time_cl_kernels(torch, kernels, peaks, kept)
 
 

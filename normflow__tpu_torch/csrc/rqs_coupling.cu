@@ -34,15 +34,20 @@
 //   off 16 bytes, which the bulk copies cannot take: one thread per
 //   (sample, site), per-channel loads coalesced across neighbouring
 //   threads, no shared memory.
-// and one for the channels-last layout, (B, S, 3m-2), a conv's NHWC output
+// and two for the channels-last layout, (B, S, 3m-2), a conv's NHWC output
 // as the Pallas kernel's `channels_last=True` reads it (the `pallas_reg`
-// route), which the wrapper takes for a channels-last `out`
-// (rqs_coupling_cl_f32): the per-site kernel with a site's channels one
-// contiguous run.
-// In all three, m is a template parameter and the knot loops are unrolled,
+// route), which the wrapper takes for a channels-last `out`, where the
+// B S sites are one contiguous run of out and of x:
+// - the channels-last tiled kernel (rqs_coupling_cl_tiled_f32, the
+//   route's): the NCHW tiled kernel's ring and arithmetic on flat tiles of
+//   the run, a tile staged by two bulk copies (notes at the kernel);
+// - the channels-last per-site kernel (rqs_coupling_cl_f32) for B S % 4
+//   != 0 or an address off 16 bytes: the per-site kernel with a site's
+//   channels one contiguous run.
+// In all four, m is a template parameter and the knot loops are unrolled,
 // so the knot arrays live in registers and the segment "gather" is a chain
 // of selects with static indices (as the Pallas kernel unrolled the knot
-// axis).  The three return the same bits.
+// axis).  The four return the same bits.
 
 #include "bulk_copy.cuh"
 #include "rqs_common.cuh"
@@ -106,11 +111,11 @@ rqs_coupling_kernel(const float* __restrict__ x, const float* __restrict__ out,
                                     y, logg, xlo, xw, ylo, yw);
 }
 
-// The channels-last kernel: `out` is (B, S, 3m-2), a site's values one
-// contiguous run.  The per-site kernel's arithmetic on the same values, so
-// the same bits.  A warp's loads are 4 bytes at a stride of 4(3m-2) bytes:
-// each line comes from memory once, then from L1 (staging a block's run
-// through shared memory measured slower on an H100: PERF.md, PR 14).
+// The channels-last per-site kernel, for the shapes the channels-last
+// tiled kernel below cannot take: `out` is (B, S, 3m-2), a site's values
+// one contiguous run.  The per-site kernel's arithmetic on the same values,
+// so the same bits.  A warp's loads are 4 bytes at a stride of 4(3m-2)
+// bytes: each line comes from memory once, then from L1.
 template <int M, bool LEFT, bool RIGHT, bool INVERSE>
 __global__ void __launch_bounds__(256)
 rqs_coupling_cl_kernel(const float* __restrict__ x,
@@ -124,7 +129,7 @@ rqs_coupling_cl_kernel(const float* __restrict__ x,
                                     ylo, yw);
 }
 
-// The arguments of both C entry points.
+// The arguments of every C entry point.
 struct Args {
   const float *x, *out;
   float *y, *logg;
@@ -346,6 +351,123 @@ int launch_tiled(Inst<M, LEFT, RIGHT, INVERSE>, const Args& a) {
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The channels-last tiled kernel.  `out` is (B, S, 3m-2) and x, y, log g
+// are (B, S), all contiguous, so the B S sites are one run in each tensor
+// and tile k is sites [k ts, k ts + ts) of that run: no sample to locate,
+// and a tile of out is one contiguous block of ts (3m-2) floats.
+//
+// What bounds it: the same bytes as the NCHW tiled kernel (100 B per site
+// at m = 8, 0.0157 ms at B = 1024), and the same instructions once
+// softplus_log2 runs only where the site needs it.  The per-site
+// channels-last kernel reached 0.45 of that bound cold: one thread per
+// site with no shared memory, a warp's loads 4 bytes at a stride of
+// 4 (3m-2) bytes, nothing in flight while a warp computes, and all m
+// derivatives evaluated.  The design:
+// - the NCHW tiled kernel's ring: a stage holds out's run of the tile
+//   (K3 ts floats) and then x's (ts floats), the same R ts floats, so
+//   stages(m) and the 4 blocks per SM at m = 8 carry over; thread 0 arms
+//   the stage's mbarrier and issues two bulk copies (not 3m-1 row copies),
+//   a whole ring ahead of the tile being computed;
+// - a thread takes one site and reads its column at stage + t K3 with a
+//   channel stride of 1 (segment_smem with ts = 1, so softplus_log2 on
+//   the site's derivatives only, the same operations in the same order as
+//   the NCHW tiled kernel: the same bits);
+// - y and log g go straight to global memory, coalesced across the warp.
+// The column reads meet bank conflicts: a warp's 32 columns start K3 words
+// apart, so gcd(K3, 32) threads share a bank, 2 at m = 4, 8 and 12 and 16
+// at m = 6 (K3 = 16).  Shared memory is far from this kernel's bound at
+// m = 8, the path's.  The bulk copies need every run a multiple of 16
+// bytes at 16-byte aligned addresses: with tiles of a multiple of 4 sites
+// that is B S % 4 == 0 and every tensor 16-byte aligned, the wrapper's
+// rule for this variant.
+template <int M, bool LEFT, bool RIGHT, bool INVERSE>
+__global__ void __launch_bounds__(kTileSites, kMinBlocks)
+rqs_coupling_cl_tiled_kernel(const float* __restrict__ x,
+                             const float* __restrict__ out,
+                             float* __restrict__ y, float* __restrict__ logg,
+                             long long n_sites, long long n_tiles, float xlo,
+                             float xw, float ylo, float yw) {
+  constexpr int K3 = 3 * M - 2;
+  constexpr int R = K3 + 1;
+  constexpr int ts = kTileSites;
+  constexpr int NS = stages(M);
+  static_assert(NS >= 1, "a stage must fit in static shared memory");
+  __shared__ __align__(128) float smem[NS * R * ts];
+  __shared__ uint64_t full[NS];
+  const int t = threadIdx.x;
+
+  if (t == 0) {
+    for (int st = 0; st < NS; ++st) mbar_init(&full[st], 1);
+    fence_mbarrier_init();
+  }
+  __syncthreads();
+
+  // thread 0 fills a stage: out's run of the tile, then x's
+  auto load = [&](long long tile, int st) {
+    const long long first = tile * ts;
+    const long long left = n_sites - first;
+    const uint32_t n = (uint32_t)(left < ts ? left : ts);
+    float* stage = smem + st * R * ts;
+    mbar_arrive_expect_tx(&full[st], n * R * (uint32_t)sizeof(float));
+    bulk_load(stage, out + first * K3, n * K3 * (uint32_t)sizeof(float),
+              &full[st]);
+    bulk_load(stage + K3 * ts, x + first, n * (uint32_t)sizeof(float),
+              &full[st]);
+  };
+
+  if (t == 0) {
+    for (int st = 0; st < NS; ++st) {
+      const long long tile = blockIdx.x + (long long)st * gridDim.x;
+      if (tile < n_tiles) load(tile, st);
+    }
+  }
+  int st = 0;
+  uint32_t parity = 0;
+  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const long long i = tile * ts + t;
+    const float* stage = smem + st * R * ts;
+    mbar_wait(&full[st], parity);
+    if (i < n_sites) {
+      const float xv = stage[K3 * ts + t];
+      float yv, lg;
+      rq_map<INVERSE>(xv,
+                      segment_smem<M, LEFT, RIGHT, INVERSE>(
+                          xv, stage + t * K3, 1, xlo, xw, ylo, yw),
+                      yv, lg);
+      y[i] = yv;
+      logg[i] = lg;
+    }
+    __syncthreads();  // every thread has read the stage
+    if (t == 0) {
+      const long long next = tile + (long long)NS * gridDim.x;
+      if (next < n_tiles) load(next, st);
+    }
+    if (++st == NS) {
+      st = 0;
+      parity ^= 1u;
+    }
+  }
+}
+
+template <int M, bool LEFT, bool RIGHT, bool INVERSE>
+int launch_cl_tiled(Inst<M, LEFT, RIGHT, INVERSE>, const Args& a) {
+  auto kern = rqs_coupling_cl_tiled_kernel<M, LEFT, RIGHT, INVERSE>;
+  static int per_sm = 0;
+  cudaError_t err = cudaSuccess;
+  if (per_sm == 0)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
+                                                        kTileSites, 0);
+  const long long n = a.B * a.S;
+  const long long tiles = (n + kTileSites - 1) / kTileSites;
+  unsigned int grid = 0;
+  if (err == cudaSuccess) err = persistent_grid(per_sm, tiles, grid);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<grid, kTileSites, 0, a.stream>>>(a.x, a.out, a.y, a.logg, n, tiles,
+                                          a.xlo, a.xw, a.ylo, a.yw);
+  return (int)cudaGetLastError();
+}
+
 Args args_of(const void* x, const void* out, void* y, void* logg,
              long long B, long long S, float xlo, float xw, float ylo,
              float yw, void* stream) {
@@ -388,8 +510,9 @@ extern "C" int rqs_coupling_tiled_f32(const void* x, const void* out, void* y,
                [&](auto inst) { return launch_tiled(inst, a); });
 }
 
-// The channels-last kernel: x, y and logg (B, S), out (B, S, 3m-2), the
-// layout of a conv's channels-last output; all float32, contiguous.
+// The channels-last per-site kernel: x, y and logg (B, S), out (B, S,
+// 3m-2), the layout of a conv's channels-last output; all float32,
+// contiguous.
 // Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue for
 // a knot count without a template instance.
 extern "C" int rqs_coupling_cl_f32(const void* x, const void* out, void* y,
@@ -401,4 +524,24 @@ extern "C" int rqs_coupling_cl_f32(const void* x, const void* out, void* y,
   const Args a = args_of(x, out, y, logg, B, S, xlo, xw, ylo, yw, stream);
   return visit(m, left_linear, right_linear, inverse,
                [&](auto inst) { return launch_cl(inst, a); });
+}
+
+// The channels-last tiled kernel on the same arguments, for B S % 4 == 0
+// and every pointer 16-byte aligned (the bulk copies' rule; the wrapper
+// sends other shapes to rqs_coupling_cl_f32).  Returns
+// cudaErrorInvalidValue for arguments it does not take, else
+// cudaGetLastError() after the launch.
+extern "C" int rqs_coupling_cl_tiled_f32(const void* x, const void* out,
+                                         void* y, void* logg, long long B,
+                                         long long S, int m, float xlo,
+                                         float xw, float ylo, float yw,
+                                         int left_linear, int right_linear,
+                                         int inverse, void* stream) {
+  const void* ptrs[4] = {x, out, y, logg};
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16) return (int)cudaErrorInvalidValue;
+  if ((B * S) % 4 || B < 1 || S < 1) return (int)cudaErrorInvalidValue;
+  const Args a = args_of(x, out, y, logg, B, S, xlo, xw, ylo, yw, stream);
+  return visit(m, left_linear, right_linear, inverse,
+               [&](auto inst) { return launch_cl_tiled(inst, a); });
 }

@@ -41,14 +41,19 @@
 //   until the segment is gathered; the coordinate weights are read again
 //   for the transposition rather than held.
 // For a channels-last `out`, (B, S, 3m-2) (the `pallas_reg` route, the
-// Pallas kernel's `channels_last=True`), a third variant
-// (rqs_coupling_bwd_cl_f32), outbar in the same layout: a block's sites
-// are one contiguous run of out and of outbar, staged through shared memory
-// by coalesced loads and stores, each site's VJP taken as the per-site
-// kernel takes it.
-// In all three, m is a template parameter with unrolled loops so the knot
+// Pallas kernel's `channels_last=True`), two more, outbar in the same
+// layout, where the B S sites are one contiguous run of each tensor:
+// - the channels-last tiled kernel (rqs_coupling_bwd_cl_tiled_f32, the
+//   route's): the NCHW tiled kernel's ring and site_vjp_smem on flat tiles
+//   of the run, four bulk copies in and two bulk stores out per tile
+//   (notes at the kernel);
+// - the channels-last per-site kernel (rqs_coupling_bwd_cl_f32) for
+//   B S % 4 != 0 or an address off 16 bytes: a block's sites staged
+//   through shared memory by coalesced loads and stores, each site's VJP
+//   taken as the per-site kernel takes it.
+// In all four, m is a template parameter with unrolled loops so the knot
 // arrays and the adjoint selects use static indices and stay in registers,
-// and each site owns its outbar (no atomics).  The three compute the same
+// and each site owns its outbar (no atomics).  The four compute the same
 // float32 operations in the same order and return the same bits.
 
 #include "bulk_copy.cuh"
@@ -251,7 +256,8 @@ rqs_coupling_bwd_kernel(const float* __restrict__ x,
                                     outbar + site, S, i, xlo, xw, ylo, yw);
 }
 
-// The channels-last kernel: out and outbar are (B, S, 3m-2), so the
+// The channels-last per-site kernel, for the shapes the channels-last tiled
+// kernel below cannot take: out and outbar are (B, S, 3m-2), so the
 // kClSites sites of a block are one contiguous run of kClSites (3m-2)
 // floats in each.  The block copies out's run into a shared-memory stage
 // with coalesced loads; each thread takes its site's VJP from its column
@@ -288,7 +294,7 @@ rqs_coupling_bwd_cl_kernel(const float* __restrict__ x,
     outbar[first * K3 + k] = stage_bar[k];
 }
 
-// The arguments of both C entry points.
+// The arguments of every C entry point.
 struct Args {
   const float *x, *out, *ybar, *loggbar;
   float *xbar, *outbar;
@@ -400,28 +406,29 @@ __device__ __forceinline__ void coords_adjoint_smem(float* w, int stride,
   }
 }
 
-// One site's VJP on its column `o` of a stage (rows `ts` floats apart):
-// rows 0..3m-3 hold out and receive outbar, row 3m-2 holds x and receives
-// xbar, rows 3m-1 and 3m hold ybar and loggbar.
+// One site's VJP in a stage: its 3m-2 values of out at `o`, `cs` floats
+// apart, receive outbar; its x at `xr` receives xbar, and its ybar and
+// loggbar sit `rs` and 2 `rs` floats after x.  In the NCHW tiled kernel
+// `o` is the site's column of the stage and the cells follow in it (cs =
+// rs = ts, xr = o + (3m-2) ts); in the channels-last one `o` is the site's
+// run in out's block (cs = 1) and xr its cell of x's row.
 template <int M, bool LEFT, bool RIGHT, bool INVERSE>
-__device__ __forceinline__ void site_vjp_smem(float* o, int ts, float xlo,
-                                              float xw, float ylo,
-                                              float yw) {
-  constexpr int K3 = 3 * M - 2;
+__device__ __forceinline__ void site_vjp_smem(float* o, int cs, float* xr,
+                                              int rs, float xlo, float xw,
+                                              float ylo, float yw) {
   constexpr int L = LEFT ? 1 : 0;
   constexpr int K = M + L + (RIGHT ? 1 : 0);
-  float* xr = o + K3 * ts;
 
   const float xv = xr[0];
   float invx, invy;
   Segment sg;
   {
     float kx[K], ky[K], kd[K];
-    coords_smem<M>(o, ts, xlo, xw, kx + L, invx);
-    coords_smem<M>(o + (M - 1) * ts, ts, ylo, yw, ky + L, invy);
+    coords_smem<M>(o, cs, xlo, xw, kx + L, invx);
+    coords_smem<M>(o + (M - 1) * cs, cs, ylo, yw, ky + L, invy);
 #pragma unroll
     for (int j = 0; j < M; ++j)
-      kd[L + j] = softplus_log2(o[(2 * (M - 1) + j) * ts]);
+      kd[L + j] = softplus_log2(o[(2 * (M - 1) + j) * cs]);
     if (LEFT) {
       kx[0] = kx[1] - 1.0f;
       ky[0] = ky[1] - kd[1];
@@ -443,8 +450,8 @@ __device__ __forceinline__ void site_vjp_smem(float* o, int ts, float xlo,
       ? inverse_theta(xv, sg.y0, dy, mm, spread, sg.d0)
       : (xv - sg.x0) / dx;
 
-  const float gy = xr[ts];
-  const float gl = xr[2 * ts];
+  const float gy = xr[rs];
+  const float gl = xr[2 * rs];
   Adj a = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
   float xb, x0b, dxb;
   if (!INVERSE) {
@@ -478,15 +485,15 @@ __device__ __forceinline__ void site_vjp_smem(float* o, int ts, float xlo,
   const float y1b = dyb;
   const float y0b = a.y0 - dyb;
 
-  coords_adjoint_smem<M, LEFT, RIGHT>(o, ts, invx, xw, idx, x0b, x1b);
-  coords_adjoint_smem<M, LEFT, RIGHT>(o + (M - 1) * ts, ts, invy, yw, idx,
+  coords_adjoint_smem<M, LEFT, RIGHT>(o, cs, invx, xw, idx, x0b, x1b);
+  coords_adjoint_smem<M, LEFT, RIGHT>(o + (M - 1) * cs, cs, invy, yw, idx,
                                       y0b, y1b);
 #pragma unroll
   for (int j = 0; j < M; ++j) {
     float kdb = knot_adj<M, LEFT, RIGHT>(j, idx, d0b, d1b);
     if (LEFT && j == 0) kdb += idx == 0 ? -y0b : 0.0f;
     if (RIGHT && j == M - 1) kdb += idx == K - 2 ? y1b : 0.0f;
-    float* w = o + (2 * (M - 1) + j) * ts;
+    float* w = o + (2 * (M - 1) + j) * cs;
     const float z = w[0] * kLn2;
     w[0] = kdb * (1.0f / (1.0f + expf(-z)));
   }
@@ -556,9 +563,11 @@ rqs_coupling_bwd_tiled_kernel(const float* __restrict__ x,
     int n;
     locate(tile, b, s0, n);
     float* stage = smem + (long long)st * R * ts;
+    float* o = stage + t;
     mbar_wait(&full[st], parity);
     if (t < n)
-      site_vjp_smem<M, LEFT, RIGHT, INVERSE>(stage + t, ts, xlo, xw, ylo, yw);
+      site_vjp_smem<M, LEFT, RIGHT, INVERSE>(o, ts, o + K3 * ts, ts, xlo, xw,
+                                             ylo, yw);
     fence_proxy_async();
     __syncthreads();
     if (t < 32) {  // lane l stores rows l, l + 32, ... (xbar's is K3)
@@ -598,6 +607,136 @@ int launch_tiled(Inst<M, LEFT, RIGHT, INVERSE>, const Args& a) {
   kern<<<grid, kTileSites, 0, a.stream>>>(
       a.x, a.out, a.ybar, a.loggbar, a.xbar, a.outbar, a.S, tps, tiles,
       a.xlo, a.xw, a.ylo, a.yw);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The channels-last tiled kernel.  out and outbar are (B, S, 3m-2) and x,
+// ybar, loggbar, xbar (B, S), all contiguous, so the B S sites are one run
+// in each tensor and tile k is sites [k ts, k ts + ts) of that run.
+//
+// What bounds it: the NCHW tiled kernel's bytes (192 B per site at m = 8,
+// 0.0150 ms at B = 512) and instructions.  The channels-last kernel it
+// replaces on the route reached 0.47 of that bound cold: a block of 128
+// sites loaded its run with plain loads, synchronised, computed and stored,
+// one block per 128 sites with nothing in flight while it computed, and
+// took each site's VJP as the per-site kernel does (the softmax's e_j
+// computed twice).  The design:
+// - the NCHW tiled kernel's persistent ring: a stage holds out's run of the
+//   tile (K3 ts floats), then the tile's x, ybar and loggbar runs (ts
+//   floats each), the same R ts floats, filled by four bulk copies that
+//   thread 0 issues kStages tiles ahead;
+// - site_vjp_smem in place: a thread reads its site's run at stage + t K3
+//   (channel stride 1) and its cells at x's row + t, and writes outbar over
+//   the run and xbar over x's cell, the NCHW tiled kernel's operations in
+//   its order (the same bits);
+// - outbar's run and xbar's leave by two bulk stores (outbar keeps out's
+//   layout, so its tile is one run), and the stage is refilled once they
+//   have read it.
+// The column reads and writes meet gcd(K3, 32)-way bank conflicts (2 at
+// m = 8), as in the forward.  Registers are capped as in the NCHW tiled
+// kernel (min_blocks).  The bulk copies' rule: B S % 4 == 0 and every
+// tensor 16-byte aligned.
+template <int M, bool LEFT, bool RIGHT, bool INVERSE>
+__global__ void __launch_bounds__(kTileSites, min_blocks(M))
+rqs_coupling_bwd_cl_tiled_kernel(const float* __restrict__ x,
+                                 const float* __restrict__ out,
+                                 const float* __restrict__ ybar,
+                                 const float* __restrict__ loggbar,
+                                 float* __restrict__ xbar,
+                                 float* __restrict__ outbar,
+                                 long long n_sites, long long n_tiles,
+                                 float xlo, float xw, float ylo, float yw) {
+  constexpr int K3 = 3 * M - 2;
+  constexpr int R = K3 + 3;
+  constexpr int ts = kTileSites;
+  static_assert(kStages * R * ts * sizeof(float) <= 48 * 1024,
+                "the ring must fit in a block's static shared memory");
+  __shared__ __align__(128) float smem[kStages * R * ts];
+  __shared__ uint64_t full[kStages];
+  const int t = threadIdx.x;
+
+  if (t == 0) {
+    for (int st = 0; st < kStages; ++st) mbar_init(&full[st], 1);
+    fence_mbarrier_init();
+  }
+  __syncthreads();
+
+  // first site and number of sites of a tile
+  auto locate = [&](long long tile, long long& first, uint32_t& n) {
+    first = tile * ts;
+    n = (uint32_t)(n_sites - first < ts ? n_sites - first : ts);
+  };
+  // thread 0 fills a stage: out's run of the tile, then x's, ybar's and
+  // loggbar's
+  auto load = [&](long long tile, int st) {
+    long long first;
+    uint32_t n;
+    locate(tile, first, n);
+    float* stage = smem + st * R * ts;
+    const uint32_t bytes = n * (uint32_t)sizeof(float);
+    mbar_arrive_expect_tx(&full[st], bytes * R);
+    bulk_load(stage, out + first * K3, bytes * K3, &full[st]);
+    bulk_load(stage + K3 * ts, x + first, bytes, &full[st]);
+    bulk_load(stage + (K3 + 1) * ts, ybar + first, bytes, &full[st]);
+    bulk_load(stage + (K3 + 2) * ts, loggbar + first, bytes, &full[st]);
+  };
+
+  if (t == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      const long long tile = blockIdx.x + (long long)st * gridDim.x;
+      if (tile < n_tiles) load(tile, st);
+    }
+  }
+  int st = 0;
+  uint32_t parity = 0;
+  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    long long first;
+    uint32_t n;
+    locate(tile, first, n);
+    float* stage = smem + st * R * ts;
+    mbar_wait(&full[st], parity);
+    if (t < (int)n)
+      site_vjp_smem<M, LEFT, RIGHT, INVERSE>(stage + t * K3, 1,
+                                             stage + K3 * ts + t, ts, xlo, xw,
+                                             ylo, yw);
+    fence_proxy_async();
+    __syncthreads();
+    if (t == 0) {
+      const uint32_t bytes = n * (uint32_t)sizeof(float);
+      bulk_store(outbar + first * K3, stage, bytes * K3);
+      bulk_store(xbar + first, stage + K3 * ts, bytes);
+      bulk_commit();
+      const long long next = tile + (long long)kStages * gridDim.x;
+      if (next < n_tiles) {
+        bulk_wait_read();
+        load(next, st);
+      }
+    }
+    if (++st == kStages) {
+      st = 0;
+      parity ^= 1u;
+    }
+  }
+  if (t == 0) bulk_wait_all();
+}
+
+template <int M, bool LEFT, bool RIGHT, bool INVERSE>
+int launch_cl_tiled(Inst<M, LEFT, RIGHT, INVERSE>, const Args& a) {
+  auto kern = rqs_coupling_bwd_cl_tiled_kernel<M, LEFT, RIGHT, INVERSE>;
+  static int per_sm = 0;
+  cudaError_t err = cudaSuccess;
+  if (per_sm == 0)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
+                                                        kTileSites, 0);
+  const long long n = a.B * a.S;
+  const long long tiles = (n + kTileSites - 1) / kTileSites;
+  unsigned int grid = 0;
+  if (err == cudaSuccess) err = persistent_grid(per_sm, tiles, grid);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<grid, kTileSites, 0, a.stream>>>(a.x, a.out, a.ybar, a.loggbar,
+                                          a.xbar, a.outbar, n, tiles, a.xlo,
+                                          a.xw, a.ylo, a.yw);
   return (int)cudaGetLastError();
 }
 
@@ -648,8 +787,8 @@ extern "C" int rqs_coupling_bwd_tiled_f32(
                [&](auto inst) { return launch_tiled(inst, a); });
 }
 
-// The channels-last kernel: x, ybar, loggbar, xbar (B, S); out, outbar
-// (B, S, 3m-2); all float32, contiguous.  Returns cudaGetLastError() after
+// The channels-last per-site kernel: x, ybar, loggbar, xbar (B, S); out,
+// outbar (B, S, 3m-2); all float32, contiguous.  Returns cudaGetLastError() after
 // the launch, or cudaErrorInvalidValue for a knot count without a template
 // instance.
 extern "C" int rqs_coupling_bwd_cl_f32(const void* x, const void* out,
@@ -663,4 +802,24 @@ extern "C" int rqs_coupling_bwd_cl_f32(const void* x, const void* out,
                          ylo, yw, stream);
   return visit(m, left_linear, right_linear, inverse,
                [&](auto inst) { return launch_cl(inst, a); });
+}
+
+// The channels-last tiled kernel on the same arguments, for B S % 4 == 0
+// and every pointer 16-byte aligned (the bulk copies' rule; the wrapper
+// sends other shapes to rqs_coupling_bwd_cl_f32).  Returns
+// cudaErrorInvalidValue for arguments it does not take, else
+// cudaGetLastError() after the launch.
+extern "C" int rqs_coupling_bwd_cl_tiled_f32(
+    const void* x, const void* out, const void* ybar, const void* loggbar,
+    void* xbar, void* outbar, long long B, long long S, int m, float xlo,
+    float xw, float ylo, float yw, int left_linear, int right_linear,
+    int inverse, void* stream) {
+  const void* ptrs[6] = {x, out, ybar, loggbar, xbar, outbar};
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16) return (int)cudaErrorInvalidValue;
+  if ((B * S) % 4 || B < 1 || S < 1) return (int)cudaErrorInvalidValue;
+  const Args a = args_of(x, out, ybar, loggbar, xbar, outbar, B, S, xlo, xw,
+                         ylo, yw, stream);
+  return visit(m, left_linear, right_linear, inverse,
+               [&](auto inst) { return launch_cl_tiled(inst, a); });
 }

@@ -42,13 +42,15 @@ _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 _SIGNATURES = {
     # x, out, y, logg, B, S, m, xlo, xw, ylo, yw, left_linear,
     # right_linear, inverse, stream (every variant; out channels-last for
-    # the _cl one)
+    # the _cl ones)
     "rqs_coupling_f32": (_P, _P, _P, _P, _L, _L, _I, _F, _F, _F, _F, _I,
                          _I, _I, _P),
     "rqs_coupling_tiled_f32": (_P, _P, _P, _P, _L, _L, _I, _F, _F, _F, _F,
                                _I, _I, _I, _P),
     "rqs_coupling_cl_f32": (_P, _P, _P, _P, _L, _L, _I, _F, _F, _F, _F, _I,
                             _I, _I, _P),
+    "rqs_coupling_cl_tiled_f32": (_P, _P, _P, _P, _L, _L, _I, _F, _F, _F,
+                                  _F, _I, _I, _I, _P),
     # x, out, ybar, loggbar, xbar, outbar, B, S, m, xlo, xw, ylo, yw,
     # left_linear, right_linear, inverse, stream (every variant)
     "rqs_coupling_bwd_f32": (_P, _P, _P, _P, _P, _P, _L, _L, _I, _F, _F,
@@ -57,6 +59,8 @@ _SIGNATURES = {
                                    _F, _F, _F, _I, _I, _I, _P),
     "rqs_coupling_bwd_cl_f32": (_P, _P, _P, _P, _P, _P, _L, _L, _I, _F, _F,
                                 _F, _F, _I, _I, _I, _P),
+    "rqs_coupling_bwd_cl_tiled_f32": (_P, _P, _P, _P, _P, _P, _L, _L, _I,
+                                      _F, _F, _F, _F, _I, _I, _I, _P),
     # cfgs, act, B, nd, L0, L1, L2, w0, w2, w4, stream
     "phi4_action_f32": (_P, _P, _L, _I, _I, _I, _I, _F, _F, _F, _P),
     # cfgs, act, B, L0, L1, samples, w0, w2, w4, stream

@@ -15,21 +15,22 @@ inverse, and return ``(y, log|dy/dx|)`` shaped like ``x``.
 backward, :func:`rqs_coupling_bwd`, is the counterpart of the Pallas kernel
 ``_rqs_bwd_kernel``, a hand-derived VJP that recomputes the forward per
 site (``csrc/rqs_coupling_bwd.cu``, plain version
-:func:`rqs_coupling_vjp_plain`).  Each direction has two hand-written
-variants, chosen by shape and alignment (:func:`coupling_variant`): the
-tiled kernel, whose persistent blocks stage tiles of 128 sites through
-shared memory with bulk copies, and the per-site kernel for the shapes the
-bulk copies cannot take; the two return the same bits.  Those take ``out``
-NCHW-contiguous.  A channels-last ``out`` (each site's ``3m - 2`` values
-one contiguous run, the NHWC output of a conv fed channels-last data: the
-``pallas_reg`` route, the Pallas kernels' ``channels_last=True``) takes a
-third kernel of each direction (the forward per site, the VJP staging a
-block's run through shared memory), with the same bits again; the VJP's
-``outbar`` comes back in ``out``'s layout.  :func:`coupling_layout`
-makes that choice and refuses other strides.
+:func:`rqs_coupling_vjp_plain`).  Each direction has four hand-written
+kernels, which return the same bits.  :func:`coupling_layout` picks the
+layout: ``out`` NCHW-contiguous, or channels-last (each site's ``3m - 2``
+values one contiguous run, the NHWC output of a conv fed channels-last
+data: the ``pallas_reg`` route, the Pallas kernels'
+``channels_last=True``), and refuses other strides; the VJP's ``outbar``
+comes back in ``out``'s layout.  :func:`coupling_variant` picks, by shape
+and alignment, the layout's tiled kernel, whose persistent blocks stage
+tiles of sites through a ring of shared memory with bulk copies (NCHW: the
+rows of each sample's channels; channels-last: flat tiles of the batch's
+one run of sites), or its per-site kernel for the shapes the bulk copies
+cannot take.
 ``rqs_coupling.tiled_launches`` and ``rqs_coupling_bwd.tiled_launches``
-count the tiled kernels' share of each wrapper's ``launches``,
-``.cl_launches`` the channels-last kernels' share.  The counts
+count the launches of a tiled kernel of either layout among each
+wrapper's ``launches``, ``.cl_launches`` those of a channels-last kernel,
+tiled or per site.  The counts
 grow where the wrapper launches its kernel from the host: under a CUDA
 graph (``utils.graphs``) that is the warm-up and the capture, once per
 capture, not once per replay; a replay's launches are counted by kernel
@@ -389,8 +390,9 @@ def _forward(x, out, cfg):
         lib = _lib.library()
         ptrs = [t.data_ptr() for t in (x, out, y, logg)]
         cl = layout == "channels_last"
-        tiled = not cl and coupling_variant(s, ptrs) == "tiled"
-        launch = (lib.rqs_coupling_cl_f32 if cl else
+        tiled = coupling_variant(s, ptrs, layout, b) == "tiled"
+        launch = (lib.rqs_coupling_cl_tiled_f32 if cl and tiled else
+                  lib.rqs_coupling_cl_f32 if cl else
                   lib.rqs_coupling_tiled_f32 if tiled
                   else lib.rqs_coupling_f32)
         with torch.cuda.device(x.device):
@@ -403,14 +405,17 @@ def _forward(x, out, cfg):
     return y, logg
 
 
-def coupling_variant(s, ptrs):
-    """Which kernel of either direction takes ``s`` sites per sample of an
-    NCHW ``out`` with tensors at the addresses ``ptrs``: ``"tiled"`` where
-    the bulk copies
-    can move every tile row (16-byte aligned, a multiple of 16 bytes long:
-    ``s % 4 == 0`` and every address a multiple of 16), ``"sites"``
-    otherwise."""
-    return ("tiled" if s % 4 == 0 and all(p % 16 == 0 for p in ptrs)
+def coupling_variant(s, ptrs, layout="nchw", b=1):
+    """Which kernel of either direction takes ``s`` sites per sample of
+    ``b`` samples of an ``out`` in ``layout`` (:func:`coupling_layout`)
+    with tensors at the addresses ``ptrs``: ``"tiled"`` where the bulk
+    copies can move every tile's runs (16-byte aligned, a multiple of 16
+    bytes long: every address a multiple of 16, and ``s % 4 == 0`` for
+    NCHW, whose tiles cut each sample's rows, ``b * s % 4 == 0`` for
+    channels-last, whose tiles cut the batch's one run of sites),
+    ``"sites"`` otherwise."""
+    sites = b * s if layout == "channels_last" else s
+    return ("tiled" if sites % 4 == 0 and all(p % 16 == 0 for p in ptrs)
             else "sites")
 
 
@@ -438,8 +443,9 @@ def rqs_coupling_bwd(x, out, ybar, loggbar, *, xlim, ylim, left=None,
         lib = _lib.library()
         ptrs = [t.data_ptr() for t in (x, out, ybar, loggbar, xbar, outbar)]
         cl = layout == "channels_last"
-        tiled = not cl and coupling_variant(s, ptrs) == "tiled"
-        launch = (lib.rqs_coupling_bwd_cl_f32 if cl else
+        tiled = coupling_variant(s, ptrs, layout, b) == "tiled"
+        launch = (lib.rqs_coupling_bwd_cl_tiled_f32 if cl and tiled else
+                  lib.rqs_coupling_bwd_cl_f32 if cl else
                   lib.rqs_coupling_bwd_tiled_f32 if tiled
                   else lib.rqs_coupling_bwd_f32)
         with torch.cuda.device(x.device):

@@ -67,8 +67,8 @@ KERNEL_RE = {
     "rqs_coupling": r"\brqs_coupling(_tiled)?_kernel\b",
     "rqs_coupling_bwd": r"\brqs_coupling_bwd(_tiled)?_kernel\b",
     # the channels-last kernels (the pallas_reg route), counted apart
-    "rqs_coupling_cl": r"\brqs_coupling_cl_kernel\b",
-    "rqs_coupling_bwd_cl": r"\brqs_coupling_bwd_cl_kernel\b",
+    "rqs_coupling_cl": r"\brqs_coupling_cl(_tiled)?_kernel\b",
+    "rqs_coupling_bwd_cl": r"\brqs_coupling_bwd_cl(_tiled)?_kernel\b",
     "phi4_action": r"\bphi4_action(_tiled)?_kernel\b",
     "phi4_action_grad": r"\bphi4_action_grad(_tiled)?_kernel\b",
     "accept_scan": r"\baccept_scan_kernel\b",
@@ -559,7 +559,9 @@ SASS_FUNCTIONS = (
     ("phi4_action_grad_kernel", TRAIN_BATCH * LAT[0] * LAT[1]),
     ("phi4_action_grad_tiled_kernel", TRAIN_BATCH * LAT[0] * LAT[1] // 4),
     ("rqs_coupling_cl_kernel", BATCH * LAT[0] * LAT[1] // 2),
-    ("rqs_coupling_bwd_cl_kernel", TRAIN_BATCH * LAT[0] * LAT[1] // 2))
+    ("rqs_coupling_cl_tiled_kernel", BATCH * LAT[0] * LAT[1] // 2),
+    ("rqs_coupling_bwd_cl_kernel", TRAIN_BATCH * LAT[0] * LAT[1] // 2),
+    ("rqs_coupling_bwd_cl_tiled_kernel", TRAIN_BATCH * LAT[0] * LAT[1] // 2))
 FLAGSHIP_INSTANCE = "ILi8ELb1ELb1E"  # m = 8, linear tails, as mangled
 
 

@@ -5,12 +5,16 @@ import nothing of JAX::
 
     python -m pytest --noconftest -q -m gpu tests/test_torch_cuda_channels_last.py
 
-The channels-last coupling kernel and its VJP (``rqs_coupling_cl_f32``,
-``rqs_coupling_bwd_cl_f32``) at every knot count and tail flag, on a
-ragged number of sites and on tile-sized ones, bit for bit against the
-NCHW kernels on the same values (``out.contiguous()``; the per-site and
-the tiled one) and within ``chip_smoke.py``'s bars of their plain
-versions; the wrappers' refusal of other strides; and the route on a
+The channels-last coupling kernels and their VJPs, tiled
+(``rqs_coupling_cl_tiled_f32``, ``rqs_coupling_bwd_cl_tiled_f32``) and per
+site (``rqs_coupling_cl_f32``, ``rqs_coupling_bwd_cl_f32``), at every knot
+count and tail flag, on a ragged number of sites and on tile-sized ones,
+bit for bit against the NCHW kernels on the same values
+(``out.contiguous()``; the per-site and the tiled one) and against each
+other, and within ``chip_smoke.py``'s bars of their plain versions; which
+shapes and addresses reach which variant, by the counters; a persistent
+run at the flagship's shape, where a block takes many tiles; the
+wrappers' refusal of other strides; and the route on a
 small flagship: the conditioners' output channels-last at every coupling
 (float32 and bf16), the launches by profiler name (channels-last
 couplings only), logq and one path-gradient step against a float64 CPU
@@ -67,6 +71,27 @@ def _bits(t):
     return t.contiguous().view(torch.int32)
 
 
+def _off(t):
+    """A copy of ``t`` in its own strides (contiguous or channels-last), 4
+    bytes past a 16-byte aligned address."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].as_strided(t.shape, t.stride())
+    view.copy_(t)
+    return view
+
+
+def _counts():
+    return tuple((c.launches, c.tiled_launches, c.cl_launches)
+                 for c in (sc.rqs_coupling, sc.rqs_coupling_bwd))
+
+
+def _launched(before):
+    """``(launches, tiled, channels-last)`` of each wrapper since
+    ``before`` (:func:`_counts`)."""
+    return tuple(tuple(a - b for a, b in zip(now, was))
+                 for now, was in zip(_counts(), before))
+
+
 TAILS = ((None, None), ("linear", None), (None, "linear"),
          ("linear", "linear"))
 
@@ -75,10 +100,13 @@ TAILS = ((None, None), ("linear", None), (None, "linear"),
 @pytest.mark.parametrize("m", sc.SUPPORTED_KNOTS)
 def test_channels_last_kernels_match_nchw_bit_for_bit(cuda, np_rng, m,
                                                       inverse):
-    """On 5x7 sites (the NCHW per-site kernel) and 12x22 (the tiled one),
+    """On 5x7 sites (B S = 105: the per-site kernels of both layouts) and
+    12x22 (B S = 792: the tiled ones, a ragged last tile of 24 sites),
     B = 3, every tail flag: forward and VJP bit for bit against the NCHW
-    kernels, within the plain versions' bars, ``outbar`` channels-last,
-    one channels-last launch per call."""
+    kernels and, at 12x22, against the per-site channels-last kernels on a
+    copy 4 bytes off alignment; within the plain versions' bars,
+    ``outbar`` channels-last, one channels-last launch per call, tiled
+    where B S % 4 == 0."""
     for lat in ((5, 7), (12, 22)):
         for left, right in TAILS:
             out = _cl(np_rng.standard_normal((3, *lat, 3 * m - 2)), cuda)
@@ -90,15 +118,21 @@ def test_channels_last_kernels_match_nchw_bit_for_bit(cuda, np_rng, m,
             kw = dict(xlim=LIM, ylim=LIM, left=left, right=right,
                       inverse=inverse)
             assert sc.coupling_layout(out) == "channels_last"
-            before = (sc.rqs_coupling.cl_launches,
-                      sc.rqs_coupling_bwd.cl_launches)
+            tiled = int(lat == (12, 22))
+            before = _counts()
             got = sc.rqs_coupling(x, out, **kw)
             gbar = sc.rqs_coupling_bwd(x, out, *cot, **kw)
-            assert (sc.rqs_coupling.cl_launches,
-                    sc.rqs_coupling_bwd.cl_launches) == (before[0] + 1,
-                                                         before[1] + 1)
+            assert _launched(before) == ((1, tiled, 1),) * 2
             ref = sc.rqs_coupling(x, out.contiguous(), **kw)
             rbar = sc.rqs_coupling_bwd(x, out.contiguous(), *cot, **kw)
+            if tiled:
+                off = _off(out)
+                before = _counts()
+                sites = sc.rqs_coupling(x, off, **kw)
+                sbar = sc.rqs_coupling_bwd(x, off, *cot, **kw)
+                assert _launched(before) == ((1, 0, 1),) * 2
+                for g, r in zip((*got, *gbar), (*sites, *sbar)):
+                    assert torch.equal(_bits(g), _bits(r))
             plain = sc.rqs_coupling_plain(x, out, **kw)
             pbar = sc.rqs_coupling_vjp_plain(x, out, *cot, **kw)
             torch.cuda.synchronize()
@@ -128,8 +162,76 @@ def test_flagship_shape_launches_the_channels_last_kernels(cuda, np_rng):
         sc.rqs_coupling(x, out, **kw), sc.rqs_coupling(x, out, inverse=True,
                                                        **kw),
         sc.rqs_coupling_bwd(x, out, *cot, **kw)])[0]
-    assert launches == {"rqs_coupling_cl": (2, 0),
-                        "rqs_coupling_bwd_cl": (1, 0)}, launches
+    assert launches == {"rqs_coupling_cl": (2, 2),
+                        "rqs_coupling_bwd_cl": (1, 1)}, launches
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+def test_persistent_run_at_the_flagship_shape(cuda, np_rng, inverse):
+    """At (1024, 22, 32, 16) forward and (512, 22, 32, 16) backward the
+    tiles outnumber the persistent grid (2048 tiles of 256 sites and 4096
+    of 128, against at most 132 SMs x 4 and x 7 blocks), so each block
+    refills its ring many times: the tiled kernels bit for bit against
+    the NCHW tiled kernels and the per-site channels-last kernels."""
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    assert 1024 * 512 // 256 > 4 * n_sm and 512 * 512 // 128 > 7 * n_sm
+    out = _cl(np_rng.standard_normal((1024, 32, 16, 22)), cuda)
+    x = _f32(np_rng.standard_normal((1024, 32, 16)), cuda)
+    cot = [_f32(np_rng.standard_normal((512, 32, 16)), cuda)
+           for _ in range(2)]
+    kw = dict(xlim=(-4.0, 4.0), ylim=(-4.0, 4.0), left="linear",
+              right="linear", inverse=inverse)
+    off = _off(out)
+    for b, call in ((1024, lambda o, xx: sc.rqs_coupling(xx, o, **kw)),
+                    (512, lambda o, xx: sc.rqs_coupling_bwd(xx, o, *cot,
+                                                            **kw))):
+        before = _counts()
+        got = call(out[:b], x[:b])
+        tiled = _launched(before)
+        ref = call(out[:b].contiguous(), x[:b])
+        sites = call(off[:b], x[:b])
+        torch.cuda.synchronize()
+        assert sum(t[1] for t in tiled) == 1
+        for g, r, p in zip(got, ref, sites):
+            assert torch.equal(_bits(g), _bits(r))
+            assert torch.equal(_bits(g), _bits(p))
+
+
+@pytest.mark.parametrize("b,lat,moved,tiled", [
+    (4, (4, 4), None, (1, 1)),         # B S = 64
+    (1, (5, 4), None, (1, 1)),         # B S = 20, S % 4 == 0
+    (4, (5, 7), None, (1, 1)),         # B S = 140, S % 4 != 0: NCHW per site
+    (3, (5, 5), None, (0, 0)),         # B S % 4 == 1
+    (2, (5, 7), None, (0, 0)),         # B S % 4 == 2
+    (1, (5, 7), None, (0, 0)),         # B S % 4 == 3
+    (4, (8, 8), "out", (0, 0)),        # out 4 bytes off
+    (4, (8, 8), "x", (0, 0)),          # x 4 bytes off
+    (4, (8, 8), "ybar", (1, 0)),       # a cotangent 4 bytes off: the VJP per site
+    (4, (8, 8), "loggbar", (1, 0)),
+])
+def test_variant_by_shape_and_alignment_on_the_card(cuda, np_rng, b, lat,
+                                                    moved, tiled):
+    """Ragged shapes and offset tensors reach the per-site channels-last
+    kernels, the rest the tiled ones, by the wrappers' counters (``tiled``:
+    the forward's and the VJP's flag); every variant gives the NCHW
+    kernels' bits."""
+    t = {"out": _cl(np_rng.standard_normal((b, *lat, 10)), cuda),
+         **{k: _f32(np_rng.standard_normal((b, *lat)), cuda)
+            for k in ("x", "ybar", "loggbar")}}
+    if moved is not None:
+        t[moved] = _off(t[moved])
+    kw = dict(xlim=LIM, ylim=LIM, left="linear", right="linear")
+    before = _counts()
+    got = (*sc.rqs_coupling(t["x"], t["out"], **kw),
+           *sc.rqs_coupling_bwd(t["x"], t["out"], t["ybar"], t["loggbar"],
+                                **kw))
+    assert _launched(before) == tuple((1, f, 1) for f in tiled)
+    nchw = t["out"].contiguous()
+    ref = (*sc.rqs_coupling(t["x"], nchw, **kw),
+           *sc.rqs_coupling_bwd(t["x"], nchw, t["ybar"], t["loggbar"], **kw))
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert torch.equal(_bits(g), _bits(r))
 
 
 def test_other_strides_raise_on_the_card(cuda):
@@ -197,7 +299,8 @@ def test_route_matches_a_float64_cpu_copy(cuda, np_rng):
 
 def test_replays_launch_channels_last_couplings_only(cuda, np_rng):
     """The full-width flagship on the route: one replayed batch and one
-    replayed step by profiler name, the couplings all channels-last."""
+    replayed step by profiler name, the couplings all channels-last and
+    tiled."""
     model = build_phi4_model((32, 32), coupling_backend="pallas_reg")
     model.fit(n_epochs=1, batch_size=512, grad_estimator="path",
               checkpoint_dict=dict(print_stride=None))
@@ -206,8 +309,8 @@ def test_replays_launch_channels_last_couplings_only(cuda, np_rng):
     fit.step()  # both captured
     before = (sc.rqs_coupling.launches, sc.rqs_coupling_bwd.launches)
     assert device_launches(lambda: post.logqp_stream(1, 1024))[0] == {
-        "rqs_coupling_cl": (4, 0), "phi4_action": (1, 1)}
+        "rqs_coupling_cl": (4, 4), "phi4_action": (1, 1)}
     assert device_launches(fit.step)[0] == {
-        "rqs_coupling_cl": (8, 0), "rqs_coupling_bwd_cl": (8, 0),
+        "rqs_coupling_cl": (8, 8), "rqs_coupling_bwd_cl": (8, 8),
         "phi4_action": (1, 1), "phi4_action_grad": (1, 1)}
     assert (sc.rqs_coupling.launches, sc.rqs_coupling_bwd.launches) == before

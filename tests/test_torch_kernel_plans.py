@@ -16,6 +16,18 @@ from normflow__tpu_torch.ops.kernels import phi4, spline_coupling as sc
 from normflow__tpu_torch.tools import kernel_times as kt
 
 
+def _variant(s, ptrs):
+    """:func:`coupling_variant` as a wrapper calls it: ``s`` sites per
+    sample of an NCHW ``out``, or ``(b, s)``, an ``out`` of ``b`` samples
+    of ``s`` sites laid out channels-last, whose layout the wrapper reads
+    from its strides (NCHW where there is one site per sample)."""
+    if isinstance(s, int):
+        return sc.coupling_variant(s, ptrs)
+    b, s = s
+    out = torch.empty((b, s, 22), device="meta").movedim(-1, 1)
+    return sc.coupling_variant(s, ptrs, sc.coupling_layout(out), b)
+
+
 @pytest.mark.parametrize("s,offsets,variant", [
     (512, (0, 0, 0, 0, 0, 0), "tiled"),     # the flagship's 32x16 sites
     (240, (0, 0, 0, 0, 0, 0), "tiled"),     # a ragged last tile
@@ -32,10 +44,26 @@ from normflow__tpu_torch.tools import kernel_times as kt
     (128, (0, 0, 0, 0, 0, 0), "tiled"),     # one whole tile
     (132, (0, 0, 0, 0, 0, 0), "tiled"),     # a last tile of 4 sites
     (1024, (0, 0, 4, 4, 0, 0), "sites"),    # the cotangents off 16 bytes
+    # channels-last, (B, S): the tiles cut the batch's one run of B S sites
+    ((512, 1024), (0, 0, 0, 0, 0, 0), "tiled"),  # the flagship unpacked
+    ((512, 512), (0, 0, 0, 0, 0, 0), "tiled"),   # and packed
+    ((2, 66), (0, 0, 0, 0, 0, 0), "tiled"),  # a last tile of 4, S % 4 != 0
+    ((3, 7), (0, 0, 0, 0, 0, 0), "sites"),   # B S % 4 == 1
+    ((2, 7), (0, 0, 0, 0, 0, 0), "sites"),   # B S % 4 == 2
+    ((5, 7), (0, 0, 0, 0, 0, 0), "sites"),   # B S % 4 == 3
+    ((4, 35), (0, 0, 0, 0, 0, 0), "tiled"),  # B S % 4 == 0, S % 4 != 0
+    ((512, 512), (0, 4, 0, 0, 0, 0), "sites"),   # out off 16 bytes
+    ((512, 512), (0, 0, 0, 0, 0, 12), "sites"),  # outbar off 16 bytes
+    ((512, 512), (0, 0, 8, 0, 0, 0), "sites"),   # ybar off 16 bytes
+    ((512, 512), (0, 0, 0, 4, 0, 0), "sites"),   # loggbar off 16 bytes
+    ((512, 512), (0, 0, 0, 0, 8, 0), "sites"),   # xbar off 16 bytes
+    ((512, 512), (4, 0, 0, 0, 0, 0), "sites"),   # x off 16 bytes
+    ((512, 512), (16, 32, 48, 64, 80, 96), "tiled"),
+    ((512, 1), (0, 0, 0, 0, 0, 0), "sites"),  # one site: NCHW, S % 4 != 0
 ])
 def test_bwd_variant_by_shape_and_alignment(s, offsets, variant):
     ptrs = [(1 << 20) + 512 * k + o for k, o in enumerate(offsets)]
-    assert sc.coupling_variant(s, ptrs) == variant
+    assert _variant(s, ptrs) == variant
 
 
 @pytest.mark.parametrize("s,offsets,variant", [
@@ -50,12 +78,24 @@ def test_bwd_variant_by_shape_and_alignment(s, offsets, variant):
     (512, (0, 0, 12, 0), "sites"),       # y off 16 bytes
     (512, (0, 0, 0, 4), "sites"),        # logg off 16 bytes
     (512, (16, 32, 48, 64), "tiled"),    # offsets of whole 16 bytes
+    # channels-last, (B, S)
+    ((1024, 512), (0, 0, 0, 0), "tiled"),   # the flagship's sampling batch
+    ((512, 1024), (0, 0, 0, 0), "tiled"),
+    ((2, 130), (0, 0, 0, 0), "tiled"),      # a last tile of 4, S % 4 != 0
+    ((3, 7), (0, 0, 0, 0), "sites"),        # B S % 4 == 1
+    ((2, 7), (0, 0, 0, 0), "sites"),        # B S % 4 == 2
+    ((5, 7), (0, 0, 0, 0), "sites"),        # B S % 4 == 3
+    ((1024, 512), (4, 0, 0, 0), "sites"),   # x off 16 bytes
+    ((1024, 512), (0, 8, 0, 0), "sites"),   # out off 16 bytes
+    ((1024, 512), (0, 0, 12, 0), "sites"),  # y off 16 bytes
+    ((1024, 512), (0, 0, 0, 4), "sites"),   # logg off 16 bytes
+    ((1024, 1), (0, 0, 0, 0), "sites"),     # one site: NCHW, S % 4 != 0
 ])
 def test_forward_variant_by_shape_and_alignment(s, offsets, variant):
     """The forward takes the backward's rule over its four tensors (x,
     out, y, logg)."""
     ptrs = [(1 << 20) + 512 * k + o for k, o in enumerate(offsets)]
-    assert sc.coupling_variant(s, ptrs) == variant
+    assert _variant(s, ptrs) == variant
 
 
 @pytest.mark.parametrize("lat,plan", [
