@@ -12,7 +12,9 @@ use) and imports nothing of JAX.  Phases, each of which raises on failure:
 1. the card's name and power limit; TF32 off; build the kernels;
 2. every kernel, forward and backward, against its plain PyTorch version
    on the card, at the flagship's shapes, with the tolerances stated below;
-   ``accept_scan`` bit for bit at lengths 1 to 10,000; the coupling and its
+   ``accept_scan`` bit for bit at lengths 1 to 10,000 on random chains,
+   one stuck on a heavy state and one that accepts from no state; the
+   coupling and its
    VJP at the unpacked flagship's 1024 sites per sample (tiled), the
    action and its force at the affine example's (128, 8, 8) (general);
    the coupling and the action on one sample, the blocked sampler's batch;
@@ -638,29 +640,12 @@ def check_phi4(torch, kernels, peaks, rng, action):
     return time_it
 
 
-def perturb_(net, rng, scale=0.3):
-    """Seeded noise on every weight: ``scale`` times the init bound on the
-    conv weights, N(0, scale^2) on every other weight (the spline weights
-    are all zero at build), so no part of the map stays at its identity."""
-    import torch
-
-    from normflow__tpu_torch.models.nets import CircularConv
-    from normflow__tpu_torch.utils.transplant import jax_leaf_order
-
-    with torch.no_grad():
-        for owner, _, p in jax_leaf_order(net):
-            s = scale
-            if isinstance(owner, CircularConv):
-                s = scale / math.sqrt(math.prod(p.shape[1:]))
-            noise = rng.standard_normal(tuple(p.shape)) * s
-            p.add_(torch.tensor(noise, dtype=p.dtype, device=p.device))
-
-
 def run_main_path(torch, kernels, rng, card):
     """The flagship sampling path, through the port's entry points."""
     from normflow__tpu_torch import (backward_sanitychecker, calc_ess,
                                      estimate_accept_rate)
-    from normflow__tpu_torch.tools.kernel_times import device_launches
+    from normflow__tpu_torch.tools.kernel_times import (device_launches,
+                                                         perturb_)
     from normflow__tpu_torch.zoo import build_phi4_model
 
     model = build_phi4_model(LAT, seed=0)
@@ -733,7 +718,9 @@ def run_main_path(torch, kernels, rng, card):
     return model
 
 
-SCAN_LENGTHS = (1, 2, 1000, 1024, 10000)  # 10,000 crosses the 2048 chunk
+# 47-49 (short chains), both sides of one and two of the kernel's
+# 1024-proposal chunks, and 10,000
+SCAN_LENGTHS = (1, 2, 47, 48, 49, 1000, 1023, 1024, 1025, 2047, 2049, 10000)
 
 
 def hold_scan(torch, what, lrand, logqp, ref):
@@ -757,11 +744,13 @@ def hold_scan(torch, what, lrand, logqp, ref):
 
 def check_accept_scan(torch, kernels, peaks):
     """accept_scan vs its plain version on random chains (log uniforms
-    with ``-inf`` among them, and a ``+inf`` reference), bit for bit; a
-    planted wrong reference must change the result.  Its inputs come from
-    a numpy generator of its own, which leaves the other phases' draws as
-    they were.  Returns the function that times it at the chain's length,
-    1024."""
+    with ``-inf`` among them, and a ``+inf`` reference) and on a chain
+    stuck on one heavy state (nothing after it is accepted) and on one
+    whose logqp rises so steeply that no state accepts again (every state
+    searches to its chunk's end), bit for bit; a planted wrong reference
+    must change the result.  Its inputs come from a numpy generator of its
+    own, which leaves the other phases' draws as they were.  Returns the
+    function that times it at the chain's length, 1024."""
     from normflow__tpu_torch.ops.kernels.accept_scan import (
         accept_scan, accept_scan_plain)
 
@@ -771,10 +760,18 @@ def check_accept_scan(torch, kernels, peaks):
                          device="cuda")
     lrand = torch.log(torch.tensor(rng.random(n), dtype=torch.float32,
                                    device="cuda"))
+    stuck, stuck_lrand = logqp.clone(), lrand.clone()
+    stuck[5] = -1e4
     lrand[::11] = -math.inf
     for ref in (0.5, math.inf):
         hold_scan(torch, f"a random chain, ref {ref}", lrand, logqp,
                   torch.tensor(ref, device="cuda"))
+    hold_scan(torch, "a chain stuck on a heavy state", stuck_lrand, stuck,
+              torch.tensor(0.5, device="cuda"))
+    # ref - logqp[i] <= -40 from every state: below every log u drawn here
+    rising = torch.arange(n, dtype=torch.float32, device="cuda") * 40
+    rising_ref = torch.tensor(-40.0, device="cuda")
+    hold_scan(torch, "a rising chain", stuck_lrand, rising, rising_ref)
     logqp[0], lrand[0] = 0.0, -0.25  # ref 0 accepts proposal 0, -0.5 not
     got = accept_scan(lrand, logqp, torch.zeros((), device="cuda"))[0]
     planted = accept_scan_plain(lrand, logqp,
@@ -793,11 +790,23 @@ def check_accept_scan(torch, kernels, peaks):
 
     def time_it():
         """Time one chain round's scan, n = 1024; read warm.  The plain
-        version launches ~4,000 kernels a call: 3 calls time it."""
+        version launches ~4,000 kernels a call: 3 calls time it.  Under
+        ``variants``: the stuck and rising chains at n = 1024, where the
+        searches are longest."""
         t = kernel_times("accept_scan", lambda: accept_scan(lr, lq, ref),
                          lambda: accept_scan_plain(lr, lq, ref),
                          plain_reps=3)
         report("accept_scan", t, (BATCH,), peaks, kernels, "warm")
+        for what, (a, b, r) in (
+                ("stuck chain", (stuck_lrand[:BATCH], stuck[:BATCH], ref)),
+                ("rising chain", (stuck_lrand[:BATCH], rising[:BATCH],
+                                  rising_ref))):
+            t = kernel_times("accept_scan",
+                             lambda a=a, b=b, r=r: accept_scan(a, b, r),
+                             lambda a=a, b=b, r=r: accept_scan_plain(a, b, r),
+                             plain_reps=3)
+            record_variant("accept_scan", f"{what}, n = {BATCH}", t,
+                           (BATCH,), peaks, kernels)
 
     return time_it
 
@@ -1831,7 +1840,8 @@ def run_unpacked_sampling(torch, kernels, rng, card):
     batch's launches by profiler name; where a replayed batch's device
     time goes."""
     from normflow__tpu_torch import calc_ess
-    from normflow__tpu_torch.tools.kernel_times import device_launches
+    from normflow__tpu_torch.tools.kernel_times import (device_launches,
+                                                         perturb_)
     from normflow__tpu_torch.zoo import build_phi4_model
 
     model = build_phi4_model(LAT, packed=False, seed=0)
@@ -2090,6 +2100,7 @@ def rates_in_turns(torch, card):
     steps/s of the graphed entry points in turns.  It runs before any
     profiler has in this process: after one, every launch from the host
     costs more."""
+    from normflow__tpu_torch.tools.kernel_times import perturb_
     from normflow__tpu_torch.zoo import build_phi4_model
 
     model = build_phi4_model(LAT, seed=0)
@@ -3122,6 +3133,7 @@ def run_space(torch, kernels, card):
     unsharded flagship's replays.  Rates are gloo-bound (every halo,
     gather and sum goes through the host), not a speed claim."""
     from normflow__tpu_torch.parallel import free_port
+    from normflow__tpu_torch.tools.kernel_times import perturb_
     from normflow__tpu_torch.zoo import build_phi4_model
 
     t_phase = time.perf_counter()
@@ -3499,7 +3511,8 @@ def run_u1_sampling(torch, kernels, rng, card):
     counters set to 0 just before (no kernel of the port runs); a replayed
     batch against its eager body, bit for bit."""
     from normflow__tpu_torch.models.gauge import wrap_angle
-    from normflow__tpu_torch.tools.kernel_times import device_launches
+    from normflow__tpu_torch.tools.kernel_times import (device_launches,
+                                                         perturb_)
     from normflow__tpu_torch.zoo import build_u1_model
 
     model = build_u1_model()
@@ -4316,7 +4329,8 @@ def run_channels_last(torch, kernels, peaks, card, model4, step_rng):
     turns with where a replayed step's time goes on each; and the kernels'
     times."""
     from normflow__tpu_torch import Model, calc_ess
-    from normflow__tpu_torch.tools.kernel_times import device_launches
+    from normflow__tpu_torch.tools.kernel_times import (device_launches,
+                                                         perturb_)
     from normflow__tpu_torch.zoo import (build_phi4_model,
                                          with_conv_compute_dtype,
                                          with_coupling_backend)

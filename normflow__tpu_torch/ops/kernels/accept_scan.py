@@ -5,10 +5,14 @@ Counterpart of ``_accept_scan_core`` / ``accept_scan``
 is accepted iff ``lrand[i] < ref - logqp[i]``, ``ref`` being ``logqp`` of
 the last accepted proposal (``logqp_ref`` at the start).  In JAX it is a
 ``lax.scan`` on the device; PyTorch has no scan, so on the card it is a
-hand-written CUDA kernel (``csrc/accept_scan.cu``): one block, one thread
-running the dependent chain over shared memory.  The reference is read
-from the device, so a CUDA graph holds the launch while the reference
-changes between replays.
+hand-written CUDA kernel (``csrc/accept_scan.cu``): one block that takes
+the dependence out of the chain, 1024 proposals at a time.  Each state
+(the incoming reference, or proposal ``j`` accepted) finds the proposal it
+would accept next, all at once, by the sequential chain's own float32
+comparison; pointer doubling over those links marks the states the chain
+passes through, and a max-scan of the marks gives the indices.  The
+reference is read from the device, so a CUDA graph holds the launch while
+the reference changes between replays.
 
 :func:`accept_scan` runs :func:`accept_scan_plain` for CPU tensors and the
 kernel for CUDA tensors (float32), and raises for anything else.

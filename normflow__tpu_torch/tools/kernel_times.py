@@ -17,7 +17,11 @@ unpacked flagship's and the 8x8 affine example's shapes (the coupling at
 32x32 = 1024 sites at B = 1024 and 512 and its VJP at B = 512; the action
 and its force at (128, 8, 8), which take the general kernels), and for the
 channels-last kernels (the ``pallas_reg`` route's) on the packed flagship's
-values channels-last, it prints, each
+values channels-last, and for ``accept_scan`` at n = 1024 (a chain round)
+and 10,000 on four chains (the smoke's random one, one stuck on a heavy
+state, one whose logqp rises so steeply that no state ever accepts again,
+and the flagship's own ``logq - logp`` at seeded perturbed weights), it
+prints, each
 line starting with ``LABEL``, the median device time per launch from CUDA
 events around each call, the device held behind a spin kernel so that the
 host is ahead, less what the events add around nothing (:func:`warm_ms`;
@@ -29,15 +33,18 @@ the seeded inputs to ``OUT.pt`` (about 180 MB).  ``CASES``, a regular
 expression, keeps the cases whose name it matches.  It also prints the SASS
 instructions of each device function's flagship instance in the built
 library (``cuobjdump -sass``, :func:`sass_counts`) and the time their issue
-alone needs at the path's shapes (:func:`issue_ms`).
+alone needs at the path's shapes (:func:`issue_ms`).  Where an
+``accept_scan`` case is kept it first times an empty kernel launched as
+the wrappers launch theirs, through ``ctypes``, one block of 256 or 1024
+threads (:func:`empty_kernel_ms`): the floor any one-launch kernel pays.
 
 ``--compare`` holds two such files against each other: ``rqs_coupling``,
-``rqs_coupling_bwd`` and ``phi4_action_grad`` bit for bit,
+``rqs_coupling_bwd``, ``phi4_action_grad`` and ``accept_scan`` bit for bit,
 ``phi4_action`` to max |dS| / max(1, |S|) <= 2e-5; it exits 1 if one
 differs (cases that only one file holds are left out).  :func:`warm_ms`,
 :func:`cold_ms`, :func:`event_floor_ms`, :func:`bound_ms`, :func:`work`,
-:func:`card_peaks`, :func:`device_window` and :func:`device_launches`
-serve ``chip_smoke.py`` and the ``gpu`` tests too, and
+:func:`card_peaks`, :func:`device_window`, :func:`device_launches` and
+:func:`perturb_` serve ``chip_smoke.py`` and the ``gpu`` tests too, and
 :func:`profiled_window` ``tools/profiler_windows.py`` and
 ``utils.profiling.trace``.
 """
@@ -45,6 +52,8 @@ serve ``chip_smoke.py`` and the ``gpu`` tests too, and
 from __future__ import annotations
 
 import contextlib
+import ctypes
+import functools
 import math
 import os
 import re
@@ -424,6 +433,130 @@ def issue_ms(threads, instructions, n_sm, clock_mhz):
     return threads / 32 * instructions / (n_sm * 4 * clock_mhz * 1e3)
 
 
+EMPTY_SOURCE = r"""
+#include <cuda_runtime.h>
+__global__ void empty_kernel() {}
+extern "C" int empty_launch(int threads, void* stream) {
+  empty_kernel<<<1, threads, 0, static_cast<cudaStream_t>(stream)>>>();
+  return (int)cudaGetLastError();
+}
+"""
+
+
+@functools.cache
+def _empty_lib():
+    """:data:`EMPTY_SOURCE` built with the port's ``nvcc`` flags into its
+    build directory, loaded with ``ctypes``."""
+    from normflow__tpu_torch.ops.kernels import _lib
+
+    out = _lib.BUILD_ROOT / "empty"
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "empty.cu").write_text(EMPTY_SOURCE)
+    so = out / "libempty.so"
+    subprocess.run([_lib._nvcc(), *_lib.NVCC_FLAGS, "-shared", "-o", str(so),
+                    str(out / "empty.cu")], check=True, capture_output=True)
+    lib = ctypes.CDLL(str(so))
+    lib.empty_launch.argtypes = (ctypes.c_int, ctypes.c_void_p)
+    return lib
+
+
+def empty_kernel_ms(threads, reps=50):
+    """Warm device ms of an empty kernel, one block of ``threads``, launched
+    through ``ctypes`` as the wrappers launch theirs (:func:`warm_ms`)."""
+    import torch
+
+    lib = _empty_lib()
+
+    def launch():
+        err = lib.empty_launch(threads, torch.cuda.current_stream()
+                               .cuda_stream)
+        if err:
+            raise RuntimeError(f"the empty kernel failed to launch: {err}")
+
+    return warm_ms(launch, reps)
+
+
+def perturb_(net, rng, scale=0.3):
+    """Seeded noise on every weight: ``scale`` times the init bound on the
+    conv weights, N(0, scale^2) on every other weight (the spline weights
+    are all zero at build), so no part of the map stays at its identity.
+    ``chip_smoke.py`` perturbs its flagships so."""
+    import torch
+
+    from normflow__tpu_torch.models.nets import CircularConv
+    from normflow__tpu_torch.utils.transplant import jax_leaf_order
+
+    with torch.no_grad():
+        for owner, _, p in jax_leaf_order(net):
+            s = scale
+            if isinstance(owner, CircularConv):
+                s = scale / math.sqrt(math.prod(p.shape[1:]))
+            noise = rng.standard_normal(tuple(p.shape)) * s
+            p.add_(torch.tensor(noise, dtype=p.dtype, device=p.device))
+
+
+def flagship_chain(torch, rng, n_batches=10):
+    """``(lrand, logqp, ref)`` of the sampling flagship's own chain: ``logq
+    - logp`` of ``n_batches`` sampled batches of 1024 at seeded perturbed
+    weights (cuDNN deterministic, so every checkout draws the same), log
+    uniforms from a seeded generator, the reference the first logqp."""
+    from normflow__tpu_torch.zoo import build_phi4_model
+
+    torch.backends.cudnn.deterministic = True
+    model = build_phi4_model(LAT, seed=0)
+    perturb_(model.net_, rng)
+    logqp = model.posterior.logqp_stream(n_batches, BATCH).contiguous()
+    gen = torch.Generator(device="cuda").manual_seed(20261018)
+    lrand = torch.log(torch.rand(logqp.shape, generator=gen, device="cuda"))
+    return lrand, logqp, logqp[0].clone()
+
+
+def scan_inputs(torch, rng):
+    """``accept_scan``'s cases: ``{case: (kernel, shape, call)}``, as
+    :func:`inputs`, at n = 1024 and 10,000 on each chain.  The rising
+    chain is the search's worst case: every state, the incoming one
+    included, tests every candidate to the chunk's end and accepts none.
+    The flagship's chain is drawn at its first call."""
+    import importlib
+
+    import numpy as np
+
+    mod = importlib.import_module("normflow__tpu_torch.ops.kernels"
+                                  ".accept_scan")
+    n_max = 10000
+    logqp = torch.tensor(rng.standard_normal(n_max) * 1.5,
+                         dtype=torch.float32, device="cuda")
+    lrand = torch.log(torch.tensor(rng.random(n_max), dtype=torch.float32,
+                                   device="cuda"))
+    stuck = logqp.clone()
+    stuck[5] = -1e4  # no proposal after it is accepted
+    stuck_lrand = lrand.clone()
+    lrand[::11] = -math.inf  # the smoke's random chain
+    # ref - logqp[i] <= -40 from every state: below any log u drawn here
+    rising = torch.arange(n_max, dtype=torch.float32, device="cuda") * 40
+    ref = torch.tensor(0.5, device="cuda")
+    chains = {"random": (lrand, logqp, ref),
+              "stuck": (stuck_lrand, stuck, ref),
+              "rising": (stuck_lrand, rising,
+                         torch.tensor(-40.0, device="cuda"))}
+    flagship_rng = np.random.default_rng(20261019)
+
+    def get(chain):
+        if chain not in chains:
+            chains[chain] = flagship_chain(torch, flagship_rng)
+        return chains[chain]
+
+    def scan(chain, n):
+        def call(sc, ph):
+            lr, lq, r = get(chain)
+            return mod.accept_scan(lr[:n], lq[:n], r)
+        return "accept_scan", (n,), call
+
+    return {f"accept_scan {chain} n={n}": scan(chain, n)
+            for chain in ("random", "stuck", "rising", "flagship")
+            for n in (BATCH, n_max)}
+
+
 def inputs(torch, rng, w):
     """Seeded inputs at the path's shapes: ``{case: (kernel, shape, call)}``
     where ``call(mod_sc, mod_phi4)`` launches the kernel's wrapper; ``w``
@@ -501,6 +634,7 @@ def inputs(torch, rng, w):
         "rqs_coupling_cl inverse": cl(True),
         "rqs_coupling_bwd_cl forward": cl_vjp(False),
         "rqs_coupling_bwd_cl inverse": cl_vjp(True),
+        **scan_inputs(torch, rng),
     }
 
 
@@ -525,10 +659,15 @@ def measure(src, label, path, cases=""):
     print(f"{label}: CUDA events alone {event_floor_ms():.5f} ms on {card}")
     with torch.no_grad():
         w = ScalarPhi4Action(kappa=0.6, m_sq=-2.4, lambd=0.5).get_coef(2)
-        for case, (name, shape, call) in inputs(
-                torch, np.random.default_rng(20261016), w).items():
-            if not re.search(cases, case):
-                continue
+        kept = {case: v for case, v in inputs(
+            torch, np.random.default_rng(20261016), w).items()
+            if re.search(cases, case)}
+        if any(name == "accept_scan" for name, _, _ in kept.values()):
+            for threads in (256, 1024):
+                print(f"{label}: an empty kernel, one block of {threads} "
+                      f"threads, warm {empty_kernel_ms(threads):.5f} ms on "
+                      f"{card}", flush=True)
+        for case, (name, shape, call) in kept.items():
             if name.endswith("_cl") and not hasattr(sc, "coupling_layout"):
                 print(f"{label}: {case} left out: this checkout has no "
                       "channels-last kernels")
@@ -593,6 +732,11 @@ def print_sass(label, torch, card):
                   f"MHz) on {card}")
 
 
+def _bits(torch, t):
+    """A float32 tensor's bits; any other tensor as it is."""
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
 def compare(path_a, path_b):
     """Hold the outputs of two runs against each other; 0 if they agree."""
     import torch
@@ -610,9 +754,10 @@ def compare(path_a, path_b):
             what = f"max |dS|/max(1,|S|) {rel:.3e} (tol {PHI4_REL_TOL})"
         else:
             pairs = list(zip(a[case], b[case]))
-            same = all(torch.equal(p.view(torch.int32), q.view(torch.int32))
+            same = all(torch.equal(_bits(torch, p), _bits(torch, q))
                        for p, q in pairs)
-            diff = max(float((p - q).abs().max()) for p, q in pairs)
+            diff = max(float((p.double() - q.double()).abs().max())
+                       for p, q in pairs)
             what = ("bit for bit" if same
                     else f"not bit-identical: max |d| {diff:.3e}")
         print(f"{case}: {what}{'' if same else ' FAILED'}")

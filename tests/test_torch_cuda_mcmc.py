@@ -8,9 +8,12 @@ without a card, and import nothing of JAX::
 Held here, with TF32 off:
 
 - ``accept_scan``'s kernel against its plain version, bit for bit, at
-  lengths around its 2048-proposal chunk and at odd ones, with ``-inf``
-  log uniforms and a ``+inf`` reference; a planted wrong reference must
-  change the result; float64 and mixed devices raise;
+  lengths on both sides of one and two of its 1024-proposal chunks, at odd
+  ones and at 10,000, with ``-inf`` log uniforms and a ``+inf``
+  reference, and on the chains of ``tests/_accept_scan_chains.py`` (all
+  accepted, all rejected, NaNs, exact ties, stuck on one heavy state, no
+  acceptance from any state); a planted wrong reference must change the
+  result; float64 and mixed devices raise;
 - ``sample_chain`` and ``sample_parallel_chains`` replayed against their
   eager round bodies from the same generator state, bit for bit, at the
   flagship's 32x32 with B = 1024 and at 8x8, the final ``_ref`` and the
@@ -36,6 +39,7 @@ from normflow__tpu_torch.ops.kernels import phi4, spline_coupling as sc
 from normflow__tpu_torch.ops.kernels.accept_scan import (accept_scan,
                                                          accept_scan_plain)
 from normflow__tpu_torch.tools.kernel_times import device_launches
+from _accept_scan_chains import SPECIAL, chain
 from test_torch_cuda_graphs import _model, _same_bits, cuda  # noqa: F401
 
 pytestmark = pytest.mark.gpu
@@ -49,7 +53,8 @@ def _chain_inputs(n, seed, ref=0.3):
     return lrand, logqp, torch.tensor(ref, dtype=torch.float32)
 
 
-@pytest.mark.parametrize("n", [1, 2, 3, 255, 1000, 2047, 2048, 2049, 5001])
+@pytest.mark.parametrize("n", [1, 2, 3, 47, 48, 49, 255, 1000, 1023, 1024,
+                               1025, 2047, 2048, 2049, 5001, 10000])
 def test_kernel_matches_plain(cuda, n):
     lrand, logqp, ref = _chain_inputs(n, n)
     launches = accept_scan.launches
@@ -58,6 +63,17 @@ def test_kernel_matches_plain(cuda, n):
     torch.cuda.synchronize()
     assert accept_scan.launches == launches + 1
     assert got[0].dtype == torch.bool and got[1].dtype == torch.int64
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+
+
+@pytest.mark.parametrize("n", [30, 1024, 2049, 10000])
+@pytest.mark.parametrize("case", SPECIAL)
+def test_kernel_matches_plain_on_special_chains(cuda, case, n):
+    lrand, logqp, ref = (torch.tensor(a) for a in chain(case, n))
+    got = accept_scan(lrand.cuda(), logqp.cuda(), ref.cuda())
+    want = accept_scan_plain(lrand, logqp, ref)
+    torch.cuda.synchronize()
     assert torch.equal(got[0].cpu(), want[0])
     assert torch.equal(got[1].cpu(), want[1])
 

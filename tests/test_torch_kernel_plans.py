@@ -147,6 +147,10 @@ def test_grad_variant(lat, offsets, variant):
     ("rqs_coupling_bwd", (512, 22, 32, 16), 512 * 512 * 4 * 48),
     ("phi4_action", (1024, 32, 32), 1024 * 1024 * 4 + 1024 * 4),
     ("phi4_action_grad", (512, 32, 32), 512 * 1024 * 8 + 512 * 4),
+    # a chain round: lrand, logqp, a bool and an int64 index a proposal,
+    # and the reference
+    ("accept_scan", (1024,), 1024 * 17 + 4),
+    ("accept_scan", (10000,), 10000 * 17 + 4),
 ])
 def test_kernel_bytes_and_bound(name, shape, nbytes):
     got, nops = kt.work(name, shape)
@@ -191,6 +195,12 @@ def test_card_peaks_refuses_an_unknown_card():
      "long long, int, int, float, float, float)", True),
     ("phi4_action", "(anonymous namespace)::phi4_action_grad_tiled_kernel("
      "float const*)", False),
+    ("accept_scan", "(anonymous namespace)::accept_scan_kernel(float "
+     "const*, float const*, float const*, unsigned char*, long long*, long "
+     "long)", True),
+    ("accept_scan", "accept_scan_plain_kernel(float const*)", False),
+    ("phi4_action", "(anonymous namespace)::accept_scan_kernel(float "
+     "const*)", False),
     ("phi4_action_grad", "(anonymous namespace)::phi4_action_tiled_kernel("
      "float const*)", False),
 ])
@@ -226,6 +236,24 @@ def test_compare_holds_bits_and_the_action_bar(tmp_path, capsys, bwd_bits,
     b = _saved(tmp_path, "b", bwd_bits, action_rel)
     assert kt.compare(a, b) == rc
     assert ("FAILED" in capsys.readouterr().out) is bool(rc)
+
+
+@pytest.mark.parametrize("flip,rc", [(None, 0), ("accept", 1),
+                                      ("indices", 1)])
+def test_compare_holds_scan_outputs_bit_for_bit(tmp_path, flip, rc):
+    """``accept_scan``'s bool accepts and int64 indices compare exactly."""
+    paths = []
+    for label in ("a", "b"):
+        acc = torch.arange(64) % 3 == 0
+        idx = torch.cummax(torch.where(acc, torch.arange(1, 65), 0), 0)[0]
+        if label == "b" and flip == "accept":
+            acc[5] = ~acc[5]
+        if label == "b" and flip == "indices":
+            idx[7] += 1
+        out = {"card": "cpu", "accept_scan n=64": [acc, idx]}
+        paths.append(str(tmp_path / f"{label}.pt"))
+        torch.save(out, paths[-1])
+    assert kt.compare(*paths) == rc
 
 
 _SASS = """
