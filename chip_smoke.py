@@ -205,7 +205,30 @@ use) and imports nothing of JAX.  Phases, each of which raises on failure:
     printed only, samples/s and steps/s against the NCHW
     route in turns, where a replayed batch's (float32 and bf16) and step's
     time goes on both routes, and the channels-last kernels' times with
-    the NCHW ones on the same values.
+    the NCHW ones on the same values;
+23. phi^4 on 4-D lattices.  Step 1 (with the kernel checks of phase 2):
+    the action and its force at (1024, 8, 8, 8, 8), (512, 8, 8, 8, 8) and
+    (64, 3, 5, 4, 6) and the slab kernels at (1024, 4, 8, 8, 8) with a
+    halo, on the general kernels, against their plain versions; a 5-D
+    field refused; timed with phase 12.  Step 2 (last, ``run_4d``): the
+    4-D flagship at 8^4 (``build_phi4_model((8, 8, 8, 8), packed=False)``:
+    ConvNet 1->24->24->22 with 3^4 circular kernels by roll-and-sum, the
+    PSD block's 4-D FFT) with seeded perturbed weights: logq against a
+    float64 CPU copy; ``logqp_stream(32, 1024)`` profiled with its
+    counters set to 0 just before (4 ``rqs_coupling``, tiled, and 1
+    ``phi4_action``, general, per batch), a replayed batch bit for bit
+    with its eager body and by name, its profile, raw samples/s eager and
+    graphed in turns; one graphed chain round of 1024 (4 / 1 / 1
+    ``accept_scan``) profiled likewise and bit for bit with its eager
+    body; a fresh 8^4 flagship's path-gradient step against float64 (at
+    ``LAT4_STEP_BATCH``: see there), ``LAT4_STEPS`` steps of the bench
+    protocol's fit at 512 with the learning rate ``LAT4_LR`` (see there)
+    profiled likewise (8 / 8 / 1 / 1 per step), a replayed step by name,
+    its profile, graphed steps/s, a replayed step bit for bit with an
+    eager one, under cuDNN's deterministic algorithms; the free field at
+    4^4 (kappa 1, m^2 1, lambda 0) trained ``FREE_STEPS`` steps, then
+    ``sample_chain``: <phi^2> within 3 binned sigma of the exact
+    (1/V) sum_p 1 / (m^2 + 4 kappa sum_mu sin^2(p_mu / 2)).
 
 The gauge paths' rates (eager bodies against graphed entry points, in
 turns) are taken in a phase of their own right after phase 3's, before any
@@ -245,6 +268,11 @@ Kernels 1 and 2 are read cold (the training backward finds ``out`` cold:
 it was written during the forward, and the other conditioners' outputs
 came after it), kernels 3 and 4 warm (their input is the flow output just
 written); ``headline`` in the kernels' record says which.
+
+Phase 23's runs take the general kernels for the action and its force
+(a 4-D lattice has no tile) and the tiled coupling kernels (4096 sites a
+sample): records ``4d sample``, ``4d chain`` and ``4d train`` in
+``launches_by_path``.
 
 Phase 21's sharded runs are eager (a gloo collective cannot sit in a CUDA
 graph) and are counted by the wrappers in each rank's process: 8 / 8 / 1 /
@@ -1330,11 +1358,12 @@ def check_tiled(counters, path, tiled=True):
     """Raise unless every wrapper launch on ``path`` of a kernel with a
     tiled variant went to the tiled kernel, whose times the record
     reports; with ``tiled=False`` (a lattice with no tile), unless none
-    did."""
+    did; ``tiled`` may also map each kernel to its flag."""
     for name, c in counters.items():
         if not hasattr(c, "tiled_launches"):
             continue
-        want = c.launches if tiled else 0
+        want = c.launches if (tiled[name] if isinstance(tiled, dict)
+                              else tiled) else 0
         print(f"{name} over the {path} path: {c.tiled_launches} of "
               f"{c.launches} wrapper launches to the tiled kernel (want "
               f"{want})")
@@ -1374,10 +1403,12 @@ def gate_path(counters, kernels, path, per_unit, n_units, device,
     are the record's
     ``launches_by_path``.  Each wrapper must have run ``per_unit`` times
     for each warm-up body and for the capture, every launch tiled (none
-    with ``tiled=False``)."""
+    with ``tiled=False``; ``tiled`` may also map each kernel to its
+    flag)."""
     from normflow__tpu_torch.utils.graphs import WARMUP
 
-    want = {k: tiled_want(counters[k], v * (WARMUP + n_units), tiled)
+    want = {k: tiled_want(counters[k], v * (WARMUP + n_units), tiled[k]
+                          if isinstance(tiled, dict) else tiled)
             for k, v in per_unit.items()}
     print(f"launches over the {path} path's run by profiler name "
           f"(launches, tiled): {device}, want {want}")
@@ -1421,24 +1452,24 @@ def gate_replays(counters, kernels, path, per_unit, n_units, fn,
 
 
 def check_train_grads(torch, model, rng, packed=True, backend="xla",
-                      floor=False):
+                      floor=False, lat=LAT, batch=TRAIN_BATCH):
     """The full-width path-gradient loss and its gradients on one numpy
-    draw at batch 512: the card (float32, TF32 off) against a float64 CPU
-    copy, with a float32 CPU copy beside them to show the float32 floor,
-    which sets the per-leaf bars (``FLOOR_FACTOR``) of the unpacked
-    flagship and, with ``floor``, of a packed one on a fresh draw, where a
-    planted wrong step (every leaf's gradient times 1.05) must exceed
-    every leaf's bar; the copies' couplings on ``model``'s route
-    ``backend``."""
+    draw at batch ``batch`` (512) on the lattice ``lat``: the card
+    (float32, TF32 off) against a float64 CPU copy, with a float32 CPU
+    copy beside them to show the float32 floor, which sets the per-leaf
+    bars (``FLOOR_FACTOR``) of the unpacked flagship and, with ``floor``,
+    of a packed one on a fresh draw, where a planted wrong step (every
+    leaf's gradient times 1.05) must exceed every leaf's bar; the copies'
+    couplings on ``model``'s route ``backend``."""
     from normflow__tpu_torch.zoo import build_phi4_model
 
-    x = rng.standard_normal((TRAIN_BATCH, *LAT))
+    x = rng.standard_normal((batch, *lat))
     res = {}
     for key, dtype in (("gpu", torch.float32), ("cpu", torch.float32),
                        ("cpu64", torch.float64)):
         m = model
         if key != "gpu":
-            m = build_phi4_model(LAT, seed=0, device="cpu", dtype=dtype,
+            m = build_phi4_model(lat, seed=0, device="cpu", dtype=dtype,
                                  packed=packed, coupling_backend=backend)
             m.net_.load_state_dict({k: v.to(dtype) for k, v in
                                     model.net_.state_dict().items()})
@@ -1458,7 +1489,7 @@ def check_train_grads(torch, model, rng, packed=True, backend="xla",
         "" if backend == "xla" else f" {backend}")
     for a, b in (("gpu", "cpu"), ("gpu", "cpu64"), ("cpu", "cpu64")):
         loss, leaves = rel(a, b)
-        print(f"{what} path-gradient step, batch {TRAIN_BATCH}, {a} vs {b}: "
+        print(f"{what} path-gradient step, batch {batch}, {a} vs {b}: "
               f"loss rel {loss:.3e}; |dg|/|g| per leaf max {max(leaves):.3e},"
               f" median {statistics.median(leaves):.3e}")
     loss, leaves = rel("gpu", "cpu64")
@@ -1487,16 +1518,17 @@ def check_train_grads(torch, model, rng, packed=True, backend="xla",
                                  "step pass")
 
 
-def fit_protocol(model, n_epochs):
+def fit_protocol(model, n_epochs, lr=3e-3, decay_steps=N_STEPS):
     """``model.fit`` for ``n_epochs`` steps with the bench protocol's
-    settings (``bench.py:278-286``), the cosine decay over ``N_STEPS``;
-    returns the fit's history."""
+    settings (``bench.py:278-286``), the cosine decay over ``decay_steps``
+    (``N_STEPS``), at the learning rate ``lr`` (the protocol's 3e-3; the
+    4-D flagship's ``LAT4_LR``); returns the fit's history."""
     from normflow__tpu_torch import cosine_decay_schedule
 
     return model.fit(n_epochs=n_epochs, batch_size=TRAIN_BATCH,
-                     hyperparam=dict(lr=3e-3, weight_decay=1e-4),
-                     scheduler=cosine_decay_schedule(1.0, decay_steps=N_STEPS,
-                                                     alpha=0.05),
+                     hyperparam=dict(lr=lr, weight_decay=1e-4),
+                     scheduler=cosine_decay_schedule(
+                         1.0, decay_steps=decay_steps, alpha=0.05),
                      grad_estimator="path", clip_grad_norm=25.0,
                      steps_per_call=8, checkpoint_dict=dict(print_stride=None))
 
@@ -1589,12 +1621,16 @@ def replay_vs_eager(torch, model, trained):
     replayed_vs_eager_steps(torch, trained)
 
 
-def replayed_vs_eager_steps(torch, trained, what="", deterministic=False):
-    """10 replayed training steps against 10 eager bodies from the same
-    parameters, optimizer state and generator state, and 10 eager bodies
-    against 10 more: losses and parameters within the stated tolerances.
-    With ``deterministic``, cuDNN's deterministic algorithms for a new
-    capture and its eager bodies, and the steps must agree bit for bit."""
+def replayed_vs_eager_steps(torch, trained, what="", deterministic=False,
+                            n=10, captured=False):
+    """``n`` (10) replayed training steps against ``n`` eager bodies from
+    the same parameters, optimizer state and generator state, and ``n``
+    eager bodies against ``n`` more: losses and parameters within the
+    stated tolerances.  With ``deterministic``, cuDNN's deterministic
+    algorithms for a new capture and its eager bodies, and the steps must
+    agree bit for bit.  With ``captured``, the step was captured under
+    those algorithms, which the caller keeps set: no new capture and no
+    second eager run, and the bits must agree."""
     from normflow__tpu_torch.training import optim
 
     fit = trained.fit
@@ -1608,26 +1644,30 @@ def replayed_vs_eager_steps(torch, trained, what="", deterministic=False):
             for t, v in zip(live, start[0]):
                 t.copy_(v)
         trained.generator.set_state(start[1])
-        losses = torch.stack([step()[0] for _ in range(10)])
+        losses = torch.stack([step()[0] for _ in range(n)])
         return losses, [p.detach().clone() for p in fit.params]
 
-    if deterministic:
+    recapture = deterministic and not captured
+    if recapture:
         torch.backends.cudnn.deterministic = True
         fit._graphs.clear()  # the next step captures with these algorithms
     try:
-        runs = {"replayed": run(fit.step), "eager": run(fit.train_body),
-                "eager again": run(fit.train_body)}
+        runs = {"replayed": run(fit.step), "eager": run(fit.train_body)}
+        if not captured:
+            runs["eager again"] = run(fit.train_body)
     finally:
-        if deterministic:
+        if recapture:
             torch.backends.cudnn.deterministic = flag
             fit._graphs.clear()
     torch.cuda.synchronize()
-    for a, b in (("replayed", "eager"), ("eager again", "eager")):
+    deterministic = deterministic or captured
+    for a, b in (("replayed", "eager"), ("eager again", "eager"))[
+            :len(runs) - 1]:
         (la, pa), (lb, pb) = runs[a], runs[b]
         same = same_bits(torch, (la, *pa), (lb, *pb))
         dloss = float(((la - lb).abs() / lb.abs().clamp(min=1.0)).max())
         dpar = max(float((x - y).abs().max()) for x, y in zip(pa, pb))
-        print(f"{what}10 {a} vs 10 eager training steps at batch "
+        print(f"{what}{n} {a} vs {n} eager training steps at batch "
               f"{fit.train_batch_size}{', cuDNN deterministic' if deterministic else ''}"
               f": {'bit for bit' if same else 'NOT bit-identical'}; losses "
               f"max rel {dloss:.3e} (tol {REPLAY_LOSS_TOL}), parameters max "
@@ -3445,22 +3485,25 @@ def gauge_rates_in_turns(torch, card):
                      fit.step() for _ in range(n_steps)]})
 
 
-def in_turns(torch, card, what, unit, n, fns):
-    """``n / seconds`` of each of ``fns`` in turns, 6 runs each, after one
-    untimed run of each (cuDNN's picks, the capture); prints the
-    medians."""
-    for fn in fns.values():
+def in_turns(torch, card, what, unit, n, fns, runs=2, warm=False):
+    """``n / seconds`` of each of ``fns`` in turns, ``2 * runs`` (4) runs
+    each, after one untimed run of each (cuDNN's picks, the capture)
+    unless ``warm`` (every one has run); prints the medians and returns
+    them.  Four runs a side, not six, keep the smoke inside its time
+    limit on a slow host with phase 23 added."""
+    for fn in fns.values() if not warm else ():
         fn()
     rates = {k: [] for k in fns}
-    for key in tuple(fns) * 3 + tuple(reversed(fns)) * 3:
+    for key in tuple(fns) * runs + tuple(reversed(fns)) * runs:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fns[key]()
         torch.cuda.synchronize()
         rates[key].append(n / (time.perf_counter() - t0))
-    print(f"{what}, {unit} in turns, 6 runs each: " + "; ".join(
+    print(f"{what}, {unit} in turns, {2 * runs} runs each: " + "; ".join(
         f"{k} median {statistics.median(r):.1f} (min {min(r):.1f}, max "
         f"{max(r):.1f})" for k, r in rates.items()) + f" on {card}")
+    return {k: statistics.median(r) for k, r in rates.items()}
 
 
 def fit_u1(model, n_epochs, steps_per_call=None):
@@ -4466,6 +4509,367 @@ def run_channels_last(torch, kernels, peaks, card, model4, step_rng):
     time_cl_kernels(torch, kernels, peaks, kept)
 
 
+# --------------------------------------------------------------------- #
+# Phase 23: phi^4 on 4-D lattices
+# --------------------------------------------------------------------- #
+# the 4-D flagship: build_phi4_model(LAT4, packed=False) at the flagship's
+# widths (ConvNet 1->24->24->22 with 3^4 circular kernels by roll-and-sum,
+# 8 knots, 4 couplings over EvenOddMask, the PSD block's 4-D FFT), the
+# flagship's action (kappa 0.6, m^2 -2.4, lambda 0.5), on numpy streams of
+# its own (LAT4_SEED)
+LAT4 = (8, 8, 8, 8)
+LAT4_SEED = 20261023
+LAT4_BATCHES = 32     # the profiled logqp_stream(LAT4_BATCHES, BATCH)
+LAT4_TURNS = 2        # batches per timed run in turns (one step a run)
+LAT4_LOGQ_DRAWS = 8   # draws of the logq check against float64
+# one path-gradient step against float64 at LAT4_STEP_BATCH: a float64
+# CPU step at 8^4 takes about 1 s per sample (0.9 s on 8 CPU cores), so
+# the check runs on fewer samples than the fit's 512
+LAT4_STEP_BATCH = 4
+# the profiled fit at batch TRAIN_BATCH: a step of the 8^4 flagship takes
+# ~1.7 s on an H100 (48 steps: 86 s), so the phase fits LAT4_STEPS
+LAT4_STEPS = 4
+# the bench protocol's settings but the learning rate: at 3e-3 Adam's
+# first step, ~lr a weight, moves a 3^4 conv's outputs 9 times as far as a
+# 3x3 conv's (fan-in 1944 against 216), and the 4-D flagship's loss goes
+# to NaN within 5 steps in both packages (4^4, batch 128, CPU: JAX -46.1,
+# 5954, 15627, 22726, nan; the port -46.1, 7077, nan); 3e-3 / 9 ~ 3e-4
+LAT4_LR = 3e-4
+# the free field at 4^4 (lambda 0): <phi^2> is exact; FREE_STEPS training
+# steps at TRAIN_BATCH, then FREE_ROUNDS chain rounds of BATCH (the first
+# dropped)
+FREE_LAT = (4, 4, 4, 4)
+FREE_ACTION = dict(kappa=1.0, m_sq=1.0, lambd=0.0)
+FREE_STEPS, FREE_ROUNDS = 32, 65
+# the path's variants on 4-D lattices: the coupling and its VJP tiled
+# (4096 sites a sample), the action and its force general (no tile)
+LAT4_TILED = {"rqs_coupling": True, "rqs_coupling_bwd": True,
+              "phi4_action": False, "phi4_action_grad": False,
+              "accept_scan": False}
+
+
+def check_phi4_4d(torch, kernels, peaks):
+    """Phase 23, step 1 (with the kernel checks of phase 2): phi4_action
+    and phi4_action_grad at (1024, 8, 8, 8, 8), (512, 8, 8, 8, 8) and an
+    odd (64, 3, 5, 4, 6), and the slab kernels on the first of two slabs
+    of the (1024, 8, 8, 8, 8) field, (1024, 4, 8, 8, 8), with its halo
+    (1024, 2, 8, 8, 8), each against its plain version with the general
+    kernels' tolerances (``PHI4_REL_TOL``, ``FORCE_*``), every launch to
+    the general kernel; a 5-D field refused.  Returns the function that
+    times them."""
+    from normflow__tpu_torch.models.actions import ScalarPhi4Action
+    from normflow__tpu_torch.ops.kernels import phi4
+
+    rng = np.random.default_rng(LAT4_SEED)
+
+    def f32(shape):
+        return torch.tensor(rng.standard_normal(shape), dtype=torch.float32,
+                            device="cuda")
+
+    w = ScalarPhi4Action(kappa=0.6, m_sq=-2.4, lambd=0.5).get_coef(4)
+    field, g = f32((BATCH, *LAT4)), f32(BATCH)
+    odd, godd = f32((64, 3, 5, 4, 6)), f32(64)
+    cases = []  # (kernel, shape, wrapper call, plain call)
+    for c, gg in ((field, g), (field[:TRAIN_BATCH], g[:TRAIN_BATCH]),
+                  (odd, godd)):
+        cases += [("phi4_action", tuple(c.shape),
+                   lambda c=c: phi4.phi4_action(c, *w),
+                   lambda c=c: phi4.phi4_action_plain(c, *w)),
+                  ("phi4_action_grad", tuple(c.shape),
+                   lambda c=c, gg=gg: phi4.phi4_action_grad(c, gg, *w),
+                   lambda c=c, gg=gg: phi4.phi4_action_grad_plain(c, gg,
+                                                                  *w))]
+    slab, halo = split_slabs(torch, field)[0]
+    cases += [("phi4_action_slab", tuple(slab.shape),
+               lambda: phi4.phi4_action_slab(slab, halo, *w),
+               lambda: phi4.phi4_action_slab_plain(slab, halo, *w)),
+              ("phi4_action_slab_grad", tuple(slab.shape),
+               lambda: phi4.phi4_action_slab_grad(slab, halo, g, *w),
+               lambda: phi4.phi4_action_slab_grad_plain(slab, halo, g, *w))]
+    counters = {**{k: c for k, c in _counters().items()
+                   if k in ("phi4_action", "phi4_action_grad")},
+                **slab_counters()}
+    reset_counts(counters)
+    for name, shape, fn, plain in cases:
+        got, want = fn(), plain()
+        torch.cuda.synchronize()
+        d = (got - want).abs()
+        if name in ("phi4_action", "phi4_action_slab"):
+            rel = float((d / want.abs().clamp(min=1.0)).max())
+            ok, bar = rel <= PHI4_REL_TOL, (f"max rel {rel:.3e} (tol "
+                                            f"{PHI4_REL_TOL})")
+        else:
+            ok = bool((d <= FORCE_ATOL + FORCE_RTOL * want.abs()).all())
+            bar = (f"max abs {float(d.max()):.3e} (rtol {FORCE_RTOL}, atol "
+                   f"{FORCE_ATOL})")
+        print(f"{name} at {shape}, general kernel: {bar} "
+              f"{'ok' if ok else 'FAILED'}")
+        if not ok:
+            raise AssertionError(f"{name} disagrees with its plain version "
+                                 f"at {shape}")
+        kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"],
+                                           float(d.max()))
+    launches = {k: c.launches for k, c in counters.items()}
+    print(f"4-D checks: wrapper launches {launches}")
+    if launches != {"phi4_action": 3, "phi4_action_grad": 3,
+                    "phi4_action_slab": 1, "phi4_action_slab_grad": 1}:
+        raise AssertionError("a 4-D check missed its kernel")
+    check_tiled(counters, "4-D checks", tiled=False)
+    try:
+        phi4.phi4_action(torch.zeros((2, 2, 2, 2, 2, 2), device="cuda"),
+                         *w)
+    except ValueError as e:
+        print(f"a 5-D field on the card: refused ({e})")
+    else:
+        raise AssertionError("phi4_action took a 5-D field")
+
+    def time_it():
+        """Each case's kernel, general, read warm, under ``variants``."""
+        for name, shape, fn, plain in cases:
+            record_variant(name, f"{shape} general (4-D)",
+                           kernel_times(name, fn, plain, plain_reps=5),
+                           shape, peaks, kernels)
+
+    return time_it
+
+
+def exact_free_phi2(lat, action):
+    """<phi^2> of the free field (``lambd`` 0) on the periodic lattice
+    ``lat``, from ``get_coef``'s quadratic form S = sum_x w2 phi_x^2 - w0
+    sum_{x,mu} phi_x phi_{x+mu}: (1/V) sum_p 1 / (2 w2 - 2 w0 sum_mu cos
+    p_mu), which at a = 1 is (1/V) sum_p 1 / (m^2 + 4 kappa sum_mu
+    sin^2(p_mu / 2))."""
+    w0, w2, w4 = action.get_coef(len(lat))
+    if w4 != 0.0:
+        raise ValueError("the free field has no phi^4 term")
+    p = np.meshgrid(*[2 * np.pi * np.arange(n) / n for n in lat],
+                    indexing="ij")
+    return float(np.mean(1.0 / (2 * w2 - 2 * w0 * sum(np.cos(q)
+                                                         for q in p))))
+
+
+def run_4d(torch, kernels, card):
+    """Phase 23: the 4-D flagship at 8^4 (``build_phi4_model(LAT4,
+    packed=False)``) with seeded perturbed weights: logq against a float64
+    CPU copy; ``logqp_stream(LAT4_BATCHES, 1024)`` profiled, the counters
+    set to 0 just before (4 ``rqs_coupling``, tiled, and 1 ``phi4_action``,
+    general, per batch), a replayed batch against its eager body bit for
+    bit and by name, where its time goes, raw samples/s eager and graphed
+    in turns; one graphed chain round of 1024 (4 / 1 / 1 ``accept_scan``),
+    against its eager body bit for bit; then a fresh 8^4 flagship: one
+    path-gradient step against float64 with the per-leaf bars
+    (``LAT4_STEP_BATCH``), ``LAT4_STEPS`` steps of :func:`fit_protocol`
+    at ``LAT4_LR`` profiled with the counters set to 0 just before (8 / 8 / 1 / 1 per
+    step), all under cuDNN's deterministic algorithms (:func:`train_4d`);
+    last, the free field (:func:`run_free_field`)."""
+    from normflow__tpu_torch import calc_ess
+    from normflow__tpu_torch.tools.kernel_times import (device_launches,
+                                                         perturb_)
+    from normflow__tpu_torch.zoo import build_phi4_model
+
+    t_phase = time.perf_counter()
+    marks = []
+
+    def mark(what):
+        marks.append((what, round(time.perf_counter() - t_phase, 1)))
+
+    rng = np.random.default_rng(LAT4_SEED + 1)
+    model = build_phi4_model(LAT4, packed=False, seed=0)
+    perturb_(model.net_, rng)
+    n_par = sum(p.numel() for p in model.net_.parameters())
+    print(f"4-D flagship {LAT4}: {n_par} parameters on {model.device}")
+    cpu = build_phi4_model(LAT4, packed=False, seed=0, device="cpu",
+                           dtype=torch.float64)
+    cpu.net_.load_state_dict({k: v.double().cpu() for k, v in
+                              model.net_.state_dict().items()})
+    x = rng.standard_normal((LAT4_LOGQ_DRAWS, *LAT4))
+    logq = []
+    with torch.no_grad():
+        for m, dtype in ((model, torch.float32), (cpu, torch.float64)):
+            t0 = time.perf_counter()
+            xd = torch.tensor(x, dtype=dtype, device=m.device)
+            logq.append((m.prior.log_prob(xd) - m.net_.forward(xd)[1])
+                        .double().cpu())
+    rel = float(((logq[0] - logq[1]).abs()
+                 / logq[1].abs().clamp(min=1.0)).max())
+    print(f"4-D GPU vs float64 CPU forward, {LAT4_LOGQ_DRAWS} draws: max rel "
+          f"logq {rel:.3e} (tol {LOGQ_REL_TOL}); the CPU copy took "
+          f"{time.perf_counter() - t0:.2f} s")
+    if not rel <= LOGQ_REL_TOL:
+        raise AssertionError("GPU and CPU 4-D flagship disagree")
+    del cpu
+    mark("logq")
+
+    n_layers = len(model.net_[2].nets)
+    per_batch = {"rqs_coupling": n_layers, "phi4_action": 1}
+    counters = path_counters(per_batch)
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    device, logqp = device_launches(
+        lambda: model.posterior.logqp_stream(LAT4_BATCHES, BATCH))
+    seconds = time.perf_counter() - t0
+    gate_path(counters, kernels, "4d sample", per_batch, LAT4_BATCHES,
+              device, LAT4_TILED)
+    if logqp.shape != (LAT4_BATCHES * BATCH,) or not bool(
+            torch.isfinite(logqp).all()):
+        raise AssertionError("the 4-D logqp stream is not finite or has "
+                             "the wrong shape")
+    print(f"4-D logqp_stream({LAT4_BATCHES}, {BATCH}): ESS "
+          f"{float(calc_ess(logqp)):.5f} (random perturbed weights); the "
+          f"first call, capture included, profiled, {seconds:.2f} s on "
+          f"{card}")
+    post, gen = model.posterior, model.generator
+    model.seed(21)
+    got = post.logqp_stream(1, BATCH)
+    model.seed(21)
+    want = post.logqp_batch(BATCH, gen)
+    same = same_bits(torch, (got,), (want,))
+    print(f"4-D replayed vs eager batch of {BATCH}: "
+          f"{'bit for bit' if same else 'NOT bit-identical'}")
+    if not same:
+        raise AssertionError("a 4-D replayed batch differs from its eager "
+                             "body")
+    gate_replays(counters, kernels, "4d sample", per_batch, 1,
+                 lambda: post.logqp_stream(1, BATCH), tiled=LAT4_TILED)
+    profile_step(lambda: post.logqp_stream(1, BATCH),
+                 f"one replayed 4-D sampled batch of {BATCH}")
+    in_turns(torch, card, f"4-D flagship {LAT4} sampling, "
+             f"{LAT4_TURNS} batches of {BATCH}", "raw samples/s",
+             LAT4_TURNS * BATCH,
+             {"eager": lambda: [post.logqp_batch(BATCH, gen)
+                                for _ in range(LAT4_TURNS)],
+              "graphed": lambda: post.logqp_stream(LAT4_TURNS, BATCH)},
+             runs=1, warm=True)
+    mark("sampling")
+
+    mcmc = model.mcmc
+    per_round = {**per_batch, "accept_scan": 1}
+    counters = path_counters(per_round)
+    reset_counts(counters)
+    device, out = device_launches(lambda: mcmc.sample_chain(1, BATCH))
+    gate_path(counters, kernels, "4d chain", per_round, 1, device,
+              LAT4_TILED)
+    if out["logq"].shape != (1, BATCH) or not bool(
+            torch.isfinite(out["logq"]).all()):
+        raise AssertionError("the 4-D chain's output is not finite or has "
+                             "the wrong shape")
+    mcmc.reset()
+    model.seed(31)
+    got = mcmc.sample_chain(1, BATCH, collect_samples=True)
+    ref = mcmc._ref
+    model.seed(31)
+    carry = [torch.zeros(LAT4, device="cuda"),
+             torch.tensor(math.inf, device="cuda"),
+             torch.zeros((), device="cuda")]
+    r = mcmc.chain_body(BATCH, gen, carry)
+    same = same_bits(torch, (got["logq"], got["logp"], got["accept_rate"],
+                             got["samples"], *ref),
+                     (*(r[k][None] for k in (1, 2, 3, 0)), *carry))
+    print(f"4-D sample_chain(1, {BATCH}) graphed vs its eager round from "
+          f"one generator state: logq, logp, accept rate, samples and the "
+          f"final _ref {'bit for bit' if same else 'NOT bit-identical'}; "
+          f"accept rate {float(got['accept_rate'].mean()):.4f}")
+    if not same:
+        raise AssertionError("a graphed 4-D chain round differs from its "
+                             "eager body")
+    del model, post, mcmc, got, ref, carry, r, logqp
+    mark("chain")
+
+    trained = build_phi4_model(LAT4, packed=False, seed=0)
+    check_train_grads(torch, trained, rng, packed=False, lat=LAT4,
+                      batch=LAT4_STEP_BATCH)
+    mark("step vs float64")
+    counters = _counters()
+    per_step = {"rqs_coupling": 2 * n_layers,
+                "rqs_coupling_bwd": 2 * n_layers, "phi4_action": 1,
+                "phi4_action_grad": 1}
+    # the step is captured under cuDNN's deterministic algorithms, so a
+    # replay and an eager body can be held bit for bit without a second
+    # capture (a step takes ~1.7 s)
+    flag = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        fit = train_4d(torch, kernels, trained, counters, per_step, card)
+    finally:
+        torch.backends.cudnn.deterministic = flag
+    del trained, fit
+    mark("fit, replays, profile, rate")
+    run_free_field(torch, card)
+    mark("free field")
+    print(f"phase 23 (4-D) took {time.perf_counter() - t_phase:.1f} s on "
+          f"{card}; seconds at its marks: {marks}")
+
+
+def train_4d(torch, kernels, trained, counters, per_step, card):
+    """Phase 23's training: ``LAT4_STEPS`` steps of :func:`fit_protocol`
+    at ``LAT4_LR`` profiled, the counters set to 0 just before, gated by name and by
+    wrapper; a replayed step by name and where its time goes; graphed
+    steps/s; a replayed step against an eager one bit for bit.  Returns
+    the fit."""
+    from normflow__tpu_torch.tools.kernel_times import device_launches
+
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    device, hist = device_launches(lambda: fit_protocol(
+        trained, LAT4_STEPS, lr=LAT4_LR, decay_steps=LAT4_STEPS))
+    seconds = time.perf_counter() - t0
+    gate_path(counters, kernels, "4d train", per_step, LAT4_STEPS, device,
+              LAT4_TILED)
+    loss = np.asarray(hist["loss"])
+    print(f"4-D model.fit: {LAT4_STEPS} steps at batch {TRAIN_BATCH}, lr "
+          f"{LAT4_LR}, in {seconds:.2f} s (capture included, profiled) on "
+          f"{card}; loss {np.round(loss, 2).tolist()}")
+    if loss.shape != (LAT4_STEPS,) or not np.isfinite(loss).all():
+        raise AssertionError("the 4-D training loss is not finite")
+    fit = trained.fit
+    gate_replays(counters, kernels, "4d train", per_step, 1, fit.step,
+                 tiled=LAT4_TILED)
+    profile_step(fit.step, f"one replayed 4-D training step at batch "
+                 f"{TRAIN_BATCH}", reps=1)
+    in_turns(torch, card, f"4-D flagship {LAT4} training at batch "
+             f"{TRAIN_BATCH}, one step a run", "steps/s", 1,
+             {"graphed": fit.step}, runs=1, warm=True)
+    replayed_vs_eager_steps(torch, trained, "4-D: ", n=1, captured=True)
+    return fit
+
+
+
+def run_free_field(torch, card):
+    """The flagship's architecture at ``FREE_LAT`` on the free field
+    (``FREE_ACTION``: kappa 1, m^2 1, lambda 0), trained ``FREE_STEPS``
+    steps at batch ``TRAIN_BATCH`` (:func:`fit_protocol` at ``LAT4_LR``);
+    then
+    ``sample_chain(FREE_ROUNDS, BATCH)``, the first round dropped: <phi^2>
+    (each state's lattice mean of phi^2, binned errors) within
+    ``OBS_SIGMAS`` of :func:`exact_free_phi2`."""
+    from normflow__tpu_torch.examples.u1_gauge import binned
+    from normflow__tpu_torch.zoo import build_phi4_model
+
+    t0 = time.perf_counter()
+    model = build_phi4_model(FREE_LAT, packed=False, seed=0, **FREE_ACTION)
+    hist = fit_protocol(model, FREE_STEPS, lr=LAT4_LR,
+                        decay_steps=FREE_STEPS)
+    loss = np.asarray(hist["loss"])
+    trained = time.perf_counter() - t0
+    out = model.mcmc.sample_chain(FREE_ROUNDS, BATCH, collect_samples=True)
+    samples = out["samples"][1:].reshape(-1, math.prod(FREE_LAT))
+    phi2 = samples.double().pow(2).mean(1).cpu().numpy()
+    value, err = binned(phi2)
+    exact = exact_free_phi2(FREE_LAT, model.action)
+    sigma = abs(value - exact) / err
+    print(f"free field {FREE_LAT} ({FREE_ACTION}): trained {FREE_STEPS} "
+          f"steps at batch {TRAIN_BATCH} in {trained:.1f} s, loss "
+          f"{loss[0]:.4f} -> {loss[-1]:.4f}; sample_chain({FREE_ROUNDS}, "
+          f"{BATCH}), round 1 dropped: <phi^2> {value:.6f} +- {err:.6f} "
+          f"(binned, {len(phi2)} states) vs exact {exact:.6f}: {sigma:.2f} "
+          f"sigma (bar {OBS_SIGMAS}); accept rate "
+          f"{float(out['accept_rate'][1:].mean()):.4f}; "
+          f"{time.perf_counter() - t0:.1f} s on {card}")
+    if not (np.isfinite(loss).all() and sigma <= OBS_SIGMAS):
+        raise AssertionError("the free field's <phi^2> misses the exact "
+                             "value")
+
+
 def profile_step(fn, what, reps=4):
     """Where the device time of ``fn`` goes: busy, wall, idle share and the
     top kernels; returns the busy seconds per call."""
@@ -4572,7 +4976,9 @@ def main() -> int:
                     check_phi4_general, torch, kernels, peaks),
               phase("check the slab kernels", check_slab_kernels, torch,
                     kernels, peaks, np.random.default_rng(20261020),
-                    action)]
+                    action),
+              phase("check the phi4 kernels at 4-D", check_phi4_4d, torch,
+                    kernels, peaks)]
     # before the main path's runs, which are profiled: the rates are taken
     # with no profiler run in the process
     phase("rates in turns", rates_in_turns, torch, card)
@@ -4622,6 +5028,7 @@ def main() -> int:
     phase("space sharding", run_space, torch, kernels, card)
     phase("channels-last route", run_channels_last, torch, kernels, peaks,
           card, model, step_rng)
+    phase("4-D phi^4", run_4d, torch, kernels, card)
     print("phase seconds: " + ", ".join(f"{n} {t:.1f}" for n, t in phases))
     print_windows(card)
 

@@ -7,7 +7,7 @@
 // ::phi4_action_grad_plain.
 //
 // Per sample: S = sum_x (w2 phi^2 + w4 phi^4) - w0 sum_{x,mu} phi_x phi_{x-mu}
-// on a periodic lattice of 1-3 dims; phi_{x-mu} is the site whose mu-th
+// on a periodic lattice of 1-4 dims; phi_{x-mu} is the site whose mu-th
 // coordinate is (c_mu - 1 mod L_mu), which is jnp.roll(phi, 1, mu).
 //
 // What bounds it on an H100: memory, and at the flagship's size latency.
@@ -18,9 +18,13 @@
 //   lattices whose rows split into float4s: one 16-byte load per thread
 //   into shared memory, the neighbours from there and from the thread's own
 //   registers, no division per site (notes at the kernel);
-// - the general kernel (phi4_action_f32) for every other lattice of 1-3
+// - the general kernel (phi4_action_f32) for every other lattice of 1-4
 //   dims: one block per sample, threads stride over its sites, the
-//   neighbour's index from a division and a modulo per dimension.
+//   neighbour's index from a division and a modulo per dimension.  At
+//   4-D it is the whole path's action (8^4: 16.8 MB at B = 1024, about
+//   5 us at 3.35 TB/s); a field of fewer dims passes its missing trailing
+//   extents as 1 and runs the loop over its own dims only, so it gives
+//   the bits it gave before the fourth extent was added.
 // Both sum per thread, then across the warp with shuffles, then across
 // warps in shared memory, and write once per sample: a fixed order with no
 // atomics, so the result is deterministic.
@@ -44,8 +48,8 @@
 // The slab variants (phi4_action_slab_f32, phi4_action_slab_tiled_f32,
 // phi4_action_grad_slab_f32, phi4_action_grad_slab_tiled_f32) are what the
 // two become under lattice (space) sharding, normflow__tpu_torch/parallel/
-// space.py: the field is a rank's slab (B, l0, L1, L2) of each sample's
-// rows and `halo` (B, 2, L1, L2) holds the row before the slab and the row
+// space.py: the field is a rank's slab (B, l0, L1, L2, L3) of each sample's
+// rows and `halo` (B, 2, L1, L2, L3) holds the row before the slab and the row
 // after it.  Along the first axis nothing wraps: a neighbour across the
 // slab's first row comes from halo row 0, across its last row (the force
 // only) from halo row 1; the other axes stay periodic.  They port no Pallas
@@ -66,16 +70,16 @@ namespace {
 constexpr int kThreads = 256;
 
 // One block per sample; on a slab (kSlab) the backward neighbour across
-// row 0 comes from halo row 0 (the site's offset in its row, i < L1 L2).
+// row 0 comes from halo row 0 (the site's offset in its row, i < L1 L2 L3).
 template <bool kSlab>
 __device__ __forceinline__ void action_general(
     const float* __restrict__ cfgs, const float* __restrict__ halo,
-    float* __restrict__ act, int V, int nd, int L0, int L1, int L2, float w0,
-    float w2, float w4) {
+    float* __restrict__ act, int V, int nd, int L0, int L1, int L2, int L3,
+    float w0, float w2, float w4) {
   const float* phi = cfgs + (long long)blockIdx.x * V;
-  // row-major strides of the (up to) three lattice axes
-  const int dims[3] = {L0, L1, L2};
-  const int strides[3] = {L1 * L2, L2, 1};
+  // row-major strides of the (up to) four lattice axes
+  const int dims[4] = {L0, L1, L2, L3};
+  const int strides[4] = {L1 * L2 * L3, L2 * L3, L3, 1};
   const float* before =
       kSlab ? halo + (long long)blockIdx.x * 2 * strides[0] : nullptr;
 
@@ -87,7 +91,7 @@ __device__ __forceinline__ void action_general(
     if (w0 != 0.0f) {
       float neigh = 0.0f;
 #pragma unroll
-      for (int mu = 0; mu < 3; ++mu) {
+      for (int mu = 0; mu < 4; ++mu) {
         if (mu < nd) {
           const int c = (i / strides[mu]) % dims[mu];
           if (kSlab && mu == 0 && c == 0) {
@@ -123,17 +127,19 @@ __device__ __forceinline__ void action_general(
 
 __global__ void __launch_bounds__(kThreads)
 phi4_action_kernel(const float* __restrict__ cfgs, float* __restrict__ act,
-                   int V, int nd, int L0, int L1, int L2, float w0, float w2,
-                   float w4) {
-  action_general<false>(cfgs, nullptr, act, V, nd, L0, L1, L2, w0, w2, w4);
+                   int V, int nd, int L0, int L1, int L2, int L3, float w0,
+                   float w2, float w4) {
+  action_general<false>(cfgs, nullptr, act, V, nd, L0, L1, L2, L3, w0, w2,
+                        w4);
 }
 
 __global__ void __launch_bounds__(kThreads)
 phi4_action_slab_kernel(const float* __restrict__ cfgs,
                         const float* __restrict__ halo,
                         float* __restrict__ act, int V, int nd, int L0,
-                        int L1, int L2, float w0, float w2, float w4) {
-  action_general<true>(cfgs, halo, act, V, nd, L0, L1, L2, w0, w2, w4);
+                        int L1, int L2, int L3, float w0, float w2,
+                        float w4) {
+  action_general<true>(cfgs, halo, act, V, nd, L0, L1, L2, L3, w0, w2, w4);
 }
 
 // One thread per (sample, site); on a slab (kSlab) the neighbours across
@@ -142,7 +148,7 @@ template <bool kSlab>
 __device__ __forceinline__ void grad_general(
     const float* __restrict__ cfgs, const float* __restrict__ halo,
     const float* __restrict__ g, float* __restrict__ grad, long long n, int V,
-    int nd, int L0, int L1, int L2, float w0, float w2, float w4) {
+    int nd, int L0, int L1, int L2, int L3, float w0, float w2, float w4) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const long long b = i / V;
@@ -151,11 +157,11 @@ __device__ __forceinline__ void grad_general(
   const float p = __ldg(phi + s);
   float dv = (2.0f * w2) * p + (4.0f * w4) * (p * p) * p;
   if (w0 != 0.0f) {
-    const int dims[3] = {L0, L1, L2};
-    const int strides[3] = {L1 * L2, L2, 1};
+    const int dims[4] = {L0, L1, L2, L3};
+    const int strides[4] = {L1 * L2 * L3, L2 * L3, L3, 1};
     float neigh = 0.0f;
 #pragma unroll
-    for (int mu = 0; mu < 3; ++mu) {
+    for (int mu = 0; mu < 4; ++mu) {
       if (mu < nd) {
         const int c = (s / strides[mu]) % dims[mu];
         const int wrap = (dims[mu] - 1) * strides[mu];
@@ -184,9 +190,9 @@ __global__ void __launch_bounds__(kThreads)
 phi4_action_grad_kernel(const float* __restrict__ cfgs,
                         const float* __restrict__ g, float* __restrict__ grad,
                         long long n, int V, int nd, int L0, int L1, int L2,
-                        float w0, float w2, float w4) {
-  grad_general<false>(cfgs, nullptr, g, grad, n, V, nd, L0, L1, L2, w0, w2,
-                      w4);
+                        int L3, float w0, float w2, float w4) {
+  grad_general<false>(cfgs, nullptr, g, grad, n, V, nd, L0, L1, L2, L3, w0,
+                      w2, w4);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -194,9 +200,10 @@ phi4_action_grad_slab_kernel(const float* __restrict__ cfgs,
                              const float* __restrict__ halo,
                              const float* __restrict__ g,
                              float* __restrict__ grad, long long n, int V,
-                             int nd, int L0, int L1, int L2, float w0,
-                             float w2, float w4) {
-  grad_general<true>(cfgs, halo, g, grad, n, V, nd, L0, L1, L2, w0, w2, w4);
+                             int nd, int L0, int L1, int L2, int L3,
+                             float w0, float w2, float w4) {
+  grad_general<true>(cfgs, halo, g, grad, n, V, nd, L0, L1, L2, L3, w0, w2,
+                     w4);
 }
 
 // The tiled action for 2-D lattices with L1 % 4 == 0 and L0 * L1 / 4 a
@@ -388,37 +395,38 @@ phi4_action_grad_slab_tiled_kernel(const float* __restrict__ cfgs,
 
 }  // namespace
 
-// cfgs (B, L0, L1, L2) float32 contiguous with nd lattice dims, the unused
-// trailing extents 1; act (B,).  Returns cudaGetLastError() after the launch.
+// cfgs (B, L0, L1, L2, L3) float32 contiguous with nd lattice dims, the
+// unused trailing extents 1; act (B,).  Returns cudaGetLastError() after the
+// launch.
 extern "C" int phi4_action_f32(const void* cfgs, void* act, long long B,
-                               int nd, int L0, int L1, int L2, float w0,
-                               float w2, float w4, void* stream) {
-  const long long V = (long long)L0 * L1 * L2;
-  if (nd < 1 || nd > 3 || B > 2147483647LL || V > 2147483647LL)
+                               int nd, int L0, int L1, int L2, int L3,
+                               float w0, float w2, float w4, void* stream) {
+  const long long V = (long long)L0 * L1 * L2 * L3;
+  if (nd < 1 || nd > 4 || B > 2147483647LL || V > 2147483647LL)
     return (int)cudaErrorInvalidValue;
   phi4_action_kernel<<<(unsigned int)B, kThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(cfgs), static_cast<float*>(act), (int)V, nd, L0,
-      L1, L2, w0, w2, w4);
+      L1, L2, L3, w0, w2, w4);
   return (int)cudaGetLastError();
 }
 
-// cfgs and grad (B, L0, L1, L2) float32 contiguous with nd lattice dims, the
-// unused trailing extents 1; g (B,).  Returns cudaGetLastError() after the
-// launch.
+// cfgs and grad (B, L0, L1, L2, L3) float32 contiguous with nd lattice dims,
+// the unused trailing extents 1; g (B,).  Returns cudaGetLastError() after
+// the launch.
 extern "C" int phi4_action_grad_f32(const void* cfgs, const void* g,
                                     void* grad, long long B, int nd, int L0,
-                                    int L1, int L2, float w0, float w2,
-                                    float w4, void* stream) {
-  const long long V = (long long)L0 * L1 * L2;
+                                    int L1, int L2, int L3, float w0,
+                                    float w2, float w4, void* stream) {
+  const long long V = (long long)L0 * L1 * L2 * L3;
   const long long n = B * V;
   const long long blocks = (n + kThreads - 1) / kThreads;
-  if (nd < 1 || nd > 3 || V > 2147483647LL || blocks > 2147483647LL)
+  if (nd < 1 || nd > 4 || V > 2147483647LL || blocks > 2147483647LL)
     return (int)cudaErrorInvalidValue;
   phi4_action_grad_kernel<<<(unsigned int)blocks, kThreads, 0,
                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(cfgs), static_cast<const float*>(g),
-      static_cast<float*>(grad), n, (int)V, nd, L0, L1, L2, w0, w2, w4);
+      static_cast<float*>(grad), n, (int)V, nd, L0, L1, L2, L3, w0, w2, w4);
   return (int)cudaGetLastError();
 }
 
@@ -472,40 +480,42 @@ extern "C" int phi4_action_grad_tiled_f32(const void* cfgs, const void* g,
   return (int)cudaGetLastError();
 }
 
-// The slab action (see the note at the top): cfgs (B, L0, L1, L2) float32
-// contiguous with nd lattice dims, the unused trailing extents 1; halo
-// (B, 2, L1, L2); act (B,).  Returns cudaGetLastError() after the launch.
+// The slab action (see the note at the top): cfgs (B, L0, L1, L2, L3)
+// float32 contiguous with nd lattice dims, the unused trailing extents 1;
+// halo (B, 2, L1, L2, L3); act (B,).  Returns cudaGetLastError() after the
+// launch.
 extern "C" int phi4_action_slab_f32(const void* cfgs, const void* halo,
                                     void* act, long long B, int nd, int L0,
-                                    int L1, int L2, float w0, float w2,
-                                    float w4, void* stream) {
-  const long long V = (long long)L0 * L1 * L2;
-  if (nd < 1 || nd > 3 || B > 2147483647LL || V > 2147483647LL)
+                                    int L1, int L2, int L3, float w0,
+                                    float w2, float w4, void* stream) {
+  const long long V = (long long)L0 * L1 * L2 * L3;
+  if (nd < 1 || nd > 4 || B > 2147483647LL || V > 2147483647LL)
     return (int)cudaErrorInvalidValue;
   phi4_action_slab_kernel<<<(unsigned int)B, kThreads, 0,
                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(cfgs), static_cast<const float*>(halo),
-      static_cast<float*>(act), (int)V, nd, L0, L1, L2, w0, w2, w4);
+      static_cast<float*>(act), (int)V, nd, L0, L1, L2, L3, w0, w2, w4);
   return (int)cudaGetLastError();
 }
 
-// The slab force: cfgs and grad (B, L0, L1, L2), halo (B, 2, L1, L2), g
-// (B,), float32 contiguous.  Returns cudaGetLastError() after the launch.
+// The slab force: cfgs and grad (B, L0, L1, L2, L3), halo (B, 2, L1, L2,
+// L3), g (B,), float32 contiguous.  Returns cudaGetLastError() after the
+// launch.
 extern "C" int phi4_action_grad_slab_f32(const void* cfgs, const void* halo,
                                          const void* g, void* grad,
                                          long long B, int nd, int L0, int L1,
-                                         int L2, float w0, float w2, float w4,
-                                         void* stream) {
-  const long long V = (long long)L0 * L1 * L2;
+                                         int L2, int L3, float w0, float w2,
+                                         float w4, void* stream) {
+  const long long V = (long long)L0 * L1 * L2 * L3;
   const long long n = B * V;
   const long long blocks = (n + kThreads - 1) / kThreads;
-  if (nd < 1 || nd > 3 || V > 2147483647LL || blocks > 2147483647LL)
+  if (nd < 1 || nd > 4 || V > 2147483647LL || blocks > 2147483647LL)
     return (int)cudaErrorInvalidValue;
   phi4_action_grad_slab_kernel<<<(unsigned int)blocks, kThreads, 0,
                                  static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(cfgs), static_cast<const float*>(halo),
       static_cast<const float*>(g), static_cast<float*>(grad), n, (int)V, nd,
-      L0, L1, L2, w0, w2, w4);
+      L0, L1, L2, L3, w0, w2, w4);
   return (int)cudaGetLastError();
 }
 

@@ -61,23 +61,23 @@ _SIGNATURES = {
                                 _F, _F, _I, _I, _I, _P),
     "rqs_coupling_bwd_cl_tiled_f32": (_P, _P, _P, _P, _P, _P, _L, _L, _I,
                                       _F, _F, _F, _F, _I, _I, _I, _P),
-    # cfgs, act, B, nd, L0, L1, L2, w0, w2, w4, stream
-    "phi4_action_f32": (_P, _P, _L, _I, _I, _I, _I, _F, _F, _F, _P),
+    # cfgs, act, B, nd, L0, L1, L2, L3, w0, w2, w4, stream
+    "phi4_action_f32": (_P, _P, _L, _I, _I, _I, _I, _I, _F, _F, _F, _P),
     # cfgs, act, B, L0, L1, samples, w0, w2, w4, stream
     "phi4_action_tiled_f32": (_P, _P, _L, _I, _I, _I, _F, _F, _F, _P),
-    # cfgs, g, grad, B, nd, L0, L1, L2, w0, w2, w4, stream
-    "phi4_action_grad_f32": (_P, _P, _P, _L, _I, _I, _I, _I, _F, _F, _F,
-                             _P),
+    # cfgs, g, grad, B, nd, L0, L1, L2, L3, w0, w2, w4, stream
+    "phi4_action_grad_f32": (_P, _P, _P, _L, _I, _I, _I, _I, _I, _F, _F,
+                             _F, _P),
     # cfgs, g, grad, B, L0, L1, samples, w0, w2, w4, stream
     "phi4_action_grad_tiled_f32": (_P, _P, _P, _L, _I, _I, _I, _F, _F, _F,
                                    _P),
     # the slab variants: the halo after the field
-    "phi4_action_slab_f32": (_P, _P, _P, _L, _I, _I, _I, _I, _F, _F, _F,
-                             _P),
+    "phi4_action_slab_f32": (_P, _P, _P, _L, _I, _I, _I, _I, _I, _F, _F,
+                             _F, _P),
     "phi4_action_slab_tiled_f32": (_P, _P, _P, _L, _I, _I, _I, _F, _F, _F,
                                    _P),
-    "phi4_action_grad_slab_f32": (_P, _P, _P, _P, _L, _I, _I, _I, _I, _F,
-                                  _F, _F, _P),
+    "phi4_action_grad_slab_f32": (_P, _P, _P, _P, _L, _I, _I, _I, _I, _I,
+                                  _F, _F, _F, _P),
     "phi4_action_grad_slab_tiled_f32": (_P, _P, _P, _P, _L, _I, _I, _I, _F,
                                         _F, _F, _P),
     # lrand, logqp, ref, accept, indices, n, stream

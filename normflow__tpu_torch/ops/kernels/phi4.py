@@ -8,7 +8,7 @@ action
     S = \sum_x (w_2 \phi_x^2 + w_4 \phi_x^4)
         - w_0 \sum_{x,\mu} \phi_x \phi_{x-\hat\mu}
 
-on a periodic lattice of 1-3 dims, ``cfgs`` ``(B, *lat)`` -> ``(B,)``, and
+on a periodic lattice of 1-4 dims, ``cfgs`` ``(B, *lat)`` -> ``(B,)``, and
 its gradient, the analytic force times the per-sample cotangent.
 :func:`phi4_action` is differentiable; it and :func:`phi4_action_grad` run
 the plain PyTorch version for a CPU tensor and the CUDA kernel
@@ -16,8 +16,12 @@ the plain PyTorch version for a CPU tensor and the CUDA kernel
 gradient each have two hand-written variants, chosen by shape and
 alignment (:func:`action_variant`): the tiled kernel for 2-D lattices that
 suit its float4 tile (the flagship's), the general kernel for every other
-lattice.  ``phi4_action.tiled_launches`` and
-``phi4_action_grad.tiled_launches`` count the tiled kernels' share of each
+lattice of 1-4 dims (the 4-D flagship's: the JAX package's Pallas kernel
+takes 1-3 dims and leaves 4-D to XLA, ``actions.py:60-69``; the port's
+kernel takes the fourth axis too, so no lattice it builds falls off the
+kernel).  A field of 5 or more lattice dims raises on the card.
+``phi4_action.tiled_launches`` and ``phi4_action_grad.tiled_launches``
+count the tiled kernels' share of each
 wrapper's ``launches``.  As for the coupling's wrappers, the counts grow
 where the wrapper launches from the host: once per capture under a CUDA
 graph, not once per replay (``tools/kernel_times.device_launches`` counts
@@ -107,14 +111,14 @@ def _check_cuda(name, cfgs):
     if cfgs.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for tensors on {cfgs.device}")
     nd = cfgs.dim() - 1
-    if not 1 <= nd <= 3:
-        raise ValueError(f"{name}: the kernel takes 1-3 lattice dims, got "
+    if not 1 <= nd <= 4:
+        raise ValueError(f"{name}: the kernel takes 1-4 lattice dims, got "
                          f"shape {tuple(cfgs.shape)}")
     if cfgs.dtype != torch.float32:
         raise TypeError(f"{name}: the CUDA kernel takes float32")
     if not cfgs.is_contiguous():
         raise ValueError(f"{name}: cfgs must be contiguous")
-    return list(cfgs.shape[1:]) + [1] * (3 - nd)
+    return list(cfgs.shape[1:]) + [1] * (4 - nd)
 
 
 def _action(cfgs, w0, w2, w4):
@@ -146,7 +150,7 @@ def _action(cfgs, w0, w2, w4):
 
 def phi4_action_grad(cfgs, g, w0, w2, w4):
     """``g[b] * dS_b/dcfgs``: :func:`phi4_action_grad_plain` for CPU
-    tensors; CUDA tensors (float32, contiguous, 1-3 lattice dims, ``g`` of
+    tensors; CUDA tensors (float32, contiguous, 1-4 lattice dims, ``g`` of
     shape ``(B,)``) launch the kernel or raise."""
     if g.shape != cfgs.shape[:1]:
         raise ValueError(f"phi4_action_grad: cotangent {tuple(g.shape)} for "
@@ -269,7 +273,7 @@ def _action_slab(cfgs, halo, w0, w2, w4):
 def phi4_action_slab_grad(cfgs, halo, g, w0, w2, w4):
     """``g[b] * dS_b/dcfgs`` on the slab's sites (``S`` the whole
     lattice's action): :func:`phi4_action_slab_grad_plain` for CPU
-    tensors; CUDA tensors (float32, contiguous, 1-3 lattice dims) launch
+    tensors; CUDA tensors (float32, contiguous, 1-4 lattice dims) launch
     the kernel or raise."""
     if g.shape != cfgs.shape[:1]:
         raise ValueError(f"phi4_action_slab_grad: cotangent "
@@ -333,7 +337,7 @@ def phi4_action_slab(cfgs, halo, w0, w2, w4):
     """This slab's part of the per-sample phi^4 action (module docstring),
     differentiable in ``cfgs``: CPU tensors take
     :func:`phi4_action_slab_plain`, CUDA tensors (float32, contiguous,
-    1-3 lattice dims) launch the kernel or raise; the gradient goes
+    1-4 lattice dims) launch the kernel or raise; the gradient goes
     through :func:`phi4_action_slab_grad`."""
     return _Phi4ActionSlab.apply(cfgs, halo.detach(), w0, w2, w4)
 
@@ -358,7 +362,7 @@ class _Phi4Action(torch.autograd.Function):
 
 def phi4_action(cfgs, w0, w2, w4):
     """Per-sample phi^4 action, differentiable in ``cfgs``.  CPU tensors
-    take :func:`phi4_action_plain`; CUDA tensors (float32, contiguous, 1-3
+    take :func:`phi4_action_plain`; CUDA tensors (float32, contiguous, 1-4
     lattice dims) launch the kernel or raise.  The gradient goes through
     :func:`phi4_action_grad` on the same device."""
     return _Phi4Action.apply(cfgs, w0, w2, w4)

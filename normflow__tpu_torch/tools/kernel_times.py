@@ -20,8 +20,13 @@ channels-last kernels (the ``pallas_reg`` route's) on the packed flagship's
 values channels-last, and for ``accept_scan`` at n = 1024 (a chain round)
 and 10,000 on four chains (the smoke's random one, one stuck on a heavy
 state, one whose logqp rises so steeply that no state ever accepts again,
-and the flagship's own ``logq - logp`` at seeded perturbed weights), it
-prints, each
+and the flagship's own ``logq - logp`` at seeded perturbed weights), and
+for the 4-D flagship's shapes (the action and its force at (1024, 8, 8, 8,
+8) and (512, 8, 8, 8, 8), the slab kernels on the first of two slabs of
+the (1024, 8, 8, 8, 8) field, (1024, 4, 8, 8, 8), and the general kernels
+at 1-D and 3-D beside them; a checkout whose wrappers refuse a case, as
+one from before the kernels took a fourth lattice axis does, leaves it
+out), it prints, each
 line starting with ``LABEL``, the median device time per launch from CUDA
 events around each call, the device held behind a spin kernel so that the
 host is ahead, less what the events add around nothing (:func:`warm_ms`;
@@ -39,9 +44,10 @@ the wrappers launch theirs, through ``ctypes``, one block of 256 or 1024
 threads (:func:`empty_kernel_ms`): the floor any one-launch kernel pays.
 
 ``--compare`` holds two such files against each other: ``rqs_coupling``,
-``rqs_coupling_bwd``, ``phi4_action_grad`` and ``accept_scan`` bit for bit,
-``phi4_action`` to max |dS| / max(1, |S|) <= 2e-5; it exits 1 if one
-differs (cases that only one file holds are left out).  :func:`warm_ms`,
+``rqs_coupling_bwd``, ``phi4_action_grad``, the slab kernels and
+``accept_scan`` bit for bit, ``phi4_action`` to max |dS| / max(1, |S|) <=
+2e-5 (and says whether its bits agree too); it exits 1 if one differs
+(cases that only one file holds are left out).  :func:`warm_ms`,
 :func:`cold_ms`, :func:`event_floor_ms`, :func:`bound_ms`, :func:`work`,
 :func:`card_peaks`, :func:`device_window`, :func:`device_launches` and
 :func:`perturb_` serve ``chip_smoke.py`` and the ``gpu`` tests too, and
@@ -371,19 +377,24 @@ def work(name, shape):
         # per proposal; a subtract and a compare each
         n = shape[0]
         return n * (4 + 4 + 1 + 8) + 4, 2 * n
+    # nd lattice dims: the action's phi^2 and phi^4 terms and 3 operations
+    # per dimension for its neighbour product; the force's terms, 2
+    # neighbours per dimension and 3 more operations
+    nd = len(shape) - 1
+    act_ops, force_ops = 6 + 3 * nd, 5 + 2 * nd + 3
     if name in ("phi4_action_slab", "phi4_action_slab_grad"):
         # a slab (B, l0, *rest) and its halo rows: the action reads the row
         # before the slab, the force both; the same work per site
         b, row = shape[0], math.prod(shape[2:])
         sites = math.prod(shape)
         if name == "phi4_action_slab":
-            return 4 * (sites + b * row) + 4 * b, sites * (6 + 3 * 2)
-        return 4 * (2 * sites + 2 * b * row) + 4 * b, sites * (5 + 2 * 2 + 3)
+            return 4 * (sites + b * row) + 4 * b, sites * act_ops
+        return 4 * (2 * sites + 2 * b * row) + 4 * b, sites * force_ops
     b, sites = shape[0], math.prod(shape)
-    if name == "phi4_action":  # phi^2, phi^4 terms, 2 neighbour products
-        return 4 * sites + 4 * b, sites * (6 + 3 * 2)
-    # force terms, 4 neighbours, 2 products; reads cfgs and g, writes grad
-    return 4 * sites * 2 + 4 * b, sites * (5 + 2 * 2 + 3)
+    if name == "phi4_action":
+        return 4 * sites + 4 * b, sites * act_ops
+    # reads cfgs and g, writes grad
+    return 4 * sites * 2 + 4 * b, sites * force_ops
 
 
 def sass_counts(lib_path):
@@ -557,10 +568,12 @@ def scan_inputs(torch, rng):
             for n in (BATCH, n_max)}
 
 
-def inputs(torch, rng, w):
+def inputs(torch, rng, coef):
     """Seeded inputs at the path's shapes: ``{case: (kernel, shape, call)}``
-    where ``call(mod_sc, mod_phi4)`` launches the kernel's wrapper; ``w``
-    are the action's coefficients ``(w0, w2, w4)``."""
+    where ``call(mod_sc, mod_phi4)`` launches the kernel's wrapper;
+    ``coef(nd)`` gives the action's coefficients ``(w0, w2, w4)`` on ``nd``
+    lattice dims."""
+    w = coef(2)
     def f32(shape):
         return torch.tensor(rng.standard_normal(shape), dtype=torch.float32,
                             device="cuda")
@@ -635,7 +648,41 @@ def inputs(torch, rng, w):
         "rqs_coupling_bwd_cl forward": cl_vjp(False),
         "rqs_coupling_bwd_cl inverse": cl_vjp(True),
         **scan_inputs(torch, rng),
+        **phi4_inputs(torch, f32, coef),
     }
+
+
+def phi4_inputs(torch, f32, coef):
+    """The action's, its force's and the slab kernels' cases on the 4-D
+    flagship's 8^4 lattice, and at 1-D and 3-D (the general kernels)."""
+    cases = {}
+    for lat in ((8, 8, 8, 8), (64,), (8, 8, 8)):
+        w = coef(len(lat))
+        field, g = f32((BATCH, *lat)), f32((BATCH,))
+        for b in ((BATCH, TRAIN_BATCH) if len(lat) == 4 else (BATCH,)):
+            shape = (b, *lat)
+            cases[f"phi4_action {shape}"] = (
+                "phi4_action", shape,
+                lambda sc, ph, c=field[:b], w=w: ph.phi4_action(c, *w))
+            cases[f"phi4_action_grad {shape}"] = (
+                "phi4_action_grad", shape,
+                lambda sc, ph, c=field[:b], gb=g[:b], w=w:
+                ph.phi4_action_grad(c, gb, *w))
+        if len(lat) == 1:
+            continue
+        rows = lat[0] // 2  # the first of two slabs, as a space rank holds
+        slab = field[:, :rows].contiguous()
+        halo = torch.stack([field[:, -1], field[:, rows]], 1).contiguous()
+        shape = tuple(slab.shape)
+        cases[f"phi4_action_slab {shape}"] = (
+            "phi4_action_slab", shape,
+            lambda sc, ph, s=slab, h=halo, w=w: ph.phi4_action_slab(s, h,
+                                                                    *w))
+        cases[f"phi4_action_slab_grad {shape}"] = (
+            "phi4_action_slab_grad", shape,
+            lambda sc, ph, s=slab, h=halo, g=g, w=w:
+            ph.phi4_action_slab_grad(s, h, g, *w))
+    return cases
 
 
 def measure(src, label, path, cases=""):
@@ -658,9 +705,9 @@ def measure(src, label, path, cases=""):
     saved = {"card": card}
     print(f"{label}: CUDA events alone {event_floor_ms():.5f} ms on {card}")
     with torch.no_grad():
-        w = ScalarPhi4Action(kappa=0.6, m_sq=-2.4, lambd=0.5).get_coef(2)
+        coef = ScalarPhi4Action(kappa=0.6, m_sq=-2.4, lambd=0.5).get_coef
         kept = {case: v for case, v in inputs(
-            torch, np.random.default_rng(20261016), w).items()
+            torch, np.random.default_rng(20261016), coef).items()
             if re.search(cases, case)}
         if any(name == "accept_scan" for name, _, _ in kept.values()):
             for threads in (256, 1024):
@@ -673,7 +720,11 @@ def measure(src, label, path, cases=""):
                       "channels-last kernels")
                 continue
             fn = lambda: call(sc, phi4)  # noqa: E731
-            got = fn()
+            try:
+                got = fn()
+            except ValueError as e:  # a shape this checkout refuses
+                print(f"{label}: {case} left out: {e}")
+                continue
             torch.cuda.synchronize()
             saved[case] = [t.cpu() for t in
                            (got if isinstance(got, tuple) else (got,))]
@@ -751,7 +802,10 @@ def compare(path_a, path_b):
             rel = float(((got - want).abs() / want.abs().clamp(min=1.0))
                         .max())
             same = rel <= PHI4_REL_TOL
-            what = f"max |dS|/max(1,|S|) {rel:.3e} (tol {PHI4_REL_TOL})"
+            bits = torch.equal(_bits(torch, a[case][0]),
+                               _bits(torch, b[case][0]))
+            what = (f"max |dS|/max(1,|S|) {rel:.3e} (tol {PHI4_REL_TOL}), "
+                    f"{'bit for bit' if bits else 'not bit-identical'}")
         else:
             pairs = list(zip(a[case], b[case]))
             same = all(torch.equal(_bits(torch, p), _bits(torch, q))

@@ -28,7 +28,7 @@ import torch
 
 from normflow__tpu_torch.models.actions import ScalarPhi4Action
 from normflow__tpu_torch.ops.kernels import phi4, spline_coupling as sc
-from normflow__tpu_torch.tools.kernel_times import device_launches
+from normflow__tpu_torch.tools.kernel_times import device_launches, perturb_
 from normflow__tpu_torch.zoo import build_phi4_model
 
 pytestmark = pytest.mark.gpu
@@ -240,9 +240,128 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(TypeError):
         phi4.phi4_action(torch.zeros((2, 4, 4), device=cuda,
                                      dtype=torch.float64), 0.6, 0.0, 0.5)
-    with pytest.raises(ValueError, match="1-3 lattice dims"):
-        phi4.phi4_action(torch.zeros((2, 2, 2, 2, 2), device=cuda),
+    with pytest.raises(ValueError, match="1-4 lattice dims"):
+        phi4.phi4_action(torch.zeros((2, 2, 2, 2, 2, 2), device=cuda),
                          0.6, 0.0, 0.5)
+    with pytest.raises(ValueError, match="1-4 lattice dims"):
+        phi4.phi4_action_grad(torch.zeros((2, 2, 2, 2, 2, 2), device=cuda),
+                              torch.zeros(2, device=cuda), 0.6, 0.0, 0.5)
+    with pytest.raises(ValueError, match="1-4 lattice dims"):
+        phi4.phi4_action_slab(torch.zeros((2, 1, 2, 2, 2, 2), device=cuda),
+                              torch.zeros((2, 2, 2, 2, 2, 2), device=cuda),
+                              0.6, 0.0, 0.5)
+
+
+# 4-D lattices: the flagship's 8^4, odd extents, and trailing extents of 1
+LAT4 = [(8, 8, 8, 8), (3, 5, 4, 6), (4, 4, 4, 1), (2, 3, 1, 1)]
+
+
+@pytest.mark.parametrize("lat", LAT4)
+@pytest.mark.parametrize("hopping", [True, False])
+def test_phi4_kernels_at_four_dims_match_plain(cuda, np_rng, lat, hopping):
+    """The action and its force on 4-D fields launch the general kernels
+    (a wrapper launch each, none tiled) and agree with their plain
+    versions: the action to 2e-5 relative, the force element by element
+    within the smoke's ``FORCE_*`` bars (2e-5 + 2e-4 |plain|)."""
+    cfgs = _f32(np_rng.standard_normal((65, *lat)), cuda)
+    g = _f32(np_rng.standard_normal(65), cuda)
+    w0, w2, w4 = ScalarPhi4Action(kappa=0.6, m_sq=-2.4,
+                                  lambd=0.5).get_coef(4)
+    w = (w0 if hopping else 0.0, w2, w4)
+    assert phi4.action_variant(lat, cfgs.data_ptr()) == "general"
+    before = [(f.launches, f.tiled_launches)
+              for f in (phi4.phi4_action, phi4.phi4_action_grad)]
+    got = phi4.phi4_action(cfgs, *w)
+    force = phi4.phi4_action_grad(cfgs, g, *w)
+    assert [(f.launches, f.tiled_launches) for f in (
+        phi4.phi4_action, phi4.phi4_action_grad)] == [
+        (n + 1, t) for n, t in before]
+    want = phi4.phi4_action_plain(cfgs.double(), *w)
+    want_force = phi4.phi4_action_grad_plain(cfgs, g, *w)
+    torch.cuda.synchronize()
+    rel = (got.double() - want).abs() / want.abs().clamp(min=1.0)
+    assert float(rel.max()) <= 2e-5
+    assert bool(((force - want_force).abs()
+                 <= 2e-5 + 2e-4 * want_force.abs()).all())
+
+
+@pytest.mark.parametrize("shape", [(64, 8, 8, 8, 8), (33, 4, 5, 3, 6),
+                                   (16, 4, 4, 4, 1)])
+@pytest.mark.parametrize("n", [2, 4])
+def test_slab_kernels_at_four_dims_match_the_whole(cuda, np_rng, shape, n):
+    """The slab action and force on ``n`` slabs of a 4-D field, halos
+    ``(B, 2, L1, L2, L3)`` cut by hand, summed and stacked, against the
+    whole-lattice kernels and the slab plain versions."""
+    cfgs = _f32(np_rng.standard_normal(shape), cuda)
+    g = _f32(np_rng.standard_normal(shape[0]), cuda)
+    w = ScalarPhi4Action(kappa=0.6, m_sq=-2.4, lambd=0.5).get_coef(4)
+    l0, rows = shape[1], shape[1] // n
+    before = phi4.phi4_action_slab.launches
+    act, plain_act, force, plain_force = 0, 0, [], []
+    for r in range(n):
+        slab = cfgs[:, r * rows:(r + 1) * rows].contiguous()
+        halo = torch.stack([cfgs[:, (r * rows - 1) % l0],
+                            cfgs[:, ((r + 1) * rows) % l0]], 1).contiguous()
+        act = act + phi4.phi4_action_slab(slab, halo, *w)
+        plain_act = plain_act + phi4.phi4_action_slab_plain(slab, halo, *w)
+        force.append(phi4.phi4_action_slab_grad(slab, halo, g, *w))
+        plain_force.append(phi4.phi4_action_slab_grad_plain(slab, halo, g,
+                                                            *w))
+    assert phi4.phi4_action_slab.launches == before + n
+    force, plain_force = torch.cat(force, 1), torch.cat(plain_force, 1)
+    torch.cuda.synchronize()
+    for want in (phi4.phi4_action(cfgs, *w), plain_act):
+        rel = (act - want).abs() / want.abs().clamp(min=1.0)
+        assert float(rel.max()) <= 2e-5
+    for want in (phi4.phi4_action_grad(cfgs, g, *w), plain_force):
+        assert bool(((force - want).abs()
+                     <= 2e-5 + 2e-4 * want.abs()).all())
+
+
+def test_small_four_dim_flagship_gpu_matches_cpu(cuda, np_rng):
+    """The unpacked flagship at 4^4 (3^4 convs by roll-and-sum, the 4-D
+    FFT flow) on the card against float32 and float64 CPU copies: per
+    sample logq against float64 within max(1e-5, twice the float32 CPU
+    copy's own relative error: logq is a difference of terms ~100 times
+    its size here, 3e-4 off in float32 on the CPU), ``y`` to 1e-4 of the
+    float32 copy, the action against its plain version, the round trip.
+    The weights take the smoke's perturbation (``perturb_``: the conv
+    noise scaled by the init bound): N(0, 0.01) on every 3^4 conv weight
+    steepens the map until float32 loses the round trip on the CPU too
+    (mean |dx| 5.6e-3 there, 1e-11 in float64)."""
+    lat = (4, 4, 4, 4)
+    model = build_phi4_model(lat, packed=False, knots=4, hidden=(4,),
+                             n_layers=2, device=cuda)
+    perturb_(model.net_, np_rng)
+    x = _f32(np_rng.standard_normal((16, *lat)), "cpu")
+    before = phi4.phi4_action.launches
+    with torch.no_grad():
+        y, logj = model.net_.forward(x.to(cuda))
+        logq = (model.prior.log_prob(x.to(cuda)) - logj).cpu().double()
+        logp = model.action.log_prob(y).cpu()
+        x_back, log0 = model.net_.backward(y, log0=logj)
+        cpu = {}
+        for dtype in (torch.float32, torch.float64):
+            net = copy.deepcopy(model.net_).cpu().to(dtype)
+            prior = copy.deepcopy(model.prior).cpu()
+            xd = x.to(dtype)
+            yd, logjd = net.forward(xd)
+            cpu[dtype] = (yd, (prior.log_prob(xd).to(dtype) - logjd).double())
+    assert phi4.phi4_action.launches == before + 1
+    want = cpu[torch.float64][1]
+
+    def rel(a):
+        return float(((a - want).abs() / want.abs().clamp(min=1.0)).max())
+
+    assert rel(logq) <= max(1e-5, 2 * rel(cpu[torch.float32][1]))
+    torch.testing.assert_close(y.cpu(), cpu[torch.float32][0], rtol=0,
+                               atol=1e-4)
+    want_logp = -phi4.phi4_action_plain(y.cpu().double(),
+                                        *model.action.get_coef(4))
+    rel_logp = (logp - want_logp).abs() / want_logp.abs().clamp(min=1.0)
+    assert float(rel_logp.max()) <= 2e-5
+    assert float((x_back.cpu() - x).abs().mean()) <= 1e-5
+    assert float(log0.abs().max()) <= 1e-3
 
 
 def test_small_flagship_gpu_matches_cpu(cuda, np_rng):

@@ -244,8 +244,8 @@ def test_backward_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         phi4.phi4_action_grad(x, torch.zeros(2, device=cuda,
                                              dtype=torch.float64),
                               0.6, 0.0, 0.5)
-    with pytest.raises(ValueError, match="1-3 lattice dims"):
-        phi4.phi4_action_grad(torch.zeros((2, 2, 2, 2, 2), device=cuda),
+    with pytest.raises(ValueError, match="1-4 lattice dims"):
+        phi4.phi4_action_grad(torch.zeros((2, 2, 2, 2, 2, 2), device=cuda),
                               torch.zeros(2, device=cuda), 0.6, 0.0, 0.5)
 
 

@@ -46,6 +46,7 @@ def test_sources_import_no_jax():
               ROOT / "tests" / "test_torch_cuda_bf16_cntr.py",
               ROOT / "tests" / "_torch_ddp_worker.py",
               ROOT / "tests" / "_torch_space_worker.py",
+              ROOT / "tests" / "_torch_4d_worker.py",
               ROOT / "tests" / "test_torch_cuda_space.py",
               ROOT / "tests" / "test_torch_cuda_channels_last.py",
               ROOT / "normflow__tpu_torch" / "parallel" / "space.py",
