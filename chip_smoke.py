@@ -214,7 +214,7 @@ use) and imports nothing of JAX.  Phases, each of which raises on failure:
     4-D flagship at 8^4 (``build_phi4_model((8, 8, 8, 8), packed=False)``:
     ConvNet 1->24->24->22 with 3^4 circular kernels by roll-and-sum, the
     PSD block's 4-D FFT) with seeded perturbed weights: logq against a
-    float64 CPU copy; ``logqp_stream(32, 1024)`` profiled with its
+    float64 CPU copy; ``logqp_stream(LAT4_BATCHES, 1024)`` profiled with its
     counters set to 0 just before (4 ``rqs_coupling``, tiled, and 1
     ``phi4_action``, general, per batch), a replayed batch bit for bit
     with its eager body and by name, its profile, raw samples/s eager and
@@ -224,11 +224,30 @@ use) and imports nothing of JAX.  Phases, each of which raises on failure:
     ``LAT4_STEP_BATCH``: see there), ``LAT4_STEPS`` steps of the bench
     protocol's fit at 512 with the learning rate ``LAT4_LR`` (see there)
     profiled likewise (8 / 8 / 1 / 1 per step), a replayed step by name,
-    its profile, graphed steps/s, a replayed step bit for bit with an
+    its profile, a replayed step bit for bit with an
     eager one, under cuDNN's deterministic algorithms; the free field at
     4^4 (kappa 1, m^2 1, lambda 0) trained ``FREE_STEPS`` steps, then
     ``sample_chain``: <phi^2> within 3 binned sigma of the exact
-    (1/V) sum_p 1 / (m^2 + 4 kappa sum_mu sin^2(p_mu / 2)).
+    (1/V) sum_p 1 / (m^2 + 4 kappa sum_mu sin^2(p_mu / 2)).  Its graphed
+    steps/s are taken in phase 24, in turns with the route's;
+24. the channels-last route (``pallas_reg``) at 1-, 3- and 4-D
+    (``run_cl_nd``, last): kernels 1 and 2 channels-last and tiled at the
+    8^4 shapes, (1024, 22, 8^4) and (512, 22, 8^4), against the NCHW
+    tiled kernels bit for bit and their plain versions to phase 22's bars,
+    timed warm and cold; phase 23's weights through
+    ``with_coupling_backend``: logq against phase 23's float64 logq, every
+    conv and conditioner output channels-last (float32 and bf16),
+    ``logqp_stream(CL4_BATCHES, 1024)`` profiled with its counters set to
+    0 just before (4 channels-last tiled couplings, no NCHW one, 1 general
+    action per batch), a replayed batch bit for bit under cuDNN's
+    deterministic algorithms and by name, a graphed chain round by name
+    and bit for bit; a fresh route flagship's step against float64,
+    ``CL4_STEPS`` deterministic steps profiled likewise (8 / 8 / 1 / 1),
+    a replayed step by name and bit for bit; printed, raw samples/s and
+    steps/s against the NCHW 8^4 flagship in turns and where a replayed
+    batch's and step's time goes; then small route flagships at (64,) and
+    (8, 8, 8): logq against float64, layouts, launches by name and
+    wrapper, a replayed batch bit for bit.
 
 The gauge paths' rates (eager bodies against graphed entry points, in
 turns) are taken in a phase of their own right after phase 3's, before any
@@ -272,7 +291,9 @@ written); ``headline`` in the kernels' record says which.
 Phase 23's runs take the general kernels for the action and its force
 (a 4-D lattice has no tile) and the tiled coupling kernels (4096 sites a
 sample): records ``4d sample``, ``4d chain`` and ``4d train`` in
-``launches_by_path``.
+``launches_by_path``.  Phase 24's route counts the channels-last records
+there: ``4d channels-last sample`` / ``train``, ``1d`` and ``3d
+channels-last sample``.
 
 Phase 21's sharded runs are eager (a gloo collective cannot sit in a CUDA
 graph) and are counted by the wrappers in each rank's process: 8 / 8 / 1 /
@@ -287,6 +308,7 @@ and prints no result.
 from __future__ import annotations
 
 import copy
+import functools
 import gc
 import json
 import math
@@ -3500,9 +3522,12 @@ def in_turns(torch, card, what, unit, n, fns, runs=2, warm=False):
         fns[key]()
         torch.cuda.synchronize()
         rates[key].append(n / (time.perf_counter() - t0))
+    def fmt(rate):  # five figures at least: a step of the 8^4 flagship
+        return f"{rate:.1f}" if rate >= 1e4 else f"{rate:.5g}"
+
     print(f"{what}, {unit} in turns, {2 * runs} runs each: " + "; ".join(
-        f"{k} median {statistics.median(r):.1f} (min {min(r):.1f}, max "
-        f"{max(r):.1f})" for k, r in rates.items()) + f" on {card}")
+        f"{k} median {fmt(statistics.median(r))} (min {fmt(min(r))}, max "
+        f"{fmt(max(r))})" for k, r in rates.items()) + f" on {card}")
     return {k: statistics.median(r) for k, r in rates.items()}
 
 
@@ -4021,17 +4046,21 @@ def reset_cl_counts():
             c.cl_launches = 0
 
 
-def gate_cl_path(kernels, path, per_unit, n_units, device):
+def gate_cl_path(kernels, path, per_unit, n_units, device, tiled=True):
     """The channels-last route's run on ``path`` (:func:`gate_path`'s
     rule): by profiler name ``per_unit`` launches per warm-up body and
-    replay of each kernel, every one tiled, the couplings' all to their
-    channels-last tiled kernels (no NCHW coupling kernel in ``device``);
-    by the wrappers ``per_unit`` per warm-up body and capture, every
-    launch tiled and every coupling launch channels-last."""
+    replay of each kernel, every one tiled (``tiled`` may map a kernel to
+    ``False``: none tiled, as the 4-D action's), the couplings' all to
+    their channels-last tiled kernels (no NCHW coupling kernel in
+    ``device``); by the wrappers ``per_unit`` per warm-up body and
+    capture, tiled likewise, and every coupling launch channels-last."""
     from normflow__tpu_torch.utils.graphs import WARMUP
 
     counters = cl_counters()
-    want = {k: (v * (WARMUP + n_units),) * 2 for k, v in per_unit.items()}
+    flag = {k: tiled[k] if isinstance(tiled, dict) else tiled
+            for k in per_unit}
+    want = {k: (v * (WARMUP + n_units), v * (WARMUP + n_units) * flag[k])
+            for k, v in per_unit.items()}
     print(f"launches over the {path} path's run by profiler name "
           f"(launches, tiled): {device}, want {want}")
     if device != want:
@@ -4039,17 +4068,78 @@ def gate_cl_path(kernels, path, per_unit, n_units, device):
                              f"{want}")
     got = {k: (counters[k].launches, counters[k].tiled_launches,
                getattr(counters[k], "cl_launches", 0)) for k in per_unit}
-    want = {k: (v * (WARMUP + 1),) * 2 + (v * (WARMUP + 1)
-                                          if k.endswith("_cl") else 0,)
+    want = {k: (v * (WARMUP + 1), v * (WARMUP + 1) * flag[k],
+                v * (WARMUP + 1) if k.endswith("_cl") else 0)
             for k, v in per_unit.items()}
     print(f"  by the wrappers (launches, tiled, channels-last): {got} "
           f"(warm-up and capture; want {want})")
     if got != want:
         raise AssertionError(f"{path}: wrapper launch counts {got}, want "
                              f"{want}")
-    for k, (n, tiled) in device.items():
+    for k, (n, n_tiled) in device.items():
         kernels[k].setdefault("launches_by_path", {})[path] = n
-        kernels[k].setdefault("tiled_launches_by_path", {})[path] = tiled
+        kernels[k].setdefault("tiled_launches_by_path", {})[path] = n_tiled
+
+
+def hold_cl(torch, worst, x, out, cot, kw, tag, tiled=True):
+    """One call of either channels-last coupling kernel on ``out``, the
+    tiled kernel or (``tiled=False``) the per-site one, held as
+    :func:`check_cl_kernels` says; ``worst`` keeps each kernel's largest
+    distance from its plain version.  Returns the outputs and the plain
+    version's."""
+    from normflow__tpu_torch.ops.kernels import spline_coupling as sc
+
+    bwd = bool(cot)
+    name = "rqs_coupling_bwd_cl" if bwd else "rqs_coupling_cl"
+    counter = sc.rqs_coupling_bwd if bwd else sc.rqs_coupling
+    fn, plain_fn = ((sc.rqs_coupling_bwd, sc.rqs_coupling_vjp_plain)
+                    if bwd else (sc.rqs_coupling, sc.rqs_coupling_plain))
+    before = (counter.cl_launches, counter.tiled_launches)
+    got = fn(x, out, *cot, **kw)
+    launched = (counter.cl_launches - before[0],
+                counter.tiled_launches - before[1])
+    ref = fn(x, out.contiguous(), *cot, **kw)
+    plain = plain_fn(x, out, *cot, **kw)
+    torch.cuda.synchronize()
+    same = same_bits(torch, got, ref)
+    err = max(float((g - p).abs().max()) for g, p in zip(got, plain))
+    what = "tiled" if tiled else "per-site"
+    line = (f"{name} {tag} inverse={kw['inverse']}: the {what} kernel "
+            f"vs the NCHW {what} kernel "
+            f"{'bit for bit' if same else 'NOT bit-identical'}; max |d| "
+            f"vs plain {err:.3e}")
+    ok = same and launched == (1, int(tiled)) and all(
+        bool(torch.isfinite(g).all()) for g in got)
+    if not bwd:
+        print(f"{line} (tol {RQS_TOL})")
+        ok = ok and err <= RQS_TOL
+    else:
+        ratio, _, _, k, i = vjp_excess(got, plain, VJP_RTOL)
+        whole = err / max(1.0, *(float(p.abs().max()) for p in plain))
+        ref64 = sc.rqs_coupling_vjp_plain(
+            *(t.double() for t in (x, out, *cot)), **kw)
+        off = [abs(float(t[k].flatten()[i])
+                   - float(ref64[k].flatten()[i])) for t in (got, plain)]
+        floored = floored_excess(got, plain, ref64)
+        planted = floored_excess(
+            [g + 0.01 * float(p.abs().median())
+             for g, p in zip(got, plain)], plain, ref64)
+        print(f"{line}, max|d|/max(1,max|plain|) {whole:.3e} (tol "
+              f"{VJP_ATOL}); outbar strides {got[1].stride()}; worst "
+              f"|d|/(atol+{VJP_RTOL:g}|plain|) {ratio:.3e} "
+              f"({('xbar', 'outbar')[k]}; there float64 puts the kernel "
+              f"{off[0]:.3e} off, the plain version {off[1]:.3e}); "
+              f"worst |d|/max(atol+{VJP_RTOL:g}|plain|, "
+              f"{VJP_FLOOR_FACTOR:g}|plain-plain64|) {floored:.3e}, a "
+              f"planted wrong adjoint {planted:.3e} (must exceed 1)")
+        ok = (ok and whole <= VJP_ATOL and floored <= 1.0
+              and planted > 1.0 and got[1].stride() == out.stride())
+    if not ok:
+        raise AssertionError(f"{name} disagrees with the NCHW kernel or "
+                             "its plain version, or launched another "
+                             "kernel")
+    worst[name] = max(worst[name], err)
+    return got, plain
 
 
 def check_cl_kernels(torch, kernels, rng):
@@ -4075,62 +4165,7 @@ def check_cl_kernels(torch, kernels, rng):
     m = 8
     worst = {"rqs_coupling_cl": 0.0, "rqs_coupling_bwd_cl": 0.0}
     kept = {}
-
-    def hold(x, out, cot, kw, tag, tiled=True):
-        """One call of either kernel on channels-last ``out``, the tiled
-        kernel or (``tiled=False``) the per-site one: the gates above;
-        returns the outputs and the plain version's."""
-        bwd = bool(cot)
-        name = "rqs_coupling_bwd_cl" if bwd else "rqs_coupling_cl"
-        counter = sc.rqs_coupling_bwd if bwd else sc.rqs_coupling
-        fn, plain_fn = ((sc.rqs_coupling_bwd, sc.rqs_coupling_vjp_plain)
-                        if bwd else (sc.rqs_coupling, sc.rqs_coupling_plain))
-        before = (counter.cl_launches, counter.tiled_launches)
-        got = fn(x, out, *cot, **kw)
-        launched = (counter.cl_launches - before[0],
-                    counter.tiled_launches - before[1])
-        ref = fn(x, out.contiguous(), *cot, **kw)
-        plain = plain_fn(x, out, *cot, **kw)
-        torch.cuda.synchronize()
-        same = same_bits(torch, got, ref)
-        err = max(float((g - p).abs().max()) for g, p in zip(got, plain))
-        what = "tiled" if tiled else "per-site"
-        line = (f"{name} {tag} inverse={kw['inverse']}: the {what} kernel "
-                f"vs the NCHW {what} kernel "
-                f"{'bit for bit' if same else 'NOT bit-identical'}; max |d| "
-                f"vs plain {err:.3e}")
-        ok = same and launched == (1, int(tiled)) and all(
-            bool(torch.isfinite(g).all()) for g in got)
-        if not bwd:
-            print(f"{line} (tol {RQS_TOL})")
-            ok = ok and err <= RQS_TOL
-        else:
-            ratio, _, _, k, i = vjp_excess(got, plain, VJP_RTOL)
-            whole = err / max(1.0, *(float(p.abs().max()) for p in plain))
-            ref64 = sc.rqs_coupling_vjp_plain(
-                *(t.double() for t in (x, out, *cot)), **kw)
-            off = [abs(float(t[k].flatten()[i])
-                       - float(ref64[k].flatten()[i])) for t in (got, plain)]
-            floored = floored_excess(got, plain, ref64)
-            planted = floored_excess(
-                [g + 0.01 * float(p.abs().median())
-                 for g, p in zip(got, plain)], plain, ref64)
-            print(f"{line}, max|d|/max(1,max|plain|) {whole:.3e} (tol "
-                  f"{VJP_ATOL}); outbar strides {got[1].stride()}; worst "
-                  f"|d|/(atol+{VJP_RTOL:g}|plain|) {ratio:.3e} "
-                  f"({('xbar', 'outbar')[k]}; there float64 puts the kernel "
-                  f"{off[0]:.3e} off, the plain version {off[1]:.3e}); "
-                  f"worst |d|/max(atol+{VJP_RTOL:g}|plain|, "
-                  f"{VJP_FLOOR_FACTOR:g}|plain-plain64|) {floored:.3e}, a "
-                  f"planted wrong adjoint {planted:.3e} (must exceed 1)")
-            ok = (ok and whole <= VJP_ATOL and floored <= 1.0
-                  and planted > 1.0 and got[1].stride() == out.stride())
-        if not ok:
-            raise AssertionError(f"{name} disagrees with the NCHW kernel or "
-                                 "its plain version, or launched another "
-                                 "kernel")
-        worst[name] = max(worst[name], err)
-        return got, plain
+    hold = functools.partial(hold_cl, torch, worst)
 
     for lat in ((LAT[0], LAT[1] // 2), LAT):
         for b, bwd in ((BATCH, False), (TRAIN_BATCH, True)):
@@ -4519,7 +4554,7 @@ def run_channels_last(torch, kernels, peaks, card, model4, step_rng):
 # its own (LAT4_SEED)
 LAT4 = (8, 8, 8, 8)
 LAT4_SEED = 20261023
-LAT4_BATCHES = 32     # the profiled logqp_stream(LAT4_BATCHES, BATCH)
+LAT4_BATCHES = 8      # the profiled logqp_stream(LAT4_BATCHES, BATCH)
 LAT4_TURNS = 2        # batches per timed run in turns (one step a run)
 LAT4_LOGQ_DRAWS = 8   # draws of the logq check against float64
 # one path-gradient step against float64 at LAT4_STEP_BATCH: a float64
@@ -4527,8 +4562,9 @@ LAT4_LOGQ_DRAWS = 8   # draws of the logq check against float64
 # the check runs on fewer samples than the fit's 512
 LAT4_STEP_BATCH = 4
 # the profiled fit at batch TRAIN_BATCH: a step of the 8^4 flagship takes
-# ~1.7 s on an H100 (48 steps: 86 s), so the phase fits LAT4_STEPS
-LAT4_STEPS = 4
+# ~1.7 s on an H100 (48 steps: 86 s), ~3 s under cuDNN's deterministic
+# algorithms, so the phase fits LAT4_STEPS
+LAT4_STEPS = 2
 # the bench protocol's settings but the learning rate: at 3e-3 Adam's
 # first step, ~lr a weight, moves a 3^4 conv's outputs 9 times as far as a
 # 3x3 conv's (fan-in 1944 against 216), and the 4-D flagship's loss goes
@@ -4661,7 +4697,9 @@ def run_4d(torch, kernels, card):
     (``LAT4_STEP_BATCH``), ``LAT4_STEPS`` steps of :func:`fit_protocol`
     at ``LAT4_LR`` profiled with the counters set to 0 just before (8 / 8 / 1 / 1 per
     step), all under cuDNN's deterministic algorithms (:func:`train_4d`);
-    last, the free field (:func:`run_free_field`)."""
+    last, the free field (:func:`run_free_field`).  Returns what phase 24
+    reuses: the sampling flagship, the logq check's draws and their float64
+    logq, and the trained flagship with its captured step."""
     from normflow__tpu_torch import calc_ess
     from normflow__tpu_torch.tools.kernel_times import (device_launches,
                                                          perturb_)
@@ -4772,7 +4810,7 @@ def run_4d(torch, kernels, card):
     if not same:
         raise AssertionError("a graphed 4-D chain round differs from its "
                              "eager body")
-    del model, post, mcmc, got, ref, carry, r, logqp
+    del post, mcmc, got, ref, carry, r, logqp
     mark("chain")
 
     trained = build_phi4_model(LAT4, packed=False, seed=0)
@@ -4789,23 +4827,23 @@ def run_4d(torch, kernels, card):
     flag = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
-        fit = train_4d(torch, kernels, trained, counters, per_step, card)
+        train_4d(torch, kernels, trained, counters, per_step, card)
     finally:
         torch.backends.cudnn.deterministic = flag
-    del trained, fit
-    mark("fit, replays, profile, rate")
+    mark("fit, replays, profile")
     run_free_field(torch, card)
     mark("free field")
     print(f"phase 23 (4-D) took {time.perf_counter() - t_phase:.1f} s on "
           f"{card}; seconds at its marks: {marks}")
+    return dict(model=model, x=x, logq64=logq[1], trained=trained)
 
 
 def train_4d(torch, kernels, trained, counters, per_step, card):
     """Phase 23's training: ``LAT4_STEPS`` steps of :func:`fit_protocol`
-    at ``LAT4_LR`` profiled, the counters set to 0 just before, gated by name and by
-    wrapper; a replayed step by name and where its time goes; graphed
-    steps/s; a replayed step against an eager one bit for bit.  Returns
-    the fit."""
+    at ``LAT4_LR`` profiled, the counters set to 0 just before, gated by
+    name and by wrapper; a replayed step by name and where its time goes;
+    a replayed step against an eager one bit for bit.  Its graphed steps/s
+    are taken in phase 24, in turns with the channels-last route's."""
     from normflow__tpu_torch.tools.kernel_times import device_launches
 
     reset_counts(counters)
@@ -4826,11 +4864,7 @@ def train_4d(torch, kernels, trained, counters, per_step, card):
                  tiled=LAT4_TILED)
     profile_step(fit.step, f"one replayed 4-D training step at batch "
                  f"{TRAIN_BATCH}", reps=1)
-    in_turns(torch, card, f"4-D flagship {LAT4} training at batch "
-             f"{TRAIN_BATCH}, one step a run", "steps/s", 1,
-             {"graphed": fit.step}, runs=1, warm=True)
     replayed_vs_eager_steps(torch, trained, "4-D: ", n=1, captured=True)
-    return fit
 
 
 
@@ -4870,10 +4904,359 @@ def run_free_field(torch, card):
                              "value")
 
 
+# --------------------------------------------------------------------- #
+# Phase 24: the channels-last route at 1-, 3- and 4-D
+# --------------------------------------------------------------------- #
+# the 8^4 flagship on the route (``with_coupling_backend(.., "pallas_reg")``
+# on phase 23's weights: conditioners channels-last through one stacked
+# 3-D conv per 4-D conv into the channels-last coupling kernels), the
+# kernels at its shapes, and small 1-D and 3-D flagships, on numpy streams
+# of their own (CL_ND_SEED)
+CL_ND_SEED = 20261024
+CL4_BATCHES = 4       # the route's profiled logqp_stream(CL4_BATCHES, BATCH)
+CL4_STEPS = 2         # the route's profiled fit at 8^4
+CL_ND_LATS = ((64,), (8, 8, 8))  # the small flagships, sampled at
+CL_ND_BATCH = 256                # batches of CL_ND_BATCH
+CL_ND_LOGQ_DRAWS = 16            # draws of their logq check against float64
+# the route's variants off 2-D: the couplings channels-last and tiled, the
+# action, its force and accept_scan general (no tile)
+CL_ND_TILED = {"rqs_coupling_cl": True, "rqs_coupling_bwd_cl": True,
+               "phi4_action": False, "phi4_action_grad": False,
+               "accept_scan": False}
+
+
+def check_cl_kernels_4d(torch, kernels, peaks, rng):
+    """The channels-last tiled kernels at the 8^4 flagship's shapes, with
+    linear tails, from ``rng``: ``rqs_coupling`` forward and inverse at
+    (1024, 22, 8^4) and (512, 22, 8^4) and ``rqs_coupling_bwd`` at (512,
+    22, 8^4), each bit for bit against the NCHW tiled kernel on
+    ``out.contiguous()`` and within phase 22's bars of its plain version
+    (:func:`hold_cl`); then each timed warm and cold against its byte
+    bound, with its plain version (the record's ``variants``)."""
+    from normflow__tpu_torch.ops.kernels import spline_coupling as sc
+
+    def f32(shape):
+        return torch.tensor(rng.standard_normal(shape), dtype=torch.float32,
+                            device="cuda")
+
+    k3, s = 22, math.prod(LAT4)
+    out = f32((BATCH, *LAT4, k3)).movedim(-1, 1)  # channels-last
+    x = f32((BATCH, *LAT4))
+    cot = [f32((TRAIN_BATCH, *LAT4)) for _ in range(2)]
+    if sc.coupling_layout(out) != "channels_last" or sc.coupling_variant(
+            s, [out.data_ptr(), x.data_ptr()], "channels_last",
+            BATCH) != "tiled":
+        raise AssertionError("the 8^4 output does not take the tiled "
+                             "channels-last kernels")
+    worst = {"rqs_coupling_cl": 0.0, "rqs_coupling_bwd_cl": 0.0}
+    cases = []
+    for inverse in (False, True):
+        what = "inverse" if inverse else "forward"
+        kw = dict(xlim=(-4.0, 4.0), ylim=(-4.0, 4.0), left="linear",
+                  right="linear", inverse=inverse)
+        for b, c in ((BATCH, []), (TRAIN_BATCH, []), (TRAIN_BATCH, cot)):
+            xb, ob = x[:b], out[:b]
+            hold_cl(torch, worst, xb, ob, c, kw, f"S={s} (8^4) B={b}")
+            fn, plain = ((sc.rqs_coupling_bwd, sc.rqs_coupling_vjp_plain)
+                         if c else (sc.rqs_coupling, sc.rqs_coupling_plain))
+            cases.append((
+                "rqs_coupling_bwd_cl" if c else "rqs_coupling_cl",
+                f"{(b, k3, *LAT4)} channels-last tiled {what}",
+                (b, k3, *LAT4),
+                lambda fn=fn, xb=xb, ob=ob, c=c, kw=kw: fn(xb, ob, *c, **kw),
+                lambda fn=plain, xb=xb, ob=ob, c=c, kw=kw: fn(xb, ob, *c,
+                                                             **kw)))
+    for name, err in worst.items():
+        kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"],
+                                           err)
+    for name, what, shape, fn, plain in cases:
+        record_variant(name, what, kernel_times(name, fn, plain,
+                                                plain_reps=5),
+                       shape, peaks, kernels)
+
+
+def cl_layouts(torch, net_, x, what):
+    """Raise unless, in one forward of ``net_`` on ``x``, every conv
+    layer's output and every coupling's conditioner output is
+    channels-last, the conditioners' in the caller's dtype."""
+    from normflow__tpu_torch.models.nets import CircularConv, ConvNet
+    from normflow__tpu_torch.ops.lattice import channels_last
+
+    seen = []
+    hooks = [m.register_forward_hook(
+        lambda mod, inp, out: seen.append(
+            (type(mod).__name__, channels_last(out), out.dtype)))
+        for m in net_.modules() if isinstance(m, (CircularConv, ConvNet))]
+    try:
+        with torch.no_grad():
+            net_.forward(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    convs = [ok for kind, ok, _ in seen if kind == "CircularConv"]
+    nets = [(ok, dtype) for kind, ok, dtype in seen if kind == "ConvNet"]
+    print(f"{what}: {sum(convs)} of {len(convs)} conv outputs and "
+          f"{sum(ok for ok, _ in nets)} of {len(nets)} conditioner outputs "
+          f"channels-last ({sorted({str(d) for _, d in nets})})")
+    if not (convs and nets and all(convs) and all(
+            ok and dtype == x.dtype for ok, dtype in nets)):
+        raise AssertionError(f"{what}: an activation left the "
+                             "channels-last layout")
+
+
+def replay_matches_eager(torch, model, batch, what):
+    """One replayed batch of ``batch`` against its eager body from one
+    generator state, bit for bit, both under cuDNN's deterministic
+    algorithms (a capture of their own); the batch is captured anew
+    afterwards, outside any profiled window."""
+    post = model.posterior
+    flag = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    post._graphs.clear()
+    try:
+        model.seed(21)
+        got = post.logqp_stream(1, batch)
+        model.seed(21)
+        want = post.logqp_batch(batch, model.generator)
+    finally:
+        torch.backends.cudnn.deterministic = flag
+        post._graphs.clear()
+    same = same_bits(torch, (got,), (want,))
+    print(f"{what} replayed vs eager batch of {batch}, cuDNN "
+          f"deterministic: {'bit for bit' if same else 'NOT bit-identical'}")
+    if not same:
+        raise AssertionError(f"{what}: a replayed batch differs from its "
+                             "eager body")
+    post.logqp_stream(1, batch)
+
+
+def run_cl_small(torch, kernels, card, lat, rng):
+    """A small flagship on the route at ``lat`` (1-D or 3-D), full widths,
+    seeded perturbed weights: logq of ``CL_ND_LOGQ_DRAWS`` draws against a
+    float64 CPU copy (``LOGQ_REL_TOL``); every conv and conditioner output
+    channels-last, in float32 and through bf16 conditioners; one
+    ``logqp_stream(1, CL_ND_BATCH)`` profiled with the counters set to 0
+    just before (4 channels-last tiled couplings and 1 general action a
+    batch); a replayed batch bit for bit with its eager body."""
+    from normflow__tpu_torch.tools.kernel_times import (device_launches,
+                                                         perturb_)
+    from normflow__tpu_torch.zoo import (build_phi4_model,
+                                         with_conv_compute_dtype)
+
+    model = build_phi4_model(lat, packed=False, seed=0,
+                             coupling_backend="pallas_reg")
+    perturb_(model.net_, rng)
+    cpu = build_phi4_model(lat, packed=False, seed=0, device="cpu",
+                           dtype=torch.float64, coupling_backend="pallas_reg")
+    cpu.net_.load_state_dict({k: v.double().cpu() for k, v in
+                              model.net_.state_dict().items()})
+    x = rng.standard_normal((CL_ND_LOGQ_DRAWS, *lat))
+    with torch.no_grad():
+        xg = torch.tensor(x, dtype=torch.float32, device="cuda")
+        logq = (model.prior.log_prob(xg) - model.net_.forward(xg)[1]).cpu()
+        x64 = torch.tensor(x, dtype=torch.float64)
+        want = cpu.prior.log_prob(x64) - cpu.net_.forward(x64)[1]
+    rel = float(((logq.double() - want).abs() / want.abs().clamp(min=1.0))
+                .max())
+    print(f"{len(lat)}-D channels-last flagship {lat}, GPU vs a float64 CPU "
+          f"copy: max rel logq {rel:.3e} (tol {LOGQ_REL_TOL})")
+    if not rel <= LOGQ_REL_TOL:
+        raise AssertionError(f"the {len(lat)}-D channels-last flagship "
+                             "disagrees with its float64 CPU copy")
+    cl_layouts(torch, model.net_, xg, f"{len(lat)}-D route, float32")
+    cl_layouts(torch, with_conv_compute_dtype(model.net_, torch.bfloat16),
+               xg, f"{len(lat)}-D route, bf16 conditioners")
+    path = f"{len(lat)}d channels-last sample"
+    per_batch = {"rqs_coupling_cl": len(model.net_[2].nets),
+                 "phi4_action": 1}
+    reset_cl_counts()
+    device, logqp = device_launches(
+        lambda: model.posterior.logqp_stream(1, CL_ND_BATCH))
+    gate_cl_path(kernels, path, per_batch, 1, device, CL_ND_TILED)
+    if logqp.shape != (CL_ND_BATCH,) or not bool(
+            torch.isfinite(logqp).all()):
+        raise AssertionError(f"{path}: logqp not finite or wrong shape")
+    replay_matches_eager(torch, model, CL_ND_BATCH, f"{len(lat)}-D route")
+
+
+def run_cl_nd(torch, kernels, peaks, card, state):
+    """Phase 24: the channels-last route at 1-, 3- and 4-D.  The kernels
+    at the 8^4 shapes (:func:`check_cl_kernels_4d`); phase 23's seeded
+    perturbed 8^4 flagship through ``with_coupling_backend(..,
+    "pallas_reg")`` (``state``): logq of phase 23's draws against its
+    float64 CPU logq; every conv and conditioner output channels-last, in
+    float32 and bf16; ``logqp_stream(CL4_BATCHES, 1024)`` profiled with
+    the counters set to 0 just before (4 channels-last tiled couplings, 0
+    NCHW, 1 general action a batch); a replayed batch bit for bit with its
+    eager body under cuDNN's deterministic algorithms, and by name; one
+    graphed chain round of 1024 by name and bit for bit with its eager
+    body; a fresh 8^4 route flagship: one path-gradient step against
+    float64 with the per-leaf bars (``LAT4_STEP_BATCH``), then
+    ``CL4_STEPS`` steps of :func:`fit_protocol` at ``LAT4_LR`` captured
+    under cuDNN's deterministic algorithms and profiled with the counters
+    set to 0 just before (8 / 8 / 1 / 1 a step), a replayed step by name
+    and bit for bit with an eager one.  Printed, not gated: raw samples/s
+    and (deterministic captures both) steps/s against the NCHW 8^4
+    flagship in turns, and where a replayed batch's and step's time goes
+    on each route.  Last, the small 1-D and 3-D flagships
+    (:func:`run_cl_small`)."""
+    from normflow__tpu_torch import Model
+    from normflow__tpu_torch.ops.kernels.accept_scan import accept_scan
+    from normflow__tpu_torch.tools.kernel_times import device_launches
+    from normflow__tpu_torch.zoo import (build_phi4_model,
+                                         with_conv_compute_dtype,
+                                         with_coupling_backend)
+
+    t_phase = time.perf_counter()
+    marks = []
+
+    def mark(what):
+        marks.append((what, round(time.perf_counter() - t_phase, 1)))
+
+    rng = np.random.default_rng(CL_ND_SEED)
+    check_cl_kernels_4d(torch, kernels, peaks, rng)
+    mark("kernels")
+
+    nchw = state["model"]
+    model = Model(net_=with_coupling_backend(nchw.net_, "pallas_reg"),
+                  prior=nchw.prior, action=nchw.action, seed=0)
+    with torch.no_grad():
+        xd = torch.tensor(state["x"], dtype=torch.float32, device="cuda")
+        logq = (model.prior.log_prob(xd) - model.net_.forward(xd)[1]).double(
+            ).cpu()
+    want = state["logq64"]
+    rel = float(((logq - want).abs() / want.abs().clamp(min=1.0)).max())
+    print(f"4-D channels-last route on phase 23's weights vs its float64 "
+          f"CPU logq, {len(want)} draws: max rel logq {rel:.3e} (tol "
+          f"{LOGQ_REL_TOL})")
+    if not rel <= LOGQ_REL_TOL:
+        raise AssertionError("the 8^4 route disagrees with float64")
+    xl = xd[:2]
+    cl_layouts(torch, model.net_, xl, "4-D route, float32")
+    cl_layouts(torch, with_conv_compute_dtype(model.net_, torch.bfloat16),
+               xl, "4-D route, bf16 conditioners")
+    mark("logq, layouts")
+
+    n_layers = len(model.net_[2].nets)
+    per_batch = {"rqs_coupling_cl": n_layers, "phi4_action": 1}
+    reset_cl_counts()
+    device, logqp = device_launches(
+        lambda: model.posterior.logqp_stream(CL4_BATCHES, BATCH))
+    gate_cl_path(kernels, "4d channels-last sample", per_batch, CL4_BATCHES,
+                 device, CL_ND_TILED)
+    if logqp.shape != (CL4_BATCHES * BATCH,) or not bool(
+            torch.isfinite(logqp).all()):
+        raise AssertionError("the 8^4 route's logqp stream is not finite or "
+                             "has the wrong shape")
+    post = model.posterior
+    replay_matches_eager(torch, model, BATCH, "4-D route")
+    gate_replays(cl_counters(), kernels, "4d channels-last sample",
+                 per_batch, 1, lambda: post.logqp_stream(1, BATCH),
+                 tiled=CL_ND_TILED)
+    mark("sampling")
+
+    mcmc, gen = model.mcmc, model.generator
+    per_round = {**per_batch, "accept_scan": 1}
+    mcmc.sample_chain(1, BATCH)  # captured outside the profiled window
+    gate_replays({**cl_counters(), "accept_scan": accept_scan}, kernels,
+                 "4d channels-last chain", per_round, 1,
+                 lambda: mcmc.sample_chain(1, BATCH), tiled=CL_ND_TILED)
+    mcmc.reset()
+    model.seed(31)
+    got = mcmc.sample_chain(1, BATCH, collect_samples=True)
+    ref = mcmc._ref
+    model.seed(31)
+    carry = [torch.zeros(LAT4, device="cuda"),
+             torch.tensor(math.inf, device="cuda"),
+             torch.zeros((), device="cuda")]
+    r = mcmc.chain_body(BATCH, gen, carry)
+    same = same_bits(torch, (got["logq"], got["logp"], got["accept_rate"],
+                             got["samples"], *ref),
+                     (*(r[k][None] for k in (1, 2, 3, 0)), *carry))
+    print(f"4-D route sample_chain(1, {BATCH}) graphed vs its eager round: "
+          f"logq, logp, accept rate, samples and the final _ref "
+          f"{'bit for bit' if same else 'NOT bit-identical'}")
+    if not same:
+        raise AssertionError("a graphed chain round on the 8^4 route "
+                             "differs from its eager body")
+    del mcmc, got, ref, carry, r
+    mark("chain")
+
+    arms = {"NCHW": nchw, "channels-last": model}
+    in_turns(torch, card, f"8^4 flagship, NCHW vs channels-last route, "
+             f"sampling, {LAT4_TURNS} batches of {BATCH}, graphed",
+             "raw samples/s", LAT4_TURNS * BATCH,
+             {k: (lambda m=m: m.posterior.logqp_stream(LAT4_TURNS, BATCH))
+              for k, m in arms.items()}, runs=1)
+    for what, m in arms.items():
+        profile_step(lambda m=m: m.posterior.logqp_stream(1, BATCH),
+                     f"one replayed 8^4 {what} batch of {BATCH}", reps=1)
+    del arms, model, post, nchw
+    state.pop("model")
+    mark("sampling rates, profiles")
+
+    trained = build_phi4_model(LAT4, packed=False, seed=0,
+                               coupling_backend="pallas_reg")
+    check_train_grads(torch, trained, rng, packed=False,
+                      backend="pallas_reg", lat=LAT4, batch=LAT4_STEP_BATCH)
+    mark("step vs float64")
+    per_step = {"rqs_coupling_cl": 2 * n_layers,
+                "rqs_coupling_bwd_cl": 2 * n_layers, "phi4_action": 1,
+                "phi4_action_grad": 1}
+    flag = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        reset_cl_counts()
+        device, hist = device_launches(lambda: fit_protocol(
+            trained, CL4_STEPS, lr=LAT4_LR, decay_steps=CL4_STEPS))
+        gate_cl_path(kernels, "4d channels-last train", per_step,
+                     CL4_STEPS, device, CL_ND_TILED)
+        loss = np.asarray(hist["loss"])
+        print(f"8^4 route model.fit: {CL4_STEPS} steps at batch "
+              f"{TRAIN_BATCH}, lr {LAT4_LR}; loss "
+              f"{np.round(loss, 2).tolist()}")
+        if loss.shape != (CL4_STEPS,) or not np.isfinite(loss).all():
+            raise AssertionError("the 8^4 route's training loss is not "
+                                 "finite")
+        fit = trained.fit
+        gate_replays(cl_counters(), kernels, "4d channels-last train",
+                     per_step, 1, fit.step, tiled=CL_ND_TILED)
+        replayed_vs_eager_steps(torch, trained, "4-D channels-last: ", n=1,
+                                captured=True)
+    finally:
+        torch.backends.cudnn.deterministic = flag
+    steps = {"NCHW": state["trained"], "channels-last": trained}
+    in_turns(torch, card, f"8^4 flagship, NCHW vs channels-last route, "
+             f"replayed training steps at batch {TRAIN_BATCH}, both captured "
+             f"under cuDNN's deterministic algorithms, one step a run",
+             "steps/s", 1, {k: m.fit.step for k, m in steps.items()},
+             runs=1)
+    profile_step(fit.step, f"one replayed 8^4 channels-last training step "
+                 f"at batch {TRAIN_BATCH} (deterministic capture)", reps=1)
+    del steps, trained, fit
+    mark("fit, replays, rates, profile")
+
+    for lat in CL_ND_LATS:
+        run_cl_small(torch, kernels, card, lat, rng)
+    mark("1-D and 3-D")
+    print(f"phase 24 (the channels-last route at 1-, 3- and 4-D) took "
+          f"{time.perf_counter() - t_phase:.1f} s on {card}; seconds at its "
+          f"marks: {marks}")
+
+
 def profile_step(fn, what, reps=4):
     """Where the device time of ``fn`` goes: busy, wall, idle share and the
-    top kernels; returns the busy seconds per call."""
+    top kernels; returns the busy seconds per call.  A window that lost
+    its closing marker lost the body's last records too
+    (``kernel_times.CLOSE_LOSSES``): it is profiled once more."""
+    from normflow__tpu_torch.tools.kernel_times import CLOSE_LOSSES
+
+    closes = len(CLOSE_LOSSES)
     wall, dev = device_profile(fn, reps)
+    if len(CLOSE_LOSSES) > closes:
+        print(f"{what}: the profiler lost the window's closing marker and "
+              "last records; profiled again")
+        wall, dev = device_profile(fn, reps)
     if not dev:
         raise AssertionError(f"the profiler saw no device activity in {what}")
     busy = sum(us for _, us in dev) / 1e6
@@ -5028,7 +5411,10 @@ def main() -> int:
     phase("space sharding", run_space, torch, kernels, card)
     phase("channels-last route", run_channels_last, torch, kernels, peaks,
           card, model, step_rng)
-    phase("4-D phi^4", run_4d, torch, kernels, card)
+    state4 = phase("4-D phi^4", run_4d, torch, kernels, card)
+    phase("channels-last route at 1-, 3- and 4-D", run_cl_nd, torch,
+          kernels, peaks, card, state4)
+    del state4
     print("phase seconds: " + ", ".join(f"{n} {t:.1f}" for n, t in phases))
     print_windows(card)
 

@@ -21,9 +21,9 @@ the NCHW kernels; ``"pallas_reg"`` (JAX: the kernels read the conv's
 channels-last output and transpose in registers) hands the conditioner
 the frozen partition channels-last, a view with no copy, which the conv
 stack keeps (``models/nets.py``), and its output goes to the wrapper as it
-comes, which takes the channels-last kernels.  That route needs a 2-D
-lattice (the conv stack keeps the layout of 4-D activations only); another
-rank raises ``ValueError``.
+comes, which takes the channels-last kernels.  The route takes every
+lattice rank the conv stack does, 1 to 4, as the JAX package's does: the
+kernels read one flat run of sites, whatever the rank.
 
 The controlled couplings (``couplings.py:356-531``): a
 :class:`DirectCntrCoupling` maps ``(x, control)``, its first layer
@@ -246,9 +246,6 @@ class RQSplineCoupling(Coupling):
         super().__init__(nets, mask=mask)
         if backend not in self.BACKENDS:
             raise ValueError(f"backend {backend!r}: one of {self.BACKENDS}")
-        shape = getattr(mask, "shape", None)
-        if backend == "pallas_reg" and shape is not None and len(shape) != 2:
-            _rank_error(len(shape))
         self.xlim, self.ylim = tuple(xlim), tuple(ylim)
         self.extrap = dict(extrap or {})
         self.knots_x, self.knots_y = knots_x, knots_y
@@ -282,11 +279,10 @@ class RQSplineCoupling(Coupling):
     def _net_input(self, x_frozen):
         """The conditioner's input: :meth:`preprocess_fz`, or on the
         ``pallas_reg`` route the same values channels-last, strides
-        ``(H W, 1, W, 1)``, a view of the contiguous partition."""
+        ``(S, 1, ...)`` for ``S`` sites (``(H W, 1, W, 1)`` at 2-D), a view
+        of the contiguous partition, at any lattice rank."""
         if self._backend != "pallas_reg":
             return self.preprocess_fz(x_frozen)
-        if x_frozen.dim() != 3:
-            _rank_error(x_frozen.dim() - 1)
         return x_frozen.contiguous().unsqueeze(-1).movedim(-1, 1)
 
     def _transform(self, x_active, x_frozen, parity, net, inverse):
@@ -312,12 +308,6 @@ class RQSplineCoupling(Coupling):
                         density):
         fx, logg = self._transform(x_active, x_frozen, parity, net, True)
         return fx, log0 + sum_density(logg, density)
-
-
-def _rank_error(rank):
-    raise ValueError(f"the pallas_reg route runs the conditioners "
-                     f"channels-last on a 2-D lattice only, not on a "
-                     f"{rank}-D one")
 
 
 class MultiRQSplineCoupling(Coupling):

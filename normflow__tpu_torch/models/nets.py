@@ -10,14 +10,24 @@ convs of the input rolled along the first lattice axis, as in the JAX
 package (neither cuDNN nor XLA has a native 4-D conv).
 
 Channels-last data (each site's channels one contiguous run, strides
-``(H W C, 1, W C, C)``: the ``pallas_reg`` route of ``models/couplings.py``,
-which hands the conditioner its input so) stays channels-last through
-``CircularConv`` and ``RowParityFeature`` on a 2-D lattice: the periodic
-pad is copied into a channels-last tensor as ATen pads NCHW data, the
-parity plane concatenated on the NHWC view (``F.pad``'s circular mode and
-``torch.cat`` return NCHW), and cuDNN's convs, the activations and the
-dtype casts keep the layout of their input; the weights keep their own
-(OIHW) layout.
+``(S C, 1, ..., C)`` for ``S`` sites: the ``pallas_reg`` route of
+``models/couplings.py``, which hands the conditioner its input so) stays
+channels-last through ``CircularConv`` and ``RowParityFeature`` at every
+lattice rank, 1 to 4: the periodic pad is copied into a channels-last
+tensor as ATen pads NCHW data, the parity plane concatenated on the
+channels-last view (``F.pad``'s circular mode and ``torch.cat`` return
+NCHW), and cuDNN's 2-D and 3-D convs (NHWC, NDHWC), the activations and
+the dtype casts keep the layout of their input; the weights keep their own
+(OIHW) layout.  PyTorch copies a 1-D conv's input to NCL, so a 1-D conv
+runs as a 2-D conv over a unit axis in front of the lattice axis (free
+views of the channels-last data both ways).  A channels-last 4-D conv
+convolves the free view ``(B L0, C, L1, L2, L3)`` once, with the ``k0``
+kernel slices stacked on the output channels, and sums slice ``i``'s
+output rolled along the first lattice axis (a roll commutes with a conv
+that acts on each ``(b, l0)`` slice alone), in the JAX package's order
+``i = 0 ... k0 - 1``; the NCHW 4-D conv rolls and copies its input for
+each slice.  On the CPU a float64 conv returns NCHW, which the next layer
+takes as it comes.
 
 Under a space axis (``parallel/space.py``) a conv on a slab reads
 ``dilation (k - 1) / 2`` rows of each neighbouring slab along the first
@@ -193,16 +203,22 @@ class CircularConv(nn.Module):
         if slab is not None:
             x = space.halo(x, 2, pad[-2], pad[-1], slab)
             pad[-2:] = [0, 0]
-        if channels_last(x):
-            x = _circular_pad_channels_last(x, pad)
-        else:
+        if not channels_last(x):
             x = F.pad(x, pad, mode="circular")
-        return _CONV[w.dim() - 2](x, w, bias, dilation=d)
+            return _CONV[w.dim() - 2](x, w, bias, dilation=d)
+        x = _circular_pad_channels_last(x, pad)
+        if w.dim() > 3:
+            return _CONV[w.dim() - 2](x, w, bias, dilation=d)
+        # (B, C, L) as (B, C, 1, L): ATen would copy it to NCL
+        return F.conv2d(x.unsqueeze(2), w.unsqueeze(2), bias,
+                        dilation=(1, d)).squeeze(2)
 
     def _conv4d(self, x, w, slab=None):
         # sum over the first kernel axis of 3-D convs of the input rolled
         # along the first lattice axis, which goes into the batch; on a
         # slab the roll reads the halo rows
+        if slab is None and channels_last(x):
+            return self._conv4d_channels_last(x, w)
         b, c, l0, *rest = x.shape
         k0 = w.shape[2]
         shifts = [(i - (k0 - 1) // 2) * self.dilation for i in range(k0)]
@@ -219,6 +235,26 @@ class CircularConv(nn.Module):
             yi = self._convnd(xi.reshape(b * l0, c, *rest), w[:, :, i])
             y = y + yi.reshape(b, l0, *yi.shape[1:]).transpose(1, 2)
         return y
+
+    def _conv4d_channels_last(self, x, w):
+        # one 3-D conv of the free view (B L0, C, L1, L2, L3), kernel slice
+        # i's outputs at channels [i O, (i + 1) O); slice i's output rolled
+        # by its shift along L0 and summed in JAX's order, on the
+        # channels-last view (B, L0, L1, L2, L3, O)
+        b, c, l0, *rest = x.shape
+        o, k0 = w.shape[0], w.shape[2]
+        w3 = w.movedim(2, 0).reshape(k0 * o, c, *w.shape[3:])
+        z = self._convnd(x.movedim(1, -1).reshape(b * l0, *rest, c)
+                         .movedim(-1, 1), w3)
+        z = z.movedim(1, -1).reshape(b, l0, *rest, k0, o)
+        y = None
+        for i in range(k0):
+            s = ((i - (k0 - 1) // 2) * self.dilation) % l0
+            zi = z[..., i, :]
+            if s:
+                zi = torch.cat([zi[:, s:], zi[:, :s]], 1)
+            y = zi if y is None else y + zi
+        return y.contiguous().movedim(-1, 1)  # a copy only if none rolled
 
     def forward(self, x, out_dtype=None):
         """The conv of ``x`` with the weights cast to ``x``'s dtype.  In

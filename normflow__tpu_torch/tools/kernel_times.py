@@ -26,7 +26,10 @@ for the 4-D flagship's shapes (the action and its force at (1024, 8, 8, 8,
 the (1024, 8, 8, 8, 8) field, (1024, 4, 8, 8, 8), and the general kernels
 at 1-D and 3-D beside them; a checkout whose wrappers refuse a case, as
 one from before the kernels took a fourth lattice axis does, leaves it
-out), it prints, each
+out), and for the channels-last kernels at the 8^4 flagship's shapes on
+its ``pallas_reg`` route (``rqs_coupling`` forward and inverse at (1024,
+22, 8, 8, 8, 8) and (512, 22, 8, 8, 8, 8), ``rqs_coupling_bwd`` forward
+and inverse at (512, 22, 8, 8, 8, 8)), it prints, each
 line starting with ``LABEL``, the median device time per launch from CUDA
 events around each call, the device held behind a spin kernel so that the
 host is ahead, less what the events add around nothing (:func:`warm_ms`;
@@ -649,7 +652,32 @@ def inputs(torch, rng, coef):
         "rqs_coupling_bwd_cl inverse": cl_vjp(True),
         **scan_inputs(torch, rng),
         **phi4_inputs(torch, f32, coef),
+        **coupling4_inputs(torch, f32),
     }
+
+
+def coupling4_inputs(torch, f32):
+    """The channels-last coupling kernels and VJP at the 8^4 flagship's
+    shapes on its ``pallas_reg`` route: 4096 sites a sample, ``out``
+    channels-last as the route's conditioners emit it."""
+    lat = (8, 8, 8, 8)
+    k3 = 3 * M - 2
+    x, out = f32((BATCH, *lat)), f32((BATCH, *lat, k3)).movedim(-1, 1)
+    ybar, loggbar = f32((TRAIN_BATCH, *lat)), f32((TRAIN_BATCH, *lat))
+    cases = {}
+    for b in (BATCH, TRAIN_BATCH):
+        for what, inverse in (("forward", False), ("inverse", True)):
+            cases[f"rqs_coupling_cl {what} {(b, k3, *lat)}"] = (
+                "rqs_coupling_cl", (b, k3, *lat),
+                lambda sc, ph, b=b, inverse=inverse: sc.rqs_coupling(
+                    x[:b], out[:b], inverse=inverse, **LIM))
+    for what, inverse in (("forward", False), ("inverse", True)):
+        cases[f"rqs_coupling_bwd_cl {what} {(TRAIN_BATCH, k3, *lat)}"] = (
+            "rqs_coupling_bwd_cl", (TRAIN_BATCH, k3, *lat),
+            lambda sc, ph, inverse=inverse: sc.rqs_coupling_bwd(
+                x[:TRAIN_BATCH], out[:TRAIN_BATCH], ybar, loggbar,
+                inverse=inverse, **LIM))
+    return cases
 
 
 def phi4_inputs(torch, f32, coef):

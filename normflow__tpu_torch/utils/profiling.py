@@ -1,9 +1,11 @@
 """Profiling and tracing hooks (``normflow__tpu/utils/profiling.py``).
 
-- :func:`trace`: a context manager that records the card's activity in
-  its block as a Chrome trace (``chrome://tracing``, Perfetto), through
-  ``tools/kernel_times.profiled_window`` (``torch.profiler``; JAX:
-  ``jax.profiler``'s XLA trace);
+- :func:`trace`: a context manager that records its block's activity as
+  a Chrome trace (``chrome://tracing``, Perfetto) on any device, as JAX's
+  ``jax.profiler`` trace does on any backend: on the card the host's and
+  the card's, through ``tools/kernel_times.profiled_window``
+  (``torch.profiler``), without a card the host's alone (a
+  ``torch.profiler`` CPU window, no marker kernels);
 - :func:`profile_fn`: wall-clock seconds of a callable, warm-up excluded,
   the card synchronised after each call where JAX waits with
   ``block_until_ready``;
@@ -24,17 +26,23 @@ __all__ = ["trace", "profile_fn", "Timer"]
 
 @contextlib.contextmanager
 def trace(logdir: str):
-    """``with trace('traces/run1'): step()`` writes the block's host and
-    card activity to ``logdir/trace.json``.  Needs a CUDA device (the
-    window synchronises it and marks its edges with spin kernels)."""
-    from ..tools.kernel_times import profiled_window
-
-    if not torch.cuda.is_available():
-        raise RuntimeError("trace: no CUDA device")
+    """``with trace('traces/run1'): step()`` writes the block's activity to
+    ``logdir/trace.json``: with a CUDA device the host's and the card's,
+    in a window that synchronises the card and marks its edges with spin
+    kernels; without one the host's operators."""
     os.makedirs(logdir, exist_ok=True)
-    with profiled_window(head=0, tail=0) as window:
-        yield logdir
-    window.prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+    if torch.cuda.is_available():
+        from ..tools.kernel_times import profiled_window
+
+        with profiled_window(head=0, tail=0) as window:
+            yield logdir
+        prof = window.prof
+    else:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            yield logdir
+    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
 
 
 def _synchronize():

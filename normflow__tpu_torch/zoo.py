@@ -26,7 +26,8 @@ another coupling route (root ``bench.py:299-307``'s ``with_backend``),
 each a copy that shares the flow's weights.  ``build_phi4_model``'s
 ``coupling_backend`` is the JAX builder's: ``"pallas_reg"`` runs the
 conditioners channels-last into the channels-last coupling kernels
-(``models/couplings.py``).
+(``models/couplings.py``), at every lattice rank the unpacked flagship
+takes, 1 to 4 (the packed mask is 2-D, as in the JAX package).
 """
 
 from __future__ import annotations
@@ -70,9 +71,10 @@ def with_conv_compute_dtype(net_, dtype):
 def with_coupling_backend(net_, backend):
     """A copy of the flow ``net_`` whose every ``RQSplineCoupling`` is
     built anew with ``backend`` (``"xla"``, ``"pallas"`` or
-    ``"pallas_reg"``) around the copy's conditioners, sharing ``net_``'s
-    parameters and buffers as :func:`with_conv_compute_dtype` does: run it
-    on a ``Model`` of its own."""
+    ``"pallas_reg"``) around the copy's conditioners, at any lattice rank,
+    sharing ``net_``'s parameters and buffers as
+    :func:`with_conv_compute_dtype` does: run it on a ``Model`` of its
+    own."""
     if backend not in RQSplineCoupling.BACKENDS:
         raise ValueError(f"backend {backend!r}: one of "
                          f"{RQSplineCoupling.BACKENDS}")

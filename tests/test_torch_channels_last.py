@@ -131,6 +131,7 @@ def _strided(shape, strides):
     (torch.zeros((2, 4, 6, 10)).movedim(-1, 1), "channels_last"),
     (torch.zeros((2, 16, 10)).movedim(-1, 1), "channels_last"),  # 1-D
     (torch.zeros((2, 2, 3, 4, 22)).movedim(-1, 1), "channels_last"),  # 3-D
+    (torch.zeros((2, 2, 2, 2, 2, 22)).movedim(-1, 1), "channels_last"),  # 4-D
     (torch.zeros((2, 1, 1, 22)).movedim(-1, 1), "nchw"),  # one site: both
     (torch.zeros((2, 10, 1, 1)), "nchw"),
     (torch.zeros((1, 4, 6, 10)).movedim(-1, 1), "channels_last"),
@@ -316,23 +317,27 @@ def test_route_is_fixed_and_copies_share_the_weights():
 
 def test_backend_copies_are_built_by_the_constructor():
     """``with_coupling_backend`` builds each coupling anew, so the copy
-    holds the constructor's checks: a 3-D lattice refuses the route, a
-    coupling alone is copied too, and the conditioners' weights are
-    shared."""
+    holds the constructor's checks: a coupling alone is copied too, a 3-D
+    lattice's coupling takes the route as a 2-D one's does, and the
+    conditioners' weights are shared."""
     cpl = build_phi4_model(**SMALL, device="cpu").net_[2]
     one = with_coupling_backend(cpl, "pallas_reg")
     assert isinstance(one, RQSplineCoupling) and one.backend == "pallas_reg"
     assert all(p is q for p, q in zip(cpl.parameters(), one.parameters()))
     cube = RQSplineCoupling(list(cpl.nets), mask=EvenOddMask(shape=(4, 4, 4)))
-    with pytest.raises(ValueError, match="3-D"):
-        with_coupling_backend(cube, "pallas_reg")
+    reg = with_coupling_backend(cube, "pallas_reg")
+    assert isinstance(reg, RQSplineCoupling) and reg.backend == "pallas_reg"
+    assert reg.mask.shape == (4, 4, 4)
+    assert all(p is q for p, q in zip(cube.parameters(), reg.parameters()))
 
 
 def test_route_refuses_other_lattice_ranks():
+    """The route builds at every lattice rank (a 3-D lattice here, as the
+    JAX package's does); only an unknown backend name is refused."""
     cpl = build_phi4_model(**SMALL, device="cpu").net_[2]
-    with pytest.raises(ValueError, match="3-D"):
-        RQSplineCoupling(list(cpl.nets), mask=EvenOddMask(shape=(4, 4, 4)),
-                         backend="pallas_reg")
+    cube = RQSplineCoupling(list(cpl.nets), mask=EvenOddMask(shape=(4, 4, 4)),
+                            backend="pallas_reg")
+    assert cube.backend == "pallas_reg"
     with pytest.raises(ValueError, match="backend"):
         RQSplineCoupling(list(cpl.nets), mask=cpl.mask, backend="cuda")
     RQSplineCoupling(list(cpl.nets), mask=EvenOddMask(shape=(4, 4, 4)))

@@ -5,13 +5,17 @@ package namespaces and the examples' devices, on the CPU.
 1e-10 in float64; the weight blob round-trips and refuses another
 architecture; ``freeze_parameters`` / ``unfreeze_parameters`` return copies;
 ``DistConvertor``'s layer properties and ``inv_softplus_log2`` agree with
-JAX; ``profile_fn`` and ``Timer`` run on the CPU (``trace`` needs a card);
+JAX; ``profile_fn``, ``Timer`` and ``trace`` run on the CPU (``trace``
+writes the host's operators there);
 ``models``, ``training``, ``utils``, ``nn``, ``nn.scalar``, the package
 top and ``ops`` / ``lib`` export every name the JAX namespaces do, but the
 JAX-only ones listed here, and ``segment_gather`` agrees with JAX; the
 zero-dim example trains on the CPU, and ``scalar_affine``'s
 ``n_devices=2`` runs in a 2-rank gloo group.
 """
+
+import json
+import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -138,7 +142,7 @@ def test_inv_softplus_log2_matches_jax():
     _close(te.softplus_log2(got), y, 1e-12)
 
 
-def test_profile_fn_and_timer_on_the_cpu(capsys):
+def test_profile_fn_and_timer_on_the_cpu(capsys, tmp_path):
     calls = []
     stats = profile_fn(lambda a, b=0: calls.append(a + b), 1, b=2, iters=5,
                        warmup=3)
@@ -150,10 +154,26 @@ def test_profile_fn_and_timer_on_the_cpu(capsys):
     with Timer(verbose=False) as quiet:
         pass
     assert quiet.elapsed >= 0 and capsys.readouterr().out == ""
-    if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="no CUDA device"):
-            with trace("unused"):
-                pass
+    if not torch.cuda.is_available():  # a CPU window: no card needed
+        with trace(str(tmp_path / "tr")) as logdir:
+            torch.ones(3).sum()
+        assert os.path.getsize(os.path.join(logdir, "trace.json")) > 0
+
+
+def test_trace_on_the_cpu_writes_a_chrome_trace(tmp_path):
+    """Without a card ``trace`` records the block's host operators to
+    ``logdir/trace.json``, as JAX's trace does on any backend."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: trace opens the card's window")
+    model = build_phi4_model((4, 4), hidden=(4,), n_layers=2, knots=4,
+                             device="cpu")
+    with trace(str(tmp_path / "tr")) as logdir:
+        model.posterior.logqp_stream(1, 8)
+    with open(f"{logdir}/trace.json") as f:
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name", "") for e in events}
+    assert any(n.startswith("aten::") for n in names)
+    assert any("conv" in n for n in names)
 
 
 def test_profiler_window_body():

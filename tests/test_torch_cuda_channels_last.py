@@ -18,7 +18,10 @@ wrappers' refusal of other strides; and the route on a
 small flagship: the conditioners' output channels-last at every coupling
 (float32 and bf16), the launches by profiler name (channels-last
 couplings only), logq and one path-gradient step against a float64 CPU
-copy.
+copy.  At 1-, 3- and 4-D: every conv and conditioner output
+channels-last (float32 and bf16, on an 8^4 lattice too), the
+route's launches by the wrappers (channels-last, tiled where B S % 4 ==
+0), and a 4^4 route model against a float64 CPU copy.
 """
 
 import numpy as np
@@ -314,3 +317,118 @@ def test_replays_launch_channels_last_couplings_only(cuda, np_rng):
         "rqs_coupling_cl": (8, 8), "rqs_coupling_bwd_cl": (8, 8),
         "phi4_action": (1, 1), "phi4_action_grad": (1, 1)}
     assert (sc.rqs_coupling.launches, sc.rqs_coupling_bwd.launches) == before
+
+
+# --------------------------------------------------------------------- #
+# the route at 1-, 3- and 4-D
+# --------------------------------------------------------------------- #
+LATS_ND = [(16,), (4, 4, 4), (4, 4, 4, 4)]
+RAGGED_ND = [(5,), (3, 3, 3), (3, 3, 3, 3)]  # S odd: B S % 4 != 0 at B = 3
+
+
+def _route_nd(np_rng, lat, device="cuda"):
+    """The small unpacked flagship on the route at ``lat``, its weights
+    plus seeded noise."""
+    model = build_phi4_model(lat, packed=False, coupling_backend="pallas_reg",
+                             device=device, **SMALL)
+    with torch.no_grad():
+        for p in model.net_.parameters():
+            p.add_(_f32(np_rng.standard_normal(tuple(p.shape)) * 0.1,
+                        device))
+    return model
+
+
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16])
+@pytest.mark.parametrize("lat", LATS_ND + [(8, 8, 8, 8)],
+                         ids=lambda lat: "x".join(map(str, lat)))
+def test_conditioner_output_is_channels_last_at_every_rank(cuda, np_rng,
+                                                           lat, dtype):
+    """Every conv layer's output and every coupling's conditioner output
+    channels-last on the card, in float32 and through bf16
+    conditioners."""
+    from normflow__tpu_torch.models.nets import CircularConv
+    from normflow__tpu_torch.ops.lattice import channels_last
+
+    model = _route_nd(np_rng, lat)
+    net_ = model.net_ if dtype is None else \
+        with_conv_compute_dtype(model.net_, dtype)
+    convs, outs = [], []
+    for m in net_.modules():
+        if isinstance(m, CircularConv):
+            m.register_forward_hook(
+                lambda mod, inp, out: convs.append(channels_last(out)))
+    for net in net_[2].nets:
+        net.register_forward_hook(lambda mod, inp, out: outs.append(
+            (sc.coupling_layout(out), out.dtype)))
+    with torch.no_grad():
+        y, _ = net_.forward(_f32(np_rng.standard_normal((8, *lat)), cuda))
+        net_.backward(y)
+    assert convs and all(convs)
+    assert outs == [("channels_last", torch.float32)] * 4
+
+
+@pytest.mark.parametrize("lat", LATS_ND + RAGGED_ND,
+                         ids=lambda lat: "x".join(map(str, lat)))
+def test_route_launches_at_every_rank(cuda, np_rng, lat):
+    """A path-gradient loss and its gradients on the route: 4 coupling
+    launches (2 forward, 2 inverse) and 4 VJPs, every one channels-last,
+    tiled where B S % 4 == 0 (B = 3: the ragged lattices take the
+    per-site kernels)."""
+    model = _route_nd(np_rng, lat)
+    model.fit.grad_estimator = "path"
+    x = _f32(np_rng.standard_normal((3, *lat)), cuda)
+    before = _counts()
+    loss = model.fit.loss_of(x, model.prior.log_prob(x))[0]
+    torch.autograd.grad(loss, list(model.net_.parameters()))
+    tiled = 4 * int(3 * int(np.prod(lat)) % 4 == 0)
+    assert _launched(before) == ((4, tiled, 4), (4, tiled, 4))
+
+
+def test_four_dim_route_matches_a_float64_cpu_copy(cuda, np_rng):
+    """The 4^4 route model with the smoke's weights (``perturb_``) on the
+    card against float32 and float64 CPU copies: per-sample logq, one
+    path-gradient step's loss and each leaf's gradient against float64
+    within max(bar, twice the float32 CPU copy's own error), as
+    ``tests/test_torch_cuda.py`` holds the 4^4 flagship (logq is a
+    difference of terms ~100 times its size there); the bars are
+    ``chip_smoke.py``'s, 1e-5 relative for logq and the loss, 1e-3 per
+    leaf."""
+    from normflow__tpu_torch.tools.kernel_times import perturb_
+
+    lat = (4, 4, 4, 4)
+    model = build_phi4_model(lat, packed=False, coupling_backend="pallas_reg",
+                             device="cuda", **SMALL)
+    perturb_(model.net_, np_rng)
+    x = np_rng.standard_normal((64, *lat))
+    res = {}
+    for key, dtype in (("gpu", torch.float32), ("cpu", torch.float32),
+                       ("cpu64", torch.float64)):
+        m = model
+        if key != "gpu":
+            m = build_phi4_model(lat, packed=False, device="cpu", dtype=dtype,
+                                 coupling_backend="pallas_reg", **SMALL)
+            m.net_.load_state_dict({k: v.to(dtype).cpu() for k, v in
+                                    model.net_.state_dict().items()})
+        xd = torch.tensor(x, dtype=dtype, device=m.device)
+        with torch.no_grad():
+            logq = m.prior.log_prob(xd) - m.net_.forward(xd)[1]
+        m.fit.grad_estimator = "path"
+        loss = m.fit.loss_of(xd, m.prior.log_prob(xd))[0]
+        grads = torch.autograd.grad(loss, list(m.net_.parameters()))
+        res[key] = (logq.cpu().double(), float(loss.detach()),
+                    [g.cpu().double() for g in grads])
+    lq64, loss64, g64 = res["cpu64"]
+
+    def errors(key):
+        lq, loss, g = res[key]
+        return (float(((lq - lq64).abs() / lq64.abs().clamp(min=1.0)).max()),
+                abs(loss - loss64) / max(1.0, abs(loss64)),
+                [float((a - b).norm()) / float(b.norm())
+                 for a, b in zip(g, g64)])
+
+    (lq, loss, leaves), (lq32, loss32, leaves32) = errors("gpu"), \
+        errors("cpu")
+    assert lq <= max(1e-5, 2 * lq32)
+    assert loss <= max(1e-5, 2 * loss32)
+    for a, f in zip(leaves, leaves32):
+        assert a <= max(1e-3, 2 * f)
