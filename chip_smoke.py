@@ -165,19 +165,22 @@ use) and imports nothing of JAX.  Phases, each of which raises on failure:
     (1024, 32, 32) and of a (1024, 64, 64) field with halos built by hand,
     summed and stacked, against the whole-lattice tiled kernels and the
     plain slab versions (``PHI4_REL_TOL``, ``FORCE_*``), on the tiled
-    kernels, the general ones at 1-D, (128, 8, 8) and 3-D, the tiled force
-    bit for bit against the general one; timed with phase 12.  Step 2
-    (last): two processes on the one card in a gloo group of two (NCCL
-    refuses two ranks on one device), ``use_mesh(axes={"data": 1,
-    "space": 2})``, the kernels built by the parent first: the full-width
-    flagship's logq and logp of a fed batch of 1024 (seeded perturbed
-    weights) against the unsharded flagship on the card, ``N_STEPS``
-    eager steps of the bench protocol on fed draws from the fresh weights
-    against the unsharded eager fit (step 1 to ``LOGQ_REL_TOL``, the rest
-    to ``SPACE_LOSS_TOL`` or ``SPACE_FLOOR`` times the unsharded fit's own
-    spread), 8 / 8 / 1 / 1 wrapper launches per step (``rqs_coupling``,
-    ``rqs_coupling_bwd``, ``phi4_action_slab``, ``phi4_action_slab_grad``,
-    all tiled) and ``sample_chain(4, 1024)`` at 4 / 1 / 1 per round, with
+    kernels, the general ones at 1-D, (128, 8, 8) and 3-D and on (1024,
+    32, 32) split over three ranks as XLA splits it, slabs of 11, 11 and
+    10 rows, the tiled force bit for bit against the general one, a slab
+    of no rows with no launch; timed with phase 12, (1024, 11, 32) and
+    (1024, 10, 32) too.  Step 2: two processes on the one card in a gloo
+    group of two (NCCL refuses two ranks on one device),
+    ``use_mesh(axes={"data": 1, "space": 2})``, the kernels built by the
+    parent first: the full-width flagship's logq and logp of a fed batch of
+    1024 (seeded perturbed weights) against the unsharded flagship on the
+    card, ``SPACE_STEPS`` (24) eager steps of the bench protocol on fed
+    draws from the fresh weights against the unsharded eager fit (step 1
+    to ``LOGQ_REL_TOL``, the rest to ``SPACE_LOSS_TOL`` or ``SPACE_FLOOR``
+    times the unsharded fit's own spread), 8 / 8 / 1 / 1 wrapper launches
+    per step (``rqs_coupling``, ``rqs_coupling_bwd``, ``phi4_action_slab``,
+    ``phi4_action_slab_grad``, all tiled) and ``sample_chain(4, 1024)`` at
+    4 / 1 / 1 per round, with
     the counters set to 0 just before and read just after each; then, on
     the perturbed weights, ``blocked_mcmc.sample__(2, n_blocks=K)`` for K
     = 4 and 16 on each rank, captured over gloo (the whole lattice, no
@@ -186,7 +189,14 @@ use) and imports nothing of JAX.  Phases, each of which raises on failure:
     same generator state (logq and logp to ``LOGQ_REL_TOL``, accepts
     equal), and a warm call with no wrapper launch; rates and the phase's
     wall time (gloo stages every collective through the host: no speed
-    claim);
+    claim).  Step 3: three processes, ``{"data": 1, "space": 3}``, slabs
+    of 11 / 11 / 10 rows (odd heights, the second from an odd row): logq
+    and logp of the fed batch, ``sample_chain(3, 1024)`` on fed rounds
+    (its proposals against the unsharded flagship's eager rounds, its
+    decisions bit for bit against the plain recurrence) and 8 eager steps
+    against the unsharded fit, the wrappers' launches per batch, round and
+    step with the variant each took (the couplings tiled, the slab
+    kernels general);
 22. the channels-last route (``build_phi4_model(coupling_backend=
     "pallas_reg")``, the JAX package's ``pallas_reg`` backend), last, on a
     numpy stream of its own (``CL_SEED``): the channels-last coupling
@@ -231,7 +241,7 @@ use) and imports nothing of JAX.  Phases, each of which raises on failure:
     (1/V) sum_p 1 / (m^2 + 4 kappa sum_mu sin^2(p_mu / 2)).  Its graphed
     steps/s are taken in phase 24, in turns with the route's;
 24. the channels-last route (``pallas_reg``) at 1-, 3- and 4-D
-    (``run_cl_nd``, last): kernels 1 and 2 channels-last and tiled at the
+    (``run_cl_nd``): kernels 1 and 2 channels-last and tiled at the
     8^4 shapes, (1024, 22, 8^4) and (512, 22, 8^4), against the NCHW
     tiled kernels bit for bit and their plain versions to phase 22's bars,
     timed warm and cold; phase 23's weights through
@@ -247,7 +257,16 @@ use) and imports nothing of JAX.  Phases, each of which raises on failure:
     steps/s against the NCHW 8^4 flagship in turns and where a replayed
     batch's and step's time goes; then small route flagships at (64,) and
     (8, 8, 8): logq against float64, layouts, launches by name and
-    wrapper, a replayed batch bit for bit.
+    wrapper, a replayed batch bit for bit;
+25. every training loss over two data ranks (``run_losses``, last): two
+    gloo processes on the one card, ``{"data": 2}``, one eager step of the
+    fresh full-width flagship at the global batch 512 on fed draws for
+    each loss of ``training/losses.py`` (the gather of logq and logp over
+    the data axis, the summed bucket), its loss and every gradient leaf
+    against the unsharded eager step and a float64 CPU copy with phase 5's
+    float64-anchored bars, both ranks bit for bit alike, ``calc_kl_mean``
+    against the old flat-mean route (``FLAT_ROUTE_TOL``), 4 / 4 / 1 / 1
+    wrapper launches a step.
 
 The gauge paths' rates (eager bodies against graphed entry points, in
 turns) are taken in a phase of their own right after phase 3's, before any
@@ -297,8 +316,11 @@ channels-last sample``.
 
 Phase 21's sharded runs are eager (a gloo collective cannot sit in a CUDA
 graph) and are counted by the wrappers in each rank's process: 8 / 8 / 1 /
-1 per step, the slab kernels in place of kernels 3 and 4; the record's
-``launches_by_path`` sum the two ranks.
+1 per step, the slab kernels in place of kernels 3 and 4 (tiled at two
+ranks' 16 rows, general at three ranks' 11 / 11 / 10: records ``space3
+sample``, ``space3 chain``, ``space3 fit``); the record's
+``launches_by_path`` sum the ranks.  Phase 25 (last) counts 4 / 4 / 1 / 1
+a step of each loss over two data ranks (record ``losses``).
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits non-zero
@@ -307,6 +329,7 @@ and prints no result.
 
 from __future__ import annotations
 
+import concurrent.futures
 import copy
 import functools
 import gc
@@ -394,7 +417,7 @@ UNPACKED_STEPS = 16  # the unpacked flagship's profiled fit
 AFFINE_EPOCHS, AFFINE_BATCH, AFFINE_ROUNDS = 1000, 128, 150
 # the first AFFINE_PROFILED epochs are profiled: the profiler takes ~0.1 s
 # per replayed step of this flow (1000 steps: 107 s on an H100 80GB HBM3)
-AFFINE_PROFILED = 200
+AFFINE_PROFILED = 100
 AFFINE_ACTION = dict(kappa=0.67, m_sq=-4 * 0.67, lambd=0.5)
 JAX_RECORD = {"phi2": (0.84888, 0.00157), "chi": (3.565, 0.278)}
 JAX_ACCEPT = 0.586
@@ -2514,10 +2537,13 @@ def run_cntr_training(torch, kernels, card):
 
 
 def run_bench(torch):
-    """The port's bench, in process, with a short training."""
+    """The port's bench, in process, with a short training and timed
+    streams of 100 batches (the bench's default 400 would outlast the
+    smoke's time limit on a slow host)."""
     from normflow__tpu_torch import bench
 
-    out = bench.main(["--train_epochs", "200", "--reps", "2"])
+    out = bench.main(["--train_epochs", "200", "--reps", "2",
+                      "--sample_iters", "100"])
     if not (out["platform"] == "cuda" and 0.0 < out["ess"] <= 1.0
             and out["value"] > 0 and math.isfinite(out["value_err"])
             and 0.0 <= out["accept_rate"] <= 1.0):
@@ -2620,16 +2646,21 @@ def check_phi4_tiles(torch, kernels, peaks, lat, seed):
 
 
 def split_slabs(torch, cfgs, n=2):
-    """``n`` slabs of ``cfgs`` ``(B, L0, *rest)`` and their halos ``(B, 2,
-    *rest)`` cut by hand: the row before each slab and the row after it,
-    periodic over the lattice, as ``parallel/space.edge_rows`` exchanges
-    them."""
-    l0 = cfgs.shape[1]
-    rows = l0 // n
-    return [(cfgs[:, r * rows:(r + 1) * rows].contiguous(),
-             torch.stack([cfgs[:, (r * rows - 1) % l0],
-                          cfgs[:, ((r + 1) * rows) % l0]], 1).contiguous())
-            for r in range(n)]
+    """``n`` slabs of ``cfgs`` ``(B, L0, *rest)``, its rows split as
+    ``parallel/space.slab_of`` (XLA) splits them, ``ceil(L0 / n)`` a rank,
+    and their halos ``(B, 2, *rest)`` cut by hand: the row before each
+    slab and the row after it, periodic over the lattice, as
+    ``parallel/space.edge_rows`` exchanges them."""
+    from normflow__tpu_torch.parallel.space import slab_of
+
+    l0, out = cfgs.shape[1], []
+    for r in range(n):
+        s = slab_of(None, r, n, l0)
+        out.append((cfgs[:, s.row0:s.row0 + s.rows].contiguous(),
+                    torch.stack([cfgs[:, (s.row0 - 1) % l0],
+                                 cfgs[:, (s.row0 + s.rows) % l0]],
+                                1).contiguous()))
+    return out
 
 
 def slab_counters():
@@ -2669,41 +2700,47 @@ def hold_slabs(torch, cfgs, g, w, n=2):
 
 def check_slab_kernels(torch, kernels, peaks, rng, action):
     """Phase 21, step 1: the slab variants of the action and its force
-    (``phi4_action_slab``, ``phi4_action_slab_grad``) on two slabs of a
+    (``phi4_action_slab``, ``phi4_action_slab_grad``) on the slabs of a
     field with hand-built halos, held against the whole-lattice kernels and
     their plain slab versions: (1024, 32, 32) as two (1024, 16, 32) slabs
     and config 4's (1024, 64, 64) as two of 32 rows, on the tiled kernels;
-    the general kernels at 1-D, (128, 8, 8) and 3-D; the tiled force bit
-    for bit against the general one.  Returns the function that times
-    them at the flagship's slab."""
+    the general kernels at 1-D, (128, 8, 8) and 3-D, and on (1024, 32, 32)
+    over three ranks, XLA's split, slabs of (1024, 11, 32) and (1024, 10,
+    32) (their float4 groups are no whole warps: ``phi4.action_plan``);
+    the tiled force bit for bit against the general one; a slab of no rows
+    returns zero and an empty force with no launch.  Returns the function
+    that times them at the flagship's slab and the ragged ones."""
     from normflow__tpu_torch.ops.kernels import phi4
 
     counters = slab_counters()
     worst = {k: 0.0 for k in counters}
-    for shape, variant in (((BATCH, *LAT), "tiled"),
-                           ((BATCH, 64, 64), "tiled"),
-                           ((BATCH, 64), "general"),
-                           ((128, 8, 8), "general"),
-                           ((64, 8, 8, 8), "general")):
+    for shape, variant, n in (((BATCH, *LAT), "tiled", 2),
+                              ((BATCH, 64, 64), "tiled", 2),
+                              ((BATCH, 64), "general", 2),
+                              ((128, 8, 8), "general", 2),
+                              ((64, 8, 8, 8), "general", 2),
+                              ((BATCH, *LAT), "general", 3)):
         cfgs = torch.tensor(rng.standard_normal(shape), dtype=torch.float32,
                             device="cuda")
         g = torch.tensor(rng.standard_normal(shape[0]), dtype=torch.float32,
                          device="cuda")
         w = action.get_coef(len(shape) - 1)
         reset_counts(counters)
-        rel, dforce, ok = hold_slabs(torch, cfgs, g, w)
+        rel, dforce, ok = hold_slabs(torch, cfgs, g, w, n)
         tiled = {k: (c.launches, c.tiled_launches)
                  for k, c in counters.items()}
-        want = 2 if variant == "tiled" else 0
-        print(f"slab kernels on 2 slabs of {shape} ({variant}): summed "
-              f"action max rel {rel:.3e} (tol {PHI4_REL_TOL}), stacked "
-              f"force max abs {dforce:.3e} (rtol {FORCE_RTOL}, atol "
-              f"{FORCE_ATOL}) against the whole-lattice kernels and the "
-              f"plain slab versions: {'ok' if ok else 'FAILED'}; "
-              f"(launches, tiled) {tiled}")
-        if not ok or any(t != (2, want) for t in tiled.values()):
+        want = n if variant == "tiled" else 0
+        heights = [tuple(s.shape[1:2]) for s, _ in split_slabs(torch, cfgs,
+                                                                n)]
+        print(f"slab kernels on {n} slabs of {shape} (rows {heights}, "
+              f"{variant}): summed action max rel {rel:.3e} (tol "
+              f"{PHI4_REL_TOL}), stacked force max abs {dforce:.3e} (rtol "
+              f"{FORCE_RTOL}, atol {FORCE_ATOL}) against the whole-lattice "
+              f"kernels and the plain slab versions: "
+              f"{'ok' if ok else 'FAILED'}; (launches, tiled) {tiled}")
+        if not ok or any(t != (n, want) for t in tiled.values()):
             raise AssertionError(f"a slab kernel disagrees or missed its "
-                                 f"variant at {shape}")
+                                 f"variant at {shape} over {n} slabs")
         worst["phi4_action_slab"] = max(worst["phi4_action_slab"], rel)
         worst["phi4_action_slab_grad"] = max(worst["phi4_action_slab_grad"],
                                              dforce)
@@ -2724,6 +2761,22 @@ def check_slab_kernels(torch, kernels, peaks, rng, action):
     if not same:
         raise AssertionError("the tiled slab force departs from the general "
                              "one")
+    # a slab of no rows (4 rows over three ranks): decided by shape, no launch
+    empty = torch.zeros((BATCH, 0, LAT[1]), device="cuda")
+    halo = torch.stack([cfgs[:, -1], cfgs[:, 0]], 1).contiguous()
+    reset_counts(counters)
+    act = phi4.phi4_action_slab(empty, halo, *w)
+    force = phi4.phi4_action_slab_grad(empty, halo, g, *w)
+    torch.cuda.synchronize()
+    launched = {k: c.launches for k, c in counters.items()}
+    print(f"a slab of no rows {tuple(empty.shape)}: action "
+          f"{'zero' if not bool(act.any()) else 'NOT zero'} "
+          f"{tuple(act.shape)}, force {tuple(force.shape)}; wrapper launches "
+          f"{launched} (want none)")
+    if bool(act.any()) or act.shape != (BATCH,) \
+            or force.shape != empty.shape or any(launched.values()):
+        raise AssertionError("a slab of no rows launched a kernel or gave "
+                             "a wrong result")
     for name, line in (("phi4_action_slab", 30), ("phi4_action_slab_grad",
                                                   49)):
         kernels[name] = dict(
@@ -2735,11 +2788,17 @@ def check_slab_kernels(torch, kernels, peaks, rng, action):
 
     def time_it():
         """Both slab kernels at the flagship's slab (1024, 16, 32), read
-        warm, as the whole-lattice ones; config 4's under ``variants``."""
+        warm, as the whole-lattice ones; config 4's and the flagship's
+        over three ranks, (1024, 11, 32) and (1024, 10, 32), under
+        ``variants``."""
         big = torch.tensor(rng.standard_normal((BATCH, 64, 64)),
                            dtype=torch.float32, device="cuda")
-        for field, what in ((cfgs, None), (big, "(1024, 32, 64) tiled")):
-            s, h = split_slabs(torch, field)[0]
+        three = split_slabs(torch, cfgs, 3)
+        for (s, h), what in ((split_slabs(torch, cfgs)[0], None),
+                             (split_slabs(torch, big)[0],
+                              "(1024, 32, 64) tiled"),
+                             (three[0], "(1024, 11, 32) general"),
+                             (three[2], "(1024, 10, 32) general")):
             for name, fn, plain in (
                     ("phi4_action_slab",
                      lambda: phi4.phi4_action_slab(s, h, *w),
@@ -2989,11 +3048,12 @@ def c4_rates(torch, model, card):
 SPACE_AXES = {"data": 1, "space": 2}
 SPACE_SEED = 20261021
 SPACE_ROUNDS = 4  # sample_chain(SPACE_ROUNDS, BATCH) on the sharded model
+SPACE_STEPS = 24  # eager steps of the two-rank fit
 SPACE_BLOCKED = 2  # blocked_mcmc.sample__(SPACE_BLOCKED, n_blocks=K) there
 # The sharded fit's loss against the unsharded eager fit on the same draws,
-# max |dl| / max(1, |l|) over the N_STEPS steps.  Both run in float32 and
-# the sharded one sums in another order (the totals over two slabs, the
-# gradients over two ranks, the volume mean), and N_STEPS Adam steps carry
+# max |dl| / max(1, |l|) over the SPACE_STEPS steps.  Both run in float32
+# and the sharded one sums in another order (the totals over two slabs, the
+# gradients over two ranks, the volume mean), and that many Adam steps carry
 # such differences far: on the CPU, the unsharded fit of the 16x16 flagship
 # (batch 64, the bench protocol) moved by up to 2e-3 between 1 and 8
 # threads.  So the bar is the larger of SPACE_LOSS_TOL and SPACE_FLOOR
@@ -3010,11 +3070,11 @@ def space_draw(seed, k, shape):
         shape).astype(np.float32)
 
 
-def space_rank(rank, init_method, states, seed, queue):
-    """One of phase 21's two processes: joins a gloo group of two on the
-    one card (NCCL refuses two ranks on one device; gloo stages CUDA
-    tensors through the host), runs :func:`space_run` and puts ``(rank,
-    (failed, result or traceback))`` on ``queue``."""
+def space_rank(rank, n, init_method, run, args, queue):
+    """One of the ``n`` processes of phases 21 and 25: joins a gloo group
+    of ``n`` on the one card (NCCL refuses two ranks on one device; gloo
+    stages CUDA tensors through the host), runs ``run(torch, *args)`` and
+    puts ``(rank, (failed, result or traceback))`` on ``queue``."""
     import traceback
 
     import torch
@@ -3023,9 +3083,9 @@ def space_rank(rank, init_method, states, seed, queue):
     try:
         torch.cuda.set_device(0)
         dist.init_process_group("gloo", init_method=init_method, rank=rank,
-                                world_size=2)
+                                world_size=n)
         try:
-            queue.put((rank, (False, space_run(torch, states, seed))))
+            queue.put((rank, (False, run(torch, *args))))
         finally:
             dist.destroy_process_group()
     except BaseException:  # reported to the parent, which raises
@@ -3036,7 +3096,7 @@ def space_rank(rank, init_method, states, seed, queue):
 def space_run(torch, states, seed):
     """The full-width flagship on ``SPACE_AXES``: this rank's slab of the
     fed batch through ``posterior.sample__`` with the perturbed weights
-    ``states[0]``, then ``N_STEPS`` eager steps of the bench protocol on
+    ``states[0]``, then ``SPACE_STEPS`` eager steps of the bench protocol on
     fed draws from the fresh weights ``states[1]``, with every launch
     counter set to 0 just before and read just after, and
     ``sample_chain(SPACE_ROUNDS, BATCH)`` likewise."""
@@ -3071,7 +3131,7 @@ def space_run(torch, states, seed):
         for p, v in zip(model.net_.state_dict().values(), states[1].values()):
             p.copy_(torch.from_numpy(v))
 
-    steps = iter(range(N_STEPS))
+    steps = iter(range(SPACE_STEPS))
 
     def _draw(batch_size, generator):
         x = cut(space_draw(seed, next(steps), (batch_size, *LAT)))
@@ -3080,7 +3140,7 @@ def space_run(torch, states, seed):
     model.fit._draw = _draw
     counters = {**_counters(), **slab_counters(), "accept_scan": accept_scan}
     runs = {}
-    for path, fn in (("space fit", lambda: fit_protocol(model, N_STEPS)),
+    for path, fn in (("space fit", lambda: fit_protocol(model, SPACE_STEPS)),
                      ("space chain", lambda: model.mcmc.sample_chain(
                          SPACE_ROUNDS, BATCH))):
         reset_counts(counters)
@@ -3172,7 +3232,7 @@ def run_ranks(target, n, args, timeout):
     failed = {r: out[1] for r, out in results.items() if out[0]}
     failed.update({r: "no result" for r in range(n) if r not in results})
     if failed:
-        raise AssertionError("phase 21's ranks failed:" + "".join(
+        raise AssertionError("the spawned ranks failed:" + "".join(
             f"\n--- rank {r} ---\n{tb}" for r, tb in sorted(failed.items())))
     return [results[r][1] for r in range(n)]
 
@@ -3183,7 +3243,7 @@ def run_space(torch, kernels, card):
     group on the one card (:func:`space_rank`), held against the
     unsharded flagship on the card on the same fed draws: logq and logp of
     one batch of ``BATCH`` (``LOGQ_REL_TOL``, phase 4's bar against the
-    CPU), and the loss of ``N_STEPS`` eager steps of the bench protocol
+    CPU), and the loss of ``SPACE_STEPS`` eager steps of the bench protocol
     from the fresh seeded weights, as phase 5 trains (the perturbed ones
     make a float32 trajectory chaotic; ``SPACE_LOSS_TOL``, ``SPACE_FLOOR``);
     8 / 8 / 1 / 1 launches per step of
@@ -3207,8 +3267,9 @@ def run_space(torch, kernels, card):
     states.insert(0, {k: v.detach().cpu().numpy()
                       for k, v in ref.net_.state_dict().items()})
     t0 = time.perf_counter()
-    ranks = run_ranks(space_rank, 2, (f"tcp://localhost:{free_port()}",
-                                      states, SPACE_SEED), SPACE_TIMEOUT)
+    ranks = run_ranks(space_rank, 2, (2, f"tcp://localhost:{free_port()}",
+                                      space_run, (states, SPACE_SEED)),
+                      SPACE_TIMEOUT)
     wall = time.perf_counter() - t0
 
     # the unsharded flagship on the card, on the same draws, eagerly
@@ -3218,7 +3279,7 @@ def run_space(torch, kernels, card):
     fits = {}
     for nudge in (1.0, 1.0 + 2.0 ** -23):  # the draws, then nudged by an ulp
         model = build_phi4_model(LAT, seed=0)  # the fresh weights
-        steps = iter(range(N_STEPS))
+        steps = iter(range(SPACE_STEPS))
 
         def _draw(batch_size, generator, model=model, steps=steps,
                   nudge=nudge):
@@ -3230,7 +3291,7 @@ def run_space(torch, kernels, card):
         model.fit._draw = _draw
         model.fit.step_graph = lambda: None  # the eager body, as over gloo
         t0 = time.perf_counter()
-        fits[nudge] = np.asarray(fit_protocol(model, N_STEPS)["loss"])
+        fits[nudge] = np.asarray(fit_protocol(model, SPACE_STEPS)["loss"])
         torch.cuda.synchronize()
         ref_s = time.perf_counter() - t0
     want, nudged = fits.values()
@@ -3242,7 +3303,7 @@ def run_space(torch, kernels, card):
     bar = max(SPACE_LOSS_TOL, SPACE_FLOOR * floor)
     print(f"unsharded eager fits on the card: the draws nudged by one "
           f"float32 ulp move the loss by up to {floor:.3e} relative over "
-          f"{N_STEPS} steps; the sharded fit's bar {bar:.3e}")
+          f"{SPACE_STEPS} steps; the sharded fit's bar {bar:.3e}")
 
     n_layers = len(ref.net_[2].nets)
     per_unit = {
@@ -3251,7 +3312,7 @@ def run_space(torch, kernels, card):
                       "phi4_action_slab": 1, "phi4_action_slab_grad": 1},
         "space chain": {"rqs_coupling": n_layers, "phi4_action_slab": 1,
                         "accept_scan": 1}}
-    units = {"space fit": N_STEPS, "space chain": SPACE_ROUNDS}
+    units = {"space fit": SPACE_STEPS, "space chain": SPACE_ROUNDS}
     lq, lp = logq.cpu().numpy(), logp.cpu().numpy()
     for r in ranks:
         rel_q = float(np.max(np.abs(r["logq"] - lq)
@@ -3264,8 +3325,8 @@ def run_space(torch, kernels, card):
               f"{r['slab']}): sample__ {r['y_shape']}; logq max rel "
               f"{rel_q:.3e}, logp max rel {rel_p:.3e} against the unsharded "
               f"flagship on the card (tol {LOGQ_REL_TOL}); loss of step 1 "
-              f"rel {dfirst:.3e} (tol {LOGQ_REL_TOL}), over {N_STEPS} steps "
-              f"max rel {dloss:.3e} (tol {bar:.3e}); chain "
+              f"rel {dfirst:.3e} (tol {LOGQ_REL_TOL}), over {SPACE_STEPS} "
+              f"steps max rel {dloss:.3e} (tol {bar:.3e}); chain "
               f"{r['chain_shape']} accept {r['accept']}")
         if not (rel_q <= LOGQ_REL_TOL and rel_p <= LOGQ_REL_TOL
                 and dfirst <= LOGQ_REL_TOL and dloss <= bar
@@ -3293,7 +3354,7 @@ def run_space(torch, kernels, card):
                 r["counts"][path][k][0] for r in ranks)
     for r in ranks:
         s = r["seconds"]
-        print(f"space rank {r['rank']}: {N_STEPS / s['space fit']:.2f} "
+        print(f"space rank {r['rank']}: {SPACE_STEPS / s['space fit']:.2f} "
               f"eager steps/s at batch {TRAIN_BATCH}, "
               f"{SPACE_ROUNDS * BATCH / s['space chain']:.1f} chain "
               f"proposals/s (gloo through the host: not a speed claim) on "
@@ -3333,9 +3394,470 @@ def run_space(torch, kernels, card):
                                      "the unsharded flagship, or does not "
                                      "replay")
     ref.blocked_mcmc.reset()
-    print(f"unsharded eager reference: {N_STEPS / ref_s:.2f} steps/s; the "
-          f"two ranks' processes {wall:.1f} s wall, start-up included; "
-          f"phase 21 {time.perf_counter() - t_phase:.1f} s on {card}")
+    print(f"unsharded eager reference: {SPACE_STEPS / ref_s:.2f} steps/s; the "
+          f"two ranks' processes {wall:.1f} s wall, start-up included")
+    run_space3(torch, kernels, card, ref, states, want, nudged)
+    print(f"phase 21 {time.perf_counter() - t_phase:.1f} s on {card}")
+
+
+SPACE3_AXES = {"data": 1, "space": 3}  # 32 rows: slabs of 11, 11 and 10
+SPACE3_ROWS = [(0, 11), (11, 11), (22, 10)]
+SPACE3_STEPS = 8  # eager steps of the bench protocol on the 3-rank mesh
+SPACE3_ROUNDS = 3  # sample_chain(SPACE3_ROUNDS, BATCH) on fed rounds
+
+
+def space3_round(seed, k):
+    """Chain round ``k`` of phase 21's 3-rank step: the prior's draw and
+    the log uniforms, the same numpy numbers in every process."""
+    rng = np.random.default_rng([seed, 1000 + k])
+    return (rng.standard_normal((BATCH, *LAT)).astype(np.float32),
+            np.log(rng.random(BATCH)).astype(np.float32))
+
+
+def space3_run(torch, states, seed):
+    """The full-width flagship on ``SPACE3_AXES`` (one of three ranks):
+    this rank's slab of the fed batch through ``posterior.sample__`` and
+    ``sample_chain(SPACE3_ROUNDS, BATCH, bookkeeping=True)`` on fed rounds
+    with the perturbed weights ``states[0]``, then ``SPACE3_STEPS`` eager
+    steps of the bench protocol on fed draws from the fresh weights
+    ``states[1]``, each with every launch counter set to 0 just before and
+    read just after."""
+    import torch.distributed as dist
+
+    from normflow__tpu_torch.ops.kernels.accept_scan import accept_scan
+    from normflow__tpu_torch.zoo import build_phi4_model
+
+    torch.set_num_threads(1)  # three processes share the host's cores
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = build_phi4_model(LAT, seed=0)
+    model.net_.load_state_dict({k: torch.from_numpy(v)
+                                for k, v in states[0].items()})
+    dh = model.device_handler
+    dh.use_mesh(axes=SPACE3_AXES)
+    dh.replicate_params()
+    slab = dh.slab
+    if dh.captures():
+        raise AssertionError("the three-process step must run eagerly")
+
+    def cut(a):
+        rows = a[:, slab.row0:slab.row0 + slab.rows]
+        return torch.from_numpy(np.ascontiguousarray(rows)).cuda()
+
+    rounds = iter(range(SPACE3_ROUNDS))
+
+    def _draws(batch_size, generator):
+        x, lrand = space3_round(seed, next(rounds))
+        x = cut(x)
+        return x, model.prior.log_prob(x), torch.from_numpy(lrand).cuda()
+
+    model.mcmc._draws = _draws
+    steps = iter(range(SPACE3_STEPS))
+
+    def _draw(batch_size, generator):
+        x = cut(space_draw(seed, next(steps), (batch_size, *LAT)))
+        return x, model.prior.log_prob(x)
+
+    model.fit._draw = _draw
+    xs = cut(space_draw(seed, -1, (BATCH, *LAT)))
+
+    def fit():
+        with torch.no_grad():
+            for p, v in zip(model.net_.state_dict().values(),
+                            states[1].values()):
+                p.copy_(torch.from_numpy(v))
+        return fit_protocol(model, SPACE3_STEPS)
+
+    counters = {**_counters(), **slab_counters(), "accept_scan": accept_scan}
+    runs = {}
+    for path, fn in (
+            ("space3 sample", lambda: model.posterior.sample__(
+                BATCH, preprocess_func=lambda x, logr: (
+                    xs, model.prior.log_prob(xs)))),
+            ("space3 chain", lambda: model.mcmc.sample_chain(
+                SPACE3_ROUNDS, BATCH, bookkeeping=True)),
+            ("space3 fit", fit)):
+        reset_counts(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        runs[path] = (out, time.perf_counter() - t0, {
+            k: (c.launches, getattr(c, "tiled_launches", 0))
+            for k, c in counters.items()})
+    y, logq, logp = runs["space3 sample"][0]
+    chain, h = runs["space3 chain"][0], model.mcmc.history
+    return dict(
+        rank=dist.get_rank(), slab=(slab.row0, slab.rows),
+        y_shape=tuple(y.shape), logq=logq.cpu().numpy(),
+        logp=logp.cpu().numpy(), loss=list(runs["space3 fit"][0]["loss"]),
+        chain={k: chain[k].cpu().numpy() for k in ("logq", "logp")},
+        raw=[np.asarray(a) for a in (h.raw_logq, h.raw_logp, h.accept_seq)],
+        seconds={k: v[1] for k, v in runs.items()},
+        counts={k: v[2] for k, v in runs.items()})
+
+
+def plain_chain(torch, raw_logq, raw_logp, lrand):
+    """The accept decisions of a fresh chain through the rounds' proposals
+    (``raw_logq``, ``raw_logp``, ``lrand``, each ``(rounds, B)`` float32),
+    by the plain recurrence on the CPU
+    (``mcmc.metropolis.accept_reject``): ``(accept sequences, corrected
+    logq, corrected logp)``."""
+    from normflow__tpu_torch.mcmc.metropolis import accept_reject
+
+    ref = (torch.zeros(1), torch.tensor(math.inf), torch.tensor(0.0))
+    seqs, lqs, lps = [], [], []
+    for lq, lp, lr in zip(raw_logq, raw_logp, lrand):
+        lq, lp, lr = (torch.from_numpy(np.asarray(a)) for a in (lq, lp, lr))
+        y = torch.zeros(len(lq), 1)
+        y, lqn, lpn, accept = accept_reject(y, lq, lp, lr, ref)
+        ref = (y[-1], lqn[-1], lpn[-1])
+        seqs.append(accept.numpy())
+        lqs.append(lqn.numpy())
+        lps.append(lpn.numpy())
+    return np.stack(seqs), np.stack(lqs), np.stack(lps)
+
+
+def run_space3(torch, kernels, card, ref, states, want, nudged):
+    """Phase 21, step 3: the full-width packed flagship with its PSD block
+    over three gloo processes on the one card, ``SPACE3_AXES``: the 32 rows
+    split as XLA splits them, 11 / 11 / 10 (odd heights; the second slab
+    starts at an odd row), held against the unsharded flagship ``ref`` on
+    the card (the perturbed weights ``states[0]``): logq and logp of the
+    fed batch of ``BATCH`` (``LOGQ_REL_TOL``); the chain's proposals
+    (``sample_chain``'s raw streams on fed rounds) against ``ref``'s eager
+    rounds on the same draws (``LOGQ_REL_TOL``), and its accept decisions
+    and corrected streams bit for bit against the plain recurrence on its
+    own proposals (two float32 sums of the same proposal in another order
+    may fall on either side of a uniform, so the unsharded chain's decisions
+    are printed, not held); ``SPACE3_STEPS`` eager steps of the bench
+    protocol from the fresh weights ``states[1]`` against the first steps
+    of the unsharded eager fit ``want`` (its bar from the ulp-nudged fit
+    ``nudged`` over those steps, as in step 2).  Each wrapper's launches
+    per batch, round and step, with the variant each took: the couplings
+    tiled (176 and 160 sites a sample), the slab kernels general."""
+    from normflow__tpu_torch.parallel import free_port
+
+    t0 = time.perf_counter()
+    n = SPACE3_AXES["space"]
+    ranks = run_ranks(space_rank, n, (n, f"tcp://localhost:{free_port()}",
+                                      space3_run, (states, SPACE_SEED)),
+                      SPACE_TIMEOUT)
+    wall = time.perf_counter() - t0
+
+    # the unsharded flagship's eager rounds on the same draws
+    draws = [space3_round(SPACE_SEED, k) for k in range(SPACE3_ROUNDS)]
+    it = iter(draws)
+
+    def _draws(batch_size, generator):
+        x, lrand = (torch.from_numpy(a).cuda() for a in next(it))
+        return x, ref.prior.log_prob(x), lrand
+
+    mcmc, dh = ref.mcmc, ref.device_handler
+    mcmc._ref, mcmc._draws, dh.captures = None, _draws, lambda: False
+    try:
+        mcmc.history.reset_history()
+        want_chain = mcmc.sample_chain(SPACE3_ROUNDS, BATCH, bookkeeping=True)
+        want_raw = [np.asarray(a) for a in (mcmc.history.raw_logq,
+                                            mcmc.history.raw_logp,
+                                            mcmc.history.accept_seq)]
+    finally:
+        del mcmc._draws, dh.captures
+        mcmc._ref = None
+    x = torch.from_numpy(space_draw(SPACE_SEED, -1, (BATCH, *LAT))).cuda()
+    _, logq, logp = ref.posterior.sample__(
+        BATCH, preprocess_func=lambda _x, _l: (x, ref.prior.log_prob(x)))
+    lq, lp = logq.cpu().numpy(), logp.cpu().numpy()
+
+    def rel(a, b):
+        return np.abs(a - b) / np.maximum(1.0, np.abs(b))
+
+    floor = float(rel(nudged[:SPACE3_STEPS], want[:SPACE3_STEPS]).max())
+    bar = max(SPACE_LOSS_TOL, SPACE_FLOOR * floor)
+    lrand = np.stack([d[1] for d in draws])
+    n_layers = len(ref.net_[2].nets)
+    per_unit = {
+        "space3 sample": {"rqs_coupling": n_layers, "phi4_action_slab": 1},
+        "space3 chain": {"rqs_coupling": n_layers, "phi4_action_slab": 1,
+                         "accept_scan": 1},
+        "space3 fit": {"rqs_coupling": 2 * n_layers,
+                       "rqs_coupling_bwd": 2 * n_layers,
+                       "phi4_action_slab": 1, "phi4_action_slab_grad": 1}}
+    units = {"space3 sample": 1, "space3 chain": SPACE3_ROUNDS,
+             "space3 fit": SPACE3_STEPS}
+    # the couplings tiled, the slab kernels general (no tile at 11 or 10
+    # rows), accept_scan has one variant
+    tiled = ("rqs_coupling", "rqs_coupling_bwd")
+    for r in ranks:
+        raw_q, raw_p, seq = r["raw"]
+        rel_q, rel_p = (float(rel(a, b).max()) for a, b in
+                        ((r["logq"], lq), (r["logp"], lp)))
+        raw_rel = max(float(rel(a, b).max()) for a, b in
+                      ((raw_q, want_raw[0]), (raw_p, want_raw[1])))
+        p_seq, p_lq, p_lp = plain_chain(torch, raw_q, raw_p, lrand)
+        plain_same = (np.array_equal(seq, p_seq)
+                      and np.array_equal(r["chain"]["logq"], p_lq)
+                      and np.array_equal(r["chain"]["logp"], p_lp))
+        flips = int((seq != want_raw[2]).sum())
+        loss = np.asarray(r["loss"]) if r["rank"] == 0 \
+            else want[:SPACE3_STEPS]
+        dloss = rel(loss, want[:SPACE3_STEPS])
+        print(f"3 space ranks, rank {r['rank']} (first row, rows "
+              f"{r['slab']}): sample__ {r['y_shape']}; logq max rel "
+              f"{rel_q:.3e}, logp max rel {rel_p:.3e} against the unsharded "
+              f"flagship on the card (tol {LOGQ_REL_TOL}); chain proposals "
+              f"max rel {raw_rel:.3e} against the unsharded rounds (tol "
+              f"{LOGQ_REL_TOL}); accept decisions and corrected streams vs "
+              f"the plain recurrence on its proposals "
+              f"{'bit for bit' if plain_same else 'DIFFER'}; decisions unlike "
+              f"the unsharded chain's: {flips} of {seq.size} (accept "
+              f"{[round(float(a), 5) for a in seq.mean(1)]}, unsharded "
+              f"{[round(float(a), 5) for a in want_raw[2].mean(1)]}); loss of "
+              f"step 1 rel {float(dloss[0]):.3e} (tol {LOGQ_REL_TOL}), over "
+              f"{SPACE3_STEPS} steps max rel {float(dloss.max()):.3e} (tol "
+              f"{bar:.3e})")
+        if not (r["slab"] == SPACE3_ROWS[r["rank"]]
+                and r["y_shape"] == (BATCH, *LAT) and rel_q <= LOGQ_REL_TOL
+                and rel_p <= LOGQ_REL_TOL and raw_rel <= LOGQ_REL_TOL
+                and plain_same and dloss[0] <= LOGQ_REL_TOL
+                and dloss.max() <= bar):
+            raise AssertionError("the flagship over three space ranks "
+                                 "departs from the unsharded one")
+        for path, want_per in per_unit.items():
+            got = {k: v for k, v in r["counts"][path].items() if v[0]}
+            wanted = {k: (v * units[path],
+                          v * units[path] if k in tiled else 0)
+                      for k, v in want_per.items()}
+            print(f"  {path}: launches by wrapper (launches, tiled) {got}, "
+                  f"want {wanted}")
+            if got != wanted:
+                raise AssertionError(f"{path}: wrapper launches {got}, want "
+                                     f"{wanted}")
+    for path, want_per in per_unit.items():
+        for k in want_per:
+            kernels[k].setdefault("launches_by_path", {})[path] = sum(
+                r["counts"][path][k][0] for r in ranks)
+    s = ranks[0]["seconds"]
+    rate = SPACE3_ROUNDS * BATCH / s["space3 chain"]
+    print(f"3 space ranks: {SPACE3_STEPS / s['space3 fit']:.2f} eager steps/s "
+          f"at batch {TRAIN_BATCH}, {rate:.1f} chain proposals/s (gloo "
+          f"through the host: not a speed claim); the processes {wall:.1f} s "
+          f"wall, start-up included, on {card}")
+    del want_chain
+
+
+# --------------------------------------------------------------------- #
+# Phase 25: every training loss over two data ranks on the one card
+# --------------------------------------------------------------------- #
+LOSS_NAMES = ("calc_kl_mean", "calc_kl_var", "calc_corrcoef",
+              "calc_direct_kl_mean", "calc_kl_mean_includelogz",
+              "calc_least_squares", "calc_minus_logz", "calc_minus_ess")
+LOSSES_SEED = 20261025
+# calc_kl_mean's step by the gather route against the route the port took
+# until now (each rank's mean, the loss and gradients averaged over the
+# ranks), in one process under cuDNN's deterministic algorithms: the
+# per-sample cotangents differ by a factor of 2 (exact), so the gradients
+# agree bit for bit; the loss is a float32 mean of 512 values in another
+# order, a few ulps apart.  The bar for both, relative (|dg| / |g| per
+# leaf): FLAT_ROUTE_TOL.
+FLAT_ROUTE_TOL = 1e-6
+# each loss's sharded step against the unsharded float32 step on the card,
+# the loss and each gradient leaf, relative: SHARDED_STEP_TOL.  The two
+# steps take the same global batch through the same kernels, and differ
+# only where the flow's reductions run at batch 256 in place of 512: loss
+# rel 0 and leaves <= 2.036e-05 over the eight losses on an H100 80GB HBM3
+# at 700 W.  The local route of calc_minus_ess (each rank's -ESS of its own
+# samples, averaged) must exceed it
+SHARDED_STEP_TOL = 1e-4
+LOCAL_ROUTES = ("calc_kl_mean", "calc_minus_ess")
+
+
+def losses_run(torch, seed):
+    """One of phase 25's two processes under ``{"data": 2}``: the fresh
+    seeded flagship, this rank's half of the fed global batch of
+    ``TRAIN_BATCH``, one step's loss and gradients for each loss of
+    ``LOSS_NAMES`` as the training step takes them (``Fitter.loss_of``,
+    which gathers logq and logp over the data ranks, ``torch.autograd.
+    grad``, ``ModelDeviceHandler.reduce_step``), then ``calc_kl_mean`` by
+    the flat-mean route, with the launch counters set to 0 before the
+    steps and read after them."""
+    import torch.distributed as dist
+
+    from normflow__tpu_torch.training import losses
+    from normflow__tpu_torch.zoo import build_phi4_model
+
+    torch.set_num_threads(1)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    model = build_phi4_model(LAT, seed=0)
+    dh = model.device_handler
+    dh.use_mesh(axes={"data": 2})
+    dh.replicate_params()
+    half = TRAIN_BATCH // 2
+    x = space_draw(seed, 0, (TRAIN_BATCH, *LAT))
+    x = torch.from_numpy(x[dh.data_rank * half:(dh.data_rank + 1) * half])
+    x = x.cuda()
+    params = list(model.net_.parameters())
+    fit = model.fit
+    fit.grad_estimator = "rep"
+    counters = _counters()
+    reset_counts(counters)
+    out = {}
+    for name in LOSS_NAMES:
+        fit.loss_fn = getattr(losses, name)
+        loss, _, _ = fit.loss_of(x, model.prior.log_prob(x))
+        grads = dh.reduce_step(torch.autograd.grad(loss, params))
+        out[name] = (float(loss.detach()),
+                     [g.double().cpu().numpy() for g in grads])
+    torch.cuda.synchronize()
+    counts = {k: (c.launches, c.tiled_launches) for k, c in counters.items()}
+    # the local route, the port's route until now: each rank's loss of its
+    # own samples, the loss and gradients averaged over the ranks.  It is
+    # calc_kl_mean's flat-mean route, and for calc_minus_ess the control
+    # that the gate on the unsharded step must refuse
+    for name in LOCAL_ROUTES:
+        with dh.sharded():
+            y, logj = model.net_.forward(x)
+            local = getattr(losses, name)(model.prior.log_prob(x) - logj,
+                                          -model.action(y))
+        grads = torch.autograd.grad(local, params)
+        flat = torch.cat([local.detach().reshape(1)]
+                         + [g.reshape(-1) for g in grads])
+        dist.all_reduce(flat)
+        flat = (flat / 2).double().cpu()
+        sizes = [1] + [p.numel() for p in params]
+        out[f"{name} local"] = (float(flat[0]), [
+            g.reshape(p.shape).numpy()
+            for g, p in zip(flat.split(sizes)[1:], params)])
+    return dict(rank=dist.get_rank(), steps=out, counts=counts)
+
+
+def loss_steps(torch, dtype, device):
+    """Each loss of ``LOSS_NAMES``: one step of the fresh seeded flagship
+    on phase 25's whole global batch, unsharded, in ``dtype`` on
+    ``device``: ``{name: (loss, gradients as float64 CPU tensors)}``."""
+    from normflow__tpu_torch.training import losses
+    from normflow__tpu_torch.zoo import build_phi4_model
+
+    x = space_draw(LOSSES_SEED, 0, (TRAIN_BATCH, *LAT))
+    m = build_phi4_model(LAT, seed=0, dtype=dtype, device=device)
+    m.fit.grad_estimator = "rep"
+    params = list(m.net_.parameters())
+    xd = torch.tensor(x, dtype=dtype, device=m.device)
+    _, logq, logp = m.fit.loss_of(xd, m.prior.log_prob(xd))
+    out = {}
+    for name in LOSS_NAMES:
+        loss = getattr(losses, name)(logq, logp)
+        grads = torch.autograd.grad(loss, params, retain_graph=True)
+        out[name] = (float(loss.detach()), [g.double().cpu() for g in grads])
+    return out
+
+
+def run_losses(torch, kernels, card):
+    """Phase 25: every loss of ``training/losses.py`` (``LOSS_NAMES``;
+    ``calc_ess`` is a metric) over two data ranks, two gloo processes on
+    the one card (:func:`losses_run`), one eager step of the full-width
+    flagship at the global batch ``TRAIN_BATCH`` on fed draws each, held
+    against the unsharded eager step on the card on the same global batch
+    with phase 5's float64-anchored bars: the loss within the larger of
+    ``TRAIN_LOSS_TOL`` and ``FLOOR_FACTOR`` times the unsharded step's own
+    distance from a float64 CPU copy, each gradient leaf's ``|dg| / |g|``
+    from float64 within the larger of ``TRAIN_GRAD_TOL`` and
+    ``FLOOR_FACTOR`` times the unsharded step's; both ranks' steps bit for
+    bit alike; ``calc_kl_mean`` within ``FLAT_ROUTE_TOL`` of the flat-mean
+    route; 4 / 4 / 1 / 1 wrapper launches a step of ``rqs_coupling`` /
+    ``rqs_coupling_bwd`` / ``phi4_action`` / ``phi4_action_grad``.
+    Each sharded step is also held against the unsharded step on the card
+    within ``SHARDED_STEP_TOL``, which ``calc_minus_ess``'s local route
+    must exceed.  The float64 CPU copy's :func:`loss_steps` runs in a
+    thread beside the two ranks' processes, which time nothing, and is
+    joined before the phase ends, so it shares the host with no timed
+    window."""
+    from normflow__tpu_torch.parallel import free_port
+
+    t_phase = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        cpu64 = pool.submit(lambda: (loss_steps(torch, torch.float64, "cpu"),
+                                     time.perf_counter() - t_phase))
+        ranks = run_ranks(space_rank, 2,
+                          (2, f"tcp://localhost:{free_port()}", losses_run,
+                           (LOSSES_SEED,)), SPACE_TIMEOUT)
+        wall = time.perf_counter() - t_phase
+        gpu = loss_steps(torch, torch.float32, "cuda")
+        ref, t_copy = cpu64.result()
+    ref = {"cpu64": ref, "gpu": gpu}
+    print(f"phase 25: the ranks' processes ended at {wall:.1f} s, the "
+          f"float64 CPU copy at {t_copy:.1f} s of the phase")
+
+    def rel(step, want):
+        loss = abs(step[0] - want[0]) / max(1.0, abs(want[0]))
+        pairs = [(torch.as_tensor(p), torch.as_tensor(q))
+                 for p, q in zip(step[1], want[1])]
+        return loss, [float((p - q).norm()) / max(float(q.norm()), 1e-30)
+                      for p, q in pairs]
+
+    r0, r1 = (r["steps"] for r in ranks)
+    for name in LOSS_NAMES:
+        u_loss, u_leaves = rel(ref["gpu"][name], ref["cpu64"][name])
+        s_loss, s_leaves = rel(r0[name], ref["cpu64"][name])
+        su_loss, su_leaves = rel(r0[name], ref["gpu"][name])
+        loss_bar = max(TRAIN_LOSS_TOL, FLOOR_FACTOR * u_loss)
+        bars = [max(TRAIN_GRAD_TOL, FLOOR_FACTOR * u) for u in u_leaves]
+        alike = r0[name][0] == r1[name][0] and all(
+            np.array_equal(a, b) for a, b in zip(r0[name][1], r1[name][1]))
+        ok = (s_loss <= loss_bar and alike
+              and all(s <= b for s, b in zip(s_leaves, bars))
+              and max(su_loss, *su_leaves) <= SHARDED_STEP_TOL)
+        print(f"{name} over 2 data ranks: loss {r0[name][0]:.6f} (unsharded "
+              f"{ref['gpu'][name][0]:.6f}, float64 "
+              f"{ref['cpu64'][name][0]:.6f}); vs float64 loss rel "
+              f"{s_loss:.3e} (bar {loss_bar:.3e}), |dg|/|g| per leaf max "
+              f"{max(s_leaves):.3e} (unsharded {max(u_leaves):.3e}, bars "
+              f"{min(bars):.1e}-{max(bars):.1e}); vs the unsharded step loss "
+              f"rel {su_loss:.3e}, leaves max {max(su_leaves):.3e} (tol "
+              f"{SHARDED_STEP_TOL:g}); ranks "
+              f"{'alike bit for bit' if alike else 'DIFFER'}: "
+              f"{'ok' if ok else 'FAILED'}")
+        if not ok:
+            raise AssertionError(f"{name} over two data ranks departs from "
+                                 "the unsharded step")
+    c_loss, c_leaves = rel(r0["calc_minus_ess local"],
+                           ref["gpu"]["calc_minus_ess"])
+    print(f"control: calc_minus_ess by the local route (each rank's -ESS of "
+          f"its own samples, averaged) vs the unsharded step: loss rel "
+          f"{c_loss:.3e}, leaves max {max(c_leaves):.3e} (must exceed "
+          f"{SHARDED_STEP_TOL:g})")
+    if max(c_loss, *c_leaves) <= SHARDED_STEP_TOL:
+        raise AssertionError("the gate on the unsharded step passes "
+                             "calc_minus_ess's local route")
+    flat_loss, flat_leaves = rel(r0["calc_kl_mean local"],
+                                 r0["calc_kl_mean"])
+    same = all(np.array_equal(a, b) for a, b in
+               zip(r0["calc_kl_mean local"][1], r0["calc_kl_mean"][1]))
+    print(f"calc_kl_mean by the gather route vs the flat-mean route: loss "
+          f"rel {flat_loss:.3e}, |dg|/|g| per leaf max {max(flat_leaves):.3e}"
+          f" (tol {FLAT_ROUTE_TOL}); gradients "
+          f"{'bit for bit' if same else 'not bit-identical'}")
+    if not (flat_loss <= FLAT_ROUTE_TOL
+            and max(flat_leaves) <= FLAT_ROUTE_TOL):
+        raise AssertionError("calc_kl_mean's gather route departs from its "
+                             "flat-mean route")
+    n_steps, n_layers = len(LOSS_NAMES), 4
+    want = {"rqs_coupling": (n_layers * n_steps,) * 2,
+            "rqs_coupling_bwd": (n_layers * n_steps,) * 2,
+            "phi4_action": (n_steps, n_steps),
+            "phi4_action_grad": (n_steps, n_steps)}
+    for r in ranks:
+        print(f"  data rank {r['rank']}: {n_steps} steps' wrapper launches "
+              f"(launches, tiled) {r['counts']}, want {want}")
+        if r["counts"] != want:
+            raise AssertionError(f"phase 25's wrapper launches {r['counts']}"
+                                 f", want {want}")
+    for k, v in want.items():
+        kernels[k].setdefault("launches_by_path", {})["losses"] = 2 * v[0]
+    print(f"phase 25: the two ranks' processes {wall:.1f} s wall, start-up "
+          f"included; {time.perf_counter() - t_phase:.1f} s on {card}")
 
 
 # each kernel's device functions, the path's first, as ptxas and the
@@ -3507,12 +4029,12 @@ def gauge_rates_in_turns(torch, card):
                      fit.step() for _ in range(n_steps)]})
 
 
-def in_turns(torch, card, what, unit, n, fns, runs=2, warm=False):
-    """``n / seconds`` of each of ``fns`` in turns, ``2 * runs`` (4) runs
+def in_turns(torch, card, what, unit, n, fns, runs=1, warm=False):
+    """``n / seconds`` of each of ``fns`` in turns, ``2 * runs`` (2) runs
     each, after one untimed run of each (cuDNN's picks, the capture)
     unless ``warm`` (every one has run); prints the medians and returns
-    them.  Four runs a side, not six, keep the smoke inside its time
-    limit on a slow host with phase 23 added."""
+    them.  Two runs a side, not four, keep the smoke inside its time limit
+    on a slow host with phases 23-25 added."""
     for fn in fns.values() if not warm else ():
         fn()
     rates = {k: [] for k in fns}
@@ -5415,6 +5937,8 @@ def main() -> int:
     phase("channels-last route at 1-, 3- and 4-D", run_cl_nd, torch,
           kernels, peaks, card, state4)
     del state4
+    phase("every loss over two data ranks", run_losses, torch, kernels,
+          card)
     print("phase seconds: " + ", ".join(f"{n} {t:.1f}" for n, t in phases))
     print_windows(card)
 

@@ -256,9 +256,9 @@ class MatrixMask:
 class PackedEvenOddMask:
     """Row ``r`` of a packed partition holds the sites ``(r, c)`` with
     ``c = (r + parity) % 2 + 2j``.  2-D, even extents only.  On a slab
-    (``parallel/space.py``) it packs the slab's rows, which start at an
-    even global row when the slab's height is even, as it must be (else
-    ``ValueError``: the JAX package would pad)."""
+    (``parallel/space.py``) it packs the slab's rows, of any height and
+    from any first row: the slab's row ``r`` is the lattice's row ``row0 +
+    r``, whose sites have ``c = (row0 + r + parity) % 2 + 2j``."""
 
     shape: tuple
     parity: int = 0
@@ -270,36 +270,32 @@ class PackedEvenOddMask:
             raise ValueError("packed mask needs even dims")
 
     def _rows(self):
-        """The rows this rank packs: the lattice's, or its slab's."""
+        """``(rows, row0)``: the rows this rank packs and the first one's
+        global row (the lattice's, or its slab's)."""
         slab = space.current()
         if slab is None:
-            return self.shape[0]
-        if slab.rows % 2:
-            raise ValueError(f"a packed checkerboard needs slabs of even "
-                             f"height: {self.shape[0]} rows over "
-                             f"{slab.size} ranks give {slab.rows}")
-        return slab.rows
+            return self.shape[0], 0
+        return slab.rows, slab.row0
 
     def _pack(self, x, parity):
-        b = x.shape[0]
-        l1, l2 = self._rows(), self.shape[1]
-        e = x[:, 0::2, parity::2]
-        o = x[:, 1::2, (1 - parity)::2]
-        return torch.stack([e, o], dim=2).reshape(b, l1, l2 // 2)
+        (l1, row0), l2 = self._rows(), self.shape[1]
+        parity = (parity + row0) % 2  # the parity of the slab's row 0
+        out = x.new_empty((x.shape[0], l1, l2 // 2))
+        out[:, 0::2] = x[:, 0::2, parity::2]
+        out[:, 1::2] = x[:, 1::2, (1 - parity)::2]
+        return out
 
     def _unpack_into(self, out, packed, parity):
-        b = packed.shape[0]
-        l1, l2 = self._rows(), self.shape[1]
-        rows = packed.reshape(b, l1 // 2, 2, l2 // 2)
-        out[:, 0::2, parity::2] = rows[:, :, 0]
-        out[:, 1::2, (1 - parity)::2] = rows[:, :, 1]
+        parity = (parity + self._rows()[1]) % 2
+        out[:, 0::2, parity::2] = packed[:, 0::2]
+        out[:, 1::2, (1 - parity)::2] = packed[:, 1::2]
 
     def split(self, x):
         p = self.parity
         return self._pack(x, p), self._pack(x, 1 - p)
 
     def cat(self, x0, x1):
-        out = torch.empty((x0.shape[0], self._rows(), self.shape[1]),
+        out = torch.empty((x0.shape[0], self._rows()[0], self.shape[1]),
                           dtype=x0.dtype, device=x0.device)
         self._unpack_into(out, x0, self.parity)
         self._unpack_into(out, x1, 1 - self.parity)

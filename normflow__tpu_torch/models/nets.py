@@ -29,11 +29,12 @@ that acts on each ``(b, l0)`` slice alone), in the JAX package's order
 each slice.  On the CPU a float64 conv returns NCHW, which the next layer
 takes as it comes.
 
-Under a space axis (``parallel/space.py``) a conv on a slab reads
-``dilation (k - 1) / 2`` rows of each neighbouring slab along the first
-lattice axis (``space.halo``, whose backward returns their cotangents) in
-place of the periodic wrap, and ``RowParityFeature`` takes the parity of
-the global row.
+Under a space axis (``parallel/space.py``) a conv on a slab reads the
+``dilation (k - 1) / 2`` lattice rows before and after it along the first
+lattice axis from the ranks that hold them (``space.halo``, whose backward
+returns their cotangents) in place of the periodic wrap, on a slab of any
+height, an empty one included, and ``RowParityFeature`` takes the parity
+of the global row.
 
 The conv nets and ``LinearNet`` have ``zeroed()`` (every weight zero),
 ``zeroed_final()`` (the last layer zero: the net outputs zeros, so a
@@ -203,6 +204,16 @@ class CircularConv(nn.Module):
         if slab is not None:
             x = space.halo(x, 2, pad[-2], pad[-1], slab)
             pad[-2:] = [0, 0]
+            if not slab.rows:
+                # an empty slab: a zero row more makes one output row, which
+                # goes, so that the weights and the halo stay in the graph
+                # (every rank runs the halo's backward)
+                x = F.pad(x, [0, 0] * (x.dim() - 3) + [0, 1])
+                return self._conv_padded(x, w, bias, pad).narrow(2, 0, 0)
+        return self._conv_padded(x, w, bias, pad)
+
+    def _conv_padded(self, x, w, bias, pad):
+        d = self.dilation
         if not channels_last(x):
             x = F.pad(x, pad, mode="circular")
             return _CONV[w.dim() - 2](x, w, bias, dilation=d)

@@ -306,9 +306,11 @@ def _local_shape(lat_shape, slab):
 
 
 def _volume(local_shape, slab):
-    """The whole lattice's sites, from the local lattice's shape."""
-    n = math.prod(local_shape)
-    return n if slab is None else n * slab.size
+    """The whole lattice's sites, from the local lattice's shape: on a
+    slab, the lattice's rows times the sites of a row."""
+    if slab is None:
+        return math.prod(local_shape)
+    return slab.length * math.prod(local_shape[1:])
 
 
 def _lattice_mean(x, slab):

@@ -63,11 +63,11 @@ def action_plan(lat):
     ``lat``: float4 groups per sample (one thread each) and samples per
     block; ``None`` where the lattice does not suit the tile (not 2-D, the
     second extent not a multiple of 4, or the groups not a whole number of
-    warps up to 1024)."""
+    warps up to 1024, or none)."""
     if len(lat) != 2 or lat[1] % 4:
         return None
     groups = lat[0] * lat[1] // 4
-    if groups % 32 or groups > 1024:
+    if not groups or groups % 32 or groups > 1024:
         return None
     return groups, max(1, THREADS_PER_BLOCK // groups)
 
@@ -217,14 +217,14 @@ def _back(cfgs, halo, mu):
     before the slab."""
     if mu != 1:
         return torch.roll(cfgs, 1, mu)
-    return torch.cat([halo[:, :1], cfgs[:, :-1]], 1)
+    return torch.cat([halo[:, :1], cfgs[:, :-1]], 1)[:, :cfgs.shape[1]]
 
 
 def _fore(cfgs, halo, mu):
     """``phi_{x + mu}``, along axis 1 from the row after the slab."""
     if mu != 1:
         return torch.roll(cfgs, -1, mu)
-    return torch.cat([cfgs[:, 1:], halo[:, 1:]], 1)
+    return torch.cat([cfgs[:, 1:], halo[:, 1:]], 1)[:, :cfgs.shape[1]]
 
 
 def _check_slab(name, cfgs, halo):

@@ -5,7 +5,8 @@ names.  The JAX package is SPMD: one process drives a mesh over every
 device and XLA inserts the gradient psum into the sharded step.  The port
 runs one process per GPU, as the reference's DDP did: each process holds a
 replica of the model, draws its share of every batch from a generator of
-its own, and the training step sums the gradients over the group with one
+its own, gathers the per-sample log-densities of the whole batch to take
+the global batch's loss, and sums the gradients over the group with one
 explicit all-reduce (``Fitter``).  The group is NCCL for a CUDA model and
 gloo for a CPU one.
 
@@ -35,11 +36,15 @@ The batch axis follows JAX's rule (``normflow__tpu/parallel/mesh.py:
 not ``space``; ``{"space": 8}`` raises.  The space ranks of one data rank
 draw their prior slabs from generators of their own (the rank's
 :func:`fold_seed`) and the Metropolis uniforms, which must agree over the
-slabs of one sample, from one generator per data rank.  The training step
-sums the gradients over ``space`` and averages them over ``data`` in its
-one flat bucket.  A space axis on CUDA tensors captures the step and the
-samplers' rounds in CUDA graphs only over NCCL: a gloo collective cannot
-sit in a graph, so over gloo the bodies run eagerly (``captures``).
+slabs of one sample, from one generator per data rank.  The first lattice
+axis splits as XLA splits it (``space.slab_of``): the last slabs may be
+shorter or empty.  The training step gathers the per-sample log-densities
+of every data rank (:meth:`ModelDeviceHandler.gather_rows`), so that
+every rank computes the loss of the global batch, and sums the gradients
+over the whole group in its one flat bucket.  A space axis on CUDA tensors
+captures the step and the samplers' rounds in CUDA graphs only over NCCL:
+a gloo collective cannot sit in a graph, so over gloo the bodies run
+eagerly (``captures``).
 """
 
 from __future__ import annotations
@@ -205,9 +210,10 @@ class ModelDeviceHandler:
     """Data parallelism of one model over a process group (see the module
     docstring).  Nothing is sharded until :meth:`use_mesh` attaches the
     group; from then on the ``Fitter`` trains on ``batch_size / n_data``
-    draws per rank with the gradients averaged over the data axis (and
-    summed over ``space``), the posterior draws this rank's share, and the
-    production samplers split their proposals or chains over the ranks."""
+    draws per rank, the loss of the gathered global batch and the
+    gradients summed over the group, the posterior draws this rank's
+    share, and the production samplers split their proposals or chains
+    over the ranks."""
 
     def __init__(self, model):
         self._model = model
@@ -361,28 +367,17 @@ class ModelDeviceHandler:
         return self.slab is None or dist.get_backend(self.group) == "nccl"
 
     # -- collectives ---------------------------------------------------- #
-    def all_reduce_mean(self, tensors):
-        """Each tensor of ``tensors`` summed over the group and divided by
-        the data ranks in one flat bucket by one all-reduce (a copy with no
-        group): the mean over the batch axis of the space ranks' sums, the
-        mean over the group with no space axis."""
-        flat = torch.cat([t.reshape(-1) for t in tensors])
+    def reduce_step(self, grads):
+        """A training step's gradients summed over the group in one flat
+        bucket by one all-reduce (a copy with no group): each rank holds
+        its samples' part of the global loss's gradient
+        (:meth:`gather_rows`), and under a space axis its slab's part of
+        that."""
+        flat = torch.cat([g.reshape(-1) for g in grads])
         if self.group is not None:
             dist.all_reduce(flat, group=self.group)
-            flat = flat / self.n_data
-        return [part.view_as(t) for part, t in
-                zip(flat.split([t.numel() for t in tensors]), tensors)]
-
-    def reduce_step(self, loss, grads):
-        """A training step's loss and gradients of the group, in one
-        bucket (:meth:`all_reduce_mean`): the gradients summed over the
-        space axis, where each rank holds its slab's part, and averaged over
-        the data axis; the loss, the same on every space rank, averaged over
-        the data axis."""
-        if self.slab is not None:
-            loss = loss / self.slab.size
-        loss, *grads = self.all_reduce_mean([loss, *grads])
-        return loss, grads
+        return [part.view_as(g) for part, g in
+                zip(flat.split([g.numel() for g in grads]), grads)]
 
     def all_gather_into_tensor(self, x, dim=0):
         """``x`` of every rank of the batch axis concatenated along ``dim``
@@ -397,16 +392,20 @@ class ModelDeviceHandler:
 
     def gather_rows(self, *tensors):
         """Each of ``tensors`` (one dtype, batch axis first) of every rank
-        of the batch axis concatenated along axis 0, by one gather of the
-        rows packed side by side, each returned contiguous; the tensors
-        themselves with no group."""
-        if self.group is None:
+        of the batch axis concatenated along axis 0 in rank order, by one
+        gather of the rows packed side by side, each returned contiguous,
+        differentiably: the backward keeps this rank's rows of the
+        cotangent, which is the gradient where every data rank computes the
+        same loss from the same gathered tensors (the training step sums
+        the ranks' gradients, :meth:`reduce_step`).  The tensors themselves
+        with one data rank."""
+        if self.n_data == 1:
             return tensors
         b = tensors[0].shape[0]
         packed = torch.cat([t.reshape(b, -1) for t in tensors], dim=1)
-        rows = self.all_gather_into_tensor(packed)
+        rows = _GatherRows.apply(packed, self)
         parts = rows.split([t.numel() // b for t in tensors], dim=1)
-        return tuple(p.reshape(-1, *t.shape[1:]).contiguous()
+        return tuple(p.reshape(len(rows), *t.shape[1:]).contiguous()
                      for p, t in zip(parts, tensors))
 
     # -- processes ------------------------------------------------------ #
@@ -450,6 +449,21 @@ class ModelDeviceHandler:
                 f"\n--- rank {r} ---\n{tb}" for r, tb in sorted(
                     failed.items())))
         return [results[r][1] for r in range(nranks)]
+
+
+class _GatherRows(torch.autograd.Function):
+    """``ModelDeviceHandler.all_gather_into_tensor`` of rows ``(b, ...)``,
+    whose backward keeps this rank's rows
+    (:meth:`ModelDeviceHandler.gather_rows`)."""
+
+    @staticmethod
+    def forward(ctx, t, handler):
+        ctx.rows = (handler.data_rank * t.shape[0], t.shape[0])
+        return handler.all_gather_into_tensor(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(0, *ctx.rows), None
 
 
 def _rank_main(fn, rank, nranks, init_method, device, args, kwargs, queue):

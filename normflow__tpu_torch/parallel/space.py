@@ -5,16 +5,20 @@ Under ``use_mesh(axes={"data": n, "space": m})`` the JAX package constrains
 every batch to ``P(data, space, ...)``: the first lattice axis is split into
 ``m`` row slabs and XLA adds the convolution and stencil halos and the sums
 (``normflow__tpu/parallel/mesh.py:143-171``, ``docs/DISTRIBUTED.md``).  The
-port runs one process per (data, space) rank; each holds ``(B / n, L0 / m,
+port runs one process per (data, space) rank; each holds ``(B / n, rows,
 L1, ...)`` and the model's modules call the functions here where a result
-needs more than the slab:
+needs more than the slab.  The rows split as XLA splits them: ``ceil(L0 /
+m)`` a rank, the last ranks shorter or empty (``L0 = 32`` over 3 ranks:
+11, 11, 10; ``L0 = 4`` over 3: 2, 2, 0).
 
 - :class:`Slab` describes this rank's rows: the space group, the space rank
-  and size, the first global row and the number of rows;
-- :func:`halo` pads the slab with its neighbours' rows along the first
-  lattice axis (a convolution's halo), differentiably: its backward sends
-  the halo rows' cotangents back to their owners and adds them into the
-  edge rows;
+  and size, the first global row, the number of rows, the lattice's rows
+  and the rows a rank holds at most;
+- :func:`halo` pads the slab with the rows before and after it along the
+  first lattice axis (a convolution's halo), each from the rank that holds
+  it, however deep the halo and however short the slabs, differentiably:
+  its backward sends the halo rows' cotangents back to their owners and
+  adds them into the rows they came from;
 - :func:`edge_rows` is the same exchange without a backward, the one row
   before and after the slab that the phi^4 action reads (see
   ``models/actions.py``);
@@ -26,8 +30,9 @@ needs more than the slab:
   loss is computed alike from the same totals): its backward is the
   identity;
 - :func:`gather_rows` assembles the whole lattice of each sample on every
-  rank (the FFT flow's layout, ``docs/DISTRIBUTED.md:50-52``); its backward
-  sums the cotangent over the group and keeps the slab's rows;
+  rank (the FFT flow's layout, ``docs/DISTRIBUTED.md:50-52``), each slab
+  sent padded to the longest; its backward sums the cotangent over the
+  group and keeps the slab's rows;
 - :func:`once` counts a per-sample term that every rank computes alike (a
   constant log-Jacobian) on space rank 0 only.
 
@@ -58,25 +63,40 @@ __all__ = ["Slab", "slab_of", "active", "current", "halo", "edge_rows",
 @dataclasses.dataclass(frozen=True)
 class Slab:
     """Rows ``[row0, row0 + rows)`` of a lattice whose first axis has
-    ``rows * size`` rows, held by rank ``rank`` of the space group
-    ``group`` (``size`` ranks, rank ``r`` holding the ``r``-th slab)."""
+    ``length`` rows, held by rank ``rank`` of the space group ``group``
+    (``size`` ranks).  The rows split as XLA splits a sharded axis: ``per
+    = ceil(length / size)`` rows a rank, rank ``r`` holding ``[r per,
+    min((r + 1) per, length))``, so the last ranks hold fewer rows or
+    none."""
 
     group: Any
     rank: int
     size: int
     row0: int
     rows: int
+    length: int
+
+    @property
+    def per(self) -> int:
+        """The rows a rank holds at most, ``ceil(length / size)``."""
+        return -(-self.length // self.size)
+
+    def bounds(self, rank: int) -> tuple[int, int]:
+        """``(row0, rows)`` of rank ``rank``'s slab."""
+        row0 = min(rank * self.per, self.length)
+        return row0, min(self.per, self.length - row0)
+
+    def owner(self, row: int) -> tuple[int, int]:
+        """The rank that holds global row ``row`` (periodic) and the row's
+        index in that rank's slab."""
+        return divmod(row % self.length, self.per)
 
 
 def slab_of(group, rank: int, size: int, global_rows: int) -> Slab:
     """Rank ``rank``'s slab of ``global_rows`` rows split over ``size``
-    ranks.  Raises ``ValueError`` unless the rows divide: the JAX package
-    would pad, the port refuses."""
-    if global_rows % size:
-        raise ValueError(f"{global_rows} lattice rows do not split into "
-                         f"{size} slabs of equal height")
-    rows = global_rows // size
-    return Slab(group, rank, size, rank * rows, rows)
+    ranks as XLA splits them (:class:`Slab`)."""
+    row0, rows = Slab(group, rank, size, 0, 0, global_rows).bounds(rank)
+    return Slab(group, rank, size, row0, rows, global_rows)
 
 
 _current: contextvars.ContextVar = contextvars.ContextVar(
@@ -106,48 +126,80 @@ def _all_gather(t, slab):
     return parts
 
 
-def _exchange(x, dim, lo, hi, slab):
-    """The ``lo`` rows before the slab along ``dim`` (the previous rank's
-    last rows, periodic over the ranks) and the ``hi`` rows after it."""
+def _halo_sources(slab, rank, lo, hi):
+    """Where rank ``rank``'s halo rows come from, in the halo's order (the
+    ``lo`` rows before its slab, then the ``hi`` rows after it): ``(owner,
+    row)`` pairs, ``row`` the index in the owner's slab.  The rows before
+    a slab end where a slab starts, so each is among its owner's last
+    ``lo`` rows; the rows after start where a slab starts, so each is among
+    its owner's first ``hi`` (:func:`_edge_parts` sends those)."""
+    row0, rows = slab.bounds(rank)
+    return [slab.owner(g) for g in range(row0 - lo, row0 + rows + hi)
+            if not row0 <= g < row0 + rows]
+
+
+def _edge_parts(x, dim, lo, hi):
+    """This slab's edge rows for the neighbours' halos, ``hi + lo`` rows
+    along ``dim``: its first ``hi`` rows, then its last ``lo``, zeros
+    standing in where the slab is shorter."""
     n = x.shape[dim]
-    if max(lo, hi) > n:
-        raise ValueError(f"a halo of ({lo}, {hi}) rows over a slab of {n}")
-    parts = _all_gather(torch.cat([x.narrow(dim, 0, hi),
-                                   x.narrow(dim, n - lo, lo)], dim), slab)
-    prev = parts[(slab.rank - 1) % slab.size]
-    nxt = parts[(slab.rank + 1) % slab.size]
-    return prev.narrow(dim, hi, lo), nxt.narrow(dim, 0, hi)
+    first, last = min(hi, n), min(lo, n)
+    parts = [x.narrow(dim, 0, first)]
+    gap = hi + lo - first - last
+    if gap:
+        shape = list(x.shape)
+        shape[dim] = gap
+        parts.append(x.new_zeros(shape))
+    parts.append(x.narrow(dim, n - last, last))
+    return torch.cat(parts, dim)
+
+
+def _exchange(x, dim, lo, hi, slab):
+    """The ``lo`` rows before the slab along ``dim`` and the ``hi`` rows
+    after it (the lattice periodic), each from the rank that holds it, as
+    one tensor of ``lo + hi`` rows."""
+    if max(lo, hi) > slab.length:
+        raise ValueError(f"a halo of ({lo}, {hi}) rows over a lattice of "
+                         f"{slab.length}")
+    edges = torch.cat(_all_gather(_edge_parts(x, dim, lo, hi), slab), dim)
+    rows = []
+    for j, (q, r) in enumerate(_halo_sources(slab, slab.rank, lo, hi)):
+        # the first hi edge rows are the owner's first, the last lo its last
+        i = r if j >= lo else hi + lo - (slab.bounds(q)[1] - r)
+        rows.append(edges.narrow(dim, q * (lo + hi) + i, 1))
+    return torch.cat(rows, dim)
 
 
 class _Halo(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, slab, dim, lo, hi):
         ctx.slab, ctx.dim, ctx.lo, ctx.hi = slab, dim, lo, hi
-        before, after = _exchange(x, dim, lo, hi, slab)
-        return torch.cat([before, x, after], dim)
+        rows = _exchange(x, dim, lo, hi, slab)
+        return torch.cat([rows.narrow(dim, 0, lo), x,
+                          rows.narrow(dim, lo, hi)], dim)
 
     @staticmethod
     def backward(ctx, g):
         slab, dim, lo, hi = ctx.slab, ctx.dim, ctx.lo, ctx.hi
         n = g.shape[dim] - lo - hi
-        # the cotangents of the halo rows go back to the rows they came
-        # from: this rank's last lo rows fed the next rank's rows before,
-        # its first hi rows the previous rank's rows after
+        # every rank's halo cotangents, each added into the row it came
+        # from: a row may feed several halos, or one halo twice
         parts = _all_gather(torch.cat([g.narrow(dim, 0, lo),
                                        g.narrow(dim, lo + n, hi)], dim),
                             slab)
-        from_next = parts[(slab.rank + 1) % slab.size].narrow(dim, 0, lo)
-        from_prev = parts[(slab.rank - 1) % slab.size].narrow(dim, lo, hi)
         gx = g.narrow(dim, lo, n).clone()
-        gx.narrow(dim, 0, hi).add_(from_prev)
-        gx.narrow(dim, n - lo, lo).add_(from_next)
+        for r, part in enumerate(parts):
+            for j, (q, row) in enumerate(_halo_sources(slab, r, lo, hi)):
+                if q == slab.rank:
+                    gx.narrow(dim, row, 1).add_(part.narrow(dim, j, 1))
         return gx, None, None, None, None
 
 
 def halo(x, dim: int, lo: int, hi: int, slab: Slab):
-    """``x`` with ``lo`` rows of the previous slab before it and ``hi`` of
-    the next after it along ``dim`` (the lattice is periodic over the
-    slabs), differentiable in ``x``."""
+    """``x`` with the ``lo`` lattice rows before it and the ``hi`` rows
+    after it along ``dim`` (the lattice periodic), differentiable in
+    ``x``.  Raises ``ValueError`` for a halo deeper than the lattice, as
+    a circular pad does."""
     return _Halo.apply(x, slab, dim, lo, hi)
 
 
@@ -155,8 +207,7 @@ def edge_rows(x, slab: Slab):
     """``(B, 2, *rest)``: the row before and the row after the slab ``x``
     ``(B, rows, *rest)``, detached."""
     with torch.no_grad():
-        before, after = _exchange(x.detach(), 1, 1, 1, slab)
-        return torch.cat([before, after], 1)
+        return _exchange(x.detach(), 1, 1, 1, slab)
 
 
 class _Psum(torch.autograd.Function):
@@ -207,7 +258,13 @@ class _GatherRows(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, slab, dim):
         ctx.slab, ctx.dim = slab, dim
-        return torch.cat(_all_gather(x, slab), dim)
+        if slab.rows < slab.per:  # every rank sends per rows
+            shape = list(x.shape)
+            shape[dim] = slab.per - slab.rows
+            x = torch.cat([x, x.new_zeros(shape)], dim)
+        parts = _all_gather(x, slab)
+        return torch.cat([p.narrow(dim, 0, slab.bounds(q)[1])
+                          for q, p in enumerate(parts)], dim)
 
     @staticmethod
     def backward(ctx, g):

@@ -38,18 +38,22 @@ keyless (exact) ``model.action``.  The keyed action is built once per
 
 Data parallelism (``normflow__tpu/training/fitter.py:229, 319, 400-470``):
 with a process group attached to ``model.device_handler`` every rank
-draws ``batch_size / nranks`` samples from its own generator and, after
-``torch.autograd.grad``, all-reduces the loss and the gradients in one
-flat bucket (sum, then divided by the ranks: the psum XLA puts into the
-JAX step), before the clip, the optimizer and the NaN guard.  The module is
-not wrapped in ``DistributedDataParallel``, whose reducer never sees
-gradients taken with ``torch.autograd.grad``.  Every rank so takes the
-same update and reads the same loss, and the host's decisions (a spike
-rewind, the guard) come out the same on every rank; the all-reduce sits
-inside the captured step.  The loss is the mean of the ranks' losses, the
-global loss only for a batch mean: a fit over more than one rank takes
-``calc_kl_mean`` alone.  Rank 0 alone prints, saves snapshots and keeps the
-history, the metric batch gathered from every rank first.
+draws ``batch_size / nranks`` samples from its own generator, gathers the
+per-sample ``logq`` and ``logp`` of every data rank
+(``ModelDeviceHandler.gather_rows``, whose backward keeps this rank's
+rows of the cotangent) and computes the loss of the global batch, as the
+JAX step computes any loss on the sharded global batch
+(``normflow__tpu/training/losses.py:1-8``).  After ``torch.autograd.grad``
+each rank holds its samples' part of the global loss's gradient, and one
+all-reduce sums the parts in one flat bucket (the psum XLA puts into the
+JAX step), before the clip, the optimizer and the NaN guard.  Every loss
+of ``training/losses.py`` takes this one route.  The module is not
+wrapped in ``DistributedDataParallel``, whose reducer never sees gradients
+taken with ``torch.autograd.grad``.  Every rank so takes the same update
+and computes the same loss, and the host's decisions (a spike rewind, the
+guard) come out the same on every rank; the gather and the all-reduce sit
+inside the captured step.  Rank 0 alone prints, saves snapshots and keeps
+the history, the metric batch gathered from every rank first.
 
 A net with controlled couplings (``models.couplings.CntrCoupling`` with a
 control generator; ``has_controls`` is read once per ``fit``) trains as the
@@ -65,12 +69,11 @@ Under a space axis (``parallel/space.py``) the training body draws this
 rank's slab and runs the loss with the slab current: ``logq`` and ``logp``
 are the space ranks' partial sums turned into totals by one all-reduce
 whose backward is the identity (every space rank computes the same loss
-from the same totals, so its cotangent is the whole one), and the bucket
-sums the gradients over ``space`` and averages them over ``data``
-(``ModelDeviceHandler.reduce_step``).  The loss is exact on every space
-rank, so only a data axis of more than one rank restricts the loss to
-``calc_kl_mean``.  The step is captured only where the group is NCCL
-(``ModelDeviceHandler.captures``); over gloo it runs eagerly.
+from the same totals, so its cotangent is the whole one), gathered over
+the data axis after that, and the bucket sums the gradients over the
+whole group (``ModelDeviceHandler.reduce_step``).  The step is captured
+only where the group is NCCL (``ModelDeviceHandler.captures``); over gloo
+it runs eagerly.
 """
 
 from __future__ import annotations
@@ -169,12 +172,6 @@ class Fitter:
                 stacklevel=2)
         self._keyed = None  # the training action, keyed anew in this call
         dh = self._model.device_handler
-        if (dh.group is not None and dh.n_data > 1
-                and self.loss_fn is not losses.calc_kl_mean):
-            raise ValueError(
-                "a data-parallel fit averages the ranks' losses, which is "
-                "the global loss only for calc_kl_mean; got "
-                f"{getattr(self.loss_fn, '__name__', self.loss_fn)!r}")
 
         # the controls exist, at this rank's batch, before the optimizer
         # state is built and the step captured
@@ -245,7 +242,9 @@ class Fitter:
     # ------------------------------------------------------------------ #
     def loss_of(self, x, logr):
         """``(loss, logq, logp)`` of the prior draw ``x`` with
-        ``logr = log r(x)``, differentiable in the net's parameters.  With
+        ``logr = log r(x)``, differentiable in the net's parameters:
+        ``logq`` and ``logp`` of the global batch (every data rank's,
+        ``ModelDeviceHandler.gather_rows``) and their loss.  With
         ``grad_estimator='path'``, ``log q(y)`` is recomputed through the
         inverse flow with the parameters stopped: the gradient flows only
         along the sample path ``y = f(x)`` (through ``y`` into the inverse
@@ -269,6 +268,7 @@ class Fitter:
                 logq = logr - logj
             logp = -self._training_action()(y)
             logq, logp = space.totals(dh.slab, logq, logp)
+        logq, logp = dh.gather_rows(logq, logp)
         return self.loss_fn(logq, logp), logq, logp
 
     def _training_action(self):
@@ -287,13 +287,13 @@ class Fitter:
         the parameters and every optimizer-state tensor take their new
         values only where the loss and every update are finite, else keep
         their old ones, bit for bit.  Returns the loss and ``logq - logp``
-        (detached)."""
+        of the global batch (detached)."""
         loss, logq, logp = self.loss_of(x, logr)
         grads = torch.autograd.grad(loss, self.params)
         loss = loss.detach()
         dh = self._model.device_handler
-        if dh.group is not None:  # the loss and gradients of the group
-            loss, grads = dh.reduce_step(loss, grads)
+        if dh.group is not None:  # the gradients of the group
+            grads = dh.reduce_step(grads)
         updates, new_state = self.optimizer.update(list(grads),
                                                    self.opt_state,
                                                    self.params)

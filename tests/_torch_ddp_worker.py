@@ -14,7 +14,6 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from normflow__tpu_torch.training import losses
 from normflow__tpu_torch.utils.transplant import (jax_leaf_grads,
                                                   load_jax_leaves)
 from normflow__tpu_torch.zoo import build_phi4_model
@@ -93,18 +92,18 @@ def rewind_run(model, draws, spike, rank=0, n=1):
 
 
 def reduced_grads(model, x):
-    """The all-reduced loss and gradients of this rank's share of ``x``,
-    in the JAX package's leaf order."""
+    """The global batch's loss and the gradients summed over the group
+    from this rank's share of ``x``, as the training step takes them, in
+    the JAX package's leaf order."""
     dh = model.device_handler
     fit = model.fit
     tx = torch.from_numpy(share(x, dh.rank, dh.nranks).copy())
     loss, _, _ = fit.loss_of(tx, model.prior.log_prob(tx))
     params = list(model.net_.parameters())
-    grads = torch.autograd.grad(loss, params)
-    loss, *grads = dh.all_reduce_mean([loss.detach(), *grads])
+    grads = dh.reduce_step(torch.autograd.grad(loss, params))
     for p, g in zip(params, grads):
         p.grad = g
-    return float(loss), jax_leaf_grads(model.net_)
+    return float(loss.detach()), jax_leaf_grads(model.net_)
 
 
 def attached(leaves, perturbed_on_rank0_only=True):
@@ -145,16 +144,13 @@ def run_rank(leaves, fit_draws, spike_draws, chain_rounds, par_rounds):
     out["chain_ref"] = [t.numpy() for t in model.mcmc._ref]
     out["parallel"] = {k: np.asarray(v) for k, v in par.items()}
 
-    # the guard rules, raised on every rank before any collective
+    # the guard rule, raised on every rank before any collective
     model = attached(leaves)
-    for name, kw in (("odd_batch", dict(batch_size=2 * n + 1)),
-                     ("var_loss", dict(batch_size=2 * n,
-                                       loss_fn=losses.calc_kl_var))):
-        try:
-            model.fit(n_epochs=1, **kw, **FIT)
-            out[name] = None
-        except ValueError as e:
-            out[name] = str(e)
+    try:
+        model.fit(n_epochs=1, batch_size=2 * n + 1, **FIT)
+        out["odd_batch"] = None
+    except ValueError as e:
+        out["odd_batch"] = str(e)
     return out
 
 

@@ -81,6 +81,23 @@ def flagship(leaves=None):
 MODELS = dict(packed=packed_model, affine=affine_model, flagship=flagship)
 
 
+class SumGrad(torch.autograd.Function):
+    """The identity, whose backward sums the cotangent over ``group``:
+    each rank's copy of one tensor gets the gradient of all of them (the
+    input of a ``gradcheck`` of a collective, the same on every rank)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
 def share(a, dh, lattice=True):
     """This rank's rows of the global draw ``a`` and, with ``lattice``,
     its slab's lattice rows."""
@@ -131,7 +148,8 @@ def fit_run(model, draws, estimator="rep"):
 def grads_of(model, x, estimator):
     """One step's loss, gradients (JAX leaf order) and per-sample logq and
     logp of the global draw ``x``, reduced over the group as the training
-    step reduces them; logq and logp gathered over the data axis."""
+    step reduces them; the loss and logq and logp are the global batch's
+    on every rank (``Fitter.loss_of`` gathers them over the data axis)."""
     dh = model.device_handler
     fit = model.fit
     fit.grad_estimator = estimator
@@ -141,8 +159,7 @@ def grads_of(model, x, estimator):
     params = list(model.net_.parameters())
     grads = torch.autograd.grad(loss, params)
     if dh.group is not None:
-        loss, grads = dh.reduce_step(loss.detach(), grads)
-        logq, logp = dh.gather_rows(logq.detach(), logp.detach())
+        grads = dh.reduce_step(grads)
     for p, g in zip(params, grads):
         p.grad = g
     return dict(loss=float(loss.detach()), grads=jax_leaf_grads(model.net_),
@@ -290,22 +307,4 @@ def run_rank(job):
         y, logq, logp = model.posterior.sample__(8)
         out["order sample"] = (tuple(y.shape), bool(torch.isfinite(
             logq).all()))
-        out["indivisible"] = _error(lambda: affine_model(lat=(6, 8))
-                                    .device_handler.use_mesh(axes=axes4))
-        odd = packed_model(lat=(12, 8))  # slabs of 3 rows
-        odd.device_handler.use_mesh(axes=axes4)
-        out["odd packed slab"] = _error(lambda: odd.posterior.sample__(4))
     return out
-
-
-axes4 = {"data": 1, "space": 4}
-
-
-def _error(fn):
-    """The message of the ``ValueError`` that ``fn()`` raises (``None`` if
-    it raises none)."""
-    try:
-        fn()
-    except ValueError as e:
-        return str(e)
-    return None

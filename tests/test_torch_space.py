@@ -23,8 +23,9 @@ is held against one rank's run on the whole draws, in float64:
 - the action's one-way halo: the gradient equals the whole lattice's where
   the cotangent is the same on the space ranks, and misses it where it is
   not;
-- the axis-order rule and the ``ValueError`` of an indivisible lattice and
-  of an odd packed slab.
+- the axis-order rule, and the ``ValueError`` of a halo deeper than the
+  lattice and of a packed mask of odd extents (a lattice that does not
+  split evenly shards as XLA shards it: ``tests/test_torch_uneven_slabs.py``).
 
 The slab kernels' plain versions are held against the whole-lattice plain
 action and force on numpy inputs without a group.
@@ -343,19 +344,18 @@ def test_axis_order_rule(job):
         assert r["order sample"] == ((4, *LAT), True)
 
 
-def test_indivisible_lattice_and_odd_packed_slab_raise(job):
-    for r in job["ranks4"]:
-        assert "do not split" in r["indivisible"]
-        assert "even height" in r["odd packed slab"]
-
-
 def test_slab_errors_without_a_group():
-    with pytest.raises(ValueError, match="do not split"):
-        space.slab_of(None, 0, 4, 10)
-    mask = PackedEvenOddMask(shape=(6, 8))
-    with space.active(space.Slab(None, 0, 2, 0, 3)):
-        with pytest.raises(ValueError, match="even height"):
-            mask.split(torch.zeros(2, 3, 8))
+    """What still raises before any collective: a halo deeper than the
+    lattice (a circular pad refuses it too) and a packed mask of odd
+    extents; a slab made current is current only inside its block."""
+    slab = space.slab_of(None, 0, 4, 10)
+    assert (slab.row0, slab.rows, slab.length, slab.per) == (0, 3, 10, 3)
+    with pytest.raises(ValueError, match="halo of"):
+        space.halo(torch.zeros(2, 1, 3, 8), 2, 11, 0, slab)
+    with pytest.raises(ValueError, match="even dims"):
+        PackedEvenOddMask(shape=(5, 8))
+    with space.active(slab):
+        assert space.current() is slab
     assert space.current() is None
 
 
