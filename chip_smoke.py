@@ -217,16 +217,19 @@ use) and imports nothing of JAX.  Phases, each of which raises on failure:
     time goes on both routes, and the channels-last kernels' times with
     the NCHW ones on the same values;
 23. phi^4 on 4-D lattices.  Step 1 (with the kernel checks of phase 2):
-    the action and its force at (1024, 8, 8, 8, 8), (512, 8, 8, 8, 8) and
-    (64, 3, 5, 4, 6) and the slab kernels at (1024, 4, 8, 8, 8) with a
-    halo, on the general kernels, against their plain versions; a 5-D
-    field refused; timed with phase 12.  Step 2 (last, ``run_4d``): the
+    the action and its force on the tiled nd kernels at (1024, 8, 8, 8,
+    8), (512, 8, 8, 8, 8) and (1024, 8, 8, 8) against their plain versions
+    and the general kernels' C entries (the force bit for bit); at (64, 3,
+    5, 4, 6) and the slab kernels at (1024, 4, 8, 8, 8) with a halo, on the
+    general kernels, against their plain versions; a 5-D field refused;
+    with phase 12, the tiled nd kernels named by the profiler and timed in
+    turns with the general ones.  Step 2 (last, ``run_4d``): the
     4-D flagship at 8^4 (``build_phi4_model((8, 8, 8, 8), packed=False)``:
     ConvNet 1->24->24->22 with 3^4 circular kernels by roll-and-sum, the
     PSD block's 4-D FFT) with seeded perturbed weights: logq against a
     float64 CPU copy; ``logqp_stream(LAT4_BATCHES, 1024)`` profiled with its
     counters set to 0 just before (4 ``rqs_coupling``, tiled, and 1
-    ``phi4_action``, general, per batch), a replayed batch bit for bit
+    ``phi4_action``, tiled nd, per batch), a replayed batch bit for bit
     with its eager body and by name, its profile, raw samples/s eager and
     graphed in turns; one graphed chain round of 1024 (4 / 1 / 1
     ``accept_scan``) profiled likewise and bit for bit with its eager
@@ -248,8 +251,8 @@ use) and imports nothing of JAX.  Phases, each of which raises on failure:
     ``with_coupling_backend``: logq against phase 23's float64 logq, every
     conv and conditioner output channels-last (float32 and bf16),
     ``logqp_stream(CL4_BATCHES, 1024)`` profiled with its counters set to
-    0 just before (4 channels-last tiled couplings, no NCHW one, 1 general
-    action per batch), a replayed batch bit for bit under cuDNN's
+    0 just before (4 channels-last tiled couplings, no NCHW one, 1 tiled
+    nd action per batch), a replayed batch bit for bit under cuDNN's
     deterministic algorithms and by name, a graphed chain round by name
     and bit for bit; a fresh route flagship's step against float64,
     ``CL4_STEPS`` deterministic steps profiled likewise (8 / 8 / 1 / 1),
@@ -257,7 +260,8 @@ use) and imports nothing of JAX.  Phases, each of which raises on failure:
     steps/s against the NCHW 8^4 flagship in turns and where a replayed
     batch's and step's time goes; then small route flagships at (64,) and
     (8, 8, 8): logq against float64, layouts, launches by name and
-    wrapper, a replayed batch bit for bit;
+    wrapper (the action general at (64,), tiled nd at (8, 8, 8)), a
+    replayed batch bit for bit;
 25. every training loss over two data ranks (``run_losses``, last): two
     gloo processes on the one card, ``{"data": 2}``, one eager step of the
     fresh full-width flagship at the global batch 512 on fed draws for
@@ -307,12 +311,14 @@ it was written during the forward, and the other conditioners' outputs
 came after it), kernels 3 and 4 warm (their input is the flow output just
 written); ``headline`` in the kernels' record says which.
 
-Phase 23's runs take the general kernels for the action and its force
-(a 4-D lattice has no tile) and the tiled coupling kernels (4096 sites a
-sample): records ``4d sample``, ``4d chain`` and ``4d train`` in
-``launches_by_path``.  Phase 24's route counts the channels-last records
-there: ``4d channels-last sample`` / ``train``, ``1d`` and ``3d
-channels-last sample``.
+Phase 23's runs take the tiled nd kernels for the action and its force
+and the tiled coupling kernels (4096 sites a sample): records ``4d
+sample``, ``4d chain`` and ``4d train`` in ``launches_by_path``, of the
+wrappers' records and of the tiled nd kernels' own, ``phi4_action_tiled_nd``
+and ``phi4_action_grad_tiled_nd``.  Phase 24's route counts the
+channels-last records there: ``4d channels-last sample`` / ``train``,
+``1d`` and ``3d channels-last sample`` (the tiled nd kernels' at 3-D and
+4-D).
 
 Phase 21's sharded runs are eager (a gloo collective cannot sit in a CUDA
 graph) and are counted by the wrappers in each rank's process: 8 / 8 / 1 /
@@ -428,10 +434,11 @@ OBS_SIGMAS = 3.0
 # binned error is U1_COSP_ERR or less (at most U1_MAX_ROUNDS rounds).  After
 # 300 steps the chain accepted 0.05 and stuck for long runs: 196,608
 # configurations left the error at 0.0034; 400 and 600 steps reached 0.002
-# with 64 and 32 rounds (accept 0.075, 0.095; H100 80GB HBM3 runs)
+# with 64 and 32 rounds (accept 0.075, 0.095; H100 80GB HBM3 runs), so the
+# fit takes 600 steps, which keeps the smoke inside its time limit
 U1_LAT = (16, 16)
 U1_STREAM, U1_BATCH = 16, 512
-U1_TRAIN_BATCH, U1_STEPS, U1_PROFILED = 256, 800, 2
+U1_TRAIN_BATCH, U1_STEPS, U1_PROFILED = 256, 600, 2
 U1_CHUNK, U1_MAX_ROUNDS, U1_COSP_ERR = 32, 512, 0.002
 # U(1) flow angles on the card vs float64, modulo 2 pi: at least this, and
 # FLOOR_FACTOR times the float32 CPU copy's own error (the spline of 32
@@ -1438,7 +1445,7 @@ def tiled_want(counter, n, tiled=True):
 
 
 def gate_path(counters, kernels, path, per_unit, n_units, device,
-              tiled=True):
+              tiled=True, nd=False):
     """The main path's run on ``path``: ``n_units`` batches or steps, the
     first of which captures the graph.  ``device`` holds the run's
     launches by profiler name, ``(launches, tiled)`` per kernel: the
@@ -1449,7 +1456,8 @@ def gate_path(counters, kernels, path, per_unit, n_units, device,
     ``launches_by_path``.  Each wrapper must have run ``per_unit`` times
     for each warm-up body and for the capture, every launch tiled (none
     with ``tiled=False``; ``tiled`` may also map each kernel to its
-    flag)."""
+    flag).  ``nd``: a 3-D or 4-D lattice's run, whose phi4 launches are the
+    tiled nd kernels' too (:func:`record_nd`)."""
     from normflow__tpu_torch.utils.graphs import WARMUP
 
     want = {k: tiled_want(counters[k], v * (WARMUP + n_units), tiled[k]
@@ -1471,15 +1479,17 @@ def gate_path(counters, kernels, path, per_unit, n_units, device,
     for k, (n, tiled) in device.items():
         kernels[k].setdefault("launches_by_path", {})[path] = n
         kernels[k].setdefault("tiled_launches_by_path", {})[path] = tiled
+    if nd:
+        record_nd(kernels, path, device)
 
 
 def gate_replays(counters, kernels, path, per_unit, n_units, fn,
-                 tiled=True):
+                 tiled=True, nd=False):
     """``fn()`` replays ``n_units`` batches, steps or rounds: the
     profiler's launches by kernel name must be exactly ``per_unit`` per
     unit, every one tiled where there is a tiled kernel (none with
     ``tiled=False``; ``tiled`` may also map each kernel to its flag), and
-    no wrapper may run."""
+    no wrapper may run; ``nd`` as for :func:`gate_path`."""
     from normflow__tpu_torch.tools.kernel_times import device_launches
 
     want = {k: tiled_want(counters[k], v * n_units, tiled[k] if isinstance(
@@ -1494,6 +1504,8 @@ def gate_replays(counters, kernels, path, per_unit, n_units, fn,
                              f"{want}, all tiled, and no wrapper call")
     for k, v in per_unit.items():
         kernels[k].setdefault("replay_launches_per_unit", {})[path] = v
+    if nd:
+        record_nd(kernels, path, per_unit, "replay_launches_per_unit")
 
 
 def check_train_grads(torch, model, rng, packed=True, backend="xla",
@@ -3879,6 +3891,8 @@ DEVICE_FUNCTIONS = {
                         "rqs_coupling_cl_kernel"),
     "rqs_coupling_bwd_cl": ("rqs_coupling_bwd_cl_tiled_kernel",
                             "rqs_coupling_bwd_cl_kernel"),
+    "phi4_action_tiled_nd": ("phi4_action_tiled_nd_kernel",),
+    "phi4_action_grad_tiled_nd": ("phi4_action_grad_tiled_nd_kernel",),
 }
 FLAGSHIP_INSTANCE = "ILi8ELb1ELb1E"
 
@@ -4568,14 +4582,16 @@ def reset_cl_counts():
             c.cl_launches = 0
 
 
-def gate_cl_path(kernels, path, per_unit, n_units, device, tiled=True):
+def gate_cl_path(kernels, path, per_unit, n_units, device, tiled=True,
+                 nd=False):
     """The channels-last route's run on ``path`` (:func:`gate_path`'s
     rule): by profiler name ``per_unit`` launches per warm-up body and
     replay of each kernel, every one tiled (``tiled`` may map a kernel to
-    ``False``: none tiled, as the 4-D action's), the couplings' all to
+    ``False``: none tiled, as the 1-D action's), the couplings' all to
     their channels-last tiled kernels (no NCHW coupling kernel in
     ``device``); by the wrappers ``per_unit`` per warm-up body and
-    capture, tiled likewise, and every coupling launch channels-last."""
+    capture, tiled likewise, and every coupling launch channels-last;
+    ``nd`` as for :func:`gate_path`."""
     from normflow__tpu_torch.utils.graphs import WARMUP
 
     counters = cl_counters()
@@ -4601,6 +4617,8 @@ def gate_cl_path(kernels, path, per_unit, n_units, device, tiled=True):
     for k, (n, n_tiled) in device.items():
         kernels[k].setdefault("launches_by_path", {})[path] = n
         kernels[k].setdefault("tiled_launches_by_path", {})[path] = n_tiled
+    if nd:
+        record_nd(kernels, path, device)
 
 
 def hold_cl(torch, worst, x, out, cot, kw, tag, tiled=True):
@@ -5100,21 +5118,71 @@ FREE_LAT = (4, 4, 4, 4)
 FREE_ACTION = dict(kappa=1.0, m_sq=1.0, lambd=0.0)
 FREE_STEPS, FREE_ROUNDS = 32, 65
 # the path's variants on 4-D lattices: the coupling and its VJP tiled
-# (4096 sites a sample), the action and its force general (no tile)
+# (4096 sites a sample), the action and its force on the tiled nd kernels
 LAT4_TILED = {"rqs_coupling": True, "rqs_coupling_bwd": True,
-              "phi4_action": False, "phi4_action_grad": False,
+              "phi4_action": True, "phi4_action_grad": True,
               "accept_scan": False}
+# the tiled nd kernels' records by wrapper: on a 3-D or 4-D lattice every
+# tiled launch of kernel 3 or 4 is theirs (the 2-D tile takes 2-D only)
+ND_RECORDS = {"phi4_action": "phi4_action_tiled_nd",
+              "phi4_action_grad": "phi4_action_grad_tiled_nd"}
+# the shapes at which phase 23 holds and times them, the wrapper of each
+# (the 8^4 flagship's batch and chain round, its step, and the (8, 8, 8)
+# route flagship's lattice)
+ND_CASES = (("phi4_action", (BATCH, *LAT4)),
+            ("phi4_action_grad", (TRAIN_BATCH, *LAT4)),
+            ("phi4_action", (TRAIN_BATCH, *LAT4)),
+            ("phi4_action_grad", (BATCH, *LAT4)),
+            ("phi4_action", (BATCH, 8, 8, 8)),
+            ("phi4_action_grad", (BATCH, 8, 8, 8)))
+
+
+def record_nd(kernels, path, counts, what="launches_by_path"):
+    """Keep the phi4 wrappers' ``counts`` on ``path``, a run on a 3-D or
+    4-D lattice whose every launch of kernels 3 and 4 the caller's gate
+    held tiled, under the tiled nd kernels' records (``what``)."""
+    for k, nd in ND_RECORDS.items():
+        if k in counts:
+            n = counts[k]
+            kernels[nd][what][path] = n[0] if isinstance(n, tuple) else n
+
+
+def general_phi4(torch, cfgs, w, g=None):
+    """The general kernels' action of ``cfgs`` (given ``g``, its force)
+    through their C entries, ``phi4_action_f32`` and
+    ``phi4_action_grad_f32``: no wrapper counts it."""
+    from normflow__tpu_torch.ops.kernels import _lib
+
+    lib = _lib.library()
+    lat = list(cfgs.shape[1:]) + [1] * (5 - cfgs.dim())
+    stream = torch.cuda.current_stream().cuda_stream
+    if g is None:
+        out = torch.empty(cfgs.shape[0], device=cfgs.device)
+        err = lib.phi4_action_f32(cfgs.data_ptr(), out.data_ptr(),
+                                  cfgs.shape[0], cfgs.dim() - 1, *lat, *w,
+                                  stream)
+    else:
+        out = torch.empty_like(cfgs)
+        err = lib.phi4_action_grad_f32(cfgs.data_ptr(), g.data_ptr(),
+                                       out.data_ptr(), cfgs.shape[0],
+                                       cfgs.dim() - 1, *lat, *w, stream)
+    _lib.check(err, "the general phi4 entry")
+    return out
 
 
 def check_phi4_4d(torch, kernels, peaks):
     """Phase 23, step 1 (with the kernel checks of phase 2): phi4_action
-    and phi4_action_grad at (1024, 8, 8, 8, 8), (512, 8, 8, 8, 8) and an
-    odd (64, 3, 5, 4, 6), and the slab kernels on the first of two slabs
-    of the (1024, 8, 8, 8, 8) field, (1024, 4, 8, 8, 8), with its halo
-    (1024, 2, 8, 8, 8), each against its plain version with the general
-    kernels' tolerances (``PHI4_REL_TOL``, ``FORCE_*``), every launch to
-    the general kernel; a 5-D field refused.  Returns the function that
-    times them."""
+    and phi4_action_grad on the tiled nd kernels at ``ND_CASES``' shapes,
+    (1024, 8, 8, 8, 8), (512, 8, 8, 8, 8) and (1024, 8, 8, 8), against
+    their plain versions (``PHI4_REL_TOL``, ``FORCE_*``) and against the
+    general kernels through their C entries (the action within
+    ``PHI4_REL_TOL``, the force bit for bit), each launch tiled;
+    at an odd (64, 3, 5, 4, 6), and the slab kernels on the first of two
+    slabs of the (1024, 8, 8, 8, 8) field, (1024, 4, 8, 8, 8), with its
+    halo (1024, 2, 8, 8, 8), on the general kernels against their plain
+    versions; a 5-D field refused.  Returns the function that names the
+    tiled nd kernels' launches by profiler and times them, warm and cold,
+    in turns with the general ones."""
     from normflow__tpu_torch.models.actions import ScalarPhi4Action
     from normflow__tpu_torch.ops.kernels import phi4
 
@@ -5127,16 +5195,31 @@ def check_phi4_4d(torch, kernels, peaks):
     w = ScalarPhi4Action(kappa=0.6, m_sq=-2.4, lambd=0.5).get_coef(4)
     field, g = f32((BATCH, *LAT4)), f32(BATCH)
     odd, godd = f32((64, 3, 5, 4, 6)), f32(64)
-    cases = []  # (kernel, shape, wrapper call, plain call)
-    for c, gg in ((field, g), (field[:TRAIN_BATCH], g[:TRAIN_BATCH]),
-                  (odd, godd)):
-        cases += [("phi4_action", tuple(c.shape),
-                   lambda c=c: phi4.phi4_action(c, *w),
-                   lambda c=c: phi4.phi4_action_plain(c, *w)),
-                  ("phi4_action_grad", tuple(c.shape),
-                   lambda c=c, gg=gg: phi4.phi4_action_grad(c, gg, *w),
-                   lambda c=c, gg=gg: phi4.phi4_action_grad_plain(c, gg,
-                                                                  *w))]
+    field3 = f32((BATCH, 8, 8, 8))
+    w3 = ScalarPhi4Action(kappa=0.6, m_sq=-2.4, lambd=0.5).get_coef(3)
+    nd_cases = []  # (kernel, shape, wrapper call, plain call, general call)
+    for name, shape in ND_CASES:
+        c = (field if len(shape) == 5 else field3)[:shape[0]]
+        gg, ww = g[:shape[0]], (w if len(shape) == 5 else w3)
+        if name == "phi4_action":
+            nd_cases.append((name, shape,
+                             lambda c=c, ww=ww: phi4.phi4_action(c, *ww),
+                             lambda c=c, ww=ww: phi4.phi4_action_plain(c,
+                                                                       *ww),
+                             lambda c=c, ww=ww: general_phi4(torch, c, ww)))
+        else:
+            nd_cases.append((
+                name, shape,
+                lambda c=c, gg=gg, ww=ww: phi4.phi4_action_grad(c, gg, *ww),
+                lambda c=c, gg=gg, ww=ww: phi4.phi4_action_grad_plain(
+                    c, gg, *ww),
+                lambda c=c, gg=gg, ww=ww: general_phi4(torch, c, ww, gg)))
+    cases = [("phi4_action", (64, 3, 5, 4, 6),
+              lambda: phi4.phi4_action(odd, *w),
+              lambda: phi4.phi4_action_plain(odd, *w)),
+             ("phi4_action_grad", (64, 3, 5, 4, 6),
+              lambda: phi4.phi4_action_grad(odd, godd, *w),
+              lambda: phi4.phi4_action_grad_plain(odd, godd, *w))]
     slab, halo = split_slabs(torch, field)[0]
     cases += [("phi4_action_slab", tuple(slab.shape),
                lambda: phi4.phi4_action_slab(slab, halo, *w),
@@ -5144,35 +5227,71 @@ def check_phi4_4d(torch, kernels, peaks):
               ("phi4_action_slab_grad", tuple(slab.shape),
                lambda: phi4.phi4_action_slab_grad(slab, halo, g, *w),
                lambda: phi4.phi4_action_slab_grad_plain(slab, halo, g, *w))]
+    for name, nd in ND_RECORDS.items():
+        kernels[nd] = dict(
+            name=nd, route="cuda",
+            source="normflow__tpu_torch/csrc/phi4_action.cu",
+            replaces=kernels[name]["replaces"], max_abs_err=0.0,
+            library_ms=None, launches_by_path={},
+            replay_launches_per_unit={})
     counters = {**{k: c for k, c in _counters().items()
                    if k in ("phi4_action", "phi4_action_grad")},
                 **slab_counters()}
-    reset_counts(counters)
-    for name, shape, fn, plain in cases:
-        got, want = fn(), plain()
-        torch.cuda.synchronize()
-        d = (got - want).abs()
+
+    def hold(name, shape, got, want, what):
+        d = (got.double() - want.double()).abs()
         if name in ("phi4_action", "phi4_action_slab"):
-            rel = float((d / want.abs().clamp(min=1.0)).max())
+            rel = float((d / want.double().abs().clamp(min=1.0)).max())
             ok, bar = rel <= PHI4_REL_TOL, (f"max rel {rel:.3e} (tol "
                                             f"{PHI4_REL_TOL})")
         else:
             ok = bool((d <= FORCE_ATOL + FORCE_RTOL * want.abs()).all())
             bar = (f"max abs {float(d.max()):.3e} (rtol {FORCE_RTOL}, atol "
                    f"{FORCE_ATOL})")
-        print(f"{name} at {shape}, general kernel: {bar} "
-              f"{'ok' if ok else 'FAILED'}")
+        print(f"{name} at {shape}, {what}: {bar} {'ok' if ok else 'FAILED'}")
         if not ok:
             raise AssertionError(f"{name} disagrees with its plain version "
                                  f"at {shape}")
-        kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"],
-                                           float(d.max()))
+        return float(d.max())
+
+    reset_counts(counters)
+    for name, shape, fn, plain, general in nd_cases:
+        if phi4.action_variant(shape[1:], 1 << 20) != "tiled_nd":
+            raise AssertionError(f"{shape} does not take the tiled nd "
+                                 "kernels")
+        got, want, gen = fn(), plain(), general()
+        torch.cuda.synchronize()
+        err = hold(name, shape, got, want, "tiled nd kernel vs plain")
+        nd = ND_RECORDS[name]
+        kernels[nd]["max_abs_err"] = max(kernels[nd]["max_abs_err"], err)
+        if name == "phi4_action":
+            hold(name, shape, got, gen, "tiled nd vs general kernel")
+        else:
+            same = same_bits(torch, (got,), (gen,))
+            print(f"{name} at {shape}: tiled nd vs general kernel "
+                  f"{'bit for bit' if same else 'NOT bit-identical'}")
+            if not same:
+                raise AssertionError("the tiled nd force departs from the "
+                                     f"general force at {shape}")
+    tiled = {k: (c.launches, c.tiled_launches) for k, c in counters.items()}
+    print(f"tiled nd checks: wrapper (launches, tiled) {tiled}")
+    if tiled != {"phi4_action": (3, 3), "phi4_action_grad": (3, 3),
+                 "phi4_action_slab": (0, 0),
+                 "phi4_action_slab_grad": (0, 0)}:
+        raise AssertionError("a tiled nd check missed its kernel")
+
+    reset_counts(counters)
+    for name, shape, fn, plain in cases:
+        got, want = fn(), plain()
+        torch.cuda.synchronize()
+        err = hold(name, shape, got, want, "general kernel")
+        kernels[name]["max_abs_err"] = max(kernels[name]["max_abs_err"], err)
     launches = {k: c.launches for k, c in counters.items()}
-    print(f"4-D checks: wrapper launches {launches}")
-    if launches != {"phi4_action": 3, "phi4_action_grad": 3,
+    print(f"4-D general checks: wrapper launches {launches}")
+    if launches != {"phi4_action": 1, "phi4_action_grad": 1,
                     "phi4_action_slab": 1, "phi4_action_slab_grad": 1}:
         raise AssertionError("a 4-D check missed its kernel")
-    check_tiled(counters, "4-D checks", tiled=False)
+    check_tiled(counters, "4-D general checks", tiled=False)
     try:
         phi4.phi4_action(torch.zeros((2, 2, 2, 2, 2, 2), device="cuda"),
                          *w)
@@ -5182,7 +5301,45 @@ def check_phi4_4d(torch, kernels, peaks):
         raise AssertionError("phi4_action took a 5-D field")
 
     def time_it():
-        """Each case's kernel, general, read warm, under ``variants``."""
+        """First, by profiler name (no profiler runs before the rates in
+        turns), one launch of each tiled nd kernel at the 8^4 batch and
+        step.  Then the tiled nd kernels at ``ND_CASES``' shapes, warm and
+        cold, in turns with the general kernels on the same tensors
+        (general, tiled nd, tiled nd, general): the record's times, read
+        warm, at the 8^4 batch's action and step's force, the rest under
+        ``variants``, the general kernels' beside them
+        (``general_in_turns``); the odd shape and the slab kernels,
+        general, read warm, under ``variants``."""
+        from normflow__tpu_torch.tools.kernel_times import cold_ms, warm_ms
+
+        dev = device_profile(lambda: (nd_cases[0][2](), nd_cases[1][2]()),
+                             1)[1]
+        names = [n for n, _ in dev if "phi4_action" in n]
+        print(f"the 8^4 batch's action and step's force, by profiler name: "
+              f"{names}")
+        if len(names) != 2 or not re.search(
+                r"\bphi4_action_tiled_nd_kernel\b", names[0]) or not \
+                re.search(r"\bphi4_action_grad_tiled_nd_kernel\b", names[1]):
+            raise AssertionError("the 8^4 shapes did not launch the tiled nd "
+                                 "kernels")
+        for name, shape, fn, plain, general in nd_cases:
+            nd = ND_RECORDS[name]
+            gen = [dict(ms=warm_ms(general), ms_cold=cold_ms(general))]
+            t = kernel_times(name, fn, plain, plain_reps=5)
+            again = dict(ms=warm_ms(fn), ms_cold=cold_ms(fn))
+            gen.append(dict(ms=warm_ms(general), ms_cold=cold_ms(general)))
+            print(f"{nd} at {shape} in turns with the general kernel: "
+                  f"general {gen[0]['ms']:.5f} / {gen[0]['ms_cold']:.5f}, "
+                  f"tiled nd {t['ms']:.5f} / {t['ms_cold']:.5f}, "
+                  f"{again['ms']:.5f} / {again['ms_cold']:.5f}, general "
+                  f"{gen[1]['ms']:.5f} / {gen[1]['ms_cold']:.5f} ms (warm / "
+                  f"cold)")
+            kernels[nd].setdefault("general_in_turns", {})[str(shape)] = gen
+            if (name, shape) in ND_CASES[:2]:
+                report(nd, t, shape, peaks, kernels, "warm")
+            else:
+                record_variant(nd, f"{shape} tiled nd", t, shape, peaks,
+                               kernels)
         for name, shape, fn, plain in cases:
             record_variant(name, f"{shape} general (4-D)",
                            kernel_times(name, fn, plain, plain_reps=5),
@@ -5269,7 +5426,7 @@ def run_4d(torch, kernels, card):
         lambda: model.posterior.logqp_stream(LAT4_BATCHES, BATCH))
     seconds = time.perf_counter() - t0
     gate_path(counters, kernels, "4d sample", per_batch, LAT4_BATCHES,
-              device, LAT4_TILED)
+              device, LAT4_TILED, nd=True)
     if logqp.shape != (LAT4_BATCHES * BATCH,) or not bool(
             torch.isfinite(logqp).all()):
         raise AssertionError("the 4-D logqp stream is not finite or has "
@@ -5290,7 +5447,8 @@ def run_4d(torch, kernels, card):
         raise AssertionError("a 4-D replayed batch differs from its eager "
                              "body")
     gate_replays(counters, kernels, "4d sample", per_batch, 1,
-                 lambda: post.logqp_stream(1, BATCH), tiled=LAT4_TILED)
+                 lambda: post.logqp_stream(1, BATCH), tiled=LAT4_TILED,
+                 nd=True)
     profile_step(lambda: post.logqp_stream(1, BATCH),
                  f"one replayed 4-D sampled batch of {BATCH}")
     in_turns(torch, card, f"4-D flagship {LAT4} sampling, "
@@ -5308,7 +5466,7 @@ def run_4d(torch, kernels, card):
     reset_counts(counters)
     device, out = device_launches(lambda: mcmc.sample_chain(1, BATCH))
     gate_path(counters, kernels, "4d chain", per_round, 1, device,
-              LAT4_TILED)
+              LAT4_TILED, nd=True)
     if out["logq"].shape != (1, BATCH) or not bool(
             torch.isfinite(out["logq"]).all()):
         raise AssertionError("the 4-D chain's output is not finite or has "
@@ -5374,7 +5532,7 @@ def train_4d(torch, kernels, trained, counters, per_step, card):
         trained, LAT4_STEPS, lr=LAT4_LR, decay_steps=LAT4_STEPS))
     seconds = time.perf_counter() - t0
     gate_path(counters, kernels, "4d train", per_step, LAT4_STEPS, device,
-              LAT4_TILED)
+              LAT4_TILED, nd=True)
     loss = np.asarray(hist["loss"])
     print(f"4-D model.fit: {LAT4_STEPS} steps at batch {TRAIN_BATCH}, lr "
           f"{LAT4_LR}, in {seconds:.2f} s (capture included, profiled) on "
@@ -5383,7 +5541,7 @@ def train_4d(torch, kernels, trained, counters, per_step, card):
         raise AssertionError("the 4-D training loss is not finite")
     fit = trained.fit
     gate_replays(counters, kernels, "4d train", per_step, 1, fit.step,
-                 tiled=LAT4_TILED)
+                 tiled=LAT4_TILED, nd=True)
     profile_step(fit.step, f"one replayed 4-D training step at batch "
                  f"{TRAIN_BATCH}", reps=1)
     replayed_vs_eager_steps(torch, trained, "4-D: ", n=1, captured=True)
@@ -5441,10 +5599,13 @@ CL_ND_LATS = ((64,), (8, 8, 8))  # the small flagships, sampled at
 CL_ND_BATCH = 256                # batches of CL_ND_BATCH
 CL_ND_LOGQ_DRAWS = 16            # draws of their logq check against float64
 # the route's variants off 2-D: the couplings channels-last and tiled, the
-# action, its force and accept_scan general (no tile)
+# action and its force on the tiled nd kernels at 3-D and 4-D and general
+# at 1-D (no tile), accept_scan general
 CL_ND_TILED = {"rqs_coupling_cl": True, "rqs_coupling_bwd_cl": True,
-               "phi4_action": False, "phi4_action_grad": False,
+               "phi4_action": True, "phi4_action_grad": True,
                "accept_scan": False}
+CL_1D_TILED = {**CL_ND_TILED, "phi4_action": False,
+               "phi4_action_grad": False}
 
 
 def check_cl_kernels_4d(torch, kernels, peaks, rng):
@@ -5558,8 +5719,9 @@ def run_cl_small(torch, kernels, card, lat, rng):
     float64 CPU copy (``LOGQ_REL_TOL``); every conv and conditioner output
     channels-last, in float32 and through bf16 conditioners; one
     ``logqp_stream(1, CL_ND_BATCH)`` profiled with the counters set to 0
-    just before (4 channels-last tiled couplings and 1 general action a
-    batch); a replayed batch bit for bit with its eager body."""
+    just before (4 channels-last tiled couplings and 1 action a batch:
+    general at 1-D, the tiled nd kernel at 3-D); a replayed batch bit for
+    bit with its eager body."""
     from normflow__tpu_torch.tools.kernel_times import (device_launches,
                                                          perturb_)
     from normflow__tpu_torch.zoo import (build_phi4_model,
@@ -5594,7 +5756,9 @@ def run_cl_small(torch, kernels, card, lat, rng):
     reset_cl_counts()
     device, logqp = device_launches(
         lambda: model.posterior.logqp_stream(1, CL_ND_BATCH))
-    gate_cl_path(kernels, path, per_batch, 1, device, CL_ND_TILED)
+    gate_cl_path(kernels, path, per_batch, 1, device,
+                 CL_1D_TILED if len(lat) == 1 else CL_ND_TILED,
+                 nd=len(lat) > 2)
     if logqp.shape != (CL_ND_BATCH,) or not bool(
             torch.isfinite(logqp).all()):
         raise AssertionError(f"{path}: logqp not finite or wrong shape")
@@ -5665,7 +5829,7 @@ def run_cl_nd(torch, kernels, peaks, card, state):
     device, logqp = device_launches(
         lambda: model.posterior.logqp_stream(CL4_BATCHES, BATCH))
     gate_cl_path(kernels, "4d channels-last sample", per_batch, CL4_BATCHES,
-                 device, CL_ND_TILED)
+                 device, CL_ND_TILED, nd=True)
     if logqp.shape != (CL4_BATCHES * BATCH,) or not bool(
             torch.isfinite(logqp).all()):
         raise AssertionError("the 8^4 route's logqp stream is not finite or "
@@ -5674,7 +5838,7 @@ def run_cl_nd(torch, kernels, peaks, card, state):
     replay_matches_eager(torch, model, BATCH, "4-D route")
     gate_replays(cl_counters(), kernels, "4d channels-last sample",
                  per_batch, 1, lambda: post.logqp_stream(1, BATCH),
-                 tiled=CL_ND_TILED)
+                 tiled=CL_ND_TILED, nd=True)
     mark("sampling")
 
     mcmc, gen = model.mcmc, model.generator
@@ -5682,7 +5846,8 @@ def run_cl_nd(torch, kernels, peaks, card, state):
     mcmc.sample_chain(1, BATCH)  # captured outside the profiled window
     gate_replays({**cl_counters(), "accept_scan": accept_scan}, kernels,
                  "4d channels-last chain", per_round, 1,
-                 lambda: mcmc.sample_chain(1, BATCH), tiled=CL_ND_TILED)
+                 lambda: mcmc.sample_chain(1, BATCH), tiled=CL_ND_TILED,
+                 nd=True)
     mcmc.reset()
     model.seed(31)
     got = mcmc.sample_chain(1, BATCH, collect_samples=True)
@@ -5732,7 +5897,7 @@ def run_cl_nd(torch, kernels, peaks, card, state):
         device, hist = device_launches(lambda: fit_protocol(
             trained, CL4_STEPS, lr=LAT4_LR, decay_steps=CL4_STEPS))
         gate_cl_path(kernels, "4d channels-last train", per_step,
-                     CL4_STEPS, device, CL_ND_TILED)
+                     CL4_STEPS, device, CL_ND_TILED, nd=True)
         loss = np.asarray(hist["loss"])
         print(f"8^4 route model.fit: {CL4_STEPS} steps at batch "
               f"{TRAIN_BATCH}, lr {LAT4_LR}; loss "
@@ -5742,7 +5907,7 @@ def run_cl_nd(torch, kernels, peaks, card, state):
                                  "finite")
         fit = trained.fit
         gate_replays(cl_counters(), kernels, "4d channels-last train",
-                     per_step, 1, fit.step, tiled=CL_ND_TILED)
+                     per_step, 1, fit.step, tiled=CL_ND_TILED, nd=True)
         replayed_vs_eager_steps(torch, trained, "4-D channels-last: ", n=1,
                                 captured=True)
     finally:
@@ -5959,8 +6124,8 @@ def main() -> int:
             "replay_launches_per_unit")
     print(json.dumps({"kernels": [
         {**{k: rec[k] for k in keys},
-         **{k: rec[k] for k in ("variants", "tiled_launches_by_path")
-            if k in rec}}
+         **{k: rec[k] for k in ("variants", "tiled_launches_by_path",
+                                "general_in_turns") if k in rec}}
         for rec in kernels.values()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -12,19 +12,26 @@
 //
 // What bounds it on an H100: memory, and at the flagship's size latency.
 // It reads each field value once (4 MB at (1024, 32, 32), about 1.25 us at
-// 3.35 TB/s) and writes 4 B per sample, with ~10 operations per site.  Two
-// variants, chosen by the wrapper by shape and alignment:
-// - the tiled kernel (phi4_action_tiled_f32, the flagship's) for 2-D
+// 3.35 TB/s) and writes 4 B per sample, with ~10 operations per site.
+// Three variants, chosen by the wrapper by shape and alignment:
+// - the tiled kernel (phi4_action_tiled_f32, the 2-D flagship's) for 2-D
 //   lattices whose rows split into float4s: one 16-byte load per thread
 //   into shared memory, the neighbours from there and from the thread's own
 //   registers, no division per site (notes at the kernel);
+// - the tiled nd kernel (phi4_action_tiled_nd_f32, the 8^4 flagship's) for
+//   3-D and 4-D lattices whose last axis splits into float4s and whose
+//   sample is a whole number of warps of float4s up to 1024: the 2-D
+//   tile's scheme with more axes, persistent blocks over samples, each
+//   sample bulk-loaded whole into a ring in shared memory while the block
+//   computes the one before (8^4: 16.8 MB at B = 1024, about 5 us at
+//   3.35 TB/s; notes at the kernel);
 // - the general kernel (phi4_action_f32) for every other lattice of 1-4
 //   dims: one block per sample, threads stride over its sites, the
-//   neighbour's index from a division and a modulo per dimension.  At
-//   4-D it is the whole path's action (8^4: 16.8 MB at B = 1024, about
-//   5 us at 3.35 TB/s); a field of fewer dims passes its missing trailing
-//   extents as 1 and runs the loop over its own dims only, so it gives
-//   the bits it gave before the fourth extent was added.
+//   neighbour's index from a division and a modulo per dimension (issue-
+//   bound on that arithmetic: 0.11 of the byte bound at (1024, 8^4)); a
+//   field of fewer dims passes its missing trailing extents as 1 and runs
+//   the loop over its own dims only, so it gives the bits it gave before
+//   the fourth extent was added.
 // Both sum per thread, then across the warp with shuffles, then across
 // warps in shared memory, and write once per sample: a fixed order with no
 // atomics, so the result is deterministic.
@@ -36,13 +43,16 @@
 // (4.2 MB at (512, 32, 32), about 1.25 us at 3.35 TB/s).  Two variants,
 // chosen by the wrapper by the action's rule, applied to the field and the
 // force:
-// - the tiled kernel (phi4_action_grad_tiled_f32, the flagship's): the
+// - the tiled kernel (phi4_action_grad_tiled_f32, the 2-D flagship's): the
 //   tiled action's blocks and float4 staging, each thread's four forces
 //   leaving as one 16-byte store, no division per site;
+// - the tiled nd kernel (phi4_action_grad_tiled_nd_f32, the 8^4
+//   flagship's): the tiled nd action's blocks and ring, g[b] read once a
+//   sample, each thread's four forces one 16-byte store;
 // - the general kernel (phi4_action_grad_f32): one thread per (sample,
 //   site), reads and writes coalesced, the neighbours' indices from a
 //   division and a modulo per dimension.
-// The two sum each site's neighbours in the same order and return the
+// The three sum each site's neighbours in the same order and return the
 // same bits.
 //
 // The slab variants (phi4_action_slab_f32, phi4_action_slab_tiled_f32,
@@ -393,6 +403,331 @@ phi4_action_grad_slab_tiled_kernel(const float* __restrict__ cfgs,
   grad_tiled<true>(cfgs, halo, g, grad, B, L0, L1, w0, w2, w4);
 }
 
+// The tiled action and force on 3-D and 4-D lattices (ND lattice dims),
+// whose last extent is a multiple of 4 and whose G = V / 4 float4 groups a
+// sample are a whole number of warps, at most kNdMaxGroups.  A block of T
+// threads takes a sample at a time, persistent over samples (block k takes
+// samples k, k + gridDim.x, ...); a ring of kNdStages stages in dynamic
+// shared memory holds whole samples: warp 0 bulk-loads the next samples
+// into the free stages (one mbarrier each) while the block computes the
+// current one.
+//
+// T is the smallest multiple of axis 0's float4 stride s0 = G / L0 that is
+// a whole number of warps, divides G and holds at least kNdThreads threads
+// (or G): thread t takes the groups t, t + T, ..., G / T of them, which
+// share every coordinate but the first, j = T / s0 apart.  So each thread
+// works out its first group's coordinates once, before the loop: the group
+// g = ((c0 L1 + c1) L2 + c2) q + cq at 4-D (q = L_{ND-1} / 4 groups a row
+// of the last axis), and from them the offsets of its neighbour groups
+// along axes 1 .. ND-2 (float4 strides q, q L_{ND-2}, ..., with the wrap)
+// and of the sites left of its first site and right of its last one in its
+// row, the same for all its groups; along axis 0 a group's neighbours are
+// s0 away, its wrap tested on c0 + m j.  Per sample it reads each group's
+// float4 and the neighbour float4s from the stage, the last axis's inner
+// neighbours from its own registers, with no division.  At 8^4 (G = 1024,
+// s0 = 128) a block is 256 threads of 4 groups: several blocks share an
+// SM, so one block's wait, reduction and barrier overlap the others' work.
+// Designs timed on an H100 (tools/const_sweep.py over the constants below,
+// PERF.md): a block of G threads, a group each, held one block an SM (46
+// and 64 registers) and reached 0.32 and 0.54 of the byte bound (action at
+// (1024, 8^4), force at (512, 8^4)), with a ring of 2, 3 or 4 stages alike
+// and 0.43 at 32 registers; 256 threads of 4 groups reach 0.60 and 0.76,
+// 128 and 512 threads less, a ring of 1 stage or 32 registers less too,
+// the groups' loop unrolled or not alike (kept rolled: its SASS is one
+// group's).
+//
+// Per site the terms are those of the general kernels in their order: the
+// action's w2 p^2 + w4 p^4 - w0 p (0 + phi[x-e0] + ... + phi[x-e_{ND-1}]),
+// the force's (2 w2) p + (4 w4)(p p) p - w0 (0 + phi[x-e0] + phi[x+e0] +
+// ... + phi[x+e_{ND-1}]) times g[b], so the force has the general force's
+// bits.  The action sums each thread's sites in order, then the warp's by
+// shuffles, then the block's warps by warp 0: a fixed order, no atomics.
+constexpr int kNdStages = 2;        // samples in flight per block
+constexpr int kNdMaxGroups = 1024;  // float4 groups a sample
+constexpr int kNdThreads = 256;     // threads a block, at least (or G)
+constexpr int kNdMinBlocks = 1;     // blocks of 1024 threads per SM asked
+constexpr int kNdUnroll = 1;        // a thread's groups unrolled
+
+// a lattice the tiled nd kernels take, L[ND-1] % 4 == 0, the unused
+// trailing extent 1: G float4 groups a sample, T threads a block, axis 0's
+// float4 stride s0 and the step j = T / s0 in c0 between a thread's groups
+struct NdTile {
+  int L[4], G, T, s0, j;
+};
+
+// What a thread's groups share: the first one's coordinate on axis 0, the
+// offsets of the neighbour groups along axes 1 .. ND-2 and of the sites
+// left of a group's first site and right of its last.
+template <int ND>
+struct NdSite {
+  int c0, dn[ND - 2], up[ND - 2], left, right;
+};
+
+template <int ND>
+__device__ __forceinline__ NdSite<ND> nd_site(const NdTile& t, int gi) {
+  NdSite<ND> s;
+  const int L = t.L[ND - 1];
+  const int q = L >> 2;
+  int rest = gi / q;
+  const int cq = gi - rest * q;
+  int stride = q;
+#pragma unroll
+  for (int mu = ND - 2; mu >= 1; --mu) {
+    const int next = rest / t.L[mu];
+    const int c = rest - next * t.L[mu];
+    const int wrap = (t.L[mu] - 1) * stride;
+    s.dn[mu - 1] = c == 0 ? wrap : -stride;
+    s.up[mu - 1] = c == t.L[mu] - 1 ? -wrap : stride;
+    rest = next;
+    stride *= t.L[mu];
+  }
+  s.c0 = rest;
+  s.left = cq == 0 ? L - 1 : -1;
+  s.right = cq == q - 1 ? 4 - L : 4;
+  return s;
+}
+
+// Warp 0 fills stage `st` with sample b: lane 0 arms the barrier with the
+// sample's bytes, each lane copies its 1/32 of them (G % 32 == 0, so
+// each part is a whole number of 16-byte float4s).
+__device__ __forceinline__ void nd_load(const float* __restrict__ cfgs,
+                                        float4* ring, uint64_t* full,
+                                        long long b, int st, int G) {
+  const int lane = threadIdx.x & 31;
+  const uint32_t part = (uint32_t)G / 32;  // float4s a lane copies
+  if (lane == 0)
+    mbar_arrive_expect_tx(&full[st], (uint32_t)G * sizeof(float4));
+  __syncwarp();
+  bulk_load(ring + st * G + lane * part,
+            reinterpret_cast<const float4*>(cfgs) + b * G + lane * part,
+            part * sizeof(float4), &full[st]);
+}
+
+// The barriers, then warp 0 loads the block's first kNdStages samples.
+__device__ __forceinline__ void nd_start(const float* __restrict__ cfgs,
+                                         float4* ring, uint64_t* full,
+                                         long long B, int G) {
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kNdStages; ++st) mbar_init(&full[st], 1);
+    fence_mbarrier_init();
+  }
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    for (int st = 0; st < kNdStages; ++st) {
+      const long long b = blockIdx.x + (long long)st * gridDim.x;
+      if (b < B) nd_load(cfgs, ring, full, b, st, G);
+    }
+  }
+}
+
+template <int ND>
+__global__ void __launch_bounds__(kNdMaxGroups, kNdMinBlocks)
+phi4_action_tiled_nd_kernel(const float* __restrict__ cfgs,
+                            float* __restrict__ act, long long B, NdTile t,
+                            float w0, float w2, float w4) {
+  const int gi = threadIdx.x;
+  const int lane = gi & 31;
+  const int warp = gi >> 5;
+  const int wrap0 = (t.L[0] - 1) * t.s0;
+  float4* ring = reinterpret_cast<float4*>(dynamic_smem());
+  __shared__ uint64_t full[kNdStages];
+  __shared__ float sums[2][32];  // by parity of the iteration
+  const NdSite<ND> s = nd_site<ND>(t, gi);
+  nd_start(cfgs, ring, full, B, t.G);
+
+  int st = 0, it = 0;
+  uint32_t parity = 0;
+  for (long long b = blockIdx.x; b < B; b += gridDim.x, ++it) {
+    const float4* f4 = ring + st * t.G;
+    const float* f = reinterpret_cast<const float*>(f4);
+    mbar_wait(&full[st], parity);
+    float acc = 0.0f;
+#pragma unroll (kNdUnroll)
+    for (int g = gi, c0 = s.c0; g < t.G; g += t.T, c0 += t.j) {
+      const float4 v = f4[g];
+      const float sites[4] = {v.x, v.y, v.z, v.w};
+      float neigh[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      if (w0 != 0.0f) {
+        const float4 d = f4[c0 == 0 ? g + wrap0 : g - t.s0];
+        neigh[0] += d.x;
+        neigh[1] += d.y;
+        neigh[2] += d.z;
+        neigh[3] += d.w;
+#pragma unroll
+        for (int mu = 0; mu < ND - 2; ++mu) {
+          const float4 u = f4[g + s.dn[mu]];
+          neigh[0] += u.x;
+          neigh[1] += u.y;
+          neigh[2] += u.z;
+          neigh[3] += u.w;
+        }
+        neigh[0] += f[4 * g + s.left];
+        neigh[1] += v.x;
+        neigh[2] += v.y;
+        neigh[3] += v.z;
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float ph = sites[k];
+        const float p2 = ph * ph;
+        float a = w2 * p2 + w4 * p2 * p2;
+        if (w0 != 0.0f) a -= w0 * ph * neigh[k];
+        acc += a;
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      acc += __shfl_down_sync(0xffffffffu, acc, off);
+    if (lane == 0) sums[it & 1][warp] = acc;
+    __syncthreads();  // the stage is read; the warps' sums are written
+    if (warp == 0) {
+      const long long next = b + (long long)kNdStages * gridDim.x;
+      if (next < B) nd_load(cfgs, ring, full, next, st, t.G);
+      acc = lane < (t.T >> 5) ? sums[it & 1][lane] : 0.0f;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        acc += __shfl_down_sync(0xffffffffu, acc, off);
+      if (lane == 0) act[b] = acc;
+    }
+    if (++st == kNdStages) {
+      st = 0;
+      parity ^= 1u;
+    }
+  }
+}
+
+template <int ND>
+__global__ void __launch_bounds__(kNdMaxGroups, kNdMinBlocks)
+phi4_action_grad_tiled_nd_kernel(const float* __restrict__ cfgs,
+                                 const float* __restrict__ g,
+                                 float* __restrict__ grad, long long B,
+                                 NdTile t, float w0, float w2, float w4) {
+  const int gi = threadIdx.x;
+  const int wrap0 = (t.L[0] - 1) * t.s0;
+  float4* ring = reinterpret_cast<float4*>(dynamic_smem());
+  __shared__ uint64_t full[kNdStages];
+  const NdSite<ND> s = nd_site<ND>(t, gi);
+  nd_start(cfgs, ring, full, B, t.G);
+
+  int st = 0;
+  uint32_t parity = 0;
+  for (long long b = blockIdx.x; b < B; b += gridDim.x) {
+    const float4* f4 = ring + st * t.G;
+    const float* f = reinterpret_cast<const float*>(f4);
+    float4* out = reinterpret_cast<float4*>(grad) + b * t.G;
+    const float gb = __ldg(g + b);
+    mbar_wait(&full[st], parity);
+#pragma unroll (kNdUnroll)
+    for (int gr = gi, c0 = s.c0; gr < t.G; gr += t.T, c0 += t.j) {
+      const float4 v = f4[gr];
+      const float sites[4] = {v.x, v.y, v.z, v.w};
+      float force[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float ph = sites[k];
+        force[k] = (2.0f * w2) * ph + (4.0f * w4) * (ph * ph) * ph;
+      }
+      if (w0 != 0.0f) {
+        const float4 d = f4[c0 == 0 ? gr + wrap0 : gr - t.s0];
+        const float4 u = f4[c0 == t.L[0] - 1 ? gr - wrap0 : gr + t.s0];
+        float neigh[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        neigh[0] = neigh[0] + d.x;  // roll(phi, 1, 0)
+        neigh[0] = neigh[0] + u.x;  // roll(phi, -1, 0)
+        neigh[1] = neigh[1] + d.y;
+        neigh[1] = neigh[1] + u.y;
+        neigh[2] = neigh[2] + d.z;
+        neigh[2] = neigh[2] + u.z;
+        neigh[3] = neigh[3] + d.w;
+        neigh[3] = neigh[3] + u.w;
+#pragma unroll
+        for (int mu = 0; mu < ND - 2; ++mu) {
+          const float4 dm = f4[gr + s.dn[mu]];
+          const float4 um = f4[gr + s.up[mu]];
+          neigh[0] = neigh[0] + dm.x;
+          neigh[0] = neigh[0] + um.x;
+          neigh[1] = neigh[1] + dm.y;
+          neigh[1] = neigh[1] + um.y;
+          neigh[2] = neigh[2] + dm.z;
+          neigh[2] = neigh[2] + um.z;
+          neigh[3] = neigh[3] + dm.w;
+          neigh[3] = neigh[3] + um.w;
+        }
+        const float lefts[4] = {f[4 * gr + s.left], v.x, v.y, v.z};
+        const float rights[4] = {v.y, v.z, v.w, f[4 * gr + s.right]};
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          neigh[k] = neigh[k] + lefts[k];   // roll(phi, 1, ND - 1)
+          neigh[k] = neigh[k] + rights[k];  // roll(phi, -1, ND - 1)
+          force[k] = force[k] - w0 * neigh[k];
+        }
+      }
+      out[gr] = make_float4(force[0] * gb, force[1] * gb, force[2] * gb,
+                            force[3] * gb);
+    }
+    __syncthreads();  // every thread has read the stage
+    if (gi < 32) {
+      const long long next = b + (long long)kNdStages * gridDim.x;
+      if (next < B) nd_load(cfgs, ring, full, next, st, t.G);
+    }
+    if (++st == kNdStages) {
+      st = 0;
+      parity ^= 1u;
+    }
+  }
+}
+
+// The tile of a lattice the tiled nd kernels take, or false: nd 3 or 4,
+// the unused trailing extent 1, the last extent a multiple of 4, G = V / 4
+// a multiple of 32 up to kNdMaxGroups; T the smallest j s0 (j dividing L0)
+// that is a multiple of 32 and at least min(kNdThreads, G).
+bool nd_tile(int nd, int L0, int L1, int L2, int L3, NdTile& t) {
+  if (nd < 3 || nd > 4 || L0 < 1 || L1 < 1 || L2 < 1 || L3 < 1 ||
+      (nd == 3 && L3 != 1))
+    return false;
+  const int L[4] = {L0, L1, L2, L3};
+  const long long V = (long long)L0 * L1 * L2 * L3;
+  if (L[nd - 1] % 4 || V % 128 || V / 4 > kNdMaxGroups) return false;
+  const int G = (int)(V / 4), s0 = G / L0;
+  const int want = G < kNdThreads ? G : kNdThreads;
+  int j = 1;
+  while (L0 % j || (j * s0) % 32 || j * s0 < want) ++j;  // ends at L0
+  t = NdTile{{L0, L1, L2, L3}, G, j * s0, s0, j};
+  return true;
+}
+
+// Launch `kern` persistent: as many blocks of T threads and the ring's
+// shared memory of G float4s a stage as the card holds at once, at most
+// one a sample.  The blocks an SM holds depend on G and T alone: cached
+// per kernel, G / 32 and T / 32.
+template <auto kern, typename... Args>
+int nd_launch(long long B, int G, int T, cudaStream_t stream,
+              Args... args) {
+  const size_t smem = (size_t)kNdStages * G * sizeof(float4);
+  static bool sized = false;
+  static int per_sm_of[kNdMaxGroups / 32 + 1][kNdMaxGroups / 32 + 1] = {};
+  int& per_sm = per_sm_of[G / 32][T / 32];
+  cudaError_t err = cudaSuccess;
+  if (!sized) {
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)((size_t)kNdStages * kNdMaxGroups * sizeof(float4)));
+    sized = err == cudaSuccess;
+  }
+  if (err == cudaSuccess && per_sm == 0)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, T,
+                                                        smem);
+  int dev = 0, n_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const long long resident = (long long)n_sm * per_sm;
+  const unsigned int grid = (unsigned int)(B < resident ? B : resident);
+  kern<<<grid, T, smem, stream>>>(args...);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // cfgs (B, L0, L1, L2, L3) float32 contiguous with nd lattice dims, the
@@ -568,4 +903,54 @@ extern "C" int phi4_action_grad_slab_tiled_f32(
       static_cast<const float*>(g), static_cast<float*>(grad), B, L0, L1, w0,
       w2, w4);
   return (int)cudaGetLastError();
+}
+
+// The tiled action on 3-D and 4-D lattices (notes at the kernel): cfgs
+// (B, L0, L1, L2, L3) float32 contiguous and 16-byte aligned with nd = 3 or
+// 4 lattice dims, the unused trailing extent 1, the last extent a multiple
+// of 4 and V / 4 a multiple of 32 up to 1024; act (B,).  The arguments are
+// phi4_action_f32's.  Returns cudaErrorInvalidValue for what it does not
+// take (the wrapper sends other shapes to phi4_action_f32), else
+// cudaGetLastError() after the launch.
+extern "C" int phi4_action_tiled_nd_f32(const void* cfgs, void* act,
+                                        long long B, int nd, int L0, int L1,
+                                        int L2, int L3, float w0, float w2,
+                                        float w4, void* stream) {
+  NdTile t;
+  if (B < 1 || !nd_tile(nd, L0, L1, L2, L3, t) ||
+      reinterpret_cast<uintptr_t>(cfgs) % 16)
+    return (int)cudaErrorInvalidValue;
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto* c = static_cast<const float*>(cfgs);
+  auto* a = static_cast<float*>(act);
+  return nd == 3 ? nd_launch<phi4_action_tiled_nd_kernel<3>>(
+                       B, t.G, t.T, st, c, a, B, t, w0, w2, w4)
+                 : nd_launch<phi4_action_tiled_nd_kernel<4>>(
+                       B, t.G, t.T, st, c, a, B, t, w0, w2, w4);
+}
+
+// The tiled force on 3-D and 4-D lattices: cfgs and grad (B, L0, L1, L2,
+// L3), both 16-byte aligned, g (B,), on the lattices
+// phi4_action_tiled_nd_f32 takes; the arguments are phi4_action_grad_f32's.
+// Returns cudaErrorInvalidValue for what it does not take (the wrapper
+// sends other shapes to phi4_action_grad_f32), else cudaGetLastError()
+// after the launch.
+extern "C" int phi4_action_grad_tiled_nd_f32(const void* cfgs, const void* g,
+                                             void* grad, long long B, int nd,
+                                             int L0, int L1, int L2, int L3,
+                                             float w0, float w2, float w4,
+                                             void* stream) {
+  NdTile t;
+  if (B < 1 || !nd_tile(nd, L0, L1, L2, L3, t) ||
+      reinterpret_cast<uintptr_t>(cfgs) % 16 ||
+      reinterpret_cast<uintptr_t>(grad) % 16)
+    return (int)cudaErrorInvalidValue;
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto* c = static_cast<const float*>(cfgs);
+  const auto* gg = static_cast<const float*>(g);
+  auto* out = static_cast<float*>(grad);
+  return nd == 3 ? nd_launch<phi4_action_grad_tiled_nd_kernel<3>>(
+                       B, t.G, t.T, st, c, gg, out, B, t, w0, w2, w4)
+                 : nd_launch<phi4_action_grad_tiled_nd_kernel<4>>(
+                       B, t.G, t.T, st, c, gg, out, B, t, w0, w2, w4);
 }

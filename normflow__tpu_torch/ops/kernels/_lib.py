@@ -68,6 +68,11 @@ _SIGNATURES = {
     # cfgs, g, grad, B, nd, L0, L1, L2, L3, w0, w2, w4, stream
     "phi4_action_grad_f32": (_P, _P, _P, _L, _I, _I, _I, _I, _I, _F, _F,
                              _F, _P),
+    # the tiled kernels at 3-D and 4-D: the general kernels' arguments
+    "phi4_action_tiled_nd_f32": (_P, _P, _L, _I, _I, _I, _I, _I, _F, _F,
+                                 _F, _P),
+    "phi4_action_grad_tiled_nd_f32": (_P, _P, _P, _L, _I, _I, _I, _I, _I,
+                                      _F, _F, _F, _P),
     # cfgs, g, grad, B, L0, L1, samples, w0, w2, w4, stream
     "phi4_action_grad_tiled_f32": (_P, _P, _P, _L, _I, _I, _I, _F, _F, _F,
                                    _P),

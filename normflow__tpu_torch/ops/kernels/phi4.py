@@ -13,16 +13,17 @@ its gradient, the analytic force times the per-sample cotangent.
 :func:`phi4_action` is differentiable; it and :func:`phi4_action_grad` run
 the plain PyTorch version for a CPU tensor and the CUDA kernel
 (``csrc/phi4_action.cu``) for a CUDA tensor.  The action and its
-gradient each have two hand-written variants, chosen by shape and
+gradient each have three hand-written variants, chosen by shape and
 alignment (:func:`action_variant`): the tiled kernel for 2-D lattices that
-suit its float4 tile (the flagship's), the general kernel for every other
-lattice of 1-4 dims (the 4-D flagship's: the JAX package's Pallas kernel
-takes 1-3 dims and leaves 4-D to XLA, ``actions.py:60-69``; the port's
-kernel takes the fourth axis too, so no lattice it builds falls off the
-kernel).  A field of 5 or more lattice dims raises on the card.
-``phi4_action.tiled_launches`` and ``phi4_action_grad.tiled_launches``
-count the tiled kernels' share of each
-wrapper's ``launches``.  As for the coupling's wrappers, the counts grow
+suit its float4 tile (the 2-D flagships'), the tiled nd kernel for 3-D and
+4-D lattices that suit its tile (:func:`action_plan_nd`: the 8^4
+flagship's), and the general kernel for every other lattice of 1-4 dims
+(the JAX package's Pallas kernel takes 1-3 dims and leaves 4-D to XLA,
+``actions.py:60-69``; the port's kernels take the fourth axis too, so no
+lattice it builds falls off a kernel).  A field of 5 or more lattice dims
+raises on the card.  ``phi4_action.tiled_launches`` and
+``phi4_action_grad.tiled_launches`` count both tiled kernels' share of
+each wrapper's ``launches``.  As for the coupling's wrappers, the counts grow
 where the wrapper launches from the host: once per capture under a CUDA
 graph, not once per replay (``tools/kernel_times.device_launches`` counts
 a replay's launches by kernel name).
@@ -37,11 +38,14 @@ backward neighbour (the row after is the next slab's to pair with), the
 force on the slab's sites reads both.  The other axes are periodic.  They
 port no Pallas kernel of their own (the JAX package's sharded action is
 XLA's roll with the partitioner's halos), and each has its plain version
-beside it, its launch counters and its tiled variant on the whole
-lattice's rule applied to the slab.
+beside it, its launch counters and its tiled variant on the 2-D whole
+lattice's rule applied to the slab (:func:`slab_variant`: a slab of 3 or 4
+dims takes the general slab kernels).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -49,7 +53,8 @@ from torch.autograd.function import once_differentiable
 from . import _lib
 
 __all__ = ["phi4_action", "phi4_action_plain", "phi4_action_grad",
-           "phi4_action_grad_plain", "action_plan", "action_variant",
+           "phi4_action_grad_plain", "action_plan", "action_plan_nd",
+           "action_variant", "slab_variant",
            "phi4_action_slab", "phi4_action_slab_plain",
            "phi4_action_slab_grad", "phi4_action_slab_grad_plain"]
 
@@ -72,12 +77,58 @@ def action_plan(lat):
     return groups, max(1, THREADS_PER_BLOCK // groups)
 
 
+# the tiled nd kernels' tile (csrc/phi4_action.cu): float4 groups a sample
+# at most (kNdMaxGroups), threads a block at least (kNdThreads, or a
+# sample's groups)
+ND_MAX_GROUPS = 1024
+ND_THREADS = 256
+
+
+def action_plan_nd(lat):
+    """``(groups, threads, strides)`` of the tiled nd kernels for a 3-D or
+    4-D lattice ``lat``: float4 groups per sample, threads per block (the
+    smallest multiple of axis 0's float4 stride that divides the groups, is
+    a whole number of warps and is at least ``ND_THREADS`` or the groups;
+    each thread takes ``groups // threads`` groups, ``threads`` apart) and
+    the float4 strides of the axes but the last; ``None`` where the lattice
+    does not suit the tile (not 3-D or 4-D, the last extent not a multiple
+    of 4, or the groups not a whole number of warps up to
+    ``ND_MAX_GROUPS``).  The C entry derives the same tile from the
+    extents (``nd_tile``)."""
+    if len(lat) not in (3, 4) or lat[-1] % 4:
+        return None
+    groups = math.prod(lat) // 4
+    if not groups or groups % 32 or groups > ND_MAX_GROUPS:
+        return None
+    strides = tuple(math.prod(lat[mu + 1:]) // 4
+                    for mu in range(len(lat) - 1))
+    want = min(groups, ND_THREADS)
+    threads = next(j * strides[0] for j in range(1, lat[0] + 1)
+                   if lat[0] % j == 0 and j * strides[0] % 32 == 0
+                   and j * strides[0] >= want)
+    return groups, threads, strides
+
+
 def action_variant(lat, *ptrs):
-    """``"tiled"`` where :func:`action_plan` has a tile for ``lat`` and every
-    address in ``ptrs`` suits float4 accesses (the field's; for the
-    gradient, the force's too), ``"general"`` otherwise."""
-    return ("tiled" if action_plan(lat) is not None
-            and all(p % 16 == 0 for p in ptrs) else "general")
+    """The kernel the action and its gradient take for a lattice ``lat``
+    when every address in ``ptrs`` (the field's; for the gradient, the
+    force's too) suits float4 accesses: ``"tiled"`` where
+    :func:`action_plan` has a tile, ``"tiled_nd"`` where
+    :func:`action_plan_nd` has one; ``"general"`` otherwise."""
+    if not all(p % 16 == 0 for p in ptrs):
+        return "general"
+    if action_plan(lat) is not None:
+        return "tiled"
+    return "tiled_nd" if action_plan_nd(lat) is not None else "general"
+
+
+def slab_variant(lat, *ptrs):
+    """The slab kernels' variant for a slab of lattice shape ``lat``
+    (rows and the rest): ``"tiled"`` where :func:`action_plan` has a 2-D
+    tile and every address in ``ptrs`` suits float4 accesses,
+    ``"general"`` otherwise (the slabs of 3-D and 4-D lattices too)."""
+    return ("tiled" if action_variant(lat, *ptrs) == "tiled"
+            else "general")
 
 
 def phi4_action_plain(cfgs, w0, w2, w4):
@@ -133,18 +184,20 @@ def _action(cfgs, w0, w2, w4):
     w = (float(w0), float(w2), float(w4))
     with torch.cuda.device(cfgs.device):
         stream = torch.cuda.current_stream(cfgs.device).cuda_stream
-        tiled = action_variant(cfgs.shape[1:], cfgs.data_ptr()) == "tiled"
-        if tiled:
+        variant = action_variant(cfgs.shape[1:], cfgs.data_ptr())
+        if variant == "tiled":
             _, samples = action_plan(cfgs.shape[1:])
             err = lib.phi4_action_tiled_f32(
                 cfgs.data_ptr(), act.data_ptr(), b, *lat[:2], samples, *w,
                 stream)
         else:
-            err = lib.phi4_action_f32(cfgs.data_ptr(), act.data_ptr(), b,
-                                      cfgs.dim() - 1, *lat, *w, stream)
+            entry = (lib.phi4_action_tiled_nd_f32 if variant == "tiled_nd"
+                     else lib.phi4_action_f32)
+            err = entry(cfgs.data_ptr(), act.data_ptr(), b, cfgs.dim() - 1,
+                        *lat, *w, stream)
     _lib.check(err, "phi4_action")
     phi4_action.launches += 1
-    phi4_action.tiled_launches += tiled
+    phi4_action.tiled_launches += variant != "general"
     return act
 
 
@@ -167,19 +220,21 @@ def phi4_action_grad(cfgs, g, w0, w2, w4):
         lib = _lib.library()
         ptrs = (cfgs.data_ptr(), g.data_ptr(), grad.data_ptr())
         b, w = cfgs.shape[0], (float(w0), float(w2), float(w4))
-        tiled = action_variant(cfgs.shape[1:], ptrs[0], ptrs[2]) == "tiled"
+        variant = action_variant(cfgs.shape[1:], ptrs[0], ptrs[2])
         with torch.cuda.device(cfgs.device):
             stream = torch.cuda.current_stream(cfgs.device).cuda_stream
-            if tiled:
+            if variant == "tiled":
                 _, samples = action_plan(cfgs.shape[1:])
                 err = lib.phi4_action_grad_tiled_f32(*ptrs, b, *lat[:2],
                                                      samples, *w, stream)
             else:
-                err = lib.phi4_action_grad_f32(*ptrs, b, cfgs.dim() - 1,
-                                               *lat, *w, stream)
+                entry = (lib.phi4_action_grad_tiled_nd_f32
+                         if variant == "tiled_nd"
+                         else lib.phi4_action_grad_f32)
+                err = entry(*ptrs, b, cfgs.dim() - 1, *lat, *w, stream)
         _lib.check(err, "phi4_action_grad")
         phi4_action_grad.launches += 1
-        phi4_action_grad.tiled_launches += tiled
+        phi4_action_grad.tiled_launches += variant != "general"
     return grad
 
 
@@ -253,8 +308,8 @@ def _action_slab(cfgs, halo, w0, w2, w4):
     w = (float(w0), float(w2), float(w4))
     with torch.cuda.device(cfgs.device):
         stream = torch.cuda.current_stream(cfgs.device).cuda_stream
-        tiled = action_variant(cfgs.shape[1:], cfgs.data_ptr(),
-                               halo.data_ptr()) == "tiled"
+        tiled = slab_variant(cfgs.shape[1:], cfgs.data_ptr(),
+                             halo.data_ptr()) == "tiled"
         if tiled:
             _, samples = action_plan(cfgs.shape[1:])
             err = lib.phi4_action_slab_tiled_f32(
@@ -292,8 +347,8 @@ def phi4_action_slab_grad(cfgs, halo, g, w0, w2, w4):
         ptrs = (cfgs.data_ptr(), halo.data_ptr(), g.data_ptr(),
                 grad.data_ptr())
         b, w = cfgs.shape[0], (float(w0), float(w2), float(w4))
-        tiled = action_variant(cfgs.shape[1:], ptrs[0], ptrs[1],
-                               ptrs[3]) == "tiled"
+        tiled = slab_variant(cfgs.shape[1:], ptrs[0], ptrs[1],
+                             ptrs[3]) == "tiled"
         with torch.cuda.device(cfgs.device):
             stream = torch.cuda.current_stream(cfgs.device).cuda_stream
             if tiled:

@@ -15,8 +15,9 @@ one after another in the order given, so a spec repeated (``A B B A``)
 times the two in turns on one card.  Each copy's lines start with its
 spec; before them, the registers and spill bytes ptxas gave every instance
 of the source's device functions at m = 8 with linear tails, the
-flagship's.  ``WORKDIR`` (a git-ignored directory such as ``_chipcheck/``)
-keeps the copies and each run's outputs.
+flagship's (every instance of a source with no coupling kernel, such as
+``phi4_action.cu``).  ``WORKDIR`` (a git-ignored directory such as
+``_chipcheck/``) keeps the copies and each run's outputs.
 """
 
 from __future__ import annotations
@@ -47,7 +48,8 @@ def edit(text, spec):
 
 def registers(log, source):
     """``(device function instance, registers, spill store bytes)`` of the
-    flagship's instances that ptxas compiled from ``source``."""
+    flagship's instances that ptxas compiled from ``source`` (every
+    instance, for a source with no coupling kernel)."""
     unit = "_" + source.replace(".", "_") + "_"
     rows, inst, spill = [], None, 0
     for line in log.splitlines():
@@ -58,7 +60,8 @@ def registers(log, source):
         if m:
             spill = int(m.group(1))
         m = re.search(r"Used (\d+) registers", line)
-        if m and inst and unit in inst and FLAGSHIP_INSTANCE in inst:
+        if m and inst and unit in inst and (
+                FLAGSHIP_INSTANCE in inst or "rqs" not in source):
             rows.append((inst, int(m.group(1)), spill))
     return rows
 

@@ -23,13 +23,15 @@ state, one whose logqp rises so steeply that no state ever accepts again,
 and the flagship's own ``logq - logp`` at seeded perturbed weights), and
 for the 4-D flagship's shapes (the action and its force at (1024, 8, 8, 8,
 8) and (512, 8, 8, 8, 8), the slab kernels on the first of two slabs of
-the (1024, 8, 8, 8, 8) field, (1024, 4, 8, 8, 8), and the general kernels
-at 1-D and 3-D beside them; a checkout whose wrappers refuse a case, as
-one from before the kernels took a fourth lattice axis does, leaves it
-out), and for the channels-last kernels at the 8^4 flagship's shapes on
-its ``pallas_reg`` route (``rqs_coupling`` forward and inverse at (1024,
-22, 8, 8, 8, 8) and (512, 22, 8, 8, 8, 8), ``rqs_coupling_bwd`` forward
-and inverse at (512, 22, 8, 8, 8, 8)), it prints, each
+the (1024, 8, 8, 8, 8) field, (1024, 4, 8, 8, 8), and the kernels at 1-D
+(general) and 3-D (the tiled nd kernels since they were added; a
+checkout's own variant at each shape) beside them; a checkout whose
+wrappers refuse a case, as one from before the kernels took a fourth
+lattice axis does, leaves it out), and for the channels-last kernels at
+the 8^4 flagship's shapes on its ``pallas_reg`` route (``rqs_coupling``
+forward and inverse at (1024, 22, 8, 8, 8, 8) and (512, 22, 8, 8, 8, 8),
+``rqs_coupling_bwd`` forward and inverse at (512, 22, 8, 8, 8, 8)), it
+prints, each
 line starting with ``LABEL``, the median device time per launch from CUDA
 events around each call, the device held behind a spin kernel so that the
 host is ahead, less what the events add around nothing (:func:`warm_ms`;
@@ -87,8 +89,9 @@ KERNEL_RE = {
     # the channels-last kernels (the pallas_reg route), counted apart
     "rqs_coupling_cl": r"\brqs_coupling_cl(_tiled)?_kernel\b",
     "rqs_coupling_bwd_cl": r"\brqs_coupling_bwd_cl(_tiled)?_kernel\b",
-    "phi4_action": r"\bphi4_action(_tiled)?_kernel\b",
-    "phi4_action_grad": r"\bphi4_action_grad(_tiled)?_kernel\b",
+    # the 2-D tiled kernels and, at 3-D and 4-D, the tiled nd ones
+    "phi4_action": r"\bphi4_action(_tiled(?:_nd)?)?_kernel\b",
+    "phi4_action_grad": r"\bphi4_action_grad(_tiled(?:_nd)?)?_kernel\b",
     "accept_scan": r"\baccept_scan_kernel\b",
 }
 M, LAT, BATCH, TRAIN_BATCH = 8, (32, 32), 1024, 512
@@ -361,8 +364,9 @@ def work(name, shape):
     """``(bytes, operations)`` one launch must move and do: each input read
     once and each output written once; the per-site operation counts of
     ``chip_smoke.py``'s notes.  A channels-last kernel (``_cl``) does its
-    layout's twin's work; ``shape`` is ``out``'s, ``(B, 3m-2, *lat)``."""
-    name = name.removesuffix("_cl")
+    layout's twin's work; ``shape`` is ``out``'s, ``(B, 3m-2, *lat)``.  A
+    tiled nd kernel (``_tiled_nd``) does its wrapper's."""
+    name = name.removesuffix("_cl").removesuffix("_tiled_nd")
     if name in ("rqs_coupling", "rqs_coupling_bwd"):
         b, k3, *lat = shape
         m, sites, k = (k3 + 2) // 3, b * math.prod(lat), (k3 + 2) // 3 + 2
@@ -682,7 +686,7 @@ def coupling4_inputs(torch, f32):
 
 def phi4_inputs(torch, f32, coef):
     """The action's, its force's and the slab kernels' cases on the 4-D
-    flagship's 8^4 lattice, and at 1-D and 3-D (the general kernels)."""
+    flagship's 8^4 lattice, and at 1-D and 3-D."""
     cases = {}
     for lat in ((8, 8, 8, 8), (64,), (8, 8, 8)):
         w = coef(len(lat))
@@ -776,16 +780,24 @@ SASS_FUNCTIONS = (
     ("rqs_coupling_bwd_tiled_kernel", TRAIN_BATCH * LAT[0] * LAT[1] // 2),
     ("phi4_action_grad_kernel", TRAIN_BATCH * LAT[0] * LAT[1]),
     ("phi4_action_grad_tiled_kernel", TRAIN_BATCH * LAT[0] * LAT[1] // 4),
+    # the tiled nd kernels at the 8^4 flagship's batch and step, per float4
+    # group: their loop over a thread's groups is one group's code, and the
+    # once-a-sample wait (and the action's reduction) inside the counted
+    # range is charged to every group, so the issue time is an upper bound
+    ("phi4_action_tiled_nd_kernel", BATCH * 8 ** 4 // 4),
+    ("phi4_action_grad_tiled_nd_kernel", TRAIN_BATCH * 8 ** 4 // 4),
     ("rqs_coupling_cl_kernel", BATCH * LAT[0] * LAT[1] // 2),
     ("rqs_coupling_cl_tiled_kernel", BATCH * LAT[0] * LAT[1] // 2),
     ("rqs_coupling_bwd_cl_kernel", TRAIN_BATCH * LAT[0] * LAT[1] // 2),
     ("rqs_coupling_bwd_cl_tiled_kernel", TRAIN_BATCH * LAT[0] * LAT[1] // 2))
 FLAGSHIP_INSTANCE = "ILi8ELb1ELb1E"  # m = 8, linear tails, as mangled
+ND4_INSTANCE = "ILi4EE"  # the tiled nd kernels' 4-D instance
 
 
 def print_sass(label, torch, card):
     """The SASS instructions of the flagship's instance (forward and
-    inverse) of each of :data:`SASS_FUNCTIONS` that the library built, and
+    inverse; the tiled nd kernels' 4-D one) of each of
+    :data:`SASS_FUNCTIONS` that the library built, and
     the time the issue of the site instructions alone needs at the path's
     shapes at the card's highest SM clock."""
     from normflow__tpu_torch.ops.kernels import _lib
@@ -800,7 +812,8 @@ def print_sass(label, torch, card):
     for fn, threads in SASS_FUNCTIONS:
         for inst, (n, site) in sorted(counts.items()):
             if f"{len(fn)}{fn}" not in inst or (
-                    "rqs" in fn and FLAGSHIP_INSTANCE not in inst):
+                    "rqs" in fn and FLAGSHIP_INSTANCE not in inst) or (
+                    "tiled_nd" in fn and ND4_INSTANCE not in inst):
                 continue
             what = ("" if "rqs" not in fn else " inverse" if inst.split(
                 FLAGSHIP_INSTANCE)[1].startswith("Lb1") else " forward")

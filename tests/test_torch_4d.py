@@ -11,6 +11,10 @@ versions, which are held against the JAX package in float64:
   4)`` and ``(3, 3, 5, 4, 6)`` against ``ScalarPhi4Action.action`` (XLA's
   branch) and ``jax.grad`` of it, to 1e-12, and the port's differentiable
   ``phi4_action`` through autograd;
+- the same at the shapes of the tiled nd kernels' tile: ``(4, 8, 8, 8,
+  8)`` against the XLA branch and ``(4, 8, 8, 8)`` against the Pallas
+  kernel ``phi4_action_pallas`` in interpret mode (which takes 3-D), in
+  float64 to 1e-12 and in float32 within the smoke's bars;
 - the 4-D slab plain versions summed over two and four slabs with their
   halos against the whole-lattice plain versions, to 1e-12;
 - ``build_phi4_model((4, 4, 4, 4), packed=False, hidden=(4,), n_layers=2,
@@ -34,6 +38,7 @@ import pytest
 import torch
 
 import normflow__tpu as jnf
+from normflow__tpu.ops.kernels import phi4_action_pallas
 from normflow__tpu.training import losses as jlosses
 from normflow__tpu.utils.serialization import leaves_of, restore_into
 from normflow__tpu.zoo import build_phi4_model as jax_build
@@ -91,6 +96,52 @@ def test_plain_action_and_force_match_jax(rng, shape, hopping):
     _close(act.detach(), want, atol=1e-12)
     (force,) = torch.autograd.grad((tg * act).sum(), tc)
     _close(force, want_force, atol=1e-12)
+
+
+# the float32 bars of chip_smoke.py: the action relative to max(1, |S|),
+# the force element by element (tests/test_kernels.py:36-37)
+PHI4_REL_TOL, FORCE_RTOL, FORCE_ATOL = 2e-5, 2e-4, 2e-5
+
+
+@pytest.mark.parametrize("shape", [(4, 8, 8, 8, 8), (4, 8, 8, 8)])
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("hopping", [True, False])
+def test_plain_action_and_force_match_jax_on_the_nd_tile(rng, shape, dtype,
+                                                         hopping):
+    """The plain action and force at the tiled nd kernels' shapes (the
+    8^4 flagship's lattice, and 8^3) against the JAX package on the same
+    numpy draws: at 4-D the action's XLA branch, at 3-D its Pallas kernel
+    in interpret mode (``phi4_action_pallas``), and ``jax.grad`` of ``sum
+    g S``; float64 to 1e-12 (the action relative to max(1, |S|): at 8^4
+    |S| ~ 1e4, whose float64 ulp is 1.8e-12, summed over 4096 sites in
+    another order), float32 within ``PHI4_REL_TOL`` and ``FORCE_*``."""
+    assert phi4.action_plan_nd(shape[1:]) is not None
+    cfgs = rng.standard_normal(shape).astype(dtype)
+    g = rng.standard_normal(shape[0]).astype(dtype)
+    coupling = dict(ACTION, kappa=ACTION["kappa"] if hopping else 0.0)
+    jact = jnf.action.ScalarPhi4Action(**coupling)
+    w = ScalarPhi4Action(**coupling).get_coef(len(shape) - 1)
+    if len(shape) == 5:
+        action = jact.action
+    else:
+        def action(c):
+            return phi4_action_pallas(c, *w, interpret=True)
+    want, want_force = _jit0(lambda c, gg: (action(c), jax.grad(
+        lambda c: jnp.sum(gg * action(c)))(c)), jnp.asarray(cfgs),
+        jnp.asarray(g))
+    assert want.dtype == dtype and want_force.dtype == dtype
+    tc, tg = torch.from_numpy(cfgs), torch.from_numpy(g)
+    got = phi4.phi4_action_plain(tc, *w).numpy()
+    force = phi4.phi4_action_grad_plain(tc, tg, *w).numpy()
+    want, want_force = np.asarray(want), np.asarray(want_force)
+    rel = np.abs(got - want) / np.maximum(1.0, np.abs(want))
+    if dtype == np.float64:
+        assert rel.max() <= 1e-12
+        _close(force, want_force, atol=1e-12)
+    else:
+        assert rel.max() <= PHI4_REL_TOL
+        assert (np.abs(force - want_force)
+                <= FORCE_ATOL + FORCE_RTOL * np.abs(want_force)).all()
 
 
 @pytest.mark.parametrize("shape", [(4, 4, 4, 4, 4), (3, 8, 5, 4, 6),

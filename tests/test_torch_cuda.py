@@ -13,8 +13,11 @@ ragged last tile and B = 1, bit for bit against the per-site kernel, which
 takes S % 4 != 0 and an ``out`` off 16 bytes), the action's lattice ranks
 and both of its variants (the tiled kernel for 2-D lattices that suit its
 float4 tile, the flagship's included, with a ragged last block and B = 1;
-the general kernel for 1-D, 3-D, V = 1, L1 % 4 != 0 and a field off 16
-bytes), and the wrappers' refusals (the backward kernels:
+the general kernel for 1-D, V = 1, L1 % 4 != 0 and a field off 16
+bytes), the tiled nd kernels at 3-D and 4-D (the 8^4 flagship's shapes,
+its force bit for bit against the general entry, a graphed 8^4 batch) and
+the general ones on the lattices outside their tile, and the wrappers'
+and C entries' refusals (the backward kernels:
 ``tests/test_torch_cuda_grad.py``).
 Tolerances are those of ``chip_smoke.py``: 1e-4 absolute for
 the spline (the JAX Pallas tests' own), 2e-5 relative for the action.
@@ -250,6 +253,41 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         phi4.phi4_action_slab(torch.zeros((2, 1, 2, 2, 2, 2), device=cuda),
                               torch.zeros((2, 2, 2, 2, 2, 2), device=cuda),
                               0.6, 0.0, 0.5)
+    # the tiled nd entries: a field or force off 16 bytes, or a lattice
+    # outside the tile, is cudaErrorInvalidValue (1), which the wrapper's
+    # check raises; nothing is launched
+    from normflow__tpu_torch.ops.kernels import _lib
+
+    lib = _lib.library()
+    buf = torch.zeros(2 * 4096 + 4, device=cuda)
+    g, act = torch.zeros(2, device=cuda), torch.zeros(2, device=cuda)
+    out = torch.zeros_like(buf)
+    stream = torch.cuda.current_stream().cuda_stream
+    w = (0.6, 0.4, 0.5)
+    # (nd and extents, field offset, force offset, action's and force's
+    # return codes)
+    for lat, off, force_off, want in (
+            ((4, 8, 8, 8, 8), 0, 0, [0, 0]),      # the 8^4 tile
+            ((3, 16, 16, 16, 1), 0, 0, [0, 0]),   # 1024 float4s at 3-D
+            ((4, 8, 8, 8, 8), 1, 0, [1, 1]),      # the field off 16 bytes
+            ((4, 8, 8, 8, 8), 0, 1, [0, 1]),      # the force off 16 bytes
+            ((3, 8, 8, 6, 1), 0, 0, [1, 1]),      # the last extent 6
+            ((3, 4, 4, 4, 1), 0, 0, [1, 1]),      # 16 float4s: no warp
+            ((4, 16, 16, 16, 1), 0, 0, [1, 1]),   # 4-D, the last extent 1
+            ((2, 32, 32, 1, 1), 0, 0, [1, 1]),    # 2-D: the tiled kernel's
+            ((4, 16, 16, 16, 16), 0, 0, [1, 1])):  # 16384 float4s
+        c = buf[off:off + 2 * 4096]
+        errs = [lib.phi4_action_tiled_nd_f32(c.data_ptr(), act.data_ptr(),
+                                             2, *lat, *w, stream),
+                lib.phi4_action_grad_tiled_nd_f32(
+                    c.data_ptr(), g.data_ptr(), out[force_off:].data_ptr(),
+                    2, *lat, *w, stream)]
+        assert errs == want, (lat, off, force_off, errs)
+        for err in errs:
+            if err:
+                with pytest.raises(RuntimeError, match="launch failed"):
+                    _lib.check(err, "phi4_action_grad")
+    torch.cuda.synchronize()
 
 
 # 4-D lattices: the flagship's 8^4, odd extents, and trailing extents of 1
@@ -259,8 +297,9 @@ LAT4 = [(8, 8, 8, 8), (3, 5, 4, 6), (4, 4, 4, 1), (2, 3, 1, 1)]
 @pytest.mark.parametrize("lat", LAT4)
 @pytest.mark.parametrize("hopping", [True, False])
 def test_phi4_kernels_at_four_dims_match_plain(cuda, np_rng, lat, hopping):
-    """The action and its force on 4-D fields launch the general kernels
-    (a wrapper launch each, none tiled) and agree with their plain
+    """The action and its force on 4-D fields launch the tiled nd kernels
+    at 8^4 and the general kernels on the lattices outside that tile (a
+    wrapper launch each, tiled at 8^4 only) and agree with their plain
     versions: the action to 2e-5 relative, the force element by element
     within the smoke's ``FORCE_*`` bars (2e-5 + 2e-4 |plain|)."""
     cfgs = _f32(np_rng.standard_normal((65, *lat)), cuda)
@@ -268,14 +307,16 @@ def test_phi4_kernels_at_four_dims_match_plain(cuda, np_rng, lat, hopping):
     w0, w2, w4 = ScalarPhi4Action(kappa=0.6, m_sq=-2.4,
                                   lambd=0.5).get_coef(4)
     w = (w0 if hopping else 0.0, w2, w4)
-    assert phi4.action_variant(lat, cfgs.data_ptr()) == "general"
+    tiled = lat == (8, 8, 8, 8)
+    assert phi4.action_variant(lat, cfgs.data_ptr()) == (
+        "tiled_nd" if tiled else "general")
     before = [(f.launches, f.tiled_launches)
               for f in (phi4.phi4_action, phi4.phi4_action_grad)]
     got = phi4.phi4_action(cfgs, *w)
     force = phi4.phi4_action_grad(cfgs, g, *w)
     assert [(f.launches, f.tiled_launches) for f in (
         phi4.phi4_action, phi4.phi4_action_grad)] == [
-        (n + 1, t) for n, t in before]
+        (n + 1, t + tiled) for n, t in before]
     want = phi4.phi4_action_plain(cfgs.double(), *w)
     want_force = phi4.phi4_action_grad_plain(cfgs, g, *w)
     torch.cuda.synchronize()
@@ -283,6 +324,81 @@ def test_phi4_kernels_at_four_dims_match_plain(cuda, np_rng, lat, hopping):
     assert float(rel.max()) <= 2e-5
     assert bool(((force - want_force).abs()
                  <= 2e-5 + 2e-4 * want_force.abs()).all())
+
+
+def _general(cfgs, w, g=None):
+    """The general kernels' action (or, given ``g``, force) of ``cfgs``
+    through their C entries."""
+    from normflow__tpu_torch.ops.kernels import _lib
+
+    lib = _lib.library()
+    lat = list(cfgs.shape[1:]) + [1] * (5 - cfgs.dim())
+    stream = torch.cuda.current_stream().cuda_stream
+    if g is None:
+        out = torch.empty(cfgs.shape[0], device=cfgs.device)
+        err = lib.phi4_action_f32(cfgs.data_ptr(), out.data_ptr(),
+                                  cfgs.shape[0], cfgs.dim() - 1, *lat, *w,
+                                  stream)
+    else:
+        out = torch.empty_like(cfgs)
+        err = lib.phi4_action_grad_f32(cfgs.data_ptr(), g.data_ptr(),
+                                       out.data_ptr(), cfgs.shape[0],
+                                       cfgs.dim() - 1, *lat, *w, stream)
+    _lib.check(err, "general phi4 entry")
+    return out
+
+
+@pytest.mark.parametrize("b,lat", [(1024, (8, 8, 8, 8)),
+                                   (512, (8, 8, 8, 8)), (64, (8, 8, 8)),
+                                   (3, (4, 4, 4, 4)), (5, (8, 8, 16)),
+                                   (1, (8, 8, 8, 8))])
+@pytest.mark.parametrize("hopping", [True, False])
+def test_tiled_nd_kernels_match_plain_and_the_general_ones(cuda, np_rng, b,
+                                                           lat, hopping):
+    """The tiled nd kernels at the 8^4 flagship's batch and step and at
+    3-D (a launch each, tiled): the action within 2e-5 relative of its
+    plain version (float64) and of the general kernel, the force within
+    the ``FORCE_*`` bars of its plain version and bit for bit with the
+    general kernel's (``phi4_action_grad_f32`` through ``_lib``)."""
+    cfgs = _f32(np_rng.standard_normal((b, *lat)), cuda)
+    g = _f32(np_rng.standard_normal(b), cuda)
+    w0, w2, w4 = ScalarPhi4Action(kappa=0.6, m_sq=-2.4,
+                                  lambd=0.5).get_coef(len(lat))
+    w = (w0 if hopping else 0.0, w2, w4)
+    assert phi4.action_variant(lat, cfgs.data_ptr()) == "tiled_nd"
+    before = [f.tiled_launches for f in (phi4.phi4_action,
+                                         phi4.phi4_action_grad)]
+    got = phi4.phi4_action(cfgs, *w)
+    force = phi4.phi4_action_grad(cfgs, g, *w)
+    assert [f.tiled_launches for f in (phi4.phi4_action,
+                                       phi4.phi4_action_grad)] == [
+        n + 1 for n in before]
+    general, general_force = _general(cfgs, w), _general(cfgs, w, g)
+    want = phi4.phi4_action_plain(cfgs.double(), *w)
+    want_force = phi4.phi4_action_grad_plain(cfgs, g, *w)
+    torch.cuda.synchronize()
+    for ref in (want, general.double()):
+        rel = (got.double() - ref).abs() / ref.abs().clamp(min=1.0)
+        assert float(rel.max()) <= 2e-5
+    assert bool(((force - want_force).abs()
+                 <= 2e-5 + 2e-4 * want_force.abs()).all())
+    assert torch.equal(force.view(torch.int32),
+                       general_force.view(torch.int32))
+
+
+def test_graphed_four_dim_batch_launches_the_tiled_nd_action(cuda, np_rng):
+    """A replayed batch of the 8^4 flagship (small widths) launches the
+    tiled nd action once, as the profiler names it."""
+    model = build_phi4_model((8, 8, 8, 8), packed=False, knots=4,
+                             hidden=(4,), n_layers=2, device=cuda)
+    perturb_(model.net_, np_rng)
+    post = model.posterior
+    post.logqp_stream(1, 64)  # captured outside the profiled window
+    torch.cuda.synchronize()
+    before = phi4.phi4_action.launches
+    launches = device_launches(lambda: post.logqp_stream(1, 64))[0]
+    assert phi4.phi4_action.launches == before  # a replay: no wrapper call
+    assert launches["phi4_action"] == (1, 1), launches
 
 
 @pytest.mark.parametrize("shape", [(64, 8, 8, 8, 8), (33, 4, 5, 3, 6),

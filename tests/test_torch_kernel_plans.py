@@ -9,6 +9,7 @@ bounds, profiler names, SASS counts and output comparison of
 ``normflow__tpu_torch/tools/const_sweep.py``.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -128,7 +129,7 @@ def test_action_variant(lat, ptr, variant):
     ((128, 1), (0, 0), "general"),        # the zero-dim fit's one site
     ((1,), (0, 0), "general"),
     ((64,), (0, 0), "general"),           # 1-D
-    ((8, 8, 8), (0, 0), "general"),       # 3-D
+    ((8, 8, 8), (0, 0), "tiled_nd"),      # 3-D: the tiled nd kernels
     ((6, 30), (0, 0), "general"),         # L1 % 4 != 0
     ((8, 8), (0, 0), "general"),          # 16 float4s: not a warp
     ((32, 32), (4, 0), "general"),        # the field off 16 bytes
@@ -142,6 +143,138 @@ def test_grad_variant(lat, offsets, variant):
     assert phi4.action_variant(lat, *ptrs) == variant
 
 
+@pytest.mark.parametrize("lat,plan", [
+    ((8, 8, 8, 8), (1024, 256, (128, 16, 2))),  # the 8^4 flagship: 4 a thread
+    ((4, 4, 4, 4), (64, 64, (16, 4, 1))),       # the free field's 4^4
+    ((8, 8, 8), (128, 128, (16, 2))),           # the 3-D route flagship
+    ((8, 8, 16), (256, 256, (32, 4))),
+    ((16, 16, 16), (1024, 256, (64, 4))),
+    ((1, 64, 64), (1024, 1024, (1024, 16))),    # one row on axis 0
+    ((3, 8, 16), (96, 96, (32, 4))),            # 3 rows of a warp
+    ((6, 4, 4, 8), (192, 192, (32, 8, 2))),     # no 256 divides 192
+    ((12, 8, 8, 8), None),                      # 1536 float4s
+    ((3, 5, 4, 6), None),                       # the last extent 6
+    ((8, 8, 6), None),
+    ((4, 4, 4), None),                          # 16 float4s: no whole warp
+    ((16, 16, 16, 16), None),                   # 16384 float4s: no block
+    ((8, 8, 8, 0), None), ((32, 32), None), ((64,), None),
+    ((2, 2, 2, 2, 8), None),                    # 5-D
+])
+def test_action_plan_nd(lat, plan):
+    """The tile of the tiled nd kernels: a block's threads are a whole
+    number of warps, divide the groups, and are a multiple of axis 0's
+    float4 stride, so a thread's groups differ in their first coordinate
+    alone."""
+    assert phi4.action_plan_nd(lat) == plan
+    if plan is not None:
+        groups, threads, strides = plan
+        assert threads % 32 == 0 and groups % threads == 0
+        assert threads % strides[0] == 0 and threads <= 1024
+
+
+def _tile_neighbours(lat):
+    """Per site of ``lat``, the flat indices of its backward and forward
+    neighbours along each axis, as the tiled nd kernels reach them
+    (``nd_site`` and the kernels' loops in ``csrc/phi4_action.cu``): each
+    thread's first group's coordinates from its index by a division and a
+    modulo per axis, the offsets of its neighbour groups along axes 1 ..
+    nd-2 (float4 strides of :func:`phi4.action_plan_nd`, with the wrap) and
+    of the sites left of a group's first site and right of its last, the
+    same for all the thread's groups, ``threads`` apart; along axis 0 a
+    group's neighbours one stride away, the wrap tested on its first
+    coordinate, ``threads // stride`` more for each later group; along the
+    last axis the group's own sites between."""
+    groups, threads, strides = phi4.action_plan_nd(lat)
+    nd, q, big = len(lat), lat[-1] // 4, lat[-1]
+    s0, j = strides[0], threads // strides[0]
+    t = np.arange(threads)
+    rest, cq = t // q, t % q
+    dn, up, stride = [None] * nd, [None] * nd, q
+    for mu in range(nd - 2, 0, -1):
+        c, rest = rest % lat[mu], rest // lat[mu]
+        assert stride == strides[mu]
+        wrap = (lat[mu] - 1) * stride
+        dn[mu] = np.where(c == 0, wrap, -stride)
+        up[mu] = np.where(c == lat[mu] - 1, -wrap, stride)
+        stride *= lat[mu]
+    assert stride == s0
+    c0 = rest
+    left = np.where(cq == 0, big - 1, -1)
+    right = np.where(cq == q - 1, 4 - big, 4)
+    back = [np.zeros(groups * 4, int) for _ in range(nd)]
+    fore = [np.zeros(groups * 4, int) for _ in range(nd)]
+    k = np.arange(4)
+    for m in range(groups // threads):
+        g, c0m = t + m * threads, c0 + m * j
+        wrap0 = (lat[0] - 1) * s0
+        axis0 = (np.where(c0m == 0, g + wrap0, g - s0),
+                 np.where(c0m == lat[0] - 1, g - wrap0, g + s0))
+        sites = (4 * g[:, None] + k).ravel()
+        for mu in range(nd - 1):
+            d, u = axis0 if mu == 0 else (g + dn[mu], g + up[mu])
+            back[mu][sites] = (4 * d[:, None] + k).ravel()
+            fore[mu][sites] = (4 * u[:, None] + k).ravel()
+        own = 4 * g[:, None] + k
+        back[nd - 1][sites] = np.where(k == 0, (4 * g + left)[:, None],
+                                       own - 1).ravel()
+        fore[nd - 1][sites] = np.where(k == 3, (4 * g + right)[:, None],
+                                       own + 1).ravel()
+    return back, fore
+
+
+@pytest.mark.parametrize("lat", [(8, 8, 8, 8), (4, 4, 4, 4), (8, 8, 8),
+                                 (8, 8, 16), (16, 16, 16), (4, 8, 2, 12),
+                                 (2, 4, 16), (1, 64, 64), (3, 8, 16),
+                                 (6, 4, 4, 8)])
+def test_tile_nd_neighbours_are_the_rolls(lat):
+    """For every site, the neighbours the tiled nd kernels read are
+    ``np.roll``'s: ``roll(phi, 1, mu)`` backward, ``roll(phi, -1, mu)``
+    forward, on each axis."""
+    idx = np.arange(int(np.prod(lat))).reshape(lat)
+    back, fore = _tile_neighbours(lat)
+    for mu in range(len(lat)):
+        np.testing.assert_array_equal(back[mu],
+                                      np.roll(idx, 1, mu).ravel())
+        np.testing.assert_array_equal(fore[mu],
+                                      np.roll(idx, -1, mu).ravel())
+
+
+@pytest.mark.parametrize("lat,offsets,force,action", [
+    ((8, 8, 8, 8), (0, 0), "tiled_nd", "tiled_nd"),  # the 8^4 flagship's
+    ((8, 8, 8, 8), (4, 0), "general", "general"),    # field off 16 bytes
+    ((8, 8, 8, 8), (0, 8), "general", "tiled_nd"),   # force off 16 bytes
+    ((8, 8, 8, 8), (16, 48), "tiled_nd", "tiled_nd"),  # whole 16 bytes off
+    ((8, 8, 8), (0, 0), "tiled_nd", "tiled_nd"),
+    ((8, 8, 8), (12, 0), "general", "general"),
+    ((4, 4, 4, 4), (0, 0), "tiled_nd", "tiled_nd"),
+    ((3, 5, 4, 6), (0, 0), "general", "general"),    # the odd check's
+    ((16, 16, 16, 16), (0, 0), "general", "general"),
+    ((32, 32), (0, 0), "tiled", "tiled"),            # 2-D keeps its tile
+])
+def test_action_variant_nd(lat, offsets, force, action):
+    """The force's variant on the field and the force, the action's on
+    the field alone."""
+    ptrs = [(1 << 20) + 4096 * k + o for k, o in enumerate(offsets)]
+    assert phi4.action_variant(lat, *ptrs) == force
+    assert phi4.action_variant(lat, ptrs[0]) == action
+
+
+@pytest.mark.parametrize("lat,offsets,variant", [
+    ((4, 8, 8, 8), (0, 0, 0), "general"),    # half the 8^4 lattice
+    ((2, 8, 8), (0, 0, 0), "general"),       # a 3-D slab
+    ((4, 4, 4, 4), (0, 0, 0), "general"),
+    ((16, 32), (0, 0, 0), "tiled"),          # the 2-D flagship's slab
+    ((16, 32), (0, 4, 0), "general"),        # its halo off 16 bytes
+    ((11, 32), (0, 0, 0), "general"),        # 88 float4s: no whole warp
+])
+def test_slab_variant_stays_two_dimensional(lat, offsets, variant):
+    """The slab wrappers tile 2-D slabs only: a slab of a 3-D or 4-D
+    lattice takes the general slab kernels, whatever its whole lattice's
+    variant."""
+    ptrs = [(1 << 20) + 4096 * k + o for k, o in enumerate(offsets)]
+    assert phi4.slab_variant(lat, *ptrs) == variant
+
+
 @pytest.mark.parametrize("name,shape,nbytes", [
     ("rqs_coupling", (1024, 22, 32, 16), 1024 * 512 * 4 * 25),
     ("rqs_coupling_bwd", (512, 22, 32, 16), 512 * 512 * 4 * 48),
@@ -151,6 +284,15 @@ def test_grad_variant(lat, offsets, variant):
     # and the reference
     ("accept_scan", (1024,), 1024 * 17 + 4),
     ("accept_scan", (10000,), 10000 * 17 + 4),
+    # the tiled nd kernels at the 8^4 flagship's batch and step and at 3-D:
+    # their wrappers' work
+    ("phi4_action_tiled_nd", (1024, 8, 8, 8, 8), 1024 * 4096 * 4 + 1024 * 4),
+    ("phi4_action_grad_tiled_nd", (512, 8, 8, 8, 8),
+     512 * 4096 * 8 + 512 * 4),
+    ("phi4_action_tiled_nd", (1024, 8, 8, 8), 1024 * 512 * 4 + 1024 * 4),
+    ("phi4_action", (512, 8, 8, 8, 8), 512 * 4096 * 4 + 512 * 4),
+    ("phi4_action_grad_tiled_nd", (1024, 8, 8, 8),
+     1024 * 512 * 8 + 1024 * 4),
 ])
 def test_kernel_bytes_and_bound(name, shape, nbytes):
     got, nops = kt.work(name, shape)
@@ -203,11 +345,39 @@ def test_card_peaks_refuses_an_unknown_card():
      "const*)", False),
     ("phi4_action_grad", "(anonymous namespace)::phi4_action_tiled_kernel("
      "float const*)", False),
+    # the tiled nd kernels, each for its own wrapper
+    ("phi4_action", "void (anonymous namespace)::phi4_action_tiled_nd_kernel"
+     "<4>(float const*, float*, long long, (anonymous namespace)::Extents, "
+     "float, float, float)", True),
+    ("phi4_action", "void (anonymous namespace)::"
+     "phi4_action_grad_tiled_nd_kernel<4>(float const*)", False),
+    ("phi4_action_grad", "void (anonymous namespace)::"
+     "phi4_action_grad_tiled_nd_kernel<3>(float const*, float const*, "
+     "float*, long long, (anonymous namespace)::Extents, float, float, "
+     "float)", True),
+    ("phi4_action_grad", "void (anonymous namespace)::"
+     "phi4_action_tiled_nd_kernel<3>(float const*)", False),
+    ("phi4_action", "phi4_action_slab_kernel(float const*)", False),
 ])
 def test_profiler_names_pick_each_kernel(kernel, name, hit):
     import re
 
     assert bool(re.search(kt.KERNEL_RE[kernel], name)) is hit
+
+
+@pytest.mark.parametrize("name,tiled", [
+    ("void (anonymous namespace)::phi4_action_tiled_nd_kernel<4>(float "
+     "const*)", True),
+    ("(anonymous namespace)::phi4_action_tiled_kernel(float const*)", True),
+    ("phi4_action_kernel(float const*)", False),
+])
+def test_profiler_counts_the_tiled_nd_action_as_tiled(name, tiled):
+    """:func:`kt.device_launches` counts a launch as tiled where the
+    pattern's group matched: the tiled nd kernels count as tiled."""
+    import re
+
+    m = re.search(kt.KERNEL_RE["phi4_action"], name)
+    assert (m.group(1) is not None) is tiled
 
 
 def _saved(tmp_path, label, bwd_bits=0, action_rel=0.0):
