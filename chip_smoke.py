@@ -165,16 +165,22 @@ use) and imports nothing of JAX.  Phases, each of which raises on failure:
     (1024, 32, 32) and of a (1024, 64, 64) field with halos built by hand,
     summed and stacked, against the whole-lattice tiled kernels and the
     plain slab versions (``PHI4_REL_TOL``, ``FORCE_*``), on the tiled
-    kernels, the general ones at 1-D, (128, 8, 8) and 3-D and on (1024,
-    32, 32) split over three ranks as XLA splits it, slabs of 11, 11 and
-    10 rows, the tiled force bit for bit against the general one, a slab
-    of no rows with no launch; timed with phase 12, (1024, 11, 32) and
-    (1024, 10, 32) too.  Step 2: two processes on the one card in a gloo
+    kernels; (1024, 8, 8, 8, 8) as two slabs of 4 rows and as 3 / 3 / 2
+    and (64, 8, 8, 8) as two on the tiled nd slab kernels, each slab's
+    force bit for bit against the general slab entry; the general ones at
+    1-D, (128, 8, 8), an odd (64, 3, 5, 4, 6) and on (1024, 32, 32) split
+    over three ranks as XLA splits it, slabs of 11, 11 and 10 rows, the
+    tiled and tiled nd forces bit for bit against the general one on an
+    offset copy, a slab of no rows with no launch; timed with phase 12,
+    (1024, 11, 32) and (1024, 10, 32) too, and the tiled nd slab kernels
+    named by the profiler and timed in turns with the general entries at
+    (1024, 4, 8, 8, 8), (128, 4, 8, 8, 8), (1024, 3, 8, 8, 8) and (1024,
+    4, 8, 8).  Step 2: two processes on the one card in a gloo
     group of two (NCCL refuses two ranks on one device),
     ``use_mesh(axes={"data": 1, "space": 2})``, the kernels built by the
     parent first: the full-width flagship's logq and logp of a fed batch of
     1024 (seeded perturbed weights) against the unsharded flagship on the
-    card, ``SPACE_STEPS`` (24) eager steps of the bench protocol on fed
+    card, ``SPACE_STEPS`` (12) eager steps of the bench protocol on fed
     draws from the fresh weights against the unsharded eager fit (step 1
     to ``LOGQ_REL_TOL``, the rest to ``SPACE_LOSS_TOL`` or ``SPACE_FLOOR``
     times the unsharded fit's own spread), 8 / 8 / 1 / 1 wrapper launches
@@ -220,8 +226,8 @@ use) and imports nothing of JAX.  Phases, each of which raises on failure:
     the action and its force on the tiled nd kernels at (1024, 8, 8, 8,
     8), (512, 8, 8, 8, 8) and (1024, 8, 8, 8) against their plain versions
     and the general kernels' C entries (the force bit for bit); at (64, 3,
-    5, 4, 6) and the slab kernels at (1024, 4, 8, 8, 8) with a halo, on the
-    general kernels, against their plain versions; a 5-D field refused;
+    5, 4, 6) on the general kernels against their plain versions; a 5-D
+    field refused;
     with phase 12, the tiled nd kernels named by the profiler and timed in
     turns with the general ones.  Step 2 (last, ``run_4d``): the
     4-D flagship at 8^4 (``build_phi4_model((8, 8, 8, 8), packed=False)``:
@@ -262,7 +268,7 @@ use) and imports nothing of JAX.  Phases, each of which raises on failure:
     (8, 8, 8): logq against float64, layouts, launches by name and
     wrapper (the action general at (64,), tiled nd at (8, 8, 8)), a
     replayed batch bit for bit;
-25. every training loss over two data ranks (``run_losses``, last): two
+25. every training loss over two data ranks (``run_losses``): two
     gloo processes on the one card, ``{"data": 2}``, one eager step of the
     fresh full-width flagship at the global batch 512 on fed draws for
     each loss of ``training/losses.py`` (the gather of logq and logp over
@@ -270,7 +276,17 @@ use) and imports nothing of JAX.  Phases, each of which raises on failure:
     against the unsharded eager step and a float64 CPU copy with phase 5's
     float64-anchored bars, both ranks bit for bit alike, ``calc_kl_mean``
     against the old flat-mean route (``FLAT_ROUTE_TOL``), 4 / 4 / 1 / 1
-    wrapper launches a step.
+    wrapper launches a step;
+26. the 8^4 flagship over two space ranks (``run_space4``, last): two
+    gloo processes on the one card, ``{"data": 1, "space": 2}``, each a
+    slab of 4 rows, eager, on phase 23's perturbed weights at the global
+    batch 128 on fed draws: ``posterior.sample__``, one ``sample_chain``
+    round, the first step's path gradient and two steps of the bench
+    protocol at ``LAT4_LR``, held against the unsharded 8^4 flagship on the
+    card with phase 21's bars (logq, logp, the chain's proposals and
+    accepts, the loss and every gradient leaf), with the wrappers'
+    launches per batch, round, gradient and step, every slab launch to the
+    tiled nd slab kernels.
 
 The gauge paths' rates (eager bodies against graphed entry points, in
 turns) are taken in a phase of their own right after phase 3's, before any
@@ -325,8 +341,12 @@ graph) and are counted by the wrappers in each rank's process: 8 / 8 / 1 /
 1 per step, the slab kernels in place of kernels 3 and 4 (tiled at two
 ranks' 16 rows, general at three ranks' 11 / 11 / 10: records ``space3
 sample``, ``space3 chain``, ``space3 fit``); the record's
-``launches_by_path`` sum the ranks.  Phase 25 (last) counts 4 / 4 / 1 / 1
-a step of each loss over two data ranks (record ``losses``).
+``launches_by_path`` sum the ranks.  Phase 25 counts 4 / 4 / 1 / 1 a step
+of each loss over two data ranks (record ``losses``).  Phase 26 (last)
+counts the 8^4 slabs' launches the same way (records ``space4 sample``,
+``space4 chain``, ``space4 grads``, ``space4 fit``), every slab launch
+also under the tiled nd slab kernels' own records,
+``phi4_action_slab_tiled_nd`` and ``phi4_action_slab_grad_tiled_nd``.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits non-zero
@@ -1575,14 +1595,16 @@ def check_train_grads(torch, model, rng, packed=True, backend="xla",
                                  "step pass")
 
 
-def fit_protocol(model, n_epochs, lr=3e-3, decay_steps=N_STEPS):
+def fit_protocol(model, n_epochs, lr=3e-3, decay_steps=N_STEPS,
+                 batch=TRAIN_BATCH):
     """``model.fit`` for ``n_epochs`` steps with the bench protocol's
     settings (``bench.py:278-286``), the cosine decay over ``decay_steps``
     (``N_STEPS``), at the learning rate ``lr`` (the protocol's 3e-3; the
-    4-D flagship's ``LAT4_LR``); returns the fit's history."""
+    4-D flagship's ``LAT4_LR``) and the global batch ``batch`` (the
+    protocol's 512); returns the fit's history."""
     from normflow__tpu_torch import cosine_decay_schedule
 
-    return model.fit(n_epochs=n_epochs, batch_size=TRAIN_BATCH,
+    return model.fit(n_epochs=n_epochs, batch_size=batch,
                      hyperparam=dict(lr=lr, weight_decay=1e-4),
                      scheduler=cosine_decay_schedule(
                          1.0, decay_steps=decay_steps, alpha=0.05),
@@ -2710,27 +2732,55 @@ def hold_slabs(torch, cfgs, g, w, n=2):
     return rel, dforce, ok and rel <= PHI4_REL_TOL
 
 
+# the tiled nd slab kernels' records by wrapper: on a slab of a 3-D or 4-D
+# lattice every tiled launch of a slab wrapper is theirs
+SLAB_ND_RECORDS = {"phi4_action_slab": "phi4_action_slab_tiled_nd",
+                   "phi4_action_slab_grad": "phi4_action_slab_grad_tiled_nd"}
+# the slabs at which phase 21 times them in turns with the general entries:
+# half the 8^4 flagship at B = 1024 (the record's), at phase 26's batch,
+# the three rows of 8 over three ranks, and half of 8^3
+SLAB_ND_TIMES = ((BATCH, 4, 8, 8, 8), (128, 4, 8, 8, 8), (BATCH, 3, 8, 8, 8),
+                 (BATCH, 4, 8, 8))
+
+
 def check_slab_kernels(torch, kernels, peaks, rng, action):
     """Phase 21, step 1: the slab variants of the action and its force
     (``phi4_action_slab``, ``phi4_action_slab_grad``) on the slabs of a
     field with hand-built halos, held against the whole-lattice kernels and
     their plain slab versions: (1024, 32, 32) as two (1024, 16, 32) slabs
     and config 4's (1024, 64, 64) as two of 32 rows, on the tiled kernels;
-    the general kernels at 1-D, (128, 8, 8) and 3-D, and on (1024, 32, 32)
-    over three ranks, XLA's split, slabs of (1024, 11, 32) and (1024, 10,
-    32) (their float4 groups are no whole warps: ``phi4.action_plan``);
-    the tiled force bit for bit against the general one; a slab of no rows
-    returns zero and an empty force with no launch.  Returns the function
-    that times them at the flagship's slab and the ragged ones."""
+    (1024, 8, 8, 8, 8) as two slabs of 4 rows and as 3 / 3 / 2 (XLA's
+    split over three ranks), and (64, 8, 8, 8) as two, on the tiled nd
+    kernels, each slab's force bit for bit against the general slab
+    entry and its action within ``PHI4_REL_TOL`` of it; the general
+    kernels at 1-D, (128, 8, 8), an odd (64, 3, 5, 4, 6) and on (1024, 32,
+    32) over three ranks, XLA's split, slabs of (1024, 11, 32) and (1024,
+    10, 32) (their float4 groups are no whole warps: ``phi4.action_plan``);
+    the tiled and tiled nd forces bit for bit against the general one on
+    an offset copy (which the wrappers send to the general kernel); a slab
+    of no rows returns zero and an empty force with no launch.  Returns the
+    function that times them at the flagship's slab and the ragged ones,
+    and the tiled nd slab kernels (:func:`time_slab_nd`)."""
     from normflow__tpu_torch.ops.kernels import phi4
 
     counters = slab_counters()
     worst = {k: 0.0 for k in counters}
+    for k, nd in SLAB_ND_RECORDS.items():
+        kernels[nd] = dict(
+            name=nd, route="cuda",
+            source="normflow__tpu_torch/csrc/phi4_action.cu",
+            replaces=f"normflow__tpu/ops/kernels/phi4.py:"
+                     f"{30 if k == 'phi4_action_slab' else 49}",
+            max_abs_err=0.0, library_ms=None, launches_by_path={},
+            replay_launches_per_unit={})
     for shape, variant, n in (((BATCH, *LAT), "tiled", 2),
                               ((BATCH, 64, 64), "tiled", 2),
                               ((BATCH, 64), "general", 2),
                               ((128, 8, 8), "general", 2),
-                              ((64, 8, 8, 8), "general", 2),
+                              ((64, 8, 8, 8), "tiled_nd", 2),
+                              ((BATCH, 8, 8, 8, 8), "tiled_nd", 2),
+                              ((BATCH, 8, 8, 8, 8), "tiled_nd", 3),
+                              ((64, 3, 5, 4, 6), "general", 2),
                               ((BATCH, *LAT), "general", 3)):
         cfgs = torch.tensor(rng.standard_normal(shape), dtype=torch.float32,
                             device="cuda")
@@ -2741,9 +2791,9 @@ def check_slab_kernels(torch, kernels, peaks, rng, action):
         rel, dforce, ok = hold_slabs(torch, cfgs, g, w, n)
         tiled = {k: (c.launches, c.tiled_launches)
                  for k, c in counters.items()}
-        want = n if variant == "tiled" else 0
-        heights = [tuple(s.shape[1:2]) for s, _ in split_slabs(torch, cfgs,
-                                                                n)]
+        want = 0 if variant == "general" else n
+        slabs = split_slabs(torch, cfgs, n)
+        heights = [tuple(s.shape[1:2]) for s, _ in slabs]
         print(f"slab kernels on {n} slabs of {shape} (rows {heights}, "
               f"{variant}): summed action max rel {rel:.3e} (tol "
               f"{PHI4_REL_TOL}), stacked force max abs {dforce:.3e} (rtol "
@@ -2753,29 +2803,64 @@ def check_slab_kernels(torch, kernels, peaks, rng, action):
         if not ok or any(t != (n, want) for t in tiled.values()):
             raise AssertionError(f"a slab kernel disagrees or missed its "
                                  f"variant at {shape} over {n} slabs")
+        if variant == "tiled_nd":
+            # each slab against the general slab entries on the same slab
+            for slab, halo in slabs:
+                got = phi4.phi4_action_slab(slab, halo, *w)
+                force = phi4.phi4_action_slab_grad(slab, halo, g, *w)
+                gen = general_phi4(torch, slab, w, halo=halo)
+                gen_force = general_phi4(torch, slab, w, g, halo)
+                plain = phi4.phi4_action_slab_plain(slab, halo, *w)
+                torch.cuda.synchronize()
+                grel = float(((got - gen).abs()
+                              / gen.abs().clamp(min=1.0)).max())
+                same = same_bits(torch, (force,), (gen_force,))
+                print(f"  tiled nd slab {tuple(slab.shape)} vs the general "
+                      f"slab entries: action max rel {grel:.3e} (tol "
+                      f"{PHI4_REL_TOL}), force "
+                      f"{'bit for bit' if same else 'NOT bit-identical'}")
+                if not (same and grel <= PHI4_REL_TOL):
+                    raise AssertionError("a tiled nd slab kernel departs "
+                                         "from the general slab kernel at "
+                                         f"{tuple(slab.shape)}")
+                for k, err in (("phi4_action_slab",
+                                float((got - plain).abs().max())),
+                               ("phi4_action_slab_grad", dforce)):
+                    nd = kernels[SLAB_ND_RECORDS[k]]
+                    nd["max_abs_err"] = max(nd["max_abs_err"], err)
+            continue
         worst["phi4_action_slab"] = max(worst["phi4_action_slab"], rel)
         worst["phi4_action_slab_grad"] = max(worst["phi4_action_slab_grad"],
                                              dforce)
-    # the tiled force against the general kernel on an offset copy
-    cfgs = torch.tensor(rng.standard_normal((BATCH, *LAT)),
-                        dtype=torch.float32, device="cuda")
-    g = torch.tensor(rng.standard_normal(BATCH), dtype=torch.float32,
-                     device="cuda")
-    w = action.get_coef(2)
-    slab, halo = split_slabs(torch, cfgs)[0]
-    tiled = phi4.phi4_action_slab_grad(slab, halo, g, *w)
-    general = phi4.phi4_action_slab_grad(offset_copy(torch, slab), halo, g,
-                                         *w)
-    torch.cuda.synchronize()
-    same = same_bits(torch, (tiled,), (general,))
-    print(f"slab force at {tuple(slab.shape)}: tiled vs general kernel "
-          f"{'bit for bit' if same else 'NOT bit-identical'}")
-    if not same:
-        raise AssertionError("the tiled slab force departs from the general "
-                             "one")
+    # the tiled and tiled nd forces against the general kernel on an offset
+    # copy, which the wrappers send to it
+    for lat in ((8, 8, 8, 8), LAT):  # the 2-D field last: time_it's
+        cfgs = torch.tensor(rng.standard_normal((BATCH, *lat)),
+                            dtype=torch.float32, device="cuda")
+        g = torch.tensor(rng.standard_normal(BATCH), dtype=torch.float32,
+                         device="cuda")
+        w = action.get_coef(len(lat))
+        slab, halo = split_slabs(torch, cfgs)[0]
+        reset_counts(counters)
+        tiled = phi4.phi4_action_slab_grad(slab, halo, g, *w)
+        general = phi4.phi4_action_slab_grad(offset_copy(torch, slab), halo,
+                                             g, *w)
+        torch.cuda.synchronize()
+        same = same_bits(torch, (tiled,), (general,))
+        c = counters["phi4_action_slab_grad"]
+        bits = "bit for bit" if same else "NOT bit-identical"
+        print(f"slab force at {tuple(slab.shape)}: "
+              f"{phi4.slab_variant(slab.shape[1:], 0)} vs the general kernel "
+              f"on an offset copy {bits}; (launches, tiled) "
+              f"{(c.launches, c.tiled_launches)}")
+        if not same or (c.launches, c.tiled_launches) != (2, 1):
+            raise AssertionError("a tiled slab force departs from the "
+                                 "general one, or the offset copy took a "
+                                 "tile")
     # a slab of no rows (4 rows over three ranks): decided by shape, no launch
     empty = torch.zeros((BATCH, 0, LAT[1]), device="cuda")
-    halo = torch.stack([cfgs[:, -1], cfgs[:, 0]], 1).contiguous()
+    halo = torch.tensor(rng.standard_normal((BATCH, 2, LAT[1])),
+                        dtype=torch.float32, device="cuda")
     reset_counts(counters)
     act = phi4.phi4_action_slab(empty, halo, *w)
     force = phi4.phi4_action_slab_grad(empty, halo, g, *w)
@@ -2798,11 +2883,14 @@ def check_slab_kernels(torch, kernels, peaks, rng, action):
             max_abs_err=worst[name], library_ms=None,
             launches_by_path={}, replay_launches_per_unit={})
 
+    time_nd = time_slab_nd(torch, kernels, peaks, rng, action)
+
     def time_it():
         """Both slab kernels at the flagship's slab (1024, 16, 32), read
         warm, as the whole-lattice ones; config 4's and the flagship's
         over three ranks, (1024, 11, 32) and (1024, 10, 32), under
-        ``variants``."""
+        ``variants``; then the tiled nd slab kernels (:func:`time_slab_nd`).
+        """
         big = torch.tensor(rng.standard_normal((BATCH, 64, 64)),
                            dtype=torch.float32, device="cuda")
         three = split_slabs(torch, cfgs, 3)
@@ -2824,6 +2912,83 @@ def check_slab_kernels(torch, kernels, peaks, rng, action):
                     report(name, t, tuple(s.shape), peaks, kernels, "warm")
                 else:
                     record_variant(name, what, t, tuple(s.shape), peaks,
+                                   kernels)
+        time_nd()
+
+    return time_it
+
+
+def time_slab_nd(torch, kernels, peaks, rng, action):
+    """The function that names the tiled nd slab kernels' launches by
+    profiler and times them: one launch each of the slab action and force
+    at (1024, 4, 8, 8, 8) in a profiled window, which must name
+    ``phi4_action_slab_tiled_nd_kernel`` and
+    ``phi4_action_grad_slab_tiled_nd_kernel``; then at ``SLAB_ND_TIMES``'
+    slabs (each the first slab of a field split as ``split_slabs`` splits
+    it), warm and cold, in turns with the general slab entries on the same
+    tensors (general, tiled nd, tiled nd, general): the records' times,
+    read warm, at (1024, 4, 8, 8, 8), the rest under ``variants``, the
+    general entries' beside them (``general_in_turns``)."""
+    from normflow__tpu_torch.ops.kernels import phi4
+
+    cases = []
+    for shape in SLAB_ND_TIMES:  # 4 rows: half of 8; 3: a third, XLA's
+        field = torch.tensor(rng.standard_normal((shape[0], 8, *shape[2:])),
+                             dtype=torch.float32, device="cuda")
+        slab, halo = split_slabs(torch, field, 2 if shape[1] == 4 else 3)[0]
+        g = torch.tensor(rng.standard_normal(shape[0]), dtype=torch.float32,
+                         device="cuda")
+        w = action.get_coef(len(shape) - 1)
+        if tuple(slab.shape) != shape or phi4.slab_variant(
+                shape[1:], slab.data_ptr(), halo.data_ptr()) != "tiled_nd":
+            raise AssertionError(f"{shape} is not a tiled nd slab")
+        cases.append((shape, slab, halo, g, w))
+
+    def time_it():
+        from normflow__tpu_torch.tools.kernel_times import cold_ms, warm_ms
+
+        _, slab, halo, g, w = cases[0]
+        dev = device_profile(lambda: (
+            phi4.phi4_action_slab(slab, halo, *w),
+            phi4.phi4_action_slab_grad(slab, halo, g, *w)), 1)[1]
+        names = [n for n, _ in dev if "phi4_action" in n]
+        print(f"the tiled nd slab kernels at {tuple(slab.shape)}, by "
+              f"profiler name: {names}")
+        if len(names) != 2 or not re.search(
+                r"\bphi4_action_slab_tiled_nd_kernel\b", names[0]) or not \
+                re.search(r"\bphi4_action_grad_slab_tiled_nd_kernel\b",
+                          names[1]):
+            raise AssertionError("the slabs of 8^4 did not launch the tiled "
+                                 "nd slab kernels")
+        for shape, slab, halo, g, w in cases:
+            for name, fn, plain, general in (
+                    ("phi4_action_slab",
+                     lambda: phi4.phi4_action_slab(slab, halo, *w),
+                     lambda: phi4.phi4_action_slab_plain(slab, halo, *w),
+                     lambda: general_phi4(torch, slab, w, halo=halo)),
+                    ("phi4_action_slab_grad",
+                     lambda: phi4.phi4_action_slab_grad(slab, halo, g, *w),
+                     lambda: phi4.phi4_action_slab_grad_plain(slab, halo, g,
+                                                              *w),
+                     lambda: general_phi4(torch, slab, w, g, halo))):
+                nd = SLAB_ND_RECORDS[name]
+                gen = [dict(ms=warm_ms(general), ms_cold=cold_ms(general))]
+                t = kernel_times(nd, fn, plain, plain_reps=5)
+                again = dict(ms=warm_ms(fn), ms_cold=cold_ms(fn))
+                gen.append(dict(ms=warm_ms(general),
+                                ms_cold=cold_ms(general)))
+                print(f"{nd} at {shape} in turns with the general slab "
+                      f"kernel: general {gen[0]['ms']:.5f} / "
+                      f"{gen[0]['ms_cold']:.5f}, tiled nd {t['ms']:.5f} / "
+                      f"{t['ms_cold']:.5f}, {again['ms']:.5f} / "
+                      f"{again['ms_cold']:.5f}, general {gen[1]['ms']:.5f} / "
+                      f"{gen[1]['ms_cold']:.5f} ms (warm / cold)")
+                kernels[nd].setdefault("general_in_turns", {})[
+                    str(shape)] = gen
+                if shape == SLAB_ND_TIMES[0]:
+                    report(nd, t, shape, peaks, kernels, "warm")
+                else:
+                    record_variant(nd, f"{shape} tiled nd", t, shape, peaks,
                                    kernels)
 
     return time_it
@@ -3060,7 +3225,7 @@ def c4_rates(torch, model, card):
 SPACE_AXES = {"data": 1, "space": 2}
 SPACE_SEED = 20261021
 SPACE_ROUNDS = 4  # sample_chain(SPACE_ROUNDS, BATCH) on the sharded model
-SPACE_STEPS = 24  # eager steps of the two-rank fit
+SPACE_STEPS = 12  # eager steps of the two-rank fit (24 until phase 26 came)
 SPACE_BLOCKED = 2  # blocked_mcmc.sample__(SPACE_BLOCKED, n_blocks=K) there
 # The sharded fit's loss against the unsharded eager fit on the same draws,
 # max |dl| / max(1, |l|) over the SPACE_STEPS steps.  Both run in float32
@@ -3357,7 +3522,8 @@ def run_space(torch, kernels, card):
             if got != wanted:
                 raise AssertionError(f"{path}: wrapper launches {got}, want "
                                      f"{wanted}")
-    first, last = float(want[:10].mean()), float(want[-10:].mean())
+    half = SPACE_STEPS // 2
+    first, last = float(want[:half].mean()), float(want[-half:].mean())
     if not np.isfinite(want).all() or not last < first:
         raise AssertionError("the reference fit's loss is not falling")
     for path, want_per in per_unit.items():
@@ -3872,6 +4038,293 @@ def run_losses(torch, kernels, card):
           f"included; {time.perf_counter() - t_phase:.1f} s on {card}")
 
 
+# --------------------------------------------------------------------- #
+# Phase 26: the 8^4 flagship over two space ranks on the one card
+# --------------------------------------------------------------------- #
+SPACE4_SEED = 20261026
+SPACE4_BATCH = 128  # the global batch of the batch, the round and the steps
+SPACE4_STEPS = 2    # eager steps of the bench protocol at LAT4_LR
+SPACE4_TIMEOUT = 300.0  # seconds the parent waits for the two ranks
+
+
+def space4_round(seed):
+    """Phase 26's chain round: the prior's draw and the log uniforms, the
+    same numpy numbers in every process."""
+    rng = np.random.default_rng([seed, 2000])
+    return (rng.standard_normal((SPACE4_BATCH, *LAT4)).astype(np.float32),
+            np.log(rng.random(SPACE4_BATCH)).astype(np.float32))
+
+
+def space4_feed(torch, model, seed, cut):
+    """Feed ``model`` phase 26's numpy draws, each through ``cut`` (a
+    rank's slab, or the whole lattice): its sampler the round of
+    :func:`space4_round`, its fitter draw ``k`` of :func:`space_draw` at
+    step ``k``.  Returns the batch's draw and the first step's."""
+    x_round, lrand = space4_round(seed)
+
+    def _draws(batch_size, generator):
+        x = cut(x_round)
+        return x, model.prior.log_prob(x), torch.from_numpy(lrand).cuda()
+
+    steps = iter(range(SPACE4_STEPS))
+
+    def _draw(batch_size, generator):
+        x = cut(space_draw(seed, next(steps), (batch_size, *LAT4)))
+        return x, model.prior.log_prob(x)
+
+    model.mcmc._draws, model.fit._draw = _draws, _draw
+    return (cut(space_draw(seed, -1, (SPACE4_BATCH, *LAT4))),
+            cut(space_draw(seed, 0, (SPACE4_BATCH, *LAT4))))
+
+
+def space4_grads(torch, model, x0):
+    """The path-gradient loss and gradients of ``model`` at the draw
+    ``x0`` as the training step takes them (``Fitter.loss_of``,
+    ``torch.autograd.grad``, and over a group
+    ``ModelDeviceHandler.reduce_step``): ``(loss, [float64 numpy
+    leaves])``."""
+    dh = model.device_handler
+    fit = model.fit
+    fit.grad_estimator = "path"
+    with dh.sharded():
+        loss, _, _ = fit.loss_of(x0, model.prior.log_prob(x0))
+    g = torch.autograd.grad(loss, list(model.net_.parameters()))
+    if dh.group is not None:
+        g = dh.reduce_step(g)
+    return float(loss.detach()), [t.double().cpu().numpy() for t in g]
+
+
+def space4_paths(torch, model, seed, cut):
+    """Phase 26's runs of ``model`` (sharded or not) on its fed draws
+    (:func:`space4_feed`), in order: ``posterior.sample__(SPACE4_BATCH)``;
+    ``sample_chain(1, SPACE4_BATCH, bookkeeping=True)``; the path-gradient
+    loss and gradients of the first step's draw as the training step takes
+    them (``Fitter.loss_of``, ``torch.autograd.grad``, and over the group
+    ``ModelDeviceHandler.reduce_step``); ``SPACE4_STEPS`` eager steps of
+    the bench protocol at ``LAT4_LR``.  Each with every launch counter set
+    to 0 just before and read just after: ``{path: (output, seconds,
+    {wrapper: (launches, tiled)})}``."""
+    from normflow__tpu_torch.ops.kernels.accept_scan import accept_scan
+
+    xs, x0 = space4_feed(torch, model, seed, cut)
+    counters = {**_counters(), **slab_counters(), "accept_scan": accept_scan}
+    runs = {}
+    for path, fn in (
+            ("space4 sample", lambda: model.posterior.sample__(
+                SPACE4_BATCH, preprocess_func=lambda x, logr: (
+                    xs, model.prior.log_prob(xs)))),
+            ("space4 chain", lambda: model.mcmc.sample_chain(
+                1, SPACE4_BATCH, bookkeeping=True)),
+            ("space4 grads", lambda: space4_grads(torch, model, x0)),
+            ("space4 fit", lambda: fit_protocol(
+                model, SPACE4_STEPS, lr=LAT4_LR, decay_steps=SPACE4_STEPS,
+                batch=SPACE4_BATCH))):
+        reset_counts(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        runs[path] = (out, time.perf_counter() - t0, {
+            k: (c.launches, getattr(c, "tiled_launches", 0))
+            for k, c in counters.items()})
+    return runs
+
+
+def space4_result(runs, history):
+    """What the parent holds of :func:`space4_paths`' runs, as numpy."""
+    _, logq, logp = runs["space4 sample"][0]
+    chain = runs["space4 chain"][0]
+    return dict(
+        y_shape=tuple(runs["space4 sample"][0][0].shape),
+        logq=logq.cpu().numpy(), logp=logp.cpu().numpy(),
+        raw=[np.asarray(a) for a in (history.raw_logq, history.raw_logp,
+                                     history.accept_seq)],
+        chain={k: chain[k].cpu().numpy() for k in ("logq", "logp")},
+        grads=runs["space4 grads"][0],
+        loss=list(runs["space4 fit"][0]["loss"]),
+        seconds={k: v[1] for k, v in runs.items()},
+        counts={k: v[2] for k, v in runs.items()})
+
+
+def space4_run(torch, state, seed):
+    """One of phase 26's two processes under ``SPACE_AXES``: the 8^4
+    flagship (``build_phi4_model(LAT4, packed=False)``) with phase 23's
+    perturbed weights ``state``, this rank's slab of the fed draws through
+    :func:`space4_paths`."""
+    import torch.distributed as dist
+
+    from normflow__tpu_torch.zoo import build_phi4_model
+
+    torch.set_num_threads(1)  # two processes share the host's cores
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = build_phi4_model(LAT4, packed=False, seed=0)
+    model.net_.load_state_dict({k: torch.from_numpy(v)
+                                for k, v in state.items()})
+    dh = model.device_handler
+    dh.use_mesh(axes=SPACE_AXES)
+    dh.replicate_params()
+    slab = dh.slab
+    if dist.get_backend(dh.group) != "gloo" or dh.captures():
+        raise AssertionError("the two-process phase must run eagerly over "
+                             "gloo")
+
+    def cut(a):
+        rows = a[:, slab.row0:slab.row0 + slab.rows]
+        return torch.from_numpy(np.ascontiguousarray(rows)).cuda()
+
+    runs = space4_paths(torch, model, seed, cut)
+    return dict(space4_result(runs, model.mcmc.history),
+                rank=dist.get_rank(), slab=(slab.row0, slab.rows))
+
+
+def run_space4(torch, kernels, card, state):
+    """Phase 26: the 8^4 flagship over two space ranks, two gloo processes
+    on the one card (phase 21's :func:`space_rank`), ``{"data": 1,
+    "space": 2}``, each rank a slab of (4, 8, 8, 8) rows, eager, with phase
+    23's perturbed weights ``state``: :func:`space4_paths` at the global
+    batch ``SPACE4_BATCH`` on fed numpy draws, held against the unsharded
+    8^4 flagship on the card on the same draws, eager too, with phase 21's
+    bars: logq and logp of the batch and the chain's proposals
+    (``LOGQ_REL_TOL``); the chain's accept decisions equal to the
+    unsharded chain's, and with its corrected streams bit for bit those of
+    the plain recurrence on its own proposals; the first step's loss
+    (``LOGQ_REL_TOL``) and every gradient leaf (``|dg| / |g|`` within the
+    larger of ``SPACE_LOSS_TOL`` and ``SPACE_FLOOR`` times the unsharded
+    gradient's own move when the draw is nudged by one float32 ulp, as
+    phase 21 bars the loss: a leaf whose terms cancel carries float32's
+    reordering far), alike bit for bit on both ranks; the
+    ``SPACE4_STEPS`` steps' losses (step 1 ``LOGQ_REL_TOL``, then
+    ``SPACE_LOSS_TOL``).  Each wrapper's launches per batch, round, step
+    and gradient, every slab launch to the tiled nd slab kernels and every
+    coupling to the tiled coupling kernels."""
+    from normflow__tpu_torch.parallel import free_port
+    from normflow__tpu_torch.zoo import build_phi4_model
+
+    t_phase = time.perf_counter()
+    ranks = run_ranks(space_rank, 2, (2, f"tcp://localhost:{free_port()}",
+                                      space4_run, (state, SPACE4_SEED)),
+                      SPACE4_TIMEOUT)
+    wall = time.perf_counter() - t_phase
+
+    ref = build_phi4_model(LAT4, packed=False, seed=0)
+    ref.net_.load_state_dict({k: torch.from_numpy(v)
+                              for k, v in state.items()})
+    ref.device_handler.captures = lambda: False  # eager, as over gloo
+    # the unsharded gradient's own spread: the first step's draw nudged by
+    # one float32 ulp (phase 21's floor, per leaf)
+    x0 = torch.from_numpy(space_draw(SPACE4_SEED, 0,
+                                     (SPACE4_BATCH, *LAT4))).cuda()
+    nudged = space4_grads(torch, ref, x0 * (1.0 + 2.0 ** -23))[1]
+    names = [n for n, _ in ref.net_.named_parameters()]
+    t0 = time.perf_counter()
+    want = space4_result(space4_paths(torch, ref, SPACE4_SEED,
+                                      lambda a: torch.from_numpy(a).cuda()),
+                         ref.mcmc.history)
+    ref_s = time.perf_counter() - t0
+    n_layers = len(ref.net_[2].nets)
+    del ref
+
+    def rel(a, b):
+        return np.abs(np.asarray(a) - np.asarray(b)) / np.maximum(
+            1.0, np.abs(np.asarray(b)))
+
+    def leaf_rel(a, b):
+        return float(np.linalg.norm(a - b)) / max(float(np.linalg.norm(b)),
+                                                  1e-30)
+
+    leaf_bars = [max(SPACE_LOSS_TOL, SPACE_FLOOR * leaf_rel(a, b))
+                 for a, b in zip(nudged, want["grads"][1])]
+    lrand = space4_round(SPACE4_SEED)[1][None]
+    per_unit = {
+        "space4 sample": {"rqs_coupling": n_layers, "phi4_action_slab": 1},
+        "space4 chain": {"rqs_coupling": n_layers, "phi4_action_slab": 1,
+                         "accept_scan": 1},
+        "space4 grads": {"rqs_coupling": 2 * n_layers,
+                         "rqs_coupling_bwd": 2 * n_layers,
+                         "phi4_action_slab": 1, "phi4_action_slab_grad": 1}}
+    per_unit["space4 fit"] = per_unit["space4 grads"]
+    units = {"space4 sample": 1, "space4 chain": 1, "space4 grads": 1,
+             "space4 fit": SPACE4_STEPS}
+    loss0, leaves0 = ranks[0]["grads"]
+    for r in ranks:
+        raw_q, raw_p, seq = r["raw"]
+        rel_q, rel_p = (float(rel(a, b).max()) for a, b in
+                        ((r["logq"], want["logq"]),
+                         (r["logp"], want["logp"])))
+        raw_rel = max(float(rel(a, b).max()) for a, b in
+                      ((raw_q, want["raw"][0]), (raw_p, want["raw"][1])))
+        p_seq, p_lq, p_lp = plain_chain(torch, raw_q, raw_p, lrand)
+        plain_same = (np.array_equal(seq, p_seq)
+                      and np.array_equal(r["chain"]["logq"], p_lq)
+                      and np.array_equal(r["chain"]["logp"], p_lp))
+        flips = int((seq != want["raw"][2]).sum())
+        loss, leaves = r["grads"]
+        dgrad = float(rel([loss], [want["grads"][0]]).max())
+        dleaves = [leaf_rel(a, b) for a, b in zip(leaves, want["grads"][1])]
+        worst = int(np.argmax(np.asarray(dleaves) / np.asarray(leaf_bars)))
+        leaves_ok = all(d <= b for d, b in zip(dleaves, leaf_bars))
+        alike = loss == loss0 and all(np.array_equal(a, b)
+                                      for a, b in zip(leaves, leaves0))
+        fit = r["loss"] if r["rank"] == 0 else want["loss"]
+        dloss = rel(fit, want["loss"])
+        print(f"8^4 over 2 space ranks, rank {r['rank']} (first row, rows "
+              f"{r['slab']}): sample__ {r['y_shape']}; logq max rel "
+              f"{rel_q:.3e}, logp max rel {rel_p:.3e}, chain proposals max "
+              f"rel {raw_rel:.3e} against the unsharded 8^4 flagship on the "
+              f"card (tol {LOGQ_REL_TOL}); accept decisions {flips} of "
+              f"{seq.size} unlike the unsharded chain's (accept "
+              f"{float(seq.mean()):.5f}, unsharded "
+              f"{float(want['raw'][2].mean()):.5f}), vs the plain recurrence "
+              f"on its proposals {'bit for bit' if plain_same else 'DIFFER'};"
+              f" the first step's loss rel {dgrad:.3e} (tol {LOGQ_REL_TOL}), "
+              f"|dg|/|g| per leaf max {max(dleaves):.3e}, nearest its bar "
+              f"{names[worst]} {dleaves[worst]:.3e} (bar "
+              f"{leaf_bars[worst]:.3e}: {SPACE_LOSS_TOL} or {SPACE_FLOOR:g} "
+              f"x the unsharded "
+              f"gradient's move under a one-ulp nudge of the draw; bars "
+              f"{min(leaf_bars):.1e}-{max(leaf_bars):.1e}), "
+              f"ranks {'alike bit for bit' if alike else 'DIFFER'}; "
+              f"{SPACE4_STEPS} steps' loss rel {dloss.tolist()} (step 1 tol "
+              f"{LOGQ_REL_TOL}, then {SPACE_LOSS_TOL}); loss "
+              f"{np.round(np.asarray(fit), 3).tolist()}")
+        if not (r["slab"] == (r["rank"] * LAT4[0] // 2, LAT4[0] // 2)
+                and r["y_shape"] == (SPACE4_BATCH, *LAT4)
+                and rel_q <= LOGQ_REL_TOL and rel_p <= LOGQ_REL_TOL
+                and raw_rel <= LOGQ_REL_TOL and plain_same and not flips
+                and dgrad <= LOGQ_REL_TOL and leaves_ok
+                and alike and len(fit) == SPACE4_STEPS
+                and np.isfinite(fit).all() and dloss[0] <= LOGQ_REL_TOL
+                and dloss.max() <= SPACE_LOSS_TOL):
+            raise AssertionError("the 8^4 flagship over two space ranks "
+                                 "departs from the unsharded one")
+        for path, want_per in per_unit.items():
+            got = {k: v for k, v in r["counts"][path].items() if v[0]}
+            wanted = {k: (v * units[path],
+                          v * units[path] if k != "accept_scan" else 0)
+                      for k, v in want_per.items()}
+            print(f"  {path}: launches by wrapper (launches, tiled) {got}, "
+                  f"want {wanted}")
+            if got != wanted:
+                raise AssertionError(f"{path}: wrapper launches {got}, want "
+                                     f"{wanted} (every slab launch tiled nd)")
+    for path, want_per in per_unit.items():
+        for k in want_per:
+            n = sum(r["counts"][path][k][0] for r in ranks)
+            kernels[k].setdefault("launches_by_path", {})[path] = n
+            if k in SLAB_ND_RECORDS:
+                kernels[k].setdefault("tiled_launches_by_path", {})[path] = n
+                kernels[SLAB_ND_RECORDS[k]]["launches_by_path"][path] = n
+    s = ranks[0]["seconds"]
+    print(f"8^4 over 2 space ranks: {SPACE4_STEPS / s['space4 fit']:.3f} "
+          f"eager steps/s at batch {SPACE4_BATCH}, "
+          f"{SPACE4_BATCH / s['space4 chain']:.1f} chain proposals/s (gloo "
+          f"through the host: not a speed claim); the unsharded eager "
+          f"reference {ref_s:.1f} s; the two ranks' processes {wall:.1f} s "
+          f"wall, start-up included; phase 26 "
+          f"{time.perf_counter() - t_phase:.1f} s on {card}")
+
+
 # each kernel's device functions, the path's first, as ptxas and the
 # profiler name them; the flagship's template instance (m = 8, linear
 # tails, as mangled: the inverse flag follows)
@@ -3893,6 +4346,9 @@ DEVICE_FUNCTIONS = {
                             "rqs_coupling_bwd_cl_kernel"),
     "phi4_action_tiled_nd": ("phi4_action_tiled_nd_kernel",),
     "phi4_action_grad_tiled_nd": ("phi4_action_grad_tiled_nd_kernel",),
+    "phi4_action_slab_tiled_nd": ("phi4_action_slab_tiled_nd_kernel",),
+    "phi4_action_slab_grad_tiled_nd": (
+        "phi4_action_grad_slab_tiled_nd_kernel",),
 }
 FLAGSHIP_INSTANCE = "ILi8ELb1ELb1E"
 
@@ -5147,25 +5603,30 @@ def record_nd(kernels, path, counts, what="launches_by_path"):
             kernels[nd][what][path] = n[0] if isinstance(n, tuple) else n
 
 
-def general_phi4(torch, cfgs, w, g=None):
+def general_phi4(torch, cfgs, w, g=None, halo=None):
     """The general kernels' action of ``cfgs`` (given ``g``, its force)
     through their C entries, ``phi4_action_f32`` and
-    ``phi4_action_grad_f32``: no wrapper counts it."""
+    ``phi4_action_grad_f32``, or with ``halo`` the slab's through
+    ``phi4_action_slab_f32`` and ``phi4_action_grad_slab_f32``: no wrapper
+    counts it."""
     from normflow__tpu_torch.ops.kernels import _lib
 
     lib = _lib.library()
     lat = list(cfgs.shape[1:]) + [1] * (5 - cfgs.dim())
     stream = torch.cuda.current_stream().cuda_stream
+    rows = () if halo is None else (halo.data_ptr(),)
+    shape = (cfgs.shape[0], cfgs.dim() - 1, *lat, *w, stream)
     if g is None:
         out = torch.empty(cfgs.shape[0], device=cfgs.device)
-        err = lib.phi4_action_f32(cfgs.data_ptr(), out.data_ptr(),
-                                  cfgs.shape[0], cfgs.dim() - 1, *lat, *w,
-                                  stream)
+        entry = lib.phi4_action_f32 if halo is None \
+            else lib.phi4_action_slab_f32
+        err = entry(cfgs.data_ptr(), *rows, out.data_ptr(), *shape)
     else:
         out = torch.empty_like(cfgs)
-        err = lib.phi4_action_grad_f32(cfgs.data_ptr(), g.data_ptr(),
-                                       out.data_ptr(), cfgs.shape[0],
-                                       cfgs.dim() - 1, *lat, *w, stream)
+        entry = lib.phi4_action_grad_f32 if halo is None \
+            else lib.phi4_action_grad_slab_f32
+        err = entry(cfgs.data_ptr(), *rows, g.data_ptr(), out.data_ptr(),
+                    *shape)
     _lib.check(err, "the general phi4 entry")
     return out
 
@@ -5177,10 +5638,9 @@ def check_phi4_4d(torch, kernels, peaks):
     their plain versions (``PHI4_REL_TOL``, ``FORCE_*``) and against the
     general kernels through their C entries (the action within
     ``PHI4_REL_TOL``, the force bit for bit), each launch tiled;
-    at an odd (64, 3, 5, 4, 6), and the slab kernels on the first of two
-    slabs of the (1024, 8, 8, 8, 8) field, (1024, 4, 8, 8, 8), with its
-    halo (1024, 2, 8, 8, 8), on the general kernels against their plain
-    versions; a 5-D field refused.  Returns the function that names the
+    at an odd (64, 3, 5, 4, 6) on the general kernels against their plain
+    versions (the slab kernels at 4-D: :func:`check_slab_kernels`); a 5-D
+    field refused.  Returns the function that names the
     tiled nd kernels' launches by profiler and times them, warm and cold,
     in turns with the general ones."""
     from normflow__tpu_torch.models.actions import ScalarPhi4Action
@@ -5220,13 +5680,6 @@ def check_phi4_4d(torch, kernels, peaks):
              ("phi4_action_grad", (64, 3, 5, 4, 6),
               lambda: phi4.phi4_action_grad(odd, godd, *w),
               lambda: phi4.phi4_action_grad_plain(odd, godd, *w))]
-    slab, halo = split_slabs(torch, field)[0]
-    cases += [("phi4_action_slab", tuple(slab.shape),
-               lambda: phi4.phi4_action_slab(slab, halo, *w),
-               lambda: phi4.phi4_action_slab_plain(slab, halo, *w)),
-              ("phi4_action_slab_grad", tuple(slab.shape),
-               lambda: phi4.phi4_action_slab_grad(slab, halo, g, *w),
-               lambda: phi4.phi4_action_slab_grad_plain(slab, halo, g, *w))]
     for name, nd in ND_RECORDS.items():
         kernels[nd] = dict(
             name=nd, route="cuda",
@@ -5240,7 +5693,7 @@ def check_phi4_4d(torch, kernels, peaks):
 
     def hold(name, shape, got, want, what):
         d = (got.double() - want.double()).abs()
-        if name in ("phi4_action", "phi4_action_slab"):
+        if name == "phi4_action":
             rel = float((d / want.double().abs().clamp(min=1.0)).max())
             ok, bar = rel <= PHI4_REL_TOL, (f"max rel {rel:.3e} (tol "
                                             f"{PHI4_REL_TOL})")
@@ -5289,7 +5742,7 @@ def check_phi4_4d(torch, kernels, peaks):
     launches = {k: c.launches for k, c in counters.items()}
     print(f"4-D general checks: wrapper launches {launches}")
     if launches != {"phi4_action": 1, "phi4_action_grad": 1,
-                    "phi4_action_slab": 1, "phi4_action_slab_grad": 1}:
+                    "phi4_action_slab": 0, "phi4_action_slab_grad": 0}:
         raise AssertionError("a 4-D check missed its kernel")
     check_tiled(counters, "4-D general checks", tiled=False)
     try:
@@ -5308,8 +5761,8 @@ def check_phi4_4d(torch, kernels, peaks):
         (general, tiled nd, tiled nd, general): the record's times, read
         warm, at the 8^4 batch's action and step's force, the rest under
         ``variants``, the general kernels' beside them
-        (``general_in_turns``); the odd shape and the slab kernels,
-        general, read warm, under ``variants``."""
+        (``general_in_turns``); the odd shape, general, read warm, under
+        ``variants``."""
         from normflow__tpu_torch.tools.kernel_times import cold_ms, warm_ms
 
         dev = device_profile(lambda: (nd_cases[0][2](), nd_cases[1][2]()),
@@ -6099,11 +6552,16 @@ def main() -> int:
     phase("channels-last route", run_channels_last, torch, kernels, peaks,
           card, model, step_rng)
     state4 = phase("4-D phi^4", run_4d, torch, kernels, card)
+    # phase 26's weights, before phase 24 lets phase 23's model go
+    weights4 = {k: v.detach().cpu().numpy()
+                for k, v in state4["model"].net_.state_dict().items()}
     phase("channels-last route at 1-, 3- and 4-D", run_cl_nd, torch,
           kernels, peaks, card, state4)
     del state4
     phase("every loss over two data ranks", run_losses, torch, kernels,
           card)
+    phase("the 8^4 flagship over two space ranks", run_space4, torch,
+          kernels, card, weights4)
     print("phase seconds: " + ", ".join(f"{n} {t:.1f}" for n, t in phases))
     print_windows(card)
 

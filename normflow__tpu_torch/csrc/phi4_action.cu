@@ -56,17 +56,22 @@
 // same bits.
 //
 // The slab variants (phi4_action_slab_f32, phi4_action_slab_tiled_f32,
-// phi4_action_grad_slab_f32, phi4_action_grad_slab_tiled_f32) are what the
-// two become under lattice (space) sharding, normflow__tpu_torch/parallel/
-// space.py: the field is a rank's slab (B, l0, L1, L2, L3) of each sample's
-// rows and `halo` (B, 2, L1, L2, L3) holds the row before the slab and the row
-// after it.  Along the first axis nothing wraps: a neighbour across the
-// slab's first row comes from halo row 0, across its last row (the force
-// only) from halo row 1; the other axes stay periodic.  They port no Pallas
-// kernel of their own (the JAX package's sharded action is XLA's roll with
-// the partitioner's halos) and share the whole-lattice kernels' bodies,
-// instantiated with kSlab = true, so each does the same work per site and
-// reads one more row per sample; the bounds are those above.  Plain
+// phi4_action_slab_tiled_nd_f32, phi4_action_grad_slab_f32,
+// phi4_action_grad_slab_tiled_f32, phi4_action_grad_slab_tiled_nd_f32) are
+// what the two become under lattice (space) sharding, normflow__tpu_torch/
+// parallel/space.py: the field is a rank's slab (B, l0, L1, L2, L3) of each
+// sample's rows and `halo` (B, 2, L1, L2, L3) holds the row before the slab
+// and the row after it.  Along the first axis nothing wraps: a neighbour
+// across the slab's first row comes from halo row 0, across its last row
+// (the force only) from halo row 1; the other axes stay periodic.  They port
+// no Pallas kernel of their own (the JAX package's sharded action is XLA's
+// roll with the partitioner's halos) and share the whole-lattice kernels'
+// bodies, instantiated with kSlab = true, so each does the same work per
+// site and reads one more row per sample (the action) or two (the force);
+// the bounds are those above.  The three variants are the whole lattice's,
+// by the same rules on the slab's extents: the 2-D tile, the tiled nd
+// kernels at 3-D and 4-D (whose ring stage holds the halo rows around the
+// slab's, notes at the kernel), the general kernels otherwise.  Plain
 // versions: normflow__tpu_torch/ops/kernels/phi4.py::phi4_action_slab_plain
 // and ::phi4_action_slab_grad_plain.
 
@@ -436,12 +441,24 @@ phi4_action_grad_slab_tiled_kernel(const float* __restrict__ cfgs,
 // the groups' loop unrolled or not alike (kept rolled: its SASS is one
 // group's).
 //
+// On a slab (kSlab; the slab's l0 rows are the tile's L0) the halo lives in
+// the ring: a stage holds halo row 0, then the slab's l0 rows, then halo
+// row 1, contiguous, so a site's axis-0 neighbours are always s0 float4s
+// before and after it, with no wrap and no branch; the general slab
+// kernels' division, modulo and branch per axis and site are gone.  The
+// action loads halo row 0 only, the force both: one or two more bulk
+// copies a sample, from the (B, 2, *rest) halo tensor.  At (4, 8, 8, 8)
+// (G = 512, s0 = 128) a block is 256 threads of 2 groups; the three rows a
+// rank holds of 8 rows over three ranks, (3, 8, 8, 8), make blocks of 384
+// threads, a group each.
+//
 // Per site the terms are those of the general kernels in their order: the
 // action's w2 p^2 + w4 p^4 - w0 p (0 + phi[x-e0] + ... + phi[x-e_{ND-1}]),
 // the force's (2 w2) p + (4 w4)(p p) p - w0 (0 + phi[x-e0] + phi[x+e0] +
 // ... + phi[x+e_{ND-1}]) times g[b], so the force has the general force's
-// bits.  The action sums each thread's sites in order, then the warp's by
-// shuffles, then the block's warps by warp 0: a fixed order, no atomics.
+// bits (the slab force the general slab force's).  The action sums each
+// thread's sites in order, then the warp's by shuffles, then the block's
+// warps by warp 0: a fixed order, no atomics.
 constexpr int kNdStages = 2;        // samples in flight per block
 constexpr int kNdMaxGroups = 1024;  // float4 groups a sample
 constexpr int kNdThreads = 256;     // threads a block, at least (or G)
@@ -450,9 +467,11 @@ constexpr int kNdUnroll = 1;        // a thread's groups unrolled
 
 // a lattice the tiled nd kernels take, L[ND-1] % 4 == 0, the unused
 // trailing extent 1: G float4 groups a sample, T threads a block, axis 0's
-// float4 stride s0 and the step j = T / s0 in c0 between a thread's groups
+// float4 stride s0, the step j = T / s0 in c0 between a thread's groups and
+// the float4s of a ring stage (G; on a slab G + 2 s0, the halo rows around
+// the slab's)
 struct NdTile {
-  int L[4], G, T, s0, j;
+  int L[4], G, T, s0, j, stage;
 };
 
 // What a thread's groups share: the first one's coordinate on axis 0, the
@@ -488,25 +507,38 @@ __device__ __forceinline__ NdSite<ND> nd_site(const NdTile& t, int gi) {
 }
 
 // Warp 0 fills stage `st` with sample b: lane 0 arms the barrier with the
-// sample's bytes, each lane copies its 1/32 of them (G % 32 == 0, so
-// each part is a whole number of 16-byte float4s).
+// stage's bytes, each lane copies its 1/32 of the sample (G % 32 == 0, so
+// each part is a whole number of 16-byte float4s).  With kHalo halo rows (a
+// slab's) the sample goes s0 float4s into the stage, lane 0 copies halo row
+// 0 before it and, with kHalo == 2, lane 1 halo row 1 after it.
+template <int kHalo>
 __device__ __forceinline__ void nd_load(const float* __restrict__ cfgs,
+                                        const float* __restrict__ halo,
                                         float4* ring, uint64_t* full,
-                                        long long b, int st, int G) {
+                                        long long b, int st,
+                                        const NdTile& t) {
   const int lane = threadIdx.x & 31;
-  const uint32_t part = (uint32_t)G / 32;  // float4s a lane copies
+  const uint32_t part = (uint32_t)t.G / 32;  // float4s a lane copies
+  float4* stage = ring + st * t.stage;
   if (lane == 0)
-    mbar_arrive_expect_tx(&full[st], (uint32_t)G * sizeof(float4));
+    mbar_arrive_expect_tx(&full[st],
+                          (uint32_t)(t.G + kHalo * t.s0) * sizeof(float4));
   __syncwarp();
-  bulk_load(ring + st * G + lane * part,
-            reinterpret_cast<const float4*>(cfgs) + b * G + lane * part,
+  bulk_load(stage + (kHalo ? t.s0 : 0) + lane * part,
+            reinterpret_cast<const float4*>(cfgs) + b * t.G + lane * part,
             part * sizeof(float4), &full[st]);
+  if (kHalo && lane < kHalo)
+    bulk_load(stage + lane * (t.s0 + t.G),
+              reinterpret_cast<const float4*>(halo) + (b * 2 + lane) * t.s0,
+              (uint32_t)t.s0 * sizeof(float4), &full[st]);
 }
 
 // The barriers, then warp 0 loads the block's first kNdStages samples.
+template <int kHalo>
 __device__ __forceinline__ void nd_start(const float* __restrict__ cfgs,
+                                         const float* __restrict__ halo,
                                          float4* ring, uint64_t* full,
-                                         long long B, int G) {
+                                         long long B, const NdTile& t) {
   if (threadIdx.x == 0) {
     for (int st = 0; st < kNdStages; ++st) mbar_init(&full[st], 1);
     fence_mbarrier_init();
@@ -515,16 +547,17 @@ __device__ __forceinline__ void nd_start(const float* __restrict__ cfgs,
   if (threadIdx.x < 32) {
     for (int st = 0; st < kNdStages; ++st) {
       const long long b = blockIdx.x + (long long)st * gridDim.x;
-      if (b < B) nd_load(cfgs, ring, full, b, st, G);
+      if (b < B) nd_load<kHalo>(cfgs, halo, ring, full, b, st, t);
     }
   }
 }
 
-template <int ND>
-__global__ void __launch_bounds__(kNdMaxGroups, kNdMinBlocks)
-phi4_action_tiled_nd_kernel(const float* __restrict__ cfgs,
-                            float* __restrict__ act, long long B, NdTile t,
-                            float w0, float w2, float w4) {
+template <int ND, bool kSlab>
+__device__ __forceinline__ void action_tiled_nd(
+    const float* __restrict__ cfgs, const float* __restrict__ halo,
+    float* __restrict__ act, long long B, const NdTile& t, float w0,
+    float w2, float w4) {
+  constexpr int kHalo = kSlab ? 1 : 0;
   const int gi = threadIdx.x;
   const int lane = gi & 31;
   const int warp = gi >> 5;
@@ -533,12 +566,13 @@ phi4_action_tiled_nd_kernel(const float* __restrict__ cfgs,
   __shared__ uint64_t full[kNdStages];
   __shared__ float sums[2][32];  // by parity of the iteration
   const NdSite<ND> s = nd_site<ND>(t, gi);
-  nd_start(cfgs, ring, full, B, t.G);
+  nd_start<kHalo>(cfgs, halo, ring, full, B, t);
 
   int st = 0, it = 0;
   uint32_t parity = 0;
   for (long long b = blockIdx.x; b < B; b += gridDim.x, ++it) {
-    const float4* f4 = ring + st * t.G;
+    // the sample's first float4; on a slab halo row 0 is the s0 before it
+    const float4* f4 = ring + st * t.stage + (kSlab ? t.s0 : 0);
     const float* f = reinterpret_cast<const float*>(f4);
     mbar_wait(&full[st], parity);
     float acc = 0.0f;
@@ -548,7 +582,8 @@ phi4_action_tiled_nd_kernel(const float* __restrict__ cfgs,
       const float sites[4] = {v.x, v.y, v.z, v.w};
       float neigh[4] = {0.0f, 0.0f, 0.0f, 0.0f};
       if (w0 != 0.0f) {
-        const float4 d = f4[c0 == 0 ? g + wrap0 : g - t.s0];
+        const float4 d =
+            f4[kSlab ? g - t.s0 : c0 == 0 ? g + wrap0 : g - t.s0];
         neigh[0] += d.x;
         neigh[1] += d.y;
         neigh[2] += d.z;
@@ -582,7 +617,7 @@ phi4_action_tiled_nd_kernel(const float* __restrict__ cfgs,
     __syncthreads();  // the stage is read; the warps' sums are written
     if (warp == 0) {
       const long long next = b + (long long)kNdStages * gridDim.x;
-      if (next < B) nd_load(cfgs, ring, full, next, st, t.G);
+      if (next < B) nd_load<kHalo>(cfgs, halo, ring, full, next, st, t);
       acc = lane < (t.T >> 5) ? sums[it & 1][lane] : 0.0f;
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)
@@ -596,23 +631,25 @@ phi4_action_tiled_nd_kernel(const float* __restrict__ cfgs,
   }
 }
 
-template <int ND>
-__global__ void __launch_bounds__(kNdMaxGroups, kNdMinBlocks)
-phi4_action_grad_tiled_nd_kernel(const float* __restrict__ cfgs,
-                                 const float* __restrict__ g,
-                                 float* __restrict__ grad, long long B,
-                                 NdTile t, float w0, float w2, float w4) {
+template <int ND, bool kSlab>
+__device__ __forceinline__ void grad_tiled_nd(
+    const float* __restrict__ cfgs, const float* __restrict__ halo,
+    const float* __restrict__ g, float* __restrict__ grad, long long B,
+    const NdTile& t, float w0, float w2, float w4) {
+  constexpr int kHalo = kSlab ? 2 : 0;
   const int gi = threadIdx.x;
   const int wrap0 = (t.L[0] - 1) * t.s0;
   float4* ring = reinterpret_cast<float4*>(dynamic_smem());
   __shared__ uint64_t full[kNdStages];
   const NdSite<ND> s = nd_site<ND>(t, gi);
-  nd_start(cfgs, ring, full, B, t.G);
+  nd_start<kHalo>(cfgs, halo, ring, full, B, t);
 
   int st = 0;
   uint32_t parity = 0;
   for (long long b = blockIdx.x; b < B; b += gridDim.x) {
-    const float4* f4 = ring + st * t.G;
+    // the sample's first float4; on a slab the halo rows are the s0
+    // before it and the s0 after its last
+    const float4* f4 = ring + st * t.stage + (kSlab ? t.s0 : 0);
     const float* f = reinterpret_cast<const float*>(f4);
     float4* out = reinterpret_cast<float4*>(grad) + b * t.G;
     const float gb = __ldg(g + b);
@@ -628,8 +665,10 @@ phi4_action_grad_tiled_nd_kernel(const float* __restrict__ cfgs,
         force[k] = (2.0f * w2) * ph + (4.0f * w4) * (ph * ph) * ph;
       }
       if (w0 != 0.0f) {
-        const float4 d = f4[c0 == 0 ? gr + wrap0 : gr - t.s0];
-        const float4 u = f4[c0 == t.L[0] - 1 ? gr - wrap0 : gr + t.s0];
+        const float4 d =
+            f4[kSlab ? gr - t.s0 : c0 == 0 ? gr + wrap0 : gr - t.s0];
+        const float4 u =
+            f4[kSlab ? gr + t.s0 : c0 == t.L[0] - 1 ? gr - wrap0 : gr + t.s0];
         float neigh[4] = {0.0f, 0.0f, 0.0f, 0.0f};
         neigh[0] = neigh[0] + d.x;  // roll(phi, 1, 0)
         neigh[0] = neigh[0] + u.x;  // roll(phi, -1, 0)
@@ -667,13 +706,50 @@ phi4_action_grad_tiled_nd_kernel(const float* __restrict__ cfgs,
     __syncthreads();  // every thread has read the stage
     if (gi < 32) {
       const long long next = b + (long long)kNdStages * gridDim.x;
-      if (next < B) nd_load(cfgs, ring, full, next, st, t.G);
+      if (next < B) nd_load<kHalo>(cfgs, halo, ring, full, next, st, t);
     }
     if (++st == kNdStages) {
       st = 0;
       parity ^= 1u;
     }
   }
+}
+
+template <int ND>
+__global__ void __launch_bounds__(kNdMaxGroups, kNdMinBlocks)
+phi4_action_tiled_nd_kernel(const float* __restrict__ cfgs,
+                            float* __restrict__ act, long long B, NdTile t,
+                            float w0, float w2, float w4) {
+  action_tiled_nd<ND, false>(cfgs, nullptr, act, B, t, w0, w2, w4);
+}
+
+template <int ND>
+__global__ void __launch_bounds__(kNdMaxGroups, kNdMinBlocks)
+phi4_action_slab_tiled_nd_kernel(const float* __restrict__ cfgs,
+                                 const float* __restrict__ halo,
+                                 float* __restrict__ act, long long B,
+                                 NdTile t, float w0, float w2, float w4) {
+  action_tiled_nd<ND, true>(cfgs, halo, act, B, t, w0, w2, w4);
+}
+
+template <int ND>
+__global__ void __launch_bounds__(kNdMaxGroups, kNdMinBlocks)
+phi4_action_grad_tiled_nd_kernel(const float* __restrict__ cfgs,
+                                 const float* __restrict__ g,
+                                 float* __restrict__ grad, long long B,
+                                 NdTile t, float w0, float w2, float w4) {
+  grad_tiled_nd<ND, false>(cfgs, nullptr, g, grad, B, t, w0, w2, w4);
+}
+
+template <int ND>
+__global__ void __launch_bounds__(kNdMaxGroups, kNdMinBlocks)
+phi4_action_grad_slab_tiled_nd_kernel(const float* __restrict__ cfgs,
+                                      const float* __restrict__ halo,
+                                      const float* __restrict__ g,
+                                      float* __restrict__ grad, long long B,
+                                      NdTile t, float w0, float w2,
+                                      float w4) {
+  grad_tiled_nd<ND, true>(cfgs, halo, g, grad, B, t, w0, w2, w4);
 }
 
 // The tile of a lattice the tiled nd kernels take, or false: nd 3 or 4,
@@ -691,31 +767,51 @@ bool nd_tile(int nd, int L0, int L1, int L2, int L3, NdTile& t) {
   const int want = G < kNdThreads ? G : kNdThreads;
   int j = 1;
   while (L0 % j || (j * s0) % 32 || j * s0 < want) ++j;  // ends at L0
-  t = NdTile{{L0, L1, L2, L3}, G, j * s0, s0, j};
+  t = NdTile{{L0, L1, L2, L3}, G, j * s0, s0, j, G};
+  return true;
+}
+
+// The tile of a slab (l0 = L0 rows and the rest) the tiled nd slab kernels
+// take, or false: nd_tile's on the slab's extents, the twin of
+// normflow__tpu_torch/ops/kernels/phi4.py::slab_plan_nd, and a ring stage
+// of G + 2 s0 float4s, halo row 0, the slab's rows, halo row 1.
+bool slab_nd_tile(int nd, int L0, int L1, int L2, int L3, NdTile& t) {
+  if (!nd_tile(nd, L0, L1, L2, L3, t)) return false;
+  t.stage = t.G + 2 * t.s0;
   return true;
 }
 
 // Launch `kern` persistent: as many blocks of T threads and the ring's
-// shared memory of G float4s a stage as the card holds at once, at most
-// one a sample.  The blocks an SM holds depend on G and T alone: cached
-// per kernel, G / 32 and T / 32.
+// shared memory of t.stage float4s a stage as the card holds at once, at
+// most one a sample.  `max_stage` is the most float4s a stage of `kern`
+// takes, which its shared-memory attribute allows once.  The blocks an SM
+// holds depend on T and the stage alone: cached per kernel.
 template <auto kern, typename... Args>
-int nd_launch(long long B, int G, int T, cudaStream_t stream,
-              Args... args) {
-  const size_t smem = (size_t)kNdStages * G * sizeof(float4);
+int nd_launch(long long B, const NdTile& t, int max_stage,
+              cudaStream_t stream, Args... args) {
+  const size_t smem = (size_t)kNdStages * t.stage * sizeof(float4);
+  struct Seen {
+    int T, stage, per_sm;
+  };
   static bool sized = false;
-  static int per_sm_of[kNdMaxGroups / 32 + 1][kNdMaxGroups / 32 + 1] = {};
-  int& per_sm = per_sm_of[G / 32][T / 32];
+  static Seen seen[16] = {};
+  static int n_seen = 0;
+  int per_sm = 0;
+  for (int i = 0; i < n_seen; ++i)
+    if (seen[i].T == t.T && seen[i].stage == t.stage) per_sm = seen[i].per_sm;
   cudaError_t err = cudaSuccess;
   if (!sized) {
     err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)((size_t)kNdStages * kNdMaxGroups * sizeof(float4)));
+        (int)((size_t)kNdStages * max_stage * sizeof(float4)));
     sized = err == cudaSuccess;
   }
-  if (err == cudaSuccess && per_sm == 0)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, T,
+  if (err == cudaSuccess && per_sm == 0) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, t.T,
                                                         smem);
+    if (err == cudaSuccess && n_seen < 16)
+      seen[n_seen++] = Seen{t.T, t.stage, per_sm};
+  }
   int dev = 0, n_sm = 0;
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -724,7 +820,7 @@ int nd_launch(long long B, int G, int T, cudaStream_t stream,
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   const long long resident = (long long)n_sm * per_sm;
   const unsigned int grid = (unsigned int)(B < resident ? B : resident);
-  kern<<<grid, T, smem, stream>>>(args...);
+  kern<<<grid, t.T, smem, stream>>>(args...);
   return (int)cudaGetLastError();
 }
 
@@ -924,9 +1020,9 @@ extern "C" int phi4_action_tiled_nd_f32(const void* cfgs, void* act,
   const auto* c = static_cast<const float*>(cfgs);
   auto* a = static_cast<float*>(act);
   return nd == 3 ? nd_launch<phi4_action_tiled_nd_kernel<3>>(
-                       B, t.G, t.T, st, c, a, B, t, w0, w2, w4)
+                       B, t, kNdMaxGroups, st, c, a, B, t, w0, w2, w4)
                  : nd_launch<phi4_action_tiled_nd_kernel<4>>(
-                       B, t.G, t.T, st, c, a, B, t, w0, w2, w4);
+                       B, t, kNdMaxGroups, st, c, a, B, t, w0, w2, w4);
 }
 
 // The tiled force on 3-D and 4-D lattices: cfgs and grad (B, L0, L1, L2,
@@ -950,7 +1046,64 @@ extern "C" int phi4_action_grad_tiled_nd_f32(const void* cfgs, const void* g,
   const auto* gg = static_cast<const float*>(g);
   auto* out = static_cast<float*>(grad);
   return nd == 3 ? nd_launch<phi4_action_grad_tiled_nd_kernel<3>>(
-                       B, t.G, t.T, st, c, gg, out, B, t, w0, w2, w4)
+                       B, t, kNdMaxGroups, st, c, gg, out, B, t, w0, w2, w4)
                  : nd_launch<phi4_action_grad_tiled_nd_kernel<4>>(
-                       B, t.G, t.T, st, c, gg, out, B, t, w0, w2, w4);
+                       B, t, kNdMaxGroups, st, c, gg, out, B, t, w0, w2, w4);
+}
+
+// The tiled nd slab action (notes at the tiled nd kernels): a slab on the
+// lattices phi4_action_tiled_nd_f32 takes, cfgs (B, L0, L1, L2, L3) and halo
+// (B, 2, L1, L2, L3) float32 contiguous and 16-byte aligned; the arguments
+// are phi4_action_slab_f32's.  Returns cudaErrorInvalidValue for what it
+// does not take (the wrapper sends other slabs to phi4_action_slab_f32),
+// else cudaGetLastError() after the launch.
+extern "C" int phi4_action_slab_tiled_nd_f32(const void* cfgs,
+                                             const void* halo, void* act,
+                                             long long B, int nd, int L0,
+                                             int L1, int L2, int L3, float w0,
+                                             float w2, float w4,
+                                             void* stream) {
+  NdTile t;
+  if (B < 1 || !slab_nd_tile(nd, L0, L1, L2, L3, t) ||
+      reinterpret_cast<uintptr_t>(cfgs) % 16 ||
+      reinterpret_cast<uintptr_t>(halo) % 16)
+    return (int)cudaErrorInvalidValue;
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto* c = static_cast<const float*>(cfgs);
+  const auto* h = static_cast<const float*>(halo);
+  auto* a = static_cast<float*>(act);
+  return nd == 3 ? nd_launch<phi4_action_slab_tiled_nd_kernel<3>>(
+                       B, t, 3 * kNdMaxGroups, st, c, h, a, B, t, w0, w2, w4)
+                 : nd_launch<phi4_action_slab_tiled_nd_kernel<4>>(
+                       B, t, 3 * kNdMaxGroups, st, c, h, a, B, t, w0, w2,
+                       w4);
+}
+
+// The tiled nd slab force: cfgs and grad (B, L0, L1, L2, L3) and halo (B,
+// 2, L1, L2, L3), all 16-byte aligned, g (B,), on the slabs
+// phi4_action_slab_tiled_nd_f32 takes; the arguments are
+// phi4_action_grad_slab_f32's.  Returns cudaErrorInvalidValue for what it
+// does not take (the wrapper sends other slabs to
+// phi4_action_grad_slab_f32), else cudaGetLastError() after the launch.
+extern "C" int phi4_action_grad_slab_tiled_nd_f32(
+    const void* cfgs, const void* halo, const void* g, void* grad,
+    long long B, int nd, int L0, int L1, int L2, int L3, float w0, float w2,
+    float w4, void* stream) {
+  NdTile t;
+  if (B < 1 || !slab_nd_tile(nd, L0, L1, L2, L3, t) ||
+      reinterpret_cast<uintptr_t>(cfgs) % 16 ||
+      reinterpret_cast<uintptr_t>(halo) % 16 ||
+      reinterpret_cast<uintptr_t>(grad) % 16)
+    return (int)cudaErrorInvalidValue;
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto* c = static_cast<const float*>(cfgs);
+  const auto* h = static_cast<const float*>(halo);
+  const auto* gg = static_cast<const float*>(g);
+  auto* out = static_cast<float*>(grad);
+  return nd == 3 ? nd_launch<phi4_action_grad_slab_tiled_nd_kernel<3>>(
+                       B, t, 3 * kNdMaxGroups, st, c, h, gg, out, B, t, w0,
+                       w2, w4)
+                 : nd_launch<phi4_action_grad_slab_tiled_nd_kernel<4>>(
+                       B, t, 3 * kNdMaxGroups, st, c, h, gg, out, B, t, w0,
+                       w2, w4);
 }

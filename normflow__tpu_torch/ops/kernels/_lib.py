@@ -85,6 +85,11 @@ _SIGNATURES = {
                                   _F, _F, _F, _P),
     "phi4_action_grad_slab_tiled_f32": (_P, _P, _P, _P, _L, _I, _I, _I, _F,
                                         _F, _F, _P),
+    # the tiled nd slab kernels: the general slab kernels' arguments
+    "phi4_action_slab_tiled_nd_f32": (_P, _P, _P, _L, _I, _I, _I, _I, _I,
+                                      _F, _F, _F, _P),
+    "phi4_action_grad_slab_tiled_nd_f32": (_P, _P, _P, _P, _L, _I, _I, _I,
+                                           _I, _I, _F, _F, _F, _P),
     # lrand, logqp, ref, accept, indices, n, stream
     "accept_scan_f32": (_P, _P, _P, _P, _P, _L, _P),
 }

@@ -38,9 +38,12 @@ backward neighbour (the row after is the next slab's to pair with), the
 force on the slab's sites reads both.  The other axes are periodic.  They
 port no Pallas kernel of their own (the JAX package's sharded action is
 XLA's roll with the partitioner's halos), and each has its plain version
-beside it, its launch counters and its tiled variant on the 2-D whole
-lattice's rule applied to the slab (:func:`slab_variant`: a slab of 3 or 4
-dims takes the general slab kernels).
+beside it, its launch counters and the whole lattice's variants by the
+whole lattice's rules applied to the slab's extents (:func:`slab_variant`):
+the 2-D tile, the tiled nd kernels at 3-D and 4-D (:func:`slab_plan_nd`,
+whose ring stage holds the halo rows around the slab's), the general slab
+kernels otherwise.  ``phi4_action_slab.tiled_launches`` and its force's
+count both tiled variants.
 """
 
 from __future__ import annotations
@@ -54,7 +57,7 @@ from . import _lib
 
 __all__ = ["phi4_action", "phi4_action_plain", "phi4_action_grad",
            "phi4_action_grad_plain", "action_plan", "action_plan_nd",
-           "action_variant", "slab_variant",
+           "action_variant", "slab_plan_nd", "slab_variant",
            "phi4_action_slab", "phi4_action_slab_plain",
            "phi4_action_slab_grad", "phi4_action_slab_grad_plain"]
 
@@ -122,13 +125,30 @@ def action_variant(lat, *ptrs):
     return "tiled_nd" if action_plan_nd(lat) is not None else "general"
 
 
+def slab_plan_nd(lat):
+    """``(groups, threads, strides, stage)`` of the tiled nd slab kernels
+    for a slab of lattice shape ``lat`` (``l0`` rows and the rest): the
+    tile :func:`action_plan_nd` gives the slab's extents, and the float4s
+    of a ring stage, ``groups + 2 strides[0]``: halo row 0, the slab's
+    rows, halo row 1, so that a site's neighbours along axis 0 are always
+    ``strides[0]`` before and after it; ``None`` where the slab does not
+    suit the tile.  The C entries derive the same from the extents
+    (``slab_nd_tile``)."""
+    plan = action_plan_nd(lat)
+    if plan is None:
+        return None
+    groups, threads, strides = plan
+    return groups, threads, strides, groups + 2 * strides[0]
+
+
 def slab_variant(lat, *ptrs):
     """The slab kernels' variant for a slab of lattice shape ``lat``
-    (rows and the rest): ``"tiled"`` where :func:`action_plan` has a 2-D
-    tile and every address in ``ptrs`` suits float4 accesses,
-    ``"general"`` otherwise (the slabs of 3-D and 4-D lattices too)."""
-    return ("tiled" if action_variant(lat, *ptrs) == "tiled"
-            else "general")
+    (rows and the rest) when every address in ``ptrs`` (the slab's and the
+    halo's; for the force, the force's too) suits float4 accesses: the
+    whole lattice's rules on the slab's extents (:func:`action_variant`),
+    ``"tiled"`` where :func:`action_plan` has a 2-D tile, ``"tiled_nd"``
+    where :func:`slab_plan_nd` has one; ``"general"`` otherwise."""
+    return action_variant(lat, *ptrs)
 
 
 def phi4_action_plain(cfgs, w0, w2, w4):
@@ -308,20 +328,21 @@ def _action_slab(cfgs, halo, w0, w2, w4):
     w = (float(w0), float(w2), float(w4))
     with torch.cuda.device(cfgs.device):
         stream = torch.cuda.current_stream(cfgs.device).cuda_stream
-        tiled = slab_variant(cfgs.shape[1:], cfgs.data_ptr(),
-                             halo.data_ptr()) == "tiled"
-        if tiled:
+        variant = slab_variant(cfgs.shape[1:], cfgs.data_ptr(),
+                               halo.data_ptr())
+        if variant == "tiled":
             _, samples = action_plan(cfgs.shape[1:])
             err = lib.phi4_action_slab_tiled_f32(
                 cfgs.data_ptr(), halo.data_ptr(), act.data_ptr(), b,
                 *lat[:2], samples, *w, stream)
         else:
-            err = lib.phi4_action_slab_f32(
-                cfgs.data_ptr(), halo.data_ptr(), act.data_ptr(), b,
-                cfgs.dim() - 1, *lat, *w, stream)
+            entry = (lib.phi4_action_slab_tiled_nd_f32
+                     if variant == "tiled_nd" else lib.phi4_action_slab_f32)
+            err = entry(cfgs.data_ptr(), halo.data_ptr(), act.data_ptr(), b,
+                        cfgs.dim() - 1, *lat, *w, stream)
     _lib.check(err, "phi4_action_slab")
     phi4_action_slab.launches += 1
-    phi4_action_slab.tiled_launches += tiled
+    phi4_action_slab.tiled_launches += variant != "general"
     return act
 
 
@@ -347,20 +368,21 @@ def phi4_action_slab_grad(cfgs, halo, g, w0, w2, w4):
         ptrs = (cfgs.data_ptr(), halo.data_ptr(), g.data_ptr(),
                 grad.data_ptr())
         b, w = cfgs.shape[0], (float(w0), float(w2), float(w4))
-        tiled = slab_variant(cfgs.shape[1:], ptrs[0], ptrs[1],
-                             ptrs[3]) == "tiled"
+        variant = slab_variant(cfgs.shape[1:], ptrs[0], ptrs[1], ptrs[3])
         with torch.cuda.device(cfgs.device):
             stream = torch.cuda.current_stream(cfgs.device).cuda_stream
-            if tiled:
+            if variant == "tiled":
                 _, samples = action_plan(cfgs.shape[1:])
                 err = lib.phi4_action_grad_slab_tiled_f32(
                     *ptrs, b, *lat[:2], samples, *w, stream)
             else:
-                err = lib.phi4_action_grad_slab_f32(
-                    *ptrs, b, cfgs.dim() - 1, *lat, *w, stream)
+                entry = (lib.phi4_action_grad_slab_tiled_nd_f32
+                         if variant == "tiled_nd"
+                         else lib.phi4_action_grad_slab_f32)
+                err = entry(*ptrs, b, cfgs.dim() - 1, *lat, *w, stream)
         _lib.check(err, "phi4_action_slab_grad")
         phi4_action_slab_grad.launches += 1
-        phi4_action_slab_grad.tiled_launches += tiled
+        phi4_action_slab_grad.tiled_launches += variant != "general"
     return grad
 
 

@@ -33,18 +33,23 @@ first lattice axis over ``space``: each rank holds ``(B / n, L0 / m, L1,
 bodies with that slab current (``parallel/space.py`` has the collectives).
 The batch axis follows JAX's rule (``normflow__tpu/parallel/mesh.py:
 121-135``): ``axis`` where ``axes`` names it, else the first axis that is
-not ``space``; ``{"space": 8}`` raises.  The space ranks of one data rank
-draw their prior slabs from generators of their own (the rank's
-:func:`fold_seed`) and the Metropolis uniforms, which must agree over the
-slabs of one sample, from one generator per data rank.  The first lattice
+not ``space``; ``{"space": 8}`` raises.  Every other axis replicates, as
+in JAX (``normflow__tpu/parallel/mesh.py:106-137``): ranks that differ
+only on such an axis hold the same rows of the batch, the same slab, the
+same streams and the same gradients, so ``{"data": 2, "replica": 2}``
+computes what ``{"data": 2}`` does.  The space ranks of one data rank
+draw their prior slabs from generators of their own (:func:`fold_seed` of
+the rank's :attr:`ModelDeviceHandler.stream_rank`, its rank among the data
+and space axes' ranks) and the Metropolis uniforms, which must agree over
+the slabs of one sample, from one generator per data rank.  The first lattice
 axis splits as XLA splits it (``space.slab_of``): the last slabs may be
 shorter or empty.  The training step gathers the per-sample log-densities
 of every data rank (:meth:`ModelDeviceHandler.gather_rows`), so that
 every rank computes the loss of the global batch, and sums the gradients
-over the whole group in its one flat bucket.  A space axis on CUDA tensors
-captures the step and the samplers' rounds in CUDA graphs only over NCCL:
-a gloo collective cannot sit in a graph, so over gloo the bodies run
-eagerly (``captures``).
+over the data and space axes' ranks in its one flat bucket.  A space axis
+on CUDA tensors captures the step and the samplers' rounds in CUDA graphs
+only over NCCL: a gloo collective cannot sit in a graph, so over gloo the
+bodies run eagerly (``captures``).
 """
 
 from __future__ import annotations
@@ -116,22 +121,15 @@ def init_distributed(*, rank=None, world_size=None, init_method=None,
 def batch_axis(axes, axis="data") -> str:
     """The batch axis of a mesh with axes ``axes`` (names or a dict): JAX's
     rule, ``axis`` where ``axes`` names it, else the first axis that is not
-    ``space``.  Raises ``ValueError`` where there is none, and where an
-    axis is neither the batch axis nor ``space`` (the port shards a batch
-    and the first lattice axis, nothing else)."""
+    ``space``.  Raises ``ValueError`` where there is none.  Every axis that
+    is neither the batch axis nor ``space`` replicates."""
     names = tuple(axes)
     if axis in names:
-        data = axis
-    else:
-        others = [k for k in names if k != "space"]
-        if not others:
-            raise ValueError("axes needs a batch axis besides 'space'")
-        data = others[0]
-    extra = set(names) - {data, "space"}
-    if extra:
-        raise ValueError(f"axes {sorted(extra)}: the port shards over one "
-                         "batch axis and 'space'")
-    return data
+        return axis
+    others = [k for k in names if k != "space"]
+    if not others:
+        raise ValueError("axes needs a batch axis besides 'space'")
+    return others[0]
 
 
 class Mesh:
@@ -139,8 +137,8 @@ class Mesh:
     ``{"data": 2, "space": 2}``), row-major in the dict's order: rank
     ``r`` has the coordinates ``unravel(r, sizes)``.  ``groups[name]`` is
     this rank's subgroup along ``name`` (the ranks that share every other
-    coordinate), ``coords[name]`` its coordinate there; ``group`` is the
-    default group."""
+    coordinate, :meth:`subgroup`), ``coords[name]`` its coordinate there;
+    ``group`` is the default group."""
 
     def __init__(self, axes: dict):
         self.axis_names = tuple(axes)
@@ -154,16 +152,32 @@ class Mesh:
                              "runs one process per device")
         self.group = dist.group.WORLD
         rank = dist.get_rank()
-        grid = np.arange(self.size).reshape(sizes)
         self.coords = {k: int(c) for k, c in zip(
             self.axis_names, np.unravel_index(rank, sizes))}
-        self.groups = {}
-        for a, name in enumerate(self.axis_names):
-            lines = np.moveaxis(grid, a, -1).reshape(-1, sizes[a]).tolist()
-            for ranks in lines:  # on every rank, in the same order
-                group = dist.new_group(ranks)
+        self._subgroups = {}
+        self.groups = {name: self.subgroup((name,))
+                       for name in self.axis_names}
+
+    def subgroup(self, names):
+        """This rank's subgroup of the ranks that share its coordinate on
+        every axis not in ``names``, its rank there their row-major index
+        over ``names`` in the mesh's order.  The first call with ``names``
+        forms one group per such set of ranks, on every rank in the same
+        order (so every rank must make the same calls); later calls return
+        it."""
+        keep = [a for a, n in enumerate(self.axis_names) if n in names]
+        key = tuple(self.axis_names[a] for a in keep)
+        if key not in self._subgroups:
+            sizes = tuple(self.shape.values())
+            rest = [a for a in range(len(sizes)) if a not in keep]
+            grid = np.arange(self.size).reshape(sizes).transpose(rest + keep)
+            rank = dist.get_rank()
+            for ranks in grid.reshape(
+                    -1, math.prod(sizes[a] for a in keep)).tolist():
+                group = dist.new_group(ranks)  # on every rank, in order
                 if rank in ranks:
-                    self.groups[name] = group
+                    self._subgroups[key] = group
+        return self._subgroups[key]
 
 
 def make_mesh(n_devices=None, axes=None):
@@ -211,9 +225,9 @@ class ModelDeviceHandler:
     docstring).  Nothing is sharded until :meth:`use_mesh` attaches the
     group; from then on the ``Fitter`` trains on ``batch_size / n_data``
     draws per rank, the loss of the gathered global batch and the
-    gradients summed over the group, the posterior draws this rank's
-    share, and the production samplers split their proposals or chains
-    over the ranks."""
+    gradients summed over the data and space axes' ranks, the posterior
+    draws this rank's share, and the production samplers split their
+    proposals or chains over the data ranks."""
 
     def __init__(self, model):
         self._model = model
@@ -222,6 +236,8 @@ class ModelDeviceHandler:
         self.data_axis = "data"
         self.space_axis = None
         self.data_group = None  # the batch axis's group
+        # the data and space axes' ranks, which the gradients sum over
+        self.reduce_group = None
         self.slab = None        # this rank's space.Slab under a space axis
         self._uniform = None    # the data rank's generator of uniforms
 
@@ -257,16 +273,27 @@ class ModelDeviceHandler:
             return 0
         return dist.get_rank(self.data_group)
 
+    @property
+    def stream_rank(self) -> int:
+        """This rank's rank among the data and space axes' ranks, the rank
+        it has in the mesh without its replica axes: it keys the rank's
+        prior stream (``Model.seed``), so replicas draw alike."""
+        if self.reduce_group is None:
+            return self.rank
+        return dist.get_rank(self.reduce_group)
+
     # -- setup --------------------------------------------------------- #
     def use_mesh(self, mesh=None, n_devices=None, axis="data", axes=None):
         """Attach the process group or :class:`Mesh` ``mesh`` (default:
         :func:`make_mesh` of ``n_devices`` or ``axes``); rank ``r > 0``
         reseeds the model's generator with :func:`fold_seed` of the
-        model's seed, rank 0 keeps its stream.  ``axes={"data": n,
+        model's seed and its :attr:`stream_rank`; stream rank 0 keeps its
+        stream.  ``axes={"data": n,
         "space": m}`` also splits the first lattice axis into ``m`` slabs
         (module docstring); the batch axis is ``axis`` where ``axes`` names
-        it, else its first axis other than ``space``.  The model's graphs
-        are captured anew at their next use."""
+        it, else its first axis other than ``space``, and any other axis
+        replicates.  The model's graphs are captured anew at their next
+        use."""
         if axes:
             batch_axis(axes, axis)  # raises before any group is formed
         if mesh is None:
@@ -279,6 +306,10 @@ class ModelDeviceHandler:
                                else None)
             self.group, self.mesh = mesh.group, mesh
             self.data_group = mesh.groups[self.data_axis]
+            kept = (self.data_axis, "space")
+            self.reduce_group = (
+                mesh.group if set(mesh.axis_names) <= set(kept)
+                else mesh.subgroup(kept))
             m = mesh.shape.get("space", 1)
             if m > 1:
                 self.slab = space.slab_of(
@@ -287,9 +318,9 @@ class ModelDeviceHandler:
                 self._uniform = torch.Generator(device=model.device)
         else:
             self.data_axis, self.space_axis = axis, None
-            self.group = self.data_group = mesh
+            self.group = self.data_group = self.reduce_group = mesh
             self.mesh = None
-        if self.rank:
+        if self.stream_rank:
             model.seed(model.base_seed)
         else:
             self.seed_uniforms(model.base_seed)
@@ -368,14 +399,18 @@ class ModelDeviceHandler:
 
     # -- collectives ---------------------------------------------------- #
     def reduce_step(self, grads):
-        """A training step's gradients summed over the group in one flat
-        bucket by one all-reduce (a copy with no group): each rank holds
-        its samples' part of the global loss's gradient
-        (:meth:`gather_rows`), and under a space axis its slab's part of
-        that."""
+        """A training step's gradients summed in one flat bucket by one
+        all-reduce (a copy with no group): each rank holds its samples'
+        part of the global loss's gradient (:meth:`gather_rows`), and under
+        a space axis its slab's part of that.  The sum runs over the data
+        and space axes' ranks alone (``reduce_group``, one subgroup of
+        them where the mesh has replica axes, else the whole group): the
+        replicas hold the same parts, which a sum over them would count
+        once per replica.  So the replicas sum alike, in the order a mesh
+        without them sums, and keep the same bits."""
         flat = torch.cat([g.reshape(-1) for g in grads])
         if self.group is not None:
-            dist.all_reduce(flat, group=self.group)
+            dist.all_reduce(flat, group=self.reduce_group)
         return [part.view_as(g) for part, g in
                 zip(flat.split([g.numel() for g in grads]), grads)]
 

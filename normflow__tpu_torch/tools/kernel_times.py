@@ -49,9 +49,10 @@ the wrappers launch theirs, through ``ctypes``, one block of 256 or 1024
 threads (:func:`empty_kernel_ms`): the floor any one-launch kernel pays.
 
 ``--compare`` holds two such files against each other: ``rqs_coupling``,
-``rqs_coupling_bwd``, ``phi4_action_grad``, the slab kernels and
-``accept_scan`` bit for bit, ``phi4_action`` to max |dS| / max(1, |S|) <=
-2e-5 (and says whether its bits agree too); it exits 1 if one differs
+``rqs_coupling_bwd``, ``phi4_action_grad``, the slab force and
+``accept_scan`` bit for bit, ``phi4_action`` and the slab action to max
+|dS| / max(1, |S|) <= 2e-5 (and says whether their bits agree too); it
+exits 1 if one differs
 (cases that only one file holds are left out).  :func:`warm_ms`,
 :func:`cold_ms`, :func:`event_floor_ms`, :func:`bound_ms`, :func:`work`,
 :func:`card_peaks`, :func:`device_window`, :func:`device_launches` and
@@ -92,6 +93,10 @@ KERNEL_RE = {
     # the 2-D tiled kernels and, at 3-D and 4-D, the tiled nd ones
     "phi4_action": r"\bphi4_action(_tiled(?:_nd)?)?_kernel\b",
     "phi4_action_grad": r"\bphi4_action_grad(_tiled(?:_nd)?)?_kernel\b",
+    # the slab kernels: the 2-D tile and, at 3-D and 4-D, the tiled nd ones
+    "phi4_action_slab": r"\bphi4_action_slab(_tiled(?:_nd)?)?_kernel\b",
+    "phi4_action_slab_grad":
+        r"\bphi4_action_grad_slab(_tiled(?:_nd)?)?_kernel\b",
     "accept_scan": r"\baccept_scan_kernel\b",
 }
 M, LAT, BATCH, TRAIN_BATCH = 8, (32, 32), 1024, 512
@@ -786,6 +791,10 @@ SASS_FUNCTIONS = (
     # range is charged to every group, so the issue time is an upper bound
     ("phi4_action_tiled_nd_kernel", BATCH * 8 ** 4 // 4),
     ("phi4_action_grad_tiled_nd_kernel", TRAIN_BATCH * 8 ** 4 // 4),
+    # the tiled nd slab kernels on a slab of half the 8^4 lattice at
+    # B = 1024, (1024, 4, 8, 8, 8), per float4 group
+    ("phi4_action_slab_tiled_nd_kernel", BATCH * 8 ** 4 // 8),
+    ("phi4_action_grad_slab_tiled_nd_kernel", BATCH * 8 ** 4 // 8),
     ("rqs_coupling_cl_kernel", BATCH * LAT[0] * LAT[1] // 2),
     ("rqs_coupling_cl_tiled_kernel", BATCH * LAT[0] * LAT[1] // 2),
     ("rqs_coupling_bwd_cl_kernel", TRAIN_BATCH * LAT[0] * LAT[1] // 2),
@@ -838,7 +847,7 @@ def compare(path_a, path_b):
     for case in a:
         if case == "card" or case not in b:
             continue
-        if case.split()[0] == "phi4_action":
+        if case.split()[0] in ("phi4_action", "phi4_action_slab"):
             want, got = a[case][0].double(), b[case][0].double()
             rel = float(((got - want).abs() / want.abs().clamp(min=1.0))
                         .max())

@@ -57,12 +57,14 @@ class Model:
         self.fit = Fitter(self)
 
     def seed(self, seed: int):
-        """Seed the generator: with ``seed`` itself on rank 0 or with no
-        group attached, else with the rank's ``parallel.mesh.fold_seed``."""
+        """Seed the generator: with ``seed`` itself on stream rank 0 or with
+        no group attached, else with ``parallel.mesh.fold_seed`` of the
+        rank's ``device_handler.stream_rank`` (replicas draw alike)."""
         self.base_seed = seed
         dh = self.device_handler
         self.generator.manual_seed(
-            fold_seed(seed, dh.rank) if dh.group is not None else seed)
+            fold_seed(seed, dh.stream_rank) if dh.group is not None
+            else seed)
         dh.seed_uniforms(seed)
 
     def transform(self, x):

@@ -308,3 +308,32 @@ def run_rank(job):
         out["order sample"] = (tuple(y.shape), bool(torch.isfinite(
             logq).all()))
     return out
+
+
+def replica_rank(job):
+    """A mesh with a replica axis, one that is neither the batch axis nor
+    ``space``: under ``job["axes"]`` (``{"data": 2, "replica": 2}``) the
+    topology, the first draw's reduced loss and gradients, a fit, the
+    samplers on fed rounds and an unfed ``posterior.sample__``; under
+    ``job["space_axes"]`` (``{"data": 1, "space": 2, "replica": 2}``) the
+    topology and a fit."""
+    torch.set_num_threads(1)
+    leaves, axes = job["leaves"], job["axes"]
+    model = attached("flagship", leaves, axes)
+    dh = model.device_handler
+    out = dict(topology=dict(topology(model), stream_rank=dh.stream_rank,
+                             reduce_ranks=dist.get_world_size(
+                                 dh.reduce_group)),
+               grads=grads_of(model, job["x"], "rep"),
+               fit=fit_run(attached("flagship", leaves, axes), job["fits"]),
+               samplers=samplers(attached("flagship", leaves, axes),
+                                 job["chain_rounds"], job["par_rounds"]))
+    y, logq, logp = attached("flagship", leaves, axes).posterior.sample__(
+        job["x"].shape[0])
+    out["sample__"] = [t.detach().numpy() for t in (y, logq, logp)]
+    model = attached("flagship", leaves, job["space_axes"])
+    out["space topology"] = dict(topology(model),
+                                 stream_rank=model.device_handler
+                                 .stream_rank)
+    out["space fit"] = fit_run(model, job["space_fits"])
+    return out

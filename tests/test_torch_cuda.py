@@ -16,8 +16,10 @@ float4 tile, the flagship's included, with a ragged last block and B = 1;
 the general kernel for 1-D, V = 1, L1 % 4 != 0 and a field off 16
 bytes), the tiled nd kernels at 3-D and 4-D (the 8^4 flagship's shapes,
 its force bit for bit against the general entry, a graphed 8^4 batch) and
-the general ones on the lattices outside their tile, and the wrappers'
-and C entries' refusals (the backward kernels:
+the general ones on the lattices outside their tile, the tiled nd slab
+kernels on the slabs of 3-D and 4-D fields (the force bit for bit against
+the general slab entry) and the general slab kernels off their tile, and
+the wrappers' and C entries' refusals (the backward kernels:
 ``tests/test_torch_cuda_grad.py``).
 Tolerances are those of ``chip_smoke.py``: 1e-4 absolute for
 the spline (the JAX Pallas tests' own), 2e-5 relative for the action.
@@ -326,24 +328,27 @@ def test_phi4_kernels_at_four_dims_match_plain(cuda, np_rng, lat, hopping):
                  <= 2e-5 + 2e-4 * want_force.abs()).all())
 
 
-def _general(cfgs, w, g=None):
+def _general(cfgs, w, g=None, halo=None):
     """The general kernels' action (or, given ``g``, force) of ``cfgs``
-    through their C entries."""
+    through their C entries; with ``halo``, the general slab kernels'."""
     from normflow__tpu_torch.ops.kernels import _lib
 
     lib = _lib.library()
     lat = list(cfgs.shape[1:]) + [1] * (5 - cfgs.dim())
     stream = torch.cuda.current_stream().cuda_stream
+    rows = () if halo is None else (halo.data_ptr(),)
+    shape = (cfgs.shape[0], cfgs.dim() - 1, *lat, *w, stream)
     if g is None:
         out = torch.empty(cfgs.shape[0], device=cfgs.device)
-        err = lib.phi4_action_f32(cfgs.data_ptr(), out.data_ptr(),
-                                  cfgs.shape[0], cfgs.dim() - 1, *lat, *w,
-                                  stream)
+        entry = (lib.phi4_action_f32 if halo is None
+                 else lib.phi4_action_slab_f32)
+        err = entry(cfgs.data_ptr(), *rows, out.data_ptr(), *shape)
     else:
         out = torch.empty_like(cfgs)
-        err = lib.phi4_action_grad_f32(cfgs.data_ptr(), g.data_ptr(),
-                                       out.data_ptr(), cfgs.shape[0],
-                                       cfgs.dim() - 1, *lat, *w, stream)
+        entry = (lib.phi4_action_grad_f32 if halo is None
+                 else lib.phi4_action_grad_slab_f32)
+        err = entry(cfgs.data_ptr(), *rows, g.data_ptr(), out.data_ptr(),
+                    *shape)
     _lib.check(err, "general phi4 entry")
     return out
 
@@ -432,6 +437,144 @@ def test_slab_kernels_at_four_dims_match_the_whole(cuda, np_rng, shape, n):
     for want in (phi4.phi4_action_grad(cfgs, g, *w), plain_force):
         assert bool(((force - want).abs()
                      <= 2e-5 + 2e-4 * want.abs()).all())
+
+
+def _slabs(cfgs, n):
+    """The ``n`` slabs of ``cfgs`` as ``parallel/space.slab_of`` splits
+    its rows, each with its halo rows cut by hand."""
+    from normflow__tpu_torch.parallel.space import slab_of
+
+    l0, out = cfgs.shape[1], []
+    for r in range(n):
+        s = slab_of(None, r, n, l0)
+        out.append((cfgs[:, s.row0:s.row0 + s.rows].contiguous(),
+                    torch.stack([cfgs[:, (s.row0 - 1) % l0],
+                                 cfgs[:, (s.row0 + s.rows) % l0]],
+                                1).contiguous()))
+    return out
+
+
+@pytest.mark.parametrize("shape,n", [((1024, 8, 8, 8, 8), 2),
+                                     ((1024, 8, 8, 8, 8), 3),
+                                     ((64, 8, 8, 8), 2), ((5, 8, 8, 16), 2),
+                                     ((3, 4, 4, 4, 4), 2)])
+@pytest.mark.parametrize("hopping", [True, False])
+def test_tiled_nd_slab_kernels_match_plain_and_the_general_ones(
+        cuda, np_rng, shape, n, hopping):
+    """The tiled nd slab kernels on the ``n`` slabs of a 3-D or 4-D field
+    (8 rows over three ranks: 3, 3 and 2): each slab takes them (a tiled
+    launch each); the action within 2e-5 relative of the plain slab
+    version and of the general slab entry, the summed actions of the whole
+    lattice's kernel; the force within the ``FORCE_*`` bars of its plain
+    version and bit for bit with the general slab entry's."""
+    cfgs = _f32(np_rng.standard_normal(shape), cuda)
+    g = _f32(np_rng.standard_normal(shape[0]), cuda)
+    w0, w2, w4 = ScalarPhi4Action(kappa=0.6, m_sq=-2.4,
+                                  lambd=0.5).get_coef(len(shape) - 1)
+    w = (w0 if hopping else 0.0, w2, w4)
+    total = 0
+    for slab, halo in _slabs(cfgs, n):
+        assert phi4.slab_variant(slab.shape[1:], slab.data_ptr(),
+                                 halo.data_ptr()) == "tiled_nd"
+        before = [f.tiled_launches for f in (phi4.phi4_action_slab,
+                                             phi4.phi4_action_slab_grad)]
+        act = phi4.phi4_action_slab(slab, halo, *w)
+        force = phi4.phi4_action_slab_grad(slab, halo, g, *w)
+        assert [f.tiled_launches for f in (
+            phi4.phi4_action_slab, phi4.phi4_action_slab_grad)] == [
+            k + 1 for k in before]
+        want = phi4.phi4_action_slab_plain(slab.double(), halo.double(), *w)
+        want_force = phi4.phi4_action_slab_grad_plain(slab, halo, g, *w)
+        general = _general(slab, w, halo=halo)
+        general_force = _general(slab, w, g, halo)
+        torch.cuda.synchronize()
+        for ref in (want, general.double()):
+            rel = (act.double() - ref).abs() / ref.abs().clamp(min=1.0)
+            assert float(rel.max()) <= 2e-5
+        assert bool(((force - want_force).abs()
+                     <= 2e-5 + 2e-4 * want_force.abs()).all())
+        assert torch.equal(force.view(torch.int32),
+                           general_force.view(torch.int32))
+        total = total + act.double()
+    whole = phi4.phi4_action(cfgs, *w).double()
+    rel = (total - whole).abs() / whole.abs().clamp(min=1.0)
+    assert float(rel.max()) <= 2e-5
+
+
+def test_slab_kernels_off_the_tile_stay_general(cuda, np_rng):
+    """A 4-D slab whose field, halo or force lies off 16 bytes, and an odd
+    slab, take the general slab kernels (no tiled launch) and agree with
+    the tiled nd ones."""
+    cfgs = _f32(np_rng.standard_normal((64, 8, 8, 8, 8)), cuda)
+    g = _f32(np_rng.standard_normal(64), cuda)
+    w = ScalarPhi4Action(kappa=0.6, m_sq=-2.4, lambd=0.5).get_coef(4)
+    slab, halo = _slabs(cfgs, 2)[0]
+
+    def offset(t):
+        buf = torch.empty(t.numel() + 1, device=cuda)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    tiled = phi4.phi4_action_slab_grad(slab, halo, g, *w)
+    counters = (phi4.phi4_action_slab, phi4.phi4_action_slab_grad)
+    before = [c.tiled_launches for c in counters]
+    for s, h in ((offset(slab), halo), (slab, offset(halo))):
+        act = phi4.phi4_action_slab(s, h, *w)
+        force = phi4.phi4_action_slab_grad(s, h, g, *w)
+        torch.cuda.synchronize()
+        assert torch.equal(force.view(torch.int32), tiled.view(torch.int32))
+        want = phi4.phi4_action_slab_plain(slab.double(), halo.double(), *w)
+        assert float(((act.double() - want).abs()
+                      / want.abs().clamp(min=1.0)).max()) <= 2e-5
+    odd = _f32(np_rng.standard_normal((8, 3, 5, 4, 6)), cuda)
+    odd_halo = _f32(np_rng.standard_normal((8, 2, 5, 4, 6)), cuda)
+    assert phi4.slab_variant(odd.shape[1:], odd.data_ptr(),
+                             odd_halo.data_ptr()) == "general"
+    phi4.phi4_action_slab(odd, odd_halo, *w)
+    phi4.phi4_action_slab_grad(odd, odd_halo, g[:8], *w)
+    assert [c.tiled_launches for c in counters] == before
+
+
+def test_tiled_nd_slab_entries_refuse_shapes_off_the_tile(cuda):
+    """The tiled nd slab entries return cudaErrorInvalidValue (1), which
+    the wrapper's check raises, for a slab, halo or force off 16 bytes and
+    for extents outside the tile; nothing is launched."""
+    from normflow__tpu_torch.ops.kernels import _lib
+
+    lib = _lib.library()
+    buf = torch.zeros(2 * 4096 + 4, device=cuda)
+    hbuf = torch.zeros(2 * 2 * 1024 + 4, device=cuda)
+    g, act = torch.zeros(2, device=cuda), torch.zeros(2, device=cuda)
+    out = torch.zeros_like(buf)
+    stream = torch.cuda.current_stream().cuda_stream
+    w = (0.6, 0.4, 0.5)
+    # (nd and extents, slab, halo and force offsets, the action's and the
+    # force's return codes)
+    for lat, offs, want in (
+            ((4, 4, 8, 8, 8), (0, 0, 0), [0, 0]),    # half the 8^4 lattice
+            ((4, 3, 8, 8, 8), (0, 0, 0), [0, 0]),    # 8 rows over 3 ranks
+            ((3, 4, 8, 8, 1), (0, 0, 0), [0, 0]),    # half of 8^3
+            ((4, 4, 8, 8, 8), (1, 0, 0), [1, 1]),    # the slab off 16 bytes
+            ((4, 4, 8, 8, 8), (0, 1, 0), [1, 1]),    # the halo off
+            ((4, 4, 8, 8, 8), (0, 0, 1), [0, 1]),    # the force off
+            ((4, 3, 5, 4, 6), (0, 0, 0), [1, 1]),    # the last extent 6
+            ((3, 2, 4, 4, 1), (0, 0, 0), [1, 1]),    # 8 float4s: no warp
+            ((4, 12, 8, 8, 8), (0, 0, 0), [1, 1]),   # 1536 float4s
+            ((2, 16, 32, 1, 1), (0, 0, 0), [1, 1])):  # 2-D: the 2-D tile's
+        c, h = buf[offs[0]:], hbuf[offs[1]:]
+        errs = [lib.phi4_action_slab_tiled_nd_f32(
+                    c.data_ptr(), h.data_ptr(), act.data_ptr(), 2, *lat, *w,
+                    stream),
+                lib.phi4_action_grad_slab_tiled_nd_f32(
+                    c.data_ptr(), h.data_ptr(), g.data_ptr(),
+                    out[offs[2]:].data_ptr(), 2, *lat, *w, stream)]
+        assert errs == want, (lat, offs, errs)
+        for err in errs:
+            if err:
+                with pytest.raises(RuntimeError, match="launch failed"):
+                    _lib.check(err, "phi4_action_slab_grad")
+    torch.cuda.synchronize()
 
 
 def test_small_four_dim_flagship_gpu_matches_cpu(cuda, np_rng):

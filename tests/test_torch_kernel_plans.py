@@ -172,7 +172,7 @@ def test_action_plan_nd(lat, plan):
         assert threads % strides[0] == 0 and threads <= 1024
 
 
-def _tile_neighbours(lat):
+def _tile_neighbours(lat, slab=False):
     """Per site of ``lat``, the flat indices of its backward and forward
     neighbours along each axis, as the tiled nd kernels reach them
     (``nd_site`` and the kernels' loops in ``csrc/phi4_action.cu``): each
@@ -183,7 +183,10 @@ def _tile_neighbours(lat):
     same for all the thread's groups, ``threads`` apart; along axis 0 a
     group's neighbours one stride away, the wrap tested on its first
     coordinate, ``threads // stride`` more for each later group; along the
-    last axis the group's own sites between."""
+    last axis the group's own sites between.  On a ``slab``
+    (:func:`phi4.slab_plan_nd`), indices into the ring stage, halo row 0,
+    the slab's rows, halo row 1: the sites one stride in, axis 0's
+    neighbours one stride away with no wrap."""
     groups, threads, strides = phi4.action_plan_nd(lat)
     nd, q, big = len(lat), lat[-1] // 4, lat[-1]
     s0, j = strides[0], threads // strides[0]
@@ -207,8 +210,9 @@ def _tile_neighbours(lat):
     for m in range(groups // threads):
         g, c0m = t + m * threads, c0 + m * j
         wrap0 = (lat[0] - 1) * s0
-        axis0 = (np.where(c0m == 0, g + wrap0, g - s0),
-                 np.where(c0m == lat[0] - 1, g - wrap0, g + s0))
+        axis0 = ((g - s0, g + s0) if slab else
+                 (np.where(c0m == 0, g + wrap0, g - s0),
+                  np.where(c0m == lat[0] - 1, g - wrap0, g + s0)))
         sites = (4 * g[:, None] + k).ravel()
         for mu in range(nd - 1):
             d, u = axis0 if mu == 0 else (g + dn[mu], g + up[mu])
@@ -219,6 +223,8 @@ def _tile_neighbours(lat):
                                        own - 1).ravel()
         fore[nd - 1][sites] = np.where(k == 3, (4 * g + right)[:, None],
                                        own + 1).ravel()
+    if slab:  # the stage's first s0 float4s are halo row 0
+        return [b + 4 * s0 for b in back], [f + 4 * s0 for f in fore]
     return back, fore
 
 
@@ -260,19 +266,70 @@ def test_action_variant_nd(lat, offsets, force, action):
 
 
 @pytest.mark.parametrize("lat,offsets,variant", [
-    ((4, 8, 8, 8), (0, 0, 0), "general"),    # half the 8^4 lattice
-    ((2, 8, 8), (0, 0, 0), "general"),       # a 3-D slab
-    ((4, 4, 4, 4), (0, 0, 0), "general"),
+    ((4, 8, 8, 8), (0, 0, 0), "tiled_nd"),   # half the 8^4 lattice
+    ((3, 8, 8, 8), (0, 0, 0), "tiled_nd"),   # 8 rows over three ranks
+    ((4, 8, 8, 8), (0, 4, 0), "general"),    # its halo off 16 bytes
+    ((4, 8, 8, 8), (0, 0, 8), "general"),    # the force off 16 bytes
+    ((4, 8, 8, 8), (4, 0, 0), "general"),    # the slab off 16 bytes
+    ((2, 8, 8), (0, 0, 0), "tiled_nd"),      # a 3-D slab
+    ((4, 4, 4, 4), (0, 0, 0), "tiled_nd"),
+    ((3, 5, 4, 6), (0, 0, 0), "general"),    # the odd check's slab
+    ((2, 4, 4, 4), (0, 0, 0), "tiled_nd"),   # 32 float4s: one warp
+    ((2, 4, 4, 2), (0, 0, 0), "general"),    # the last extent 2
     ((16, 32), (0, 0, 0), "tiled"),          # the 2-D flagship's slab
     ((16, 32), (0, 4, 0), "general"),        # its halo off 16 bytes
     ((11, 32), (0, 0, 0), "general"),        # 88 float4s: no whole warp
 ])
 def test_slab_variant_stays_two_dimensional(lat, offsets, variant):
-    """The slab wrappers tile 2-D slabs only: a slab of a 3-D or 4-D
-    lattice takes the general slab kernels, whatever its whole lattice's
-    variant."""
+    """The slab wrappers take the whole lattice's rules on the slab's
+    extents: the 2-D tile for 2-D slabs, the tiled nd kernels at 3-D and
+    4-D (:func:`phi4.slab_plan_nd`), the general slab kernels for other
+    extents and for any address off 16 bytes."""
     ptrs = [(1 << 20) + 4096 * k + o for k, o in enumerate(offsets)]
     assert phi4.slab_variant(lat, *ptrs) == variant
+
+
+@pytest.mark.parametrize("lat,plan", [
+    ((4, 8, 8, 8), (512, 256, (128, 16, 2), 768)),   # half of 8^4: 2 each
+    ((3, 8, 8, 8), (384, 384, (128, 16, 2), 640)),   # 8 rows over 3 ranks
+    ((2, 8, 8, 8), (256, 256, (128, 16, 2), 512)),   # their last slab
+    ((1, 8, 8, 8), (128, 128, (128, 16, 2), 384)),   # 8 rows over 8 ranks
+    ((4, 8, 8), (64, 64, (16, 2), 96)),              # half of 8^3
+    ((8, 8, 16), (256, 256, (32, 4), 320)),
+    ((3, 5, 4, 6), None),                            # the last extent 6
+    ((4, 4, 4), None),                               # 16 float4s
+    ((12, 8, 8, 8), None),                           # 1536 float4s
+    ((0, 8, 8, 8), None),                            # an empty slab
+    ((16, 32), None), ((64,), None),                 # 2-D and 1-D slabs
+])
+def test_slab_plan_nd(lat, plan):
+    """The tiled nd slab kernels' tile is the whole lattice's on the
+    slab's extents, with a ring stage of the halo row before, the slab's
+    rows and the halo row after."""
+    assert phi4.slab_plan_nd(lat) == plan
+    if plan is not None:
+        assert plan[:3] == phi4.action_plan_nd(lat)
+        assert plan[3] == plan[0] + 2 * plan[2][0]
+
+
+@pytest.mark.parametrize("lat", [(4, 8, 8, 8), (3, 8, 8, 8), (1, 8, 8, 8),
+                                 (4, 8, 8), (2, 8, 16), (3, 4, 4, 8),
+                                 (2, 4, 16)])
+def test_slab_tile_neighbours_are_the_rolls_and_the_halo(lat):
+    """For every site of a slab, the neighbours the tiled nd slab kernels
+    read from the ring stage (halo row 0, the slab, halo row 1) are the
+    slab's ``np.roll`` on the periodic axes and, along axis 0, the row
+    before and after, which across the slab's edges are the halo rows."""
+    ext = np.arange(4 * phi4.slab_plan_nd(lat)[3]).reshape(
+        (lat[0] + 2, *lat[1:]))
+    back, fore = _tile_neighbours(lat, slab=True)
+    np.testing.assert_array_equal(back[0], ext[:-2].ravel())
+    np.testing.assert_array_equal(fore[0], ext[2:].ravel())
+    for mu in range(1, len(lat)):
+        np.testing.assert_array_equal(
+            back[mu], np.roll(ext, 1, mu)[1:-1].ravel())
+        np.testing.assert_array_equal(
+            fore[mu], np.roll(ext, -1, mu)[1:-1].ravel())
 
 
 @pytest.mark.parametrize("name,shape,nbytes", [
@@ -293,6 +350,14 @@ def test_slab_variant_stays_two_dimensional(lat, offsets, variant):
     ("phi4_action", (512, 8, 8, 8, 8), 512 * 4096 * 4 + 512 * 4),
     ("phi4_action_grad_tiled_nd", (1024, 8, 8, 8),
      1024 * 512 * 8 + 1024 * 4),
+    # the tiled nd slab kernels on half the 8^4 lattice: the action reads
+    # the slab and halo row 0, the force the slab and both halo rows
+    ("phi4_action_slab_tiled_nd", (1024, 4, 8, 8, 8),
+     1024 * 5 * 512 * 4 + 1024 * 4),
+    ("phi4_action_slab_grad_tiled_nd", (1024, 4, 8, 8, 8),
+     1024 * (2 * 4 + 2) * 512 * 4 + 1024 * 4),
+    ("phi4_action_slab_tiled_nd", (1024, 3, 8, 8, 8),
+     1024 * 4 * 512 * 4 + 1024 * 4),
 ])
 def test_kernel_bytes_and_bound(name, shape, nbytes):
     got, nops = kt.work(name, shape)
@@ -358,6 +423,27 @@ def test_card_peaks_refuses_an_unknown_card():
     ("phi4_action_grad", "void (anonymous namespace)::"
      "phi4_action_tiled_nd_kernel<3>(float const*)", False),
     ("phi4_action", "phi4_action_slab_kernel(float const*)", False),
+    # the slab kernels, each for its own wrapper, every variant
+    ("phi4_action_slab", "void (anonymous namespace)::"
+     "phi4_action_slab_tiled_nd_kernel<4>(float const*, float const*, "
+     "float*, long long, (anonymous namespace)::NdTile, float, float, "
+     "float)", True),
+    ("phi4_action_slab", "(anonymous namespace)::phi4_action_slab_kernel("
+     "float const*)", True),
+    ("phi4_action_slab", "(anonymous namespace)::"
+     "phi4_action_slab_tiled_kernel(float const*)", True),
+    ("phi4_action_slab", "void (anonymous namespace)::"
+     "phi4_action_grad_slab_tiled_nd_kernel<4>(float const*)", False),
+    ("phi4_action_slab_grad", "void (anonymous namespace)::"
+     "phi4_action_grad_slab_tiled_nd_kernel<3>(float const*)", True),
+    ("phi4_action_slab_grad", "(anonymous namespace)::"
+     "phi4_action_grad_slab_kernel(float const*)", True),
+    ("phi4_action_slab_grad", "void (anonymous namespace)::"
+     "phi4_action_slab_tiled_nd_kernel<4>(float const*)", False),
+    ("phi4_action_grad", "void (anonymous namespace)::"
+     "phi4_action_grad_slab_tiled_nd_kernel<4>(float const*)", False),
+    ("phi4_action", "void (anonymous namespace)::"
+     "phi4_action_slab_tiled_nd_kernel<4>(float const*)", False),
 ])
 def test_profiler_names_pick_each_kernel(kernel, name, hit):
     import re
@@ -406,6 +492,29 @@ def test_compare_holds_bits_and_the_action_bar(tmp_path, capsys, bwd_bits,
     b = _saved(tmp_path, "b", bwd_bits, action_rel)
     assert kt.compare(a, b) == rc
     assert ("FAILED" in capsys.readouterr().out) is bool(rc)
+
+
+@pytest.mark.parametrize("action_rel,force_bits,rc", [
+    (0.0, 0, 0), (1e-6, 0, 0), (3e-5, 0, 1), (0.0, 1, 1)])
+def test_compare_holds_the_slab_action_to_the_bar(tmp_path, action_rel,
+                                                  force_bits, rc):
+    """The slab action, whose tiled nd kernel sums in another order than
+    the general one, is held to the action's bar; the slab force bit for
+    bit."""
+    gen = torch.Generator().manual_seed(5)
+    paths = []
+    for label in ("a", "b"):
+        act = torch.randn(16, generator=gen.manual_seed(5)) * 100
+        force = torch.randn(4, 8, generator=gen)
+        if label == "b":
+            act *= 1 + action_rel
+            force.view(torch.int32)[0, 0] += force_bits
+        paths.append(str(tmp_path / f"{label}.pt"))
+        torch.save({"card": "cpu",
+                    "phi4_action_slab (1024, 4, 8, 8, 8)": [act],
+                    "phi4_action_slab_grad (1024, 4, 8, 8, 8)": [force]},
+                   paths[-1])
+    assert kt.compare(*paths) == rc
 
 
 @pytest.mark.parametrize("flip,rc", [(None, 0), ("accept", 1),

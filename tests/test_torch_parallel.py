@@ -199,8 +199,12 @@ def test_handler_without_a_group():
     # before a group is needed
     with pytest.raises(ValueError, match="batch axis"):
         dh.use_mesh(axes={"space": 8})
-    with pytest.raises(ValueError, match="batch axis"):
+    # an axis that is neither the batch axis nor space replicates, as in
+    # JAX: the mesh is accepted, and only the missing group stops it
+    with pytest.raises(RuntimeError, match="init_distributed"):
         dh.use_mesh(axes={"data": 2, "space": 2, "time": 2})
+    assert batch_axis({"data": 2, "space": 2, "time": 2}) == "data"
+    assert batch_axis({"time": 2, "space": 2}) == "time"
     with pytest.raises(RuntimeError, match="init_distributed"):
         dh.use_mesh(axes={"space": 2, "data": 4})
     assert (dh.group, dh.slab, dh.space_axis) == (None, None, None)
